@@ -1,0 +1,87 @@
+"""Rules the PyTorch port keeps: it imports neither JAX nor the JAX
+package, its entry points run on CUDA unless the caller asks for the CPU,
+and ``chip_smoke.py`` refuses to run without a card or without the rest of
+the repository."""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import paddle_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                               "paddle_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def _run(args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    proc = _run(["-c", _IMPORT_ALL], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 10          # every module of the slice was imported
+
+
+def _needs_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+
+
+def test_entry_points_refuse_a_missing_card():
+    """Without CUDA, a default or "cuda" device raises; "cpu" runs."""
+    _needs_no_card()
+    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_paged_decode_factory)
+    from paddle_tpu_torch.ops import PagedKVCache
+
+    cfg = LlamaConfig.tiny(vocab=32, hidden=16, layers=1, heads=2,
+                           kv_heads=1)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device(device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            LlamaForCausalLM(cfg, device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PagedKVCache(4, 4, 1, 8, device=device)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        llama_paged_decode_factory(model, page_size=4, n_pool_pages=4)
+    assert llama_paged_decode_factory(model, page_size=4, n_pool_pages=4,
+                                      device="cpu")[2][0].device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_chip_smoke_refuses_without_a_card():
+    _needs_no_card()
+    proc = _run(["chip_smoke.py"], ROOT)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_chip_smoke_refuses_without_the_repository(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run(["chip_smoke.py"], tmp_path)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
