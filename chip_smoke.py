@@ -9,12 +9,14 @@ Phases, each printing one JSON line:
 
 1. ``build``: compile every kernel under ``paddle_tpu_torch/ops/kernels``
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel).
-2. ``kernel``: the paged-attention kernel against its plain PyTorch
-   version at the serving shapes of Llama-3-8B (32 query / 8 kv heads,
-   head_dim 128, page 64): decode at B=8 with ragged lengths 1..2048 and
-   one pad row of length 0, and a 256-token prefill chunk at starts 0 and
-   512; q in bf16, pools in bf16 and in int8 with per-slot scales. Both
-   are timed with CUDA events (median of ``REPS``, L2 flushed before each
+2. ``kernel``: the port's wrappers ``paged_attention`` (decode) and
+   ``paged_prefill_attention`` (a chunk), which launch the paged-attention
+   kernel, against the plain version ``paged_attention_reference`` at the
+   serving shapes of Llama-3-8B (32 query / 8 kv heads, head_dim 128,
+   page 64): decode at B=8 with ragged lengths 1..2048 and one pad row of
+   length 0, and a 256-token prefill chunk at starts 0 and 512; q in
+   bf16, pools in bf16 and in int8 with per-slot scales, within
+   ``KERNEL_ATOL + KERNEL_RTOL * |plain|``. Both are timed with CUDA events (median of ``REPS``, L2 flushed before each
    call) beside the bound: the least time the card could take, from the
    bytes that must move at 3.35 TB/s and the operations at 989 TFLOP/s.
 3. ``reference``: a small f32 Llama through the port on the card (the
@@ -51,16 +53,19 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 REPS = 25
-# kernel vs plain on the same bf16 inputs: both accumulate in f32 and
-# round the output to bf16 once, at different points of the sum, so they
-# may differ by one bf16 ulp of the output (2^-7 relative at most)
-KERNEL_ATOL, KERNEL_RTOL = 2e-2, 1e-2
+# kernel vs plain on the same bf16 inputs: both sum in f32 (apart by
+# ~1e-6 from the order of the sum) and round the output to bf16 once, so
+# an element may land one bf16 ulp apart: at most 2^-7 of |want|. The
+# atol covers the f32 order near 0. Largest reading: 3.9e-3 at |want|
+# near 1, i.e. one ulp (PERF.md, metrics table).
+KERNEL_ATOL, KERNEL_RTOL = 1e-4, 2 ** -7
 # f32 model, card (kernel, cuBLAS in full f32) vs CPU (plain, MKL):
 # summation order only
 REF_ATOL = 1e-4
 # 8B decode step, kernel vs plain attention on identical pools: one bf16
-# rounding apart per layer, carried through 32 bf16 layers
-STEP_RTOL = 0.1
+# rounding apart per layer, carried through 32 bf16 layers. Reading
+# 0.238 (max |logit| 6.19); the limit is about twice it.
+STEP_ATOL = 0.5
 
 SOURCE = "paddle_tpu_torch/ops/kernels/paged_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:46"
@@ -110,15 +115,19 @@ def phase_build():
 
 def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
                  seed, dev, flush):
-    """One paged-attention call at the given shapes: kernel vs plain
-    (error and times) and the bound of the work its data needs."""
+    """One call of the port's wrapper at the given shapes, as the serving
+    path makes it: ``paged_attention`` for decode (``start`` None, q
+    (B, Hq, D)), ``paged_prefill_attention`` for a C-token chunk at
+    ``start`` (q (B, Hq, C, D)). Held against ``paged_attention_reference``
+    on the same inputs (error and times), beside the bound of the work its
+    data needs."""
     # the package re-exports the function under the module's name
     pa = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
 
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = G * C
-    q4 = torch.randn((B, Hkv, rows, D), generator=g, device=dev) \
-        .to(torch.bfloat16)
+    q_shape = (B, Hkv * G, D) if start is None else (B, Hkv * G, C, D)
+    q = torch.randn(q_shape, generator=g, device=dev).to(torch.bfloat16)
     if kv_dtype == "int8":
         k = torch.randint(-127, 128, (Hkv, P, ps, D), generator=g,
                           device=dev, dtype=torch.int8)
@@ -134,6 +143,7 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
             .to(torch.bfloat16)
         ks = vs = None
         kv_bytes = 2
+    scales = {} if ks is None else {"k_scales": ks, "v_scales": vs}
     # distinct pages for every live sequence, from 1 up (page 0 reserved)
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
         seed))[:B * W] + 1
@@ -141,23 +151,27 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
     lens_t = torch.tensor(lens, dtype=torch.int32)
     pt[lens_t == 0] = 0                    # a pad row points at page 0
     pt, lens_t = pt.to(dev), lens_t.to(dev)
-    starts = (lens_t - 1).clamp_min(0) if start is None else \
-        torch.full((B,), start, dtype=torch.int32, device=dev)
 
-    def kernel():
-        return pa._launch_kernel(q4, k, v, pt, lens_t, starts, C, D ** -0.5,
-                                 ks, vs)
+    if start is None:
+        def kernel():
+            return pa.paged_attention(q, k, v, pt, lens_t, **scales)
+    else:
+        def kernel():
+            return pa.paged_prefill_attention(q, k, v, pt, lens_t, start,
+                                              **scales)
 
     def plain():
-        return pa._paged_plain(q4, k, v, pt, lens_t, starts, C, D ** -0.5,
-                               ks, vs)
+        return pa.paged_attention_reference(q, k, v, pt, lens_t, **scales,
+                                            q_start=start)
 
+    before = pa.paged_attention.launches
     got = kernel()
+    launched = pa.paged_attention.launches - before
     want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
-    ok = bool(torch.all(err <= KERNEL_ATOL
-                        + KERNEL_RTOL * want.float().abs()))
+    allowed = KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
+    ok = launched == 1 and bool(torch.all(err <= allowed))
     if lens.count(0):
         ok = ok and not got[[i for i, n in enumerate(lens) if n == 0]].any()
     ms = gpu_ms(kernel, flush=flush)
@@ -165,7 +179,7 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
 
     # the work this data needs: the live keys of each row, K and V of each
     # live slot read once, q read once, out written once
-    st = starts.tolist()
+    st = [max(n - 1, 0) for n in lens] if start is None else [start] * B
     pairs = live_slots = live_pages = 0
     for b, n in enumerate(lens):
         pos = [st[b] + c for c in range(C)]
@@ -174,12 +188,15 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
         live_slots += Hkv * keys
         live_pages += -(-keys // ps)
     bytes_ = (2 * live_slots * D * kv_bytes          # K and V
-              + 2 * q4.numel() * 2                   # q in, out back
-              + 4 * (live_pages + 2 * B))            # page ids, lens, starts
+              + 2 * q.numel() * 2                    # q in, out back
+              + 4 * (live_pages + B))                # page ids, lens
     flops = 4 * D * pairs                            # q.k and p.v
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     return {"case": name, "ok": ok, "max_abs_err": float(err.max()),
+            # the largest error over its limit, element by element
+            "max_err_over_tol": float((err / allowed).max()),
+            "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -330,12 +347,7 @@ def phase_serve(dev, profile=False):
     a = [t.clone() for t in pools]
     b = [t.clone() for t in pools]
     with_kernel, _ = decode(outer, layers, tok, pt, ln, tuple(a))
-
-    def plain_decode(q, k, v, page_tables, seq_lens, **scales):
-        return paged_attention_reference(q, k, v, page_tables, seq_lens,
-                                         **scales)
-
-    llama_decode.paged_attention = plain_decode
+    llama_decode.paged_attention = paged_attention_reference
     try:
         with_plain, _ = decode(outer, layers, tok, pt, ln, tuple(b))
     finally:
@@ -343,14 +355,15 @@ def phase_serve(dev, profile=False):
     torch.cuda.synchronize()
     diff = float((with_kernel - with_plain).abs().max())
     scale = float(with_plain.abs().max())
-    out.update({"step_logit_max_diff": diff, "step_logit_max_abs": scale,
+    out.update({"step_logit_max_diff": diff, "step_logit_atol": STEP_ATOL,
+                "step_logit_max_abs": scale,
                 "step_argmax_agree": float((with_kernel.argmax(-1)
                                             == with_plain.argmax(-1))
                                            .float().mean()),
                 "step_logits_finite": bool(torch.isfinite(with_kernel)
                                            .all())})
     ok = (streams_ok and launches > 0 and launches == want_launches
-          and out["step_logits_finite"] and diff <= STEP_RTOL * scale)
+          and out["step_logits_finite"] and diff <= STEP_ATOL)
     out["ok"] = ok
     emit(out)
     if not ok:

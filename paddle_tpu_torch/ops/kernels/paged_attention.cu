@@ -50,6 +50,7 @@ constexpr int kThreads = kWarps * kWarp;
 constexpr int kKeyTile = 32;  // keys per shared-memory tile: one per lane
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -231,10 +232,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const size_t smem =
       sizeof(float) * (TR * D + kKeyTile * (D + 1) + kKeyTile * D);
   auto kern = paged_attention_kernel<TQ, TKV, D, RPW>;
-  // above 48 KB a block's shared memory must be asked for explicitly
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // above 48 KB a block's shared memory must be asked for explicitly, once
+  // per instance and device
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
   const int n_row_tiles = (R + TR - 1) / TR;
   const long long blocks = (long long)B * Hkv * n_row_tiles;
   if (blocks <= 0) return cudaSuccess;
@@ -252,13 +262,10 @@ cudaError_t by_rows(const void* q, const void* k, const void* v,
                     const int* lens, const int* starts, void* out, int B,
                     int Hkv, int R, int P, int ps, int W, int chunk,
                     float sm_scale, cudaStream_t stream) {
-  // decode has R = G rows (a handful); prefill has G * chunk rows
+  // decode has R = G rows (a handful, one per warp up to G = 4); prefill
+  // has G * chunk rows
   if (R <= kWarps)
     return launch<TQ, TKV, D, 1>(q, k, v, ks, vs, tables, lens, starts, out,
-                                 B, Hkv, R, P, ps, W, chunk, sm_scale,
-                                 stream);
-  if (R <= 2 * kWarps)
-    return launch<TQ, TKV, D, 2>(q, k, v, ks, vs, tables, lens, starts, out,
                                  B, Hkv, R, P, ps, W, chunk, sm_scale,
                                  stream);
   return launch<TQ, TKV, D, 8>(q, k, v, ks, vs, tables, lens, starts, out, B,
@@ -280,11 +287,7 @@ cudaError_t by_dim(const void* q, const void* k, const void* v,
       return by_rows<TQ, TKV, 128>(q, k, v, ks, vs, tables, lens, starts,
                                    out, B, Hkv, R, P, ps, W, chunk, sm_scale,
                                    stream);
-    case 256:
-      return by_rows<TQ, TKV, 256>(q, k, v, ks, vs, tables, lens, starts,
-                                   out, B, Hkv, R, P, ps, W, chunk, sm_scale,
-                                   stream);
-    default:
+    default:  // head_dim 256 waits for a configuration that needs it
       return cudaErrorInvalidValue;
   }
 }

@@ -71,21 +71,27 @@ def _paged_plain(q4, k_pages, v_pages, page_tables, seq_lens, starts, chunk,
     return (out / p.sum(-1, keepdim=True).clamp_min(1e-20)).to(q4.dtype)
 
 
-def _kernel_library() -> ctypes.CDLL:
-    """The kernel's shared library, built at first use, with the C entry
-    points' signatures declared (every pointer and the stream as
-    ``c_void_p``, so ctypes never cuts one to 32 bits)."""
-    from .kernels import _build
+_lib = None
 
-    lib = _build.load(_KERNEL)
-    fn = lib.paged_attention_launch
-    if fn.argtypes is None:
+
+def _kernel_library() -> ctypes.CDLL:
+    """The kernel's shared library, built and loaded at first use and kept
+    for the process, with the C entry points' signatures declared (every
+    pointer and the stream as ``c_void_p``, so ctypes never cuts one to 32
+    bits)."""
+    global _lib
+    if _lib is None:
+        from .kernels import _build
+
+        lib = _build.load(_KERNEL)
+        fn = lib.paged_attention_launch
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
-    return lib
+        _lib = lib
+    return _lib
 
 
 def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
@@ -106,9 +112,9 @@ def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
     if (k_pages.dtype == torch.int8) != quantized:
         raise TypeError("paged attention kernel: int8 pools go with "
                         "k_scales/v_scales, float pools without")
-    if D not in (64, 128, 256):
+    if D not in (64, 128):
         raise ValueError(f"paged attention kernel: head_dim {D} "
-                         "(use 64, 128 or 256)")
+                         "(use 64 or 128)")
     tensors = [q4, k_pages, v_pages, page_tables, seq_lens, starts]
     if quantized:
         tensors += [k_scales, v_scales]
@@ -143,15 +149,21 @@ def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
     st = starts.to(torch.int32).contiguous()
     out = torch.empty_like(q4)
     lib = _kernel_library()
-    fn = lib.paged_attention_launch
     ptr = (lambda t: t.data_ptr() if t is not None else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(q4), ptr(k_pages), ptr(v_pages), ptr(k_scales),
-                 ptr(v_scales), ptr(pt), ptr(sl), ptr(st), ptr(out),
-                 B, Hkv, R, D, P, page_size, pt.shape[1], chunk,
-                 float(sm_scale), _DTYPE_CODE[q4.dtype],
-                 _DTYPE_CODE[k_pages.dtype], stream)
+
+    def launch():
+        return lib.paged_attention_launch(
+            ptr(q4), ptr(k_pages), ptr(v_pages), ptr(k_scales),
+            ptr(v_scales), ptr(pt), ptr(sl), ptr(st), ptr(out),
+            B, Hkv, R, D, P, page_size, pt.shape[1], chunk, float(sm_scale),
+            _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        err = launch()
+    else:               # the runtime launches on its current device
+        with torch.cuda.device(dev):
+            err = launch()
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged attention kernel launch failed: {msg} "
