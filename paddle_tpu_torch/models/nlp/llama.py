@@ -1,14 +1,16 @@
-"""Llama for the PyTorch port: config, rotary embedding and the parameter
-holder the paged decode factory reads.
+"""Llama for the PyTorch port: config, rotary embedding, the model and
+its training step.
 
 Counterpart of ``paddle_tpu/models/nlp/llama.py`` (``LlamaConfig``,
-``_rope_freqs``, ``apply_rotary``, ``LlamaForCausalLM``). Layouts are the
+``_rope_freqs``, ``apply_rotary``, ``LlamaForCausalLM`` and
+``llama_train_step_factory``, ``llama.py:500-738``). Layouts are the
 reference's: every projection weight is ``(in, out)`` and is applied as
 ``x @ w``, and ``state_dict()`` keys equal the reference's, so a
 reference state dict loads with ``load_numpy_state_dict`` unchanged.
 
-The training forward (flash / GQA attention kernels, fused CE) is not
-ported yet; ``LlamaForCausalLM.forward`` raises and names the ROADMAP item.
+``LlamaForCausalLM.forward`` and the train step share one implementation
+of the layer math, ``llama_functional.forward``: the GQA flash-attention
+kernels and the fused CE kernels on the card.
 """
 from __future__ import annotations
 
@@ -152,7 +154,7 @@ class LlamaForCausalLM(nn.Module):
         if config.fuse_attention_qkv or config.fuse_ffn_gate_up:
             raise NotImplementedError(
                 "fused qkv / gate_up weights are not ported yet "
-                "(ROADMAP Queue 1: the training step)")
+                "(ROADMAP Queue 1: fused projection weights)")
         dev = resolve_device(device)
         self.config = config
         self.model = _LlamaModel(config, config.dtype, dev)
@@ -173,10 +175,110 @@ class LlamaForCausalLM(nn.Module):
         return self.model.norm.weight.device
 
     def forward(self, input_ids, positions=None):
+        """Logits (B, S, V) for input_ids (B, S): the functional forward
+        (``llama_functional.forward``) over this model's own parameters,
+        differentiable in those that require grad."""
+        if positions is not None:
+            raise NotImplementedError(
+                "explicit positions are not ported yet (ROADMAP Queue 1: "
+                "the dense decode factory); positions are 0..S-1")
+        _refuse_sliding_window(self.config)
+        from .llama_functional import forward, param_views
+
+        outer, layers = param_views(dict(self.named_parameters()),
+                                    self.config.num_hidden_layers)
+        return forward(self.config, outer, layers,
+                       torch.as_tensor(input_ids, device=self.device).long(),
+                       remat=False)
+
+
+def _refuse_sliding_window(config):
+    if config.sliding_window is not None:
         raise NotImplementedError(
-            "the training forward (flash / GQA attention kernels) is not "
-            "ported yet: ROADMAP Queue 1, the training step. Use "
-            "llama_paged_decode_factory for inference.")
+            "sliding_window attention (the splash kernels) is not ported "
+            "yet: ROADMAP Queue 2 rows 8-9")
+
+
+def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
+                             weight_decay=0.01, beta1=0.9, beta2=0.95,
+                             eps=1e-8, accum_dtype=torch.float32,
+                             remat: bool | str = True, device=None,
+                             mesh=None, offload_moments: bool = False,
+                             chunked_vocab_ce: int | None = None):
+    """Returns (params, opt_state, train_step) for one device.
+
+    ``params`` are the model's own parameters ({state-dict key: tensor},
+    made trainable; no copy is held), ``opt_state`` is
+    ``make_adamw_state(params, accum_dtype)``, and
+    ``train_step(params, opt_state, tokens, labels) -> (params, opt_state,
+    loss)`` runs the forward (GQA flash kernels), the fused CE loss, the
+    backward and AdamW. The update is IN PLACE: the counterpart of the
+    reference's ``donate_argnums``, and the model holds the trained
+    weights. ``remat=True`` checkpoints each decoder layer
+    (``torch.utils.checkpoint``), which recomputes its forward in the
+    backward: the numbers are the same, the attention kernels' forward
+    launches double.
+
+    Not ported yet, and refused: ``remat="dots"``, ``offload_moments``,
+    ``chunked_vocab_ce`` (ROADMAP Queue 1, the training step) and
+    ``mesh`` axes (data/sep/model/sharding: ROADMAP Queue 1, distributed
+    and parallel)."""
+    from .llama_functional import loss_fn, param_views
+    from .train_utils import adamw_update, make_adamw_state
+
+    dev = resolve_device(device)
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh axes (data/sep/model/sharding) are not ported yet: ROADMAP "
+            "Queue 1, distributed / parallel")
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save matmul outputs, recompute the rest) is not "
+            "ported yet: ROADMAP Queue 1, the training step")
+    if remat not in (True, False):
+        raise ValueError(f"remat must be True, False or 'dots'; got "
+                         f"{remat!r}")
+    if offload_moments:
+        raise NotImplementedError(
+            "offload_moments (AdamW moments in pinned host memory) is not "
+            "ported yet: ROADMAP Queue 1, the training step")
+    if chunked_vocab_ce:
+        raise NotImplementedError(
+            "chunked_vocab_ce (the fused head projection + CE) is not "
+            "ported yet: ROADMAP Queue 1, the training step")
+    cfg = model.config
+    _refuse_sliding_window(cfg)
+    if model.device.type != dev.type:
+        raise ValueError(f"the model lives on {model.device}; build it with "
+                         f"device={dev}")
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    opt_state = make_adamw_state(params, accum_dtype)
+    n_layers = cfg.num_hidden_layers
+
+    def train_step(params, opt_state, tokens, labels):
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        labels = torch.as_tensor(labels, device=dev).long()
+        keys = list(params)
+        outer, layers = param_views(params, n_layers)
+        loss = loss_fn(cfg, outer, layers, tokens, labels, remat)
+        grads = list(torch.autograd.grad(loss, [params[k] for k in keys]))
+        with torch.no_grad():
+            opt_state["step"] += 1
+            t = opt_state["step"].to(torch.float32)
+            for i, k in enumerate(keys):
+                m, v = opt_state["m"][k], opt_state["v"][k]
+                new_p, m2, v2 = adamw_update(
+                    params[k], grads[i], m, v, t, learning_rate, beta1,
+                    beta2, eps, weight_decay, accum_dtype)
+                grads[i] = None              # free each gradient once used
+                params[k].copy_(new_p)
+                m.copy_(m2)
+                v.copy_(v2)
+        return params, opt_state, loss.detach()
+
+    return params, opt_state, train_step
 
 
 def load_numpy_state_dict(model: LlamaForCausalLM, state: dict):

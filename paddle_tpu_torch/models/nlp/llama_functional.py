@@ -1,13 +1,33 @@
-"""Functional Llama helpers for the PyTorch port: the stacked-layer
-convention and RMSNorm. Counterpart of
-``paddle_tpu/models/nlp/llama_functional.py:28-72``."""
+"""Functional Llama for the PyTorch port: the stacked-layer convention,
+RMSNorm, and the training forward and loss over parameter dicts.
+
+Counterpart of ``paddle_tpu/models/nlp/llama_functional.py:28-158``. The
+reference scans one compiled layer body over stacked layer parameters;
+PyTorch runs eagerly, so ``forward`` is a Python loop over the layers,
+which may be given stacked ((L, ...) leaves) or as a list of per-layer
+dicts (views of a model's own parameters: ``param_views``).
+
+Attention at flash-eligible shapes goes through ``grouped_flash_attention``
+(the GQA kernels) for GQA configurations. A multi-head configuration
+(kv_heads == heads) at those shapes needs the MHA flash kernels, which are
+not ported (ROADMAP Queue 2 rows 2-5): on the card it raises, on the CPU
+it takes the dense path, the plain version of that kernel. Ineligible
+shapes take the dense causal path, as in the reference. The loss is
+``causal_lm_loss``, the fused CE kernels (their plain version on the CPU).
+"""
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from .llama import LlamaForCausalLM
+from ...ops import flash_attention as _flash
+from ...ops.flash_attention_gqa import grouped_flash_attention
+from ...ops.fused_ce import causal_lm_loss
+from .llama import LlamaForCausalLM, apply_rotary
 
 LAYER_KEYS = [
     "input_layernorm.weight",
@@ -35,9 +55,98 @@ def split_params(model: LlamaForCausalLM):
     return sd, stack_layers(per_layer)
 
 
+def param_views(params: Dict[str, torch.Tensor], n_layers: int):
+    """A flat {state-dict key: tensor} dict -> (outer, [per-layer dicts]),
+    holding the same tensors: no copy, so gradients reach ``params``."""
+    outer = {k: v for k, v in params.items()
+             if not k.startswith("model.layers.")}
+    layers = [{key: params[f"model.layers.{i}.{key}"] for key in LAYER_KEYS}
+              for i in range(n_layers)]
+    return outer, layers
+
+
 def _rms(x, w, eps):
     xf = x.to(torch.float32)
     y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
     # back to the input dtype BEFORE the weight multiply, as the
     # reference does
     return y.to(x.dtype) * w
+
+
+def _dense_attention(qt, kt, vt):
+    """The dense causal path (``llama_functional.py:113-120``): K/V
+    repeated to the query heads, f32 softmax cast back to q's dtype."""
+    nh, nkv, S, hd = qt.shape[1], kt.shape[1], qt.shape[2], qt.shape[3]
+    if nh != nkv:
+        kt = kt.repeat_interleave(nh // nkv, dim=1)
+        vt = vt.repeat_interleave(nh // nkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qt, kt) / math.sqrt(hd)
+    causal = torch.ones((S, S), dtype=torch.bool, device=qt.device).tril()
+    s = torch.where(causal, s, torch.finfo(s.dtype).min)
+    probs = torch.softmax(s.to(torch.float32), -1).to(qt.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vt)
+
+
+def layer_forward(cfg, p: Dict[str, torch.Tensor], x):
+    """One decoder layer over its param dict."""
+    B, S, H = x.shape
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    hd = H // nh
+    h = _rms(x, p["input_layernorm.weight"], cfg.rms_norm_eps)
+    q = (h @ p["self_attn.q_proj.weight"]).reshape(B, S, nh, hd)
+    k = (h @ p["self_attn.k_proj.weight"]).reshape(B, S, nkv, hd)
+    v = (h @ p["self_attn.v_proj.weight"]).reshape(B, S, nkv, hd)
+    pos = torch.arange(S, device=x.device)
+    q = apply_rotary(q, pos, cfg.rope_theta)
+    k = apply_rotary(k, pos, cfg.rope_theta)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if _flash.flash_eligible(S, hd, qt.dtype) and nh != nkv:
+        # K/V stay at the kv head count: no repeat through device memory
+        ctx = grouped_flash_attention(qt, kt, vt, True)
+    elif _flash.flash_eligible(S, hd, qt.dtype) and x.device.type != "cpu":
+        raise NotImplementedError(
+            "multi-head flash attention (kv_heads == heads) is not ported "
+            "yet: ROADMAP Queue 2 rows 2-5")
+    else:
+        ctx = _dense_attention(qt, kt, vt)
+    attn = ctx.transpose(1, 2).reshape(B, S, H) \
+        @ p["self_attn.o_proj.weight"]
+    x = x + attn
+    h2 = _rms(x, p["post_attention_layernorm.weight"], cfg.rms_norm_eps)
+    mlp = (F.silu(h2 @ p["mlp.gate_proj.weight"])
+           * (h2 @ p["mlp.up_proj.weight"])) @ p["mlp.down_proj.weight"]
+    return x + mlp
+
+
+def _per_layer(layers):
+    if isinstance(layers, dict):      # stacked (L, ...) leaves
+        L = next(iter(layers.values())).shape[0]
+        return [{k: v[i] for k, v in layers.items()} for i in range(L)]
+    return list(layers)
+
+
+def forward(cfg, outer, layers, tokens, remat=True):
+    """Causal-LM logits (B, S, V) for tokens (B, S). ``remat``
+    checkpoints each decoder layer (its activations are recomputed in the
+    backward), as the reference's ``jax.checkpoint`` over the scan body."""
+    x = F.embedding(tokens, outer["model.embed_tokens.weight"])
+    for lp in _per_layer(layers):
+        if remat:
+            x = checkpoint(layer_forward, cfg, lp, x, use_reentrant=False)
+        else:
+            x = layer_forward(cfg, lp, x)
+    x = _rms(x, outer["model.norm.weight"], cfg.rms_norm_eps)
+    head = outer.get("lm_head.weight")
+    if head is None:
+        return x @ outer["model.embed_tokens.weight"].T
+    return x @ head
+
+
+def _ce(logits, labels):
+    """Causal-LM CE: the fused CE kernels (their plain version for CPU
+    tensors); no (N, V) softmax is written."""
+    return causal_lm_loss(logits, labels)
+
+
+def loss_fn(cfg, outer, layers, tokens, labels, remat=True):
+    return _ce(forward(cfg, outer, layers, tokens, remat), labels)

@@ -1,8 +1,11 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each ``<name>.cu`` in this directory is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded
-with ``ctypes``. Libraries go to ``build/paddle_tpu_torch/`` at the root of
+with ``ctypes``. Its entry points take device pointers, shapes and, last,
+a stream, and return a ``cudaError_t``; ``<name>_error_string`` names
+one. ``launch`` calls an entry point on PyTorch's current stream and
+raises on an error. Libraries go to ``build/paddle_tpu_torch/`` at the root of
 the checkout, named by a hash of their source, so an edited source is
 rebuilt and an unchanged one is reused. Nothing is built when a module is
 imported: the first launch builds (``load``), or ``build_all`` builds
@@ -20,6 +23,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[2] / "build" / "paddle_tpu_torch"
@@ -92,12 +97,41 @@ def build_all(names=None) -> dict:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed and
+    kept for the process. Each entry point of ``signatures`` ({C function:
+    argtypes}) is declared to take those arguments and then the stream,
+    and to return a cudaError_t; pass every pointer and the stream as
+    ``c_void_p`` so ctypes never cuts one to 32 bits."""
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)
         if not path.exists():
             build_all([name])
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+        lib = ctypes.CDLL(str(path))
+        for fn_name, argtypes in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.error_string = getattr(lib, f"{name}_error_string")
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
     return lib
+
+
+def launch(lib: ctypes.CDLL, fn_name: str, device, *args) -> None:
+    """Call the entry point ``fn_name`` of ``lib`` (from ``load``) with
+    ``args`` and the current stream of ``device``, with ``device`` the
+    current device (the runtime launches there). A nonzero cudaError_t
+    raises RuntimeError with the runtime's message."""
+    fn = getattr(lib, fn_name)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: "
+                           f"{lib.error_string(err).decode()} "
+                           f"(cudaError {err})")

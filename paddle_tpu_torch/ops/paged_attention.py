@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core.place import resolve_device
+from .kernels import _build
 
 NEG_INF = -1e30
 _KERNEL = "paged_attention"
@@ -71,27 +72,9 @@ def _paged_plain(q4, k_pages, v_pages, page_tables, seq_lens, starts, chunk,
     return (out / p.sum(-1, keepdim=True).clamp_min(1e-20)).to(q4.dtype)
 
 
-_lib = None
-
-
-def _kernel_library() -> ctypes.CDLL:
-    """The kernel's shared library, built and loaded at first use and kept
-    for the process, with the C entry points' signatures declared (every
-    pointer and the stream as ``c_void_p``, so ctypes never cuts one to 32
-    bits)."""
-    global _lib
-    if _lib is None:
-        from .kernels import _build
-
-        lib = _build.load(_KERNEL)
-        fn = lib.paged_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.paged_attention_error_string.argtypes = [ctypes.c_int]
-        lib.paged_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+_SIGNATURES = {"paged_attention_launch":
+               [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_int]}
 
 
 def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
@@ -148,26 +131,13 @@ def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
     sl = seq_lens.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
     out = torch.empty_like(q4)
-    lib = _kernel_library()
     ptr = (lambda t: t.data_ptr() if t is not None else None)
-
-    def launch():
-        return lib.paged_attention_launch(
-            ptr(q4), ptr(k_pages), ptr(v_pages), ptr(k_scales),
-            ptr(v_scales), ptr(pt), ptr(sl), ptr(st), ptr(out),
-            B, Hkv, R, D, P, page_size, pt.shape[1], chunk, float(sm_scale),
-            _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
-
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        err = launch()
-    else:               # the runtime launches on its current device
-        with torch.cuda.device(dev):
-            err = launch()
-    if err != 0:
-        msg = lib.paged_attention_error_string(err).decode()
-        raise RuntimeError(f"paged attention kernel launch failed: {msg} "
-                           f"(cudaError {err})")
+    _build.launch(
+        _build.load(_KERNEL, _SIGNATURES), "paged_attention_launch", dev,
+        ptr(q4), ptr(k_pages), ptr(v_pages), ptr(k_scales), ptr(v_scales),
+        ptr(pt), ptr(sl), ptr(st), ptr(out),
+        B, Hkv, R, D, P, page_size, pt.shape[1], chunk, float(sm_scale),
+        _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype])
     paged_attention.launches += 1
     return out
 

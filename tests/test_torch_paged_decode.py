@@ -211,4 +211,5 @@ def test_factory_refuses_unported_options():
     with pytest.raises(TypeError):
         llama_paged_decode_factory(tm, tp=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.zeros((1, 4), dtype=torch.long))
+        tm(torch.zeros((1, 4), dtype=torch.long),
+           positions=torch.arange(4))

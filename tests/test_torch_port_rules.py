@@ -25,6 +25,12 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print(len(names), bad)
 assert not bad, bad
+for name in ("paddle_tpu_torch.ops.flash_attention",
+             "paddle_tpu_torch.ops.flash_attention_gqa",
+             "paddle_tpu_torch.ops.fused_ce",
+             "paddle_tpu_torch.models.nlp.train_utils",
+             "paddle_tpu_torch.examples.train_llama_compiled"):
+    assert name in names, name
 """
 
 
@@ -38,7 +44,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = _run(["-c", _IMPORT_ALL], ROOT)
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 10          # every module of the slice was imported
+    assert n_modules >= 15          # every module of both slices was imported
 
 
 def _needs_no_card():
@@ -50,8 +56,10 @@ def test_entry_points_refuse_a_missing_card():
     """Without CUDA, a default or "cuda" device raises; "cpu" runs."""
     _needs_no_card()
     from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.examples.train_llama_compiled import train
     from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
-                                             llama_paged_decode_factory)
+                                             llama_paged_decode_factory,
+                                             llama_train_step_factory)
     from paddle_tpu_torch.ops import PagedKVCache
 
     cfg = LlamaConfig.tiny(vocab=32, hidden=16, layers=1, heads=2,
@@ -66,6 +74,10 @@ def test_entry_points_refuse_a_missing_card():
     model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         llama_paged_decode_factory(model, page_size=4, n_pool_pages=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        llama_train_step_factory(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(cfg, 1, 8, 1)
     assert llama_paged_decode_factory(model, page_size=4, n_pool_pages=4,
                                       device="cpu")[2][0].device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
