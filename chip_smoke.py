@@ -367,7 +367,13 @@ def _gqa_case(name, B, Hkv, G, S, D, dtype, causal, seed, dev, flush):
     rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
     nq, nkv, rows = q.numel() * dt.itemsize, k.numel() * dt.itemsize, \
         B * Hkv * G * S * 4
+    # The backward as one function, (q, k, v, dO, lse, delta) -> (dq, dk,
+    # dv), needs 10·D per pair: the scores, dP, dV, dK and dQ products. The
+    # dq and dkv kernels each recompute the scores and dP (6·D and 8·D);
+    # their own bounds are kept beside it.
     bounds = {"fwd": _bound(2 * nq + 2 * nkv + rows, 4 * D * pairs, rate),
+              "bwd": _bound(3 * nq + 4 * nkv + 2 * rows, 10 * D * pairs,
+                            rate),
               "dq": _bound(3 * nq + 2 * nkv + 2 * rows, 6 * D * pairs, rate),
               "dkv": _bound(2 * nq + 4 * nkv + 2 * rows, 8 * D * pairs,
                             rate)}
@@ -915,11 +921,7 @@ def _kernels_line(kern, serve, train, card):
             "gqa_flash_bwd", GQA_SOURCE, GQA_BWD_REPLACES,
             (launches["gqa_dq"] + launches["gqa_dkv"]) if launches else None,
             g, None, "bwd", ("dq", "dk", "dv"), card,
-            ms=g["ms_dq"] + g["ms_dkv"],
-            bound={"bound_ms": b_dq["bound_ms"] + b_dkv["bound_ms"],
-                   "bound_by": "operations"
-                   if "operations" in (b_dq["bound_by"], b_dkv["bound_by"])
-                   else "bytes"}))
+            ms=g["ms_dq"] + g["ms_dkv"], bound=g["bounds"]["bwd"]))
         kernels[-1].update({"ms_dq": g["ms_dq"], "ms_dkv": g["ms_dkv"],
                             "bound_ms_dq": b_dq["bound_ms"],
                             "bound_ms_dkv": b_dkv["bound_ms"],

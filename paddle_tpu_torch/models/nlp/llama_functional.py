@@ -3,9 +3,8 @@ RMSNorm, and the training forward and loss over parameter dicts.
 
 Counterpart of ``paddle_tpu/models/nlp/llama_functional.py:28-158``. The
 reference scans one compiled layer body over stacked layer parameters;
-PyTorch runs eagerly, so ``forward`` is a Python loop over the layers,
-which may be given stacked ((L, ...) leaves) or as a list of per-layer
-dicts (views of a model's own parameters: ``param_views``).
+PyTorch runs eagerly, so ``forward`` is a Python loop over a list of
+per-layer dicts (views of a model's own parameters: ``param_views``).
 
 Attention at flash-eligible shapes goes through ``grouped_flash_attention``
 (the GQA kernels) for GQA configurations. A multi-head configuration
@@ -118,19 +117,13 @@ def layer_forward(cfg, p: Dict[str, torch.Tensor], x):
     return x + mlp
 
 
-def _per_layer(layers):
-    if isinstance(layers, dict):      # stacked (L, ...) leaves
-        L = next(iter(layers.values())).shape[0]
-        return [{k: v[i] for k, v in layers.items()} for i in range(L)]
-    return list(layers)
-
-
 def forward(cfg, outer, layers, tokens, remat=True):
-    """Causal-LM logits (B, S, V) for tokens (B, S). ``remat``
+    """Causal-LM logits (B, S, V) for tokens (B, S); ``layers`` is a list
+    of per-layer param dicts. ``remat``
     checkpoints each decoder layer (its activations are recomputed in the
     backward), as the reference's ``jax.checkpoint`` over the scan body."""
     x = F.embedding(tokens, outer["model.embed_tokens.weight"])
-    for lp in _per_layer(layers):
+    for lp in layers:
         if remat:
             x = checkpoint(layer_forward, cfg, lp, x, use_reentrant=False)
         else:
@@ -142,11 +135,7 @@ def forward(cfg, outer, layers, tokens, remat=True):
     return x @ head
 
 
-def _ce(logits, labels):
-    """Causal-LM CE: the fused CE kernels (their plain version for CPU
-    tensors); no (N, V) softmax is written."""
-    return causal_lm_loss(logits, labels)
-
-
 def loss_fn(cfg, outer, layers, tokens, labels, remat=True):
-    return _ce(forward(cfg, outer, layers, tokens, remat), labels)
+    """Mean causal-LM CE through the fused CE kernels (their plain version
+    for CPU tensors); no (N, V) softmax is written."""
+    return causal_lm_loss(forward(cfg, outer, layers, tokens, remat), labels)

@@ -22,6 +22,9 @@
 //     in shared memory; thread 0 reads the label's logit itself;
 //   * the backward is one elementwise pass, 16-byte loads and stores.
 // Rows whose length or address is not 16-byte aligned take scalar loads.
+// A -inf logit (a masked entry) adds nothing to the sum: a thread that has
+// seen only -inf keeps its empty pair (m = -inf, s = 0), as the reference's
+// max over the whole row does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +82,7 @@ ce_fwd_kernel(const T* __restrict__ x, const int64_t* __restrict__ labels,
         f[t] = to_f(p.t[t]);
         mx = fmaxf(mx, f[t]);
       }
+      if (mx == -CUDART_INF_F) continue;  // nothing seen but -inf yet
       float add = 0.f;
 #pragma unroll
       for (int t = 0; t < W; ++t) add += expf(f[t] - mx);
@@ -89,6 +93,7 @@ ce_fwd_kernel(const T* __restrict__ x, const int64_t* __restrict__ labels,
     for (int c = threadIdx.x; c < V; c += kThreads) {
       const float f = to_f(row[c]);
       const float mx = fmaxf(m, f);
+      if (mx == -CUDART_INF_F) continue;  // nothing seen but -inf yet
       s = s * expf(m - mx) + expf(f - mx);
       m = mx;
     }

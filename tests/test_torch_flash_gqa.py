@@ -95,9 +95,3 @@ def test_flash_gate_matches_the_reference():
             jflash.flash_eligible(S, hd, getattr(jnp, dt))
     assert (tflash.NEG_INF, tflash.LOG2E, tflash.LN2) == \
         (jflash.NEG_INF, jflash.LOG2E, jflash.LN2)
-    old = tflash.use_flash_attention
-    try:
-        tflash.use_flash_attention = False
-        assert not tflash.flash_eligible(256, 64, torch.float32)
-    finally:
-        tflash.use_flash_attention = old

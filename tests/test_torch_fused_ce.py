@@ -58,6 +58,30 @@ def test_fused_ce_matches_jax(dtype, N, V):
         np.asarray(jnp.asarray(j_dx, jnp.float32)), atol=atol, rtol=rtol)
 
 
+def test_fused_ce_masked_logits_match_jax():
+    """Rows where all but a few logits are -inf (a masked vocabulary):
+    finite loss and lse, and a dx of exactly 0 at every masked entry."""
+    N, V = 16, 1000
+    x, lbl, g = _inputs(N, V, seed=7)
+    x[:, 6:] = -np.inf
+    lbl = lbl % 6
+    jl = jnp.asarray(lbl, jnp.int32)
+    j_loss, j_lse = jce._ce_fwd(jnp.asarray(x), jl)
+    _, vjp = jax.vjp(lambda a: jce.softmax_cross_entropy(a, jl),
+                     jnp.asarray(x))
+    (j_dx,) = vjp(jnp.asarray(g))
+
+    tx = torch.from_numpy(x).requires_grad_()
+    loss = tce.softmax_cross_entropy(tx, torch.from_numpy(lbl))
+    loss.backward(torch.from_numpy(g))
+    assert torch.isfinite(loss).all() and torch.isfinite(tx.grad).all()
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(j_loss),
+                               atol=1e-5, rtol=0)
+    assert not tx.grad[:, 6:].any()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(j_dx), atol=1e-6,
+                               rtol=0)
+
+
 def test_causal_lm_loss_matches_jax():
     B, S, V = 2, 16, 256
     rng = np.random.default_rng(3)

@@ -8,7 +8,7 @@ by ``load_numpy_state_dict``) and the same numpy batch:
   mode);
 * the loss and every gradient of the port's ``llama_functional.loss_fn``
   against ``jax.grad`` of the JAX ``loss_fn`` with its Pallas flash path
-  forced on (``_FORCE_FLASH_FOR_TESTS``); the JAX ``_ce`` is its dense
+  forced on (``_FORCE_FLASH_FOR_TESTS``); the JAX loss is its dense
   log-softmax on the CPU, the port's the fused CE's plain version: the
   same function;
 * 3 steps of ``llama_train_step_factory`` in both packages (a one-device
@@ -44,7 +44,7 @@ from paddle_tpu.models.nlp.llama import \
 from paddle_tpu.core.tensor import Tensor
 from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
                                          llama_train_step_factory,
-                                         load_numpy_state_dict, split_params)
+                                         load_numpy_state_dict, param_views)
 from paddle_tpu_torch.models.nlp import llama_functional as tfun
 
 CFG = dict(vocab=256, hidden=256, layers=2, heads=4, kv_heads=2)
@@ -88,22 +88,24 @@ def test_loss_and_every_grad_match_jax(monkeypatch):
                                   jnp.asarray(labels), remat=False),
         argnums=(0, 1))(j_outer, j_layers)
 
-    outer, layers = split_params(tm)
-    leaves = {**{("outer", k): v for k, v in outer.items()},
-              **{("layers", k): v for k, v in layers.items()}}
-    for t in leaves.values():
+    params = dict(tm.named_parameters())
+    for t in params.values():
         t.requires_grad_(True)
+    outer, layers = param_views(params, CFG["layers"])
     loss = tfun.loss_fn(tm.config, outer, layers, torch.from_numpy(tokens),
                         torch.from_numpy(labels), remat=False)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
     np.testing.assert_allclose(float(loss.detach()), float(j_loss),
                                atol=1e-5, rtol=0)
-    want = {**{("outer", k): v for k, v in j_go.items()},
-            **{("layers", k): v for k, v in j_gl.items()}}
-    assert set(want) == set(leaves)
-    for key, g in zip(leaves, grads):
-        np.testing.assert_allclose(g.numpy(), np.asarray(want[key]),
-                                   atol=1e-5, rtol=0, err_msg=str(key))
+    # the JAX layer gradients are stacked (L, ...): one slice per layer
+    want = {k: np.asarray(v) for k, v in j_go.items()}
+    for k, v in j_gl.items():
+        for i in range(CFG["layers"]):
+            want[f"model.layers.{i}.{k}"] = np.asarray(v[i])
+    assert set(want) == set(grads)
+    for key, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[key], atol=1e-5, rtol=0,
+                                   err_msg=key)
 
 
 @pytest.mark.parametrize("remat", [False, True])
