@@ -1,7 +1,8 @@
 """The flagship training path of the PyTorch port: Llama training steps
-through ``llama_train_step_factory`` — the forward with the grouped
-flash-attention kernels, the fused CE loss, the backward (their backward
-kernels) and AdamW, updated in place.
+through ``llama_train_step_factory`` — the forward with the attention
+kernels (grouped or multi-head flash; splash for a ``sliding_window``
+shorter than the sequence), the fused CE loss, the backward (their
+backward kernels) and AdamW, updated in place.
 
 Counterpart of ``examples/train_llama_compiled.py``. ``train`` is the loop;
 ``main`` runs it:

@@ -9,8 +9,9 @@ reference's: every projection weight is ``(in, out)`` and is applied as
 reference state dict loads with ``load_numpy_state_dict`` unchanged.
 
 ``LlamaForCausalLM.forward`` and the train step share one implementation
-of the layer math, ``llama_functional.forward``: the GQA flash-attention
-kernels and the fused CE kernels on the card.
+of the layer math, ``llama_functional.forward``: on the card, the flash
+attention kernels (grouped or multi-head), the splash kernels for a
+``sliding_window`` shorter than the sequence, and the fused CE kernels.
 """
 from __future__ import annotations
 
@@ -155,6 +156,10 @@ class LlamaForCausalLM(nn.Module):
             raise NotImplementedError(
                 "fused qkv / gate_up weights are not ported yet "
                 "(ROADMAP Queue 1: fused projection weights)")
+        if config.sliding_window is not None and config.sliding_window < 1:
+            raise ValueError(f"sliding_window must be >= 1 (got "
+                             f"{config.sliding_window}); use None to "
+                             f"disable")
         dev = resolve_device(device)
         self.config = config
         self.model = _LlamaModel(config, config.dtype, dev)
@@ -182,7 +187,6 @@ class LlamaForCausalLM(nn.Module):
             raise NotImplementedError(
                 "explicit positions are not ported yet (ROADMAP Queue 1: "
                 "the dense decode factory); positions are 0..S-1")
-        _refuse_sliding_window(self.config)
         from .llama_functional import forward, param_views
 
         outer, layers = param_views(dict(self.named_parameters()),
@@ -190,13 +194,6 @@ class LlamaForCausalLM(nn.Module):
         return forward(self.config, outer, layers,
                        torch.as_tensor(input_ids, device=self.device).long(),
                        remat=False)
-
-
-def _refuse_sliding_window(config):
-    if config.sliding_window is not None:
-        raise NotImplementedError(
-            "sliding_window attention (the splash kernels) is not ported "
-            "yet: ROADMAP Queue 2 rows 8-9")
 
 
 def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
@@ -211,7 +208,8 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
     made trainable; no copy is held), ``opt_state`` is
     ``make_adamw_state(params, accum_dtype)``, and
     ``train_step(params, opt_state, tokens, labels) -> (params, opt_state,
-    loss)`` runs the forward (GQA flash kernels), the fused CE loss, the
+    loss)`` runs the forward (the attention kernels of
+    ``llama_functional``), the fused CE loss, the
     backward and AdamW. The update is IN PLACE: the counterpart of the
     reference's ``donate_argnums``, and the model holds the trained
     weights. ``remat=True`` checkpoints each decoder layer
@@ -247,7 +245,6 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
             "chunked_vocab_ce (the fused head projection + CE) is not "
             "ported yet: ROADMAP Queue 1, the training step")
     cfg = model.config
-    _refuse_sliding_window(cfg)
     if model.device.type != dev.type:
         raise ValueError(f"the model lives on {model.device}; build it with "
                          f"device={dev}")

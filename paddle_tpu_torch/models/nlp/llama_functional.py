@@ -6,12 +6,19 @@ reference scans one compiled layer body over stacked layer parameters;
 PyTorch runs eagerly, so ``forward`` is a Python loop over a list of
 per-layer dicts (views of a model's own parameters: ``param_views``).
 
-Attention at flash-eligible shapes goes through ``grouped_flash_attention``
-(the GQA kernels) for GQA configurations. A multi-head configuration
-(kv_heads == heads) at those shapes needs the MHA flash kernels, which are
-not ported (ROADMAP Queue 2 rows 2-5): on the card it raises, on the CPU
-it takes the dense path, the plain version of that kernel. Ineligible
-shapes take the dense causal path, as in the reference. The loss is
+Attention follows the branches of the reference's
+``LlamaAttention.forward`` (``llama.py:239-305``, ``:359-376``), without
+its mesh branches (sequence, tensor and ring parallelism are not ported):
+
+* ``sliding_window`` shorter than the sequence, at a flash-eligible
+  shape: ``splash_attention`` over the banded block mask, with K/V at the
+  true kv head count (grouped splash) for GQA and G = 1 for multi-head;
+* the same window at an ineligible shape: the dense path with the band;
+* no window (or one that covers the sequence), at an eligible shape:
+  ``grouped_flash_attention`` for GQA, ``flash_attention`` for
+  multi-head; at an ineligible shape the dense causal path.
+
+Every kernel path runs its plain version on the CPU. The loss is
 ``causal_lm_loss``, the fused CE kernels (their plain version on the CPU).
 """
 from __future__ import annotations
@@ -23,9 +30,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ...ops import flash_attention as _flash
+from ...ops.flash_attention import flash_attention, flash_eligible
 from ...ops.flash_attention_gqa import grouped_flash_attention
 from ...ops.fused_ce import causal_lm_loss
+from ...ops.splash_attention import banded_block_mask, splash_attention
 from .llama import LlamaForCausalLM, apply_rotary
 
 LAYER_KEYS = [
@@ -72,18 +80,51 @@ def _rms(x, w, eps):
     return y.to(x.dtype) * w
 
 
-def _dense_attention(qt, kt, vt):
-    """The dense causal path (``llama_functional.py:113-120``): K/V
-    repeated to the query heads, f32 softmax cast back to q's dtype."""
+# block size of the banded mask given to the splash kernels: the mask is
+# read per element inside the kernels' tiles, so it sets no work, and 128
+# divides every flash-eligible length
+WINDOW_MASK_BLOCK = 128
+
+
+def _dense_attention(qt, kt, vt, window=None):
+    """The dense causal path (``llama_functional.py:113-120``; with a
+    window, ``llama.py:141-153``): K/V repeated to the query heads, the
+    causal mask (and the band q_pos - k_pos < window), f32 softmax cast
+    back to q's dtype."""
     nh, nkv, S, hd = qt.shape[1], kt.shape[1], qt.shape[2], qt.shape[3]
     if nh != nkv:
         kt = kt.repeat_interleave(nh // nkv, dim=1)
         vt = vt.repeat_interleave(nh // nkv, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qt, kt) / math.sqrt(hd)
-    causal = torch.ones((S, S), dtype=torch.bool, device=qt.device).tril()
-    s = torch.where(causal, s, torch.finfo(s.dtype).min)
+    i = torch.arange(S, device=qt.device)[:, None]
+    j = torch.arange(S, device=qt.device)[None, :]
+    live = i >= j
+    if window is not None:
+        live &= i - j < window
+    s = torch.where(live, s, torch.finfo(s.dtype).min)
     probs = torch.softmax(s.to(torch.float32), -1).to(qt.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vt)
+
+
+def _attention(cfg, qt, kt, vt):
+    """Causal attention of q (B, nh, S, hd) over k/v (B, nkv, S, hd), by
+    the branches of the module docstring."""
+    S, hd = qt.shape[2], qt.shape[3]
+    window = cfg.sliding_window
+    flash = flash_eligible(S, hd, qt.dtype)
+    if window is not None and window < S:
+        if not flash:
+            return _dense_attention(qt, kt, vt, window)
+        b = WINDOW_MASK_BLOCK
+        return splash_attention(qt, kt, vt, banded_block_mask(S, S, b, b,
+                                                              window),
+                                True, None, b, b, window)
+    if not flash:
+        return _dense_attention(qt, kt, vt)
+    if qt.shape[1] != kt.shape[1]:
+        # K/V stay at the kv head count: no repeat through device memory
+        return grouped_flash_attention(qt, kt, vt, True)
+    return flash_attention(qt, kt, vt, True)
 
 
 def layer_forward(cfg, p: Dict[str, torch.Tensor], x):
@@ -98,16 +139,8 @@ def layer_forward(cfg, p: Dict[str, torch.Tensor], x):
     pos = torch.arange(S, device=x.device)
     q = apply_rotary(q, pos, cfg.rope_theta)
     k = apply_rotary(k, pos, cfg.rope_theta)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if _flash.flash_eligible(S, hd, qt.dtype) and nh != nkv:
-        # K/V stay at the kv head count: no repeat through device memory
-        ctx = grouped_flash_attention(qt, kt, vt, True)
-    elif _flash.flash_eligible(S, hd, qt.dtype) and x.device.type != "cpu":
-        raise NotImplementedError(
-            "multi-head flash attention (kv_heads == heads) is not ported "
-            "yet: ROADMAP Queue 2 rows 2-5")
-    else:
-        ctx = _dense_attention(qt, kt, vt)
+    ctx = _attention(cfg, q.transpose(1, 2), k.transpose(1, 2),
+                     v.transpose(1, 2))
     attn = ctx.transpose(1, 2).reshape(B, S, H) \
         @ p["self_attn.o_proj.weight"]
     x = x + attn

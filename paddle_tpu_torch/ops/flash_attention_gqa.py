@@ -2,9 +2,11 @@
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention_gqa.py``. Its three
 TPU kernels (``_fwd_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``)
-become ``kernels/flash_attention_gqa.cu``, CUDA kernels written for Hopper
-and bound with ``ctypes``. ``grouped_flash_attention`` is a
-``torch.autograd.Function``; its forward calls ``gqa_fwd`` and its
+become ``kernels/flash_attention_gqa.cu`` (the kernels of
+``kernels/flash_tiles.cuh`` over the causal walk), CUDA kernels written
+for Hopper and bound with ``ctypes``; at G = 1 they are also the
+multi-head kernels of ``flash_attention.py``. ``grouped_flash_attention``
+is a ``torch.autograd.Function``; its forward calls ``gqa_fwd`` and its
 backward ``gqa_bwd``, and each of those:
 
 * launches the kernels for CUDA tensors, or raises;
@@ -22,12 +24,13 @@ kernels, as the reference does (``flash_attention_gqa.py:390``).
 Not ported, on purpose: ``_gqa_resolve_blocks``, ``_gqa_fits``,
 ``ResidentOverflowError`` and the splash delegation. They come from the
 TPU's 16 MiB of scoped VMEM; the CUDA kernel takes every sequence length
-the gate admits. The kernel takes head_dim 64 and 128 (256: ROADMAP
-Queue 2 row 6) and kv groups G that divide 32 (up to 32 query heads per
-kv head).
+the gate admits. The kernels take head_dim 64 and 128 (256 is open:
+ROADMAP Queue 1) and kv groups G that divide 32 (up to 32 query heads
+per kv head).
 
 Launch counts: ``grouped_flash_attention.launches_fwd``, ``.launches_dq``
-and ``.launches_dkv``.
+and ``.launches_dkv``; a launch for ``flash_attention`` counts there
+instead (the ``counts`` argument).
 """
 from __future__ import annotations
 
@@ -41,11 +44,11 @@ from .kernels import _build
 
 _KERNEL = "flash_attention_gqa"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# (query rows, keys) per tile of the CUDA kernels; the rows are G heads x
-# positions. The bfloat16 dk/dv kernel walks query tiles of 32 rows, so G
-# must divide 32 for both dtypes.
+# (query rows, keys) per tile of the forward and dq kernels; the rows are
+# G heads x positions. The dk/dv kernels walk query tiles of _DKV_ROWS
+# rows in both dtypes, so G must divide it.
 _TILES = {torch.float32: (32, 32), torch.bfloat16: (64, 64)}
-_GROUP_TILE = 32
+_DKV_ROWS = 32
 
 
 def _shapes(q, k, v):
@@ -157,12 +160,12 @@ def _operands(what, tensors, q, k, v, do=None):
     if any(t.dtype != q.dtype for t in (k, v, do) if t is not None):
         raise TypeError(f"{what}: q, k, v (and do) must share one dtype")
     if D not in (64, 128):
-        raise ValueError(f"{what}: head_dim {D} (the kernel takes 64 or 128; "
-                         "head_dim 256 is ROADMAP Queue 2 row 6)")
+        raise ValueError(f"{what}: head_dim {D} (the kernels take 64 or "
+                         "128; head_dim 256 is open, ROADMAP Queue 1)")
     rows, keys = _TILES[q.dtype]
-    if _GROUP_TILE % G:
+    if _DKV_ROWS % G:
         raise ValueError(f"{what}: a kv group of {G} query heads does not "
-                         f"divide the kernels' {_GROUP_TILE}-row tile")
+                         f"divide the kernels' {_DKV_ROWS}-row tile")
     if Sq % (rows // G) or Sk % keys:
         raise ValueError(f"{what}: sequence lengths ({Sq}, {Sk}) must be "
                          f"multiples of ({rows // G}, {keys})")
@@ -180,7 +183,7 @@ def _launch(fn_name, dev, *args):
     _build.launch(_build.load(_KERNEL, _SIGNATURES), fn_name, dev, *args)
 
 
-def _launch_fwd(q, k, v, causal, sm_scale):
+def _launch_fwd(q, k, v, causal, sm_scale, counts=None):
     shape, (q, k, v) = _operands("grouped flash attention kernel",
                                  [q, k, v], q, k, v)
     B, Hkv, G, Sq, Sk, D = shape
@@ -189,14 +192,14 @@ def _launch_fwd(q, k, v, causal, sm_scale):
     _launch("gqa_fwd_launch", q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), *shape,
             int(causal), float(sm_scale * LOG2E), _DTYPE_CODE[q.dtype])
-    grouped_flash_attention.launches_fwd += 1
+    (counts or grouped_flash_attention).launches_fwd += 1
     return out, lse
 
 
-def _bwd_operands(q, k, v, do, lse, delta):
-    shape, ops = _operands("grouped flash attention backward kernel",
-                           [q, k, v, do, lse.to(torch.float32),
-                            delta.to(torch.float32)], q, k, v, do)
+def _bwd_operands(q, k, v, do, lse, delta,
+                  what="grouped flash attention backward kernel"):
+    shape, ops = _operands(what, [q, k, v, do, lse.to(torch.float32),
+                                  delta.to(torch.float32)], q, k, v, do)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} must have q's shape "
                          f"{tuple(q.shape)}")
@@ -208,18 +211,18 @@ def _bwd_operands(q, k, v, do, lse, delta):
     return shape, ops
 
 
-def _launch_dq(q, k, v, do, lse, delta, causal, sm_scale):
+def _launch_dq(q, k, v, do, lse, delta, causal, sm_scale, counts=None):
     shape, (q, k, v, do, lse, delta) = _bwd_operands(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     _launch("gqa_bwd_dq_launch", q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), *shape, int(causal), float(sm_scale * LOG2E),
             float(sm_scale), _DTYPE_CODE[q.dtype])
-    grouped_flash_attention.launches_dq += 1
+    (counts or grouped_flash_attention).launches_dq += 1
     return dq
 
 
-def _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale):
+def _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale, counts=None):
     shape, (q, k, v, do, lse, delta) = _bwd_operands(q, k, v, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -227,7 +230,7 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale):
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), *shape, int(causal),
             float(sm_scale * LOG2E), float(sm_scale), _DTYPE_CODE[q.dtype])
-    grouped_flash_attention.launches_dkv += 1
+    (counts or grouped_flash_attention).launches_dkv += 1
     return dk, dv
 
 
@@ -235,43 +238,48 @@ def _scale_of(q, sm_scale):
     return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
 
 
-def _device_kind(t):
+def _device_kind(t, what="grouped flash attention"):
     if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"grouped flash attention: unsupported device "
-                         f"{t.device}")
+        raise ValueError(f"{what}: unsupported device {t.device}")
     return t.device.type
 
 
-def gqa_fwd(q, k, v, causal=False, sm_scale=None):
+def gqa_fwd(q, k, v, causal=False, sm_scale=None, counts=None):
     """(out, lse) of the forward: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. A launch is counted on ``counts`` (the
+    entry point that owns it; ``grouped_flash_attention`` by default)."""
     sm_scale = _scale_of(q, sm_scale)
     if _device_kind(q) == "cpu":
         return _gqa_fwd_plain(q, k, v, causal, sm_scale)
-    return _launch_fwd(q, k, v, causal, sm_scale)
+    return _launch_fwd(q, k, v, causal, sm_scale, counts)
 
 
-def gqa_bwd(q, k, v, do, lse, delta, causal=False, sm_scale=None):
+def gqa_bwd(q, k, v, do, lse, delta, causal=False, sm_scale=None,
+            counts=None):
     """(dq, dk, dv) from the forward's residuals and ``delta`` =
     rowsum(do * out) in f32: the dq kernel then the dkv kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors; launches counted as in
+    ``gqa_fwd``."""
     sm_scale = _scale_of(q, sm_scale)
     if _device_kind(q) == "cpu":
         return _gqa_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale)
-    dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale)
-    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale)
+    dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale, counts)
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale, counts)
     return dq, dk, dv
 
 
 class _GroupedFlashAttention(torch.autograd.Function):
-    """Saves (q, k, v, out, lse), as the reference's custom_vjp does."""
+    """Saves (q, k, v, out, lse), as the reference's custom_vjp does.
+    ``fwd`` and ``bwd`` are the entry point's own forward and backward
+    (``gqa_fwd`` / ``gqa_bwd`` here, their G = 1 form for
+    ``flash_attention``), so each counts its own launches."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
+    def forward(ctx, q, k, v, causal, sm_scale, fwd, bwd):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = gqa_fwd(q, k, v, causal, sm_scale)
+        out, lse = fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.bwd = causal, sm_scale, bwd
         return out
 
     @staticmethod
@@ -279,9 +287,9 @@ class _GroupedFlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.to(torch.float32) * out.to(torch.float32)).sum(-1)
-        dq, dk, dv = gqa_bwd(q, k, v, do, lse, delta, ctx.causal,
+        dq, dk, dv = ctx.bwd(q, k, v, do, lse, delta, ctx.causal,
                              ctx.sm_scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def grouped_flash_attention(q, k, v, causal=False, sm_scale=None):
@@ -291,7 +299,8 @@ def grouped_flash_attention(q, k, v, causal=False, sm_scale=None):
     1/sqrt(D)."""
     _shapes(q, k, v)
     return _GroupedFlashAttention.apply(q, k, v, bool(causal),
-                                        float(_scale_of(q, sm_scale)))
+                                        float(_scale_of(q, sm_scale)),
+                                        gqa_fwd, gqa_bwd)
 
 
 grouped_flash_attention.launches_fwd = 0

@@ -6,8 +6,9 @@ with ``ctypes``. Its entry points take device pointers, shapes and, last,
 a stream, and return a ``cudaError_t``; ``<name>_error_string`` names
 one. ``launch`` calls an entry point on PyTorch's current stream and
 raises on an error. Libraries go to ``build/paddle_tpu_torch/`` at the root of
-the checkout, named by a hash of their source, so an edited source is
-rebuilt and an unchanged one is reused. Nothing is built when a module is
+the checkout, named by a hash of their source and of the ``.cuh`` headers
+it includes, so an edited source or header is rebuilt and an unchanged
+one is reused. Nothing is built when a module is
 imported: the first launch builds (``load``), or ``build_all`` builds
 every kernel at once, one ``nvcc`` process per source, all in parallel.
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -52,9 +54,28 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(src: Path, seen: set) -> bytes:
+    """The bytes of ``src`` and, depth first, of every header of this
+    directory it includes with quotes (each once)."""
+    text = src.read_bytes()
+    out = [text]
+    for inc in _LOCAL_INCLUDE.findall(text):
+        header = src.parent / inc.decode()
+        if header not in seen and header.exists():
+            seen.add(header)
+            out.append(_with_headers(header, seen))
+    return b"".join(out)
+
+
 def library_path(name: str) -> Path:
+    """Where kernel ``name``'s library is built: named by a hash of its
+    source, the headers it includes and the flags, so an edit of any of
+    them builds a new library."""
     src = KERNEL_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256(_with_headers(src, set())
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -106,9 +106,11 @@ def test_paged_kernel_refuses_what_it_does_not_take(card):
                             vp, pt, sl)
 
 
-# --- grouped flash attention (forward, dq, dkv) -----------------------------
+# --- grouped and multi-head flash attention (forward, dq, dkv) --------------
 
 fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention_gqa")
+fm = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+sa = importlib.import_module("paddle_tpu_torch.ops.splash_attention")
 ce = importlib.import_module("paddle_tpu_torch.ops.fused_ce")
 
 # kernel vs plain on the same inputs. float32: f32 sums in another order
@@ -259,16 +261,242 @@ def test_bf16_train_grads_are_as_close_to_f32_as_the_plain_versions(
 
 
 @pytest.mark.cuda
-def test_mha_at_flash_shapes_refuses_on_the_card(card):
-    """kv_heads == heads at a flash-eligible length needs the multi-head
-    flash kernels, which are not ported: the card raises rather than
-    taking the dense path."""
-    from paddle_tpu_torch.models.nlp import LlamaConfig, LlamaForCausalLM
+def test_mha_at_flash_shapes_launches_the_kernels(card):
+    """kv_heads == heads at a flash-eligible length runs the multi-head
+    flash kernels (the grouped kernels at G = 1), counted on
+    ``flash_attention`` and not on the grouped entry point, and agrees
+    with the same model's plain path on the CPU."""
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             load_numpy_state_dict)
 
-    model = LlamaForCausalLM(LlamaConfig.tiny(hidden=256, heads=4,
-                                              kv_heads=4), device=card)
-    with pytest.raises(NotImplementedError, match="rows 2-5"):
-        model(torch.zeros((1, 256), dtype=torch.long, device=card))
+    cfg = LlamaConfig.tiny(hidden=256, heads=4, kv_heads=4)   # f32
+    model = LlamaForCausalLM(cfg, device=card, seed=3)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 256)))
+    mha, gqa = fm.flash_attention, fa.grouped_flash_attention
+    before = (mha.launches_fwd, gqa.launches_fwd)
+    with torch.no_grad():
+        got = model(tokens.to(card)).cpu()
+    torch.cuda.synchronize()
+    assert (mha.launches_fwd, gqa.launches_fwd) == \
+        (before[0] + cfg.num_hidden_layers, before[1])
+    cpu = load_numpy_state_dict(
+        LlamaForCausalLM(cfg, device="cpu"),
+        {k: v.cpu().numpy() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        want = cpu(tokens)
+    _reading("logits", got, want, 1e-4, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,D,Sq,Sk,causal",
+                         [(torch.bfloat16, 128, 1024, 1024, True),
+                          (torch.bfloat16, 128, 512, 1024, True),
+                          (torch.bfloat16, 64, 1024, 512, False),
+                          (torch.float32, 64, 256, 256, True),
+                          (torch.float32, 128, 256, 512, True)])
+def test_mha_kernels_match_plain(card, dt, D, Sq, Sk, causal):
+    """``flash_attention`` (the grouped kernels at G = 1) against the plain
+    versions, Sq = Sk and Sq != Sk (top-left causal): out and lse, then dq,
+    dk and dv on the plain forward's residuals, then the autograd Function
+    end to end with each kernel launched once on ``flash_attention``.
+    Tolerances as for the grouped kernels."""
+    g = torch.Generator(device=card).manual_seed(Sq + Sk + D)
+    q, do = (torch.randn((2, 4, Sq, D), generator=g, device=card).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((2, 4, Sk, D), generator=g, device=card).to(dt)
+            for _ in range(2))
+    tol = GQA_TOL[dt]
+    mha = fm.flash_attention
+    out, lse = fm.mha_fwd(q, k, v, causal)
+    want_out, want_lse = fa._gqa_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    _reading("out", out, want_out, *tol["out"])
+    _reading("lse", lse, want_lse, 1e-5, 1e-5)
+    delta = (do.float() * want_out.float()).sum(-1)
+    want = fa._gqa_bwd_plain(q, k, v, do, want_lse, delta, causal)
+    got = fm.mha_bwd(q, k, v, do, want_lse, delta, causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dt and a.shape == b.shape
+        _reading(name, a, b, *tol["grad"])
+    launches = (mha.launches_fwd, mha.launches_dq, mha.launches_dkv)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    mha(qg, kg, vg, causal).backward(do)
+    torch.cuda.synchronize()
+    assert (mha.launches_fwd, mha.launches_dq, mha.launches_dkv) == \
+        (launches[0] + 1, launches[1] + 1, launches[2] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad),
+                          want):
+        rel = _rel(a, b)
+        print(f"reading autograd {name}: relative norm error {rel:.3g}")
+        assert rel <= GQA_GRAD_REL[dt]
+
+
+# --- splash attention (forward, dq, dkv) -----------------------------------
+
+def _random_mask(nq, nk, seed, empty_row):
+    bm = np.random.default_rng(seed).random((nq, nk)) < 0.5
+    bm[:, 0] |= True
+    bm[empty_row] = False
+    return bm
+
+
+# (name, dtype, G, Sq, Sk, D, block_q, block_k, mask, causal, window,
+# q_offset): the band of the windowed models at G = 4 and G = 1, a random
+# mask with an empty block row (out 0, lse NEG_INF), a live block wholly
+# above the diagonal (its rows see no key), a shifted query frame, mask
+# blocks smaller than the kernels' tiles, and f32
+SPLASH_CASES = [
+    ("band_g4", torch.bfloat16, 4, 1024, 1024, 128, 128, 128,
+     sa.banded_block_mask(1024, 1024, 128, 128, 300), True, 300, 0),
+    ("band_g1", torch.bfloat16, 1, 1024, 1024, 128, 64, 64,
+     sa.banded_block_mask(1024, 1024, 64, 64, 256), True, 256, 0),
+    ("random_empty_row", torch.bfloat16, 2, 512, 512, 64, 64, 64,
+     _random_mask(8, 8, 0, 3), False, None, 0),
+    ("above_diagonal", torch.bfloat16, 4, 256, 256, 128, 128, 128,
+     np.array([[False, True], [True, True]]), True, None, 0),
+    ("q_offset", torch.bfloat16, 2, 256, 512, 128, 128, 128,
+     np.ones((2, 4), bool), True, 200, 256),
+    ("small_blocks", torch.bfloat16, 4, 512, 512, 128, 16, 16,
+     _random_mask(32, 32, 1, 5), True, None, 0),
+    ("f32_band", torch.float32, 2, 256, 256, 64, 32, 32,
+     sa.banded_block_mask(256, 256, 32, 32, 100), True, 100, 0),
+]
+
+
+def _splash_inputs(dt, G, Sq, Sk, D, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((2, 2 * G, Sq, D), generator=g, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((2, 2, Sk, D), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLASH_CASES, ids=[c[0] for c in SPLASH_CASES])
+def test_splash_kernels_match_plain(card, case):
+    """The forward kernel (out, lse), then the dq and dk/dv kernels on the
+    plain forward's residuals, each against its plain version element by
+    element (tolerances as for the grouped flash kernels; rows with no live
+    key must give exactly out 0 and lse NEG_INF); then the autograd
+    Function end to end, each kernel launched once."""
+    _, dt, G, Sq, Sk, D, bq, bk, bm, causal, window, off = case
+    q, k, v, do = _splash_inputs(dt, G, Sq, Sk, D, card, seed=Sq + G)
+    pat = sa._pattern(q, k, bm, causal, bq, bk, window, off)
+    tol = GQA_TOL[dt]
+    spl = sa.splash_attention
+    out, lse = sa.splash_fwd(q, k, v, pat)
+    want_out, want_lse = sa._splash_fwd_plain(q, k, v, pat)
+    torch.cuda.synchronize()
+    _reading("out", out, want_out, *tol["out"])
+    _reading("lse", lse, want_lse, 1e-5, 1e-5)
+    empty = ~sa._live_pairs(pat, Sq, Sk, card).any(-1)
+    assert torch.equal(lse[..., empty], want_lse[..., empty])
+    assert not out[:, :, empty].any()
+    delta = (do.float() * want_out.float()).sum(-1)
+    got = sa.splash_bwd(q, k, v, do, want_lse, delta, pat)
+    want = sa._splash_bwd_plain(q, k, v, do, want_lse, delta, pat)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dt and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        _reading(name, a, b, *tol["grad"])
+    launches = (spl.launches_fwd, spl.launches_dq, spl.launches_dkv)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    spl(qg, kg, vg, bm, causal, None, bq, bk, window, off).backward(do)
+    torch.cuda.synchronize()
+    assert (spl.launches_fwd, spl.launches_dq, spl.launches_dkv) == \
+        (launches[0] + 1, launches[1] + 1, launches[2] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad),
+                          want):
+        rel = _rel(a, b)
+        print(f"reading autograd {name}: relative norm error {rel:.3g}")
+        assert rel <= GQA_GRAD_REL[dt]
+
+
+@pytest.mark.cuda
+def test_splash_kernels_refuse_what_they_do_not_take(card):
+    bm = np.ones((2, 2), bool)
+    q, k, v, _ = _splash_inputs(torch.bfloat16, 2, 256, 256, 256, card, 1)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        sa.splash_attention(q, k, v, bm, True)
+    q, k, v, _ = _splash_inputs(torch.float16, 2, 256, 256, 64, card, 2)
+    with pytest.raises(TypeError, match="float16"):
+        sa.splash_attention(q, k, v, bm, True)
+    q, k, v, _ = _splash_inputs(torch.bfloat16, 2, 256, 256, 64, card, 3)
+    with pytest.raises(ValueError, match="does not tile"):
+        sa.splash_attention(q, k, v, np.ones((3, 2), bool), True)
+    with pytest.raises(TypeError, match="share one dtype"):
+        sa.splash_attention(q, k.float(), v, bm, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_heads,window", [(2, 256), (8, None)],
+                         ids=["window", "mha"])
+def test_bf16_config_train_grads_are_as_close_to_f32_as_the_plain_versions(
+        card, monkeypatch, kv_heads, window):
+    """A bf16 Llama (hidden 1024, 8 heads, head_dim 128, 4 layers, vocab
+    4096, B=2, S=1024) with a sliding window of 256 over 2 kv heads (the
+    splash kernels) or with 8 kv heads (multi-head flash): as the grouped
+    test above, the kernels may not be further from the f32 truth than
+    the plain versions by more than a tenth, for the worst parameter and
+    for the median one. The losses' distances from the truth are printed
+    beside them."""
+    import dataclasses
+    import statistics
+
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             param_views)
+    from paddle_tpu_torch.models.nlp.llama_functional import loss_fn
+
+    cfg = dataclasses.replace(
+        LlamaConfig.tiny(vocab=4096, hidden=1024, layers=4, heads=8,
+                         kv_heads=kv_heads), dtype=torch.bfloat16,
+        sliding_window=window)
+    model = LlamaForCausalLM(cfg, device=card, seed=0)
+    rng = np.random.default_rng(0)
+    tokens, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                    (2, 1024))).to(card)
+                      for _ in range(2))
+    owner, swaps = ((sa.splash_attention,
+                     [(sa, "splash_fwd", sa._splash_fwd_plain),
+                      (sa, "splash_bwd", sa._splash_bwd_plain)])
+                    if window else
+                    (fm.flash_attention,
+                     [(fm, "mha_fwd", fa._gqa_fwd_plain),
+                      (fm, "mha_bwd", fa._gqa_bwd_plain)]))
+
+    def grads(params, plain):
+        with monkeypatch.context() as m:
+            if plain:
+                for mod, name, fn in swaps + [
+                        (ce, "ce_fwd", ce._ce_fwd_plain),
+                        (ce, "ce_bwd", ce._ce_bwd_plain)]:
+                    m.setattr(mod, name, fn)
+            outer, layers = param_views(params, cfg.num_hidden_layers)
+            loss = loss_fn(cfg, outer, layers, tokens, labels, remat=False)
+            return float(loss), torch.autograd.grad(loss,
+                                                    list(params.values()))
+
+    bf = {k: p.detach().requires_grad_() for k, p in
+          model.named_parameters()}
+    f32 = {k: p.detach().float().requires_grad_() for k, p in bf.items()}
+    launches = (owner.launches_fwd, owner.launches_dq, owner.launches_dkv)
+    loss_k, g_kernel = grads(bf, plain=False)
+    assert (owner.launches_fwd, owner.launches_dq, owner.launches_dkv) == \
+        tuple(n + cfg.num_hidden_layers for n in launches)
+    loss_p, g_plain = grads(bf, plain=True)
+    loss_t, g_true = grads(f32, plain=True)
+    kernel = [_rel(a, t) for a, t in zip(g_kernel, g_true)]
+    plain = [_rel(a, t) for a, t in zip(g_plain, g_true)]
+    print(f"reading vs f32: kernels max {max(kernel):.4g} median "
+          f"{statistics.median(kernel):.4g}; plain max {max(plain):.4g} "
+          f"median {statistics.median(plain):.4g}; loss - truth: kernels "
+          f"{loss_k - loss_t:.3g}, plain {loss_p - loss_t:.3g}")
+    assert max(kernel) <= 1.1 * max(plain)
+    assert statistics.median(kernel) <= 1.1 * statistics.median(plain)
 
 
 # --- fused cross-entropy (forward, backward) ---------------------------------

@@ -14,6 +14,11 @@ by ``load_numpy_state_dict``) and the same numpy batch:
 * 3 steps of ``llama_train_step_factory`` in both packages (a one-device
   CPU mesh on the JAX side), with and without remat: losses, then every
   parameter;
+* the same three checks (forward logits, loss and every gradient against
+  the JAX train step's own loss, 3 steps) on a windowed GQA config
+  (``sliding_window`` 64 < S: grouped splash), a multi-head config
+  (kv_heads == heads: multi-head flash) and a windowed multi-head one
+  (splash at G = 1), each a variant of the config above;
 * the refusal of every option the port has not ported.
 
 Tolerances (f32 on both sides, apart by the order of sums only): logits
@@ -142,12 +147,9 @@ def test_factory_refuses_unported_options():
             llama_train_step_factory(tm, device="cpu", **kw)
     with pytest.raises(ValueError, match="remat"):
         llama_train_step_factory(tm, device="cpu", remat="full")
-    windowed = LlamaForCausalLM(dataclasses.replace(
-        LlamaConfig.tiny(**CFG), sliding_window=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="rows 8-9"):
-        llama_train_step_factory(windowed, device="cpu")
-    with pytest.raises(NotImplementedError, match="rows 8-9"):
-        windowed(torch.zeros((1, 8), dtype=torch.long))
+    with pytest.raises(ValueError, match="sliding_window"):
+        LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(**CFG),
+                                             sliding_window=0), device="cpu")
     with pytest.raises(NotImplementedError, match="positions"):
         tm(torch.zeros((1, 8), dtype=torch.long),
            positions=torch.arange(8))
@@ -157,20 +159,123 @@ def test_factory_refuses_unported_options():
                          device="cpu")
 
 
-def test_mha_at_flash_shapes_takes_the_dense_path_on_the_cpu():
-    """kv_heads == heads needs the MHA flash kernels (not ported): the CPU
-    takes the dense path, their plain version, and agrees with JAX."""
-    cfg = dict(CFG, kv_heads=4)
-    paddle.seed(0)
-    jm = JLlama(JConfig.tiny(**cfg))
-    tm = load_numpy_state_dict(
-        LlamaForCausalLM(LlamaConfig.tiny(**cfg), device="cpu"),
-        {k: np.asarray(v._value) for k, v in jm.state_dict().items()})
+# the windowed and multi-head configs: (kv_heads, sliding_window). At
+# S=256 a window of 64 takes the splash path (G = 2 grouped, and G = 1),
+# kv_heads == heads the multi-head flash path, in both packages.
+CONFIGS = {"window": (2, 64), "mha": (4, None), "window_mha": (4, 64)}
+# parameters after 3 steps, by the AdamW rule of the module docstring:
+# readings 3, 3 and 7 of 65,536 elements beyond 1e-5 (window, mha,
+# window_mha; the last in layer 1's k_proj, whose gradients are the
+# smallest), none beyond lr (reading 4.3e-4); the share allowed is about
+# twice the largest reading
+CONFIG_PARAM_FRAC = 2e-4
+
+
+def _config_models(name, seed=0):
+    kv, window = CONFIGS[name]
+    paddle.seed(seed)
+    jm = JLlama(dataclasses.replace(JConfig.tiny(**dict(CFG, kv_heads=kv)),
+                                    sliding_window=window))
+    tm = LlamaForCausalLM(dataclasses.replace(
+        LlamaConfig.tiny(**dict(CFG, kv_heads=kv)), sliding_window=window),
+        device="cpu")
+    load_numpy_state_dict(tm, {k: np.asarray(v._value)
+                               for k, v in jm.state_dict().items()})
+    return jm, tm
+
+
+def _jax_loss_and_grads(jm, tokens, labels):
+    """The loss of the JAX train step (``llama.py:561-626``): the JAX
+    model's own forward over a parameter tree, whose attention honours
+    ``sliding_window``, and its dense log-softmax CE on the CPU."""
+    from paddle_tpu.autograd import no_grad
+
+    def loss(params):
+        saved = jm.tree_flatten_params()
+        jm.load_tree(params)
+        try:
+            with no_grad():
+                logits = jm(Tensor(jnp.asarray(tokens)))._value
+        finally:
+            jm.load_tree(saved)
+        logp = jax.nn.log_softmax(logits.astype(jnp.float32), -1)
+        return jnp.mean(-jnp.take_along_axis(
+            logp, jnp.asarray(labels)[..., None], -1)[..., 0])
+
+    params = {k: v._value for k, v in jm.state_dict().items()}
+    return jax.value_and_grad(loss)(params)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_config_forward_logits_match_jax(name):
+    """The port's forward (splash or multi-head flash, plain on the CPU)
+    against the JAX model's (the Pallas kernels in interpret mode);
+    tolerance as for the GQA config above."""
+    jm, tm = _config_models(name)
     tokens, _ = _batch()
     want = np.asarray(jm(Tensor(jnp.asarray(tokens)))._value)
     with torch.no_grad():
         got = tm(torch.from_numpy(tokens)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_config_loss_and_every_grad_match_jax(name):
+    jm, tm = _config_models(name)
+    tokens, labels = _batch()
+    j_loss, j_grads = _jax_loss_and_grads(jm, tokens, labels)
+    params = dict(tm.named_parameters())
+    for t in params.values():
+        t.requires_grad_(True)
+    outer, layers = param_views(params, CFG["layers"])
+    loss = tfun.loss_fn(tm.config, outer, layers, torch.from_numpy(tokens),
+                        torch.from_numpy(labels), remat=False)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss),
+                               atol=1e-5, rtol=0)
+    assert set(j_grads) == set(grads)
+    for key, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(j_grads[key]),
+                                   atol=1e-5, rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_config_three_train_steps_match_jax(name):
+    jm, tm = _config_models(name)
+    tokens, labels = _batch()
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("data",))
+    j_params, j_opt, j_step, _ = jax_train_factory(
+        jm, mesh, learning_rate=LR, remat=False)
+    params, opt, step = llama_train_step_factory(
+        tm, learning_rate=LR, remat=False, device="cpu")
+    for i in range(3):
+        j_params, j_opt, j_loss = j_step(j_params, j_opt,
+                                         jnp.asarray(tokens),
+                                         jnp.asarray(labels))
+        params, opt, loss = step(params, opt, tokens, labels)
+        np.testing.assert_allclose(float(loss), float(j_loss), atol=1e-5,
+                                   rtol=0, err_msg=f"step {i}")
+    for k, p in params.items():
+        diff = np.abs(p.detach().numpy() - np.asarray(j_params[k]))
+        assert (diff > 1e-5).mean() <= CONFIG_PARAM_FRAC, k
+        assert diff.max() <= LR, k
+
+
+def test_window_at_an_ineligible_length_takes_the_dense_band():
+    """S = 128 is not flash-eligible: both packages take the dense path with
+    the window band (``llama.py:141-153``)."""
+    jm, tm = _config_models("window")
+    tokens = _batch()[0][:, :128]
+    want = np.asarray(jm(Tensor(jnp.asarray(tokens)))._value)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    full = LlamaForCausalLM(LlamaConfig.tiny(**CFG), device="cpu")
+    load_numpy_state_dict(full, {k: v.numpy()
+                                 for k, v in tm.state_dict().items()})
+    with torch.no_grad():
+        unbanded = full(torch.from_numpy(tokens)).numpy()
+    assert np.abs(unbanded - got).max() > 1e-3     # the band matters here
 
 
 def test_example_trains_on_the_cpu():
