@@ -7,6 +7,7 @@ trains.
     python3 chip_smoke.py --phases build,kernel
     python3 chip_smoke.py --phases build,kernel,train
     python3 chip_smoke.py --phases build,kernel,train_mha,train_window
+    python3 chip_smoke.py --phases build,kernel,train_encoder
 
 Phases, each printing JSON lines:
 
@@ -46,6 +47,18 @@ Phases, each printing JSON lines:
    * fused cross-entropy (``ce_fwd``, ``ce_bwd``) at N=8192 rows of
      V=128256 bf16 logits, int64 labels. Yardstick: ``F.cross_entropy(...,
      reduction="none")`` forward, and its backward alone.
+   * multi-head flash once more at the train_encoder phase's call: B=32,
+     12 heads, S=512, head_dim 64, bf16, non-causal;
+   * the norm kernels of ``layer_norm.cu`` through ``fused_layer_norm``,
+     ``fused_rms_norm`` (rows 12-13: entry points no model path calls) and
+     ``fused_dropout_add_layer_norm`` (row 14): LayerNorm and RMSNorm at
+     Llama-3-8B's width (8192 x 4096 bf16), the encoder's (16384 x 768)
+     in bf16 and f32, odd and long rows, eps 1e-12; dropout-add-LN at the
+     encoder's call (16384 x 768 bf16, p = 0.1) in training and eval, f32,
+     p = 0.5, ragged N, odd H, with dropout bits at the edges of the keep
+     decision and the keep mask checked exactly. Yardsticks:
+     ``F.layer_norm``, ``F.rms_norm`` (where this PyTorch has it, with the
+     kernels one call launches); none for dropout-add-LN.
    Bounds count the live (query, key) pairs of each call's data. This
    phase runs before any model is on the card: the plain attention at
    S=4096 holds 4.3 GB score tensors.
@@ -54,7 +67,10 @@ Phases, each printing JSON lines:
    (the plain versions), from the same weights: greedy decode tokens
    identical and logits within ``REF_ATOL``; then the train step at B=2,
    S=256: the losses of 3 steps, every gradient of step 1 and every
-   parameter after step 3.
+   parameter after step 3; then a small f32 post-LN encoder (2
+   ``FusedTransformerEncoderLayer``s, d=128, 2 heads, B=2, S=256: the
+   flash and dropout-add-LN kernels) the same way at dropout 0: its
+   output, then 3 AdamW steps.
 4. ``serve``: Llama-3-8B at full width and depth, bf16, random weights
    from a seed, through ``examples/serve_paged_llama.serve``: 16 requests,
    continuous batching in 8 slots of 2048 tokens, chunked prefill of 256
@@ -84,6 +100,17 @@ Phases, each printing JSON lines:
    below the first. With ``--profile``, a ``torch.profiler`` trace splits
    a train step into the flash and splash kernels, the CE kernels, matrix
    products and the rest, with the rest's costliest kernels by name.
+
+8. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
+   ``incubate.nn`` at BERT-base's widths (768, 12 heads, FFN 3072, GELU,
+   dropout 0.1), bf16, random weights from a seed, on hidden states
+   (B=32, S=512) against an N(0, 1) target (MSE), trained 5 steps on one
+   batch with ``adamw_update`` (f32 moments, lr 1e-4) in training mode.
+   First one forward and backward with the kernels and one with their
+   plain versions, on identical weights and dropout draws; then the
+   launch counts are set to 0, the 5 steps run, and the counts must be
+   24 dropout-add-LN and 12 + 12 + 12 multi-head flash launches per step
+   and none of any other kernel.
 
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -160,6 +187,27 @@ TRAIN_REF = dict(loss=1e-5, grad=1e-5, param=1e-5, param_frac=1e-4,
 TRAIN_LOSS_ATOL = {"train": 5e-4, "train_mha": 1.2e-3, "train_window": 5e-4}
 TRAIN_GRAD_REL = 0.1
 TRAIN_LAYERS = 8
+# The key projection's bias shifts every score of a query row alike, which
+# the softmax does not see: its gradient is 0 but for rounding noise
+# (1.2e-10 in the f32 reference phase). So its relative gradient error
+# between two roundings is noise over noise (0.9-1.8 in train_encoder),
+# and AdamW steps it by the sign of that noise, differently on the card
+# and the CPU: it is reported apart and held to the lr bound alone.
+NOISE_GRAD_PARAMS = ("attn.k_proj.bias",)
+# train_encoder: 12 post-LN FusedTransformerEncoderLayers at BERT-base's
+# widths (BertConfig's defaults: hidden 768, 12 heads, FFN 3072, GELU,
+# dropout 0.1, 12 layers; LayerNorm eps the layer's own 1e-5), bf16,
+# seeded; one forward+backward with the kernels against one with their
+# plain versions, identical weights, batch and dropout draws: bf16
+# roundings apart in each of 12 layers (the flash forward rounds each
+# probability against the running max, the plain version against the
+# final one). Readings: loss 3.6e-6 apart (of 2.0004); gradients 0.0103
+# median, 0.117 worst (layer 11's q projection, whose gradient is small:
+# near-uniform attention); the key bias apart. Limits about twice them.
+ENC_LOSS_ATOL = 8e-6
+ENC_GRAD_REL = 0.25
+ENCODER = dict(layers=12, d_model=768, nhead=12, dim_feedforward=3072,
+               dropout_rate=0.1, B=32, S=512, steps=5, lr=1e-4, seed=0)
 
 SOURCE = "paddle_tpu_torch/ops/kernels/paged_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:46"
@@ -176,6 +224,26 @@ SPLASH_FWD_REPLACES = "paddle_tpu/ops/pallas/splash_attention.py:165,253"
 SPLASH_BWD_REPLACES = "paddle_tpu/ops/pallas/splash_attention.py:215,313,357"
 CE_FWD_REPLACES = "paddle_tpu/ops/pallas/fused_ce.py:33"
 CE_BWD_REPLACES = "paddle_tpu/ops/pallas/fused_ce.py:45"
+NORM_SOURCE = "paddle_tpu_torch/ops/kernels/layer_norm.cu"
+LN_REPLACES = "paddle_tpu/ops/pallas/layer_norm.py:27"
+RMS_REPLACES = "paddle_tpu/ops/pallas/layer_norm.py:37"
+DLN_REPLACES = "paddle_tpu/ops/pallas/dropout_ln.py:28"
+# norm kernels (LayerNorm, RMSNorm, dropout-add-LayerNorm) vs their plain
+# versions on the same inputs: f32 statistics on both sides, apart by the
+# order of the row sums; the output rounds to bf16 once (one ulp: 2^-7 of
+# |want|) or stays f32 (1e-5)
+NORM_TOL = {"bfloat16": (1e-5, 2 ** -7), "float32": (1e-5, 1e-5)}
+# f32 operations per element, counted at the f32 rate for the bound
+# (sum, deviation, square-add, scale, weight, bias; RMSNorm has no
+# deviation or bias; dropout-add-LN adds the bits' conversion, the
+# compare, the keep multiply, the division and the residual add)
+NORM_FLOPS = {"ln": 7, "rms": 5, "dln": 12}
+# dropout bits at the edges of the keep decision u = f32(bits) / 2^32 >= p
+# (at p = 0.1, f32(p) * 2^32 = 429496736; bits from 2^31 up; near 2^32,
+# which round to u = 1.0), written into row 0 of the kernel cases' bits
+EDGE_BITS = [0, 1, 429496719, 429496720, 429496721, 429496735, 429496736,
+             429496737, 2 ** 31 - 65, 2 ** 31 - 64, 2 ** 31 - 1, 2 ** 31,
+             2 ** 31 + 1, 2 ** 32 - 129, 2 ** 32 - 128, 2 ** 32 - 1]
 
 
 def emit(obj):
@@ -569,6 +637,158 @@ def _ce_case(N, V, seed, dev, flush):
                       "labels": "int64"}}
 
 
+def _library_kernels(fn):
+    """How many device kernels one call of ``fn`` launches (a
+    ``torch.profiler`` count), or None where the profiler sees none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events())
+    return n or None
+
+
+def _norm_case(name, kind, N, H, dtype, seed, dev, flush, wdtype=None,
+               p=0.1, training=True, eps=None):
+    """One norm kernel through its public wrapper (``fused_layer_norm``,
+    ``fused_rms_norm``, ``fused_dropout_add_layer_norm``; ``kind`` "ln",
+    "rms", "dln") against its plain version on the same inputs; for a
+    dropout-add-LN call that drops, also the keep mask, exactly (x = 100,
+    |res| < 1, w = 1, b = 0: the output is above 0 exactly where x was
+    kept), against the plain version and the rule. Then times beside the
+    plain version, the library call (``F.layer_norm``, ``F.rms_norm``;
+    none for dropout-add-LN) and the byte bound."""
+    import torch.nn.functional as F
+
+    lnm = importlib.import_module("paddle_tpu_torch.ops.layer_norm")
+    dl = importlib.import_module("paddle_tpu_torch.ops.dropout_ln")
+    dt, wdt = getattr(torch, dtype), getattr(torch, wdtype or dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((N, H), generator=g, device=dev) * 2 + 0.5).to(dt)
+    w = (1 + 0.5 * torch.randn(H, generator=g, device=dev)).to(wdt)
+    b = torch.randn(H, generator=g, device=dev).to(wdt)
+    xb, wb = x.numel() * dt.itemsize, H * wdt.itemsize
+    library = None
+    dropping = kind == "dln" and training and p > 0
+    if kind == "ln":
+        eps = 1e-5 if eps is None else eps
+        owner = lnm.fused_layer_norm
+
+        def kernel():
+            return lnm.fused_layer_norm(x, w, b, eps)
+
+        def plain():
+            return lnm._ln_plain(x, w, b, eps)
+
+        def library():
+            return F.layer_norm(x, (H,), w.to(dt), b.to(dt), eps)
+        nbytes = 2 * xb + 2 * wb
+    elif kind == "rms":
+        eps = 1e-6 if eps is None else eps
+        owner = lnm.fused_rms_norm
+
+        def kernel():
+            return lnm.fused_rms_norm(x, w, eps)
+
+        def plain():
+            return lnm._rms_plain(x, w, eps)
+        if hasattr(F, "rms_norm"):
+            def library():
+                return F.rms_norm(x, (H,), w.to(dt), eps)
+        nbytes = 2 * xb + wb
+    else:
+        eps = 1e-5 if eps is None else eps
+        owner = dl.fused_dropout_add_layer_norm
+        res = torch.randn((N, H), generator=g, device=dev).to(dt)
+        bits = torch.empty((N, H), dtype=torch.int32, device=dev).random_(
+            -2 ** 31, 2 ** 31, generator=g)
+        edges = torch.tensor(EDGE_BITS, dtype=torch.int64)[:H]
+        bits[0, :edges.numel()] = edges.to(torch.int32).to(dev)  # wraps
+
+        def kernel():
+            return dl.fused_dropout_add_layer_norm(x, res, w, b, p, eps,
+                                                   training, bits=bits)
+
+        def plain():
+            return dl._forward_plain(x, res, w, b, bits, p, eps, training)
+        nbytes = 3 * xb + 2 * wb + (4 * N * H if dropping else 0)
+
+    before = owner.launches
+    got = kernel()
+    launched = owner.launches - before
+    want = plain()
+    torch.cuda.synchronize()
+    max_err, ratio = _check(got, want, *NORM_TOL[dtype])
+    ok = launched == 1 and ratio <= 1.0
+    out = {}
+    if dropping:
+        xs = torch.full_like(x, 100.0)
+        rs = (torch.rand((N, H), generator=g, device=dev) * 2 - 1).to(dt)
+        ones, zeros = torch.ones_like(w), torch.zeros_like(b)
+        k_keep = dl.fused_dropout_add_layer_norm(
+            xs, rs, ones, zeros, p, eps, training, bits=bits) > 0
+        p_keep = dl._forward_plain(xs, rs, ones, zeros, bits, p, eps,
+                                   training) > 0
+        rule = dl._uniform(bits) >= p
+        out["same_keep"] = bool(torch.equal(k_keep, rule)
+                                and torch.equal(p_keep, rule))
+        out["keep_fraction"] = float(rule.float().mean())
+        ok = ok and out["same_keep"]
+    del got, want
+    out.update({"ms": gpu_ms(kernel, flush=flush),
+                "plain_ms": gpu_ms(plain, flush=flush),
+                "library_ms": None if library is None
+                else gpu_ms(library, flush=flush),
+                "library_kernels": None if library is None
+                else _library_kernels(library)})
+    return {"case": name, "kind": kind, "ok": ok,
+            "launched_once": launched == 1, "max_abs_err": max_err,
+            "max_err_over_tol": ratio, "tol": NORM_TOL[dtype], **out,
+            **_bound(nbytes, NORM_FLOPS[kind] * N * H, F32_FLOP_PER_S),
+            "shape": {"N": N, "H": H, "x": dtype, "w": wdtype or dtype,
+                      "eps": eps, **({"p": p, "training": training}
+                                     if kind == "dln" else {})}}
+
+
+def _norm_cases():
+    """(name, kind, N, H, dtype, keywords): first each kernel at the shape
+    that heads its row of PERF.md (rows 12-13 at Llama-3-8B's width, row
+    14 at the train_encoder phase's call), then the encoder's width, f32,
+    f32 weights under bf16 x with an odd width (the scalar path), a width
+    past the registers (rows re-read from L2), BERT's eps of 1e-12; for
+    row 14: eval, f32, p = 0.5, a ragged N (the reference's dense
+    fallback) and an odd width."""
+    cases = []
+    for kind in ("ln", "rms"):
+        cases += [(f"{kind}_N8192_H4096/bfloat16", kind, 8192, 4096,
+                   "bfloat16", {}),
+                  (f"{kind}_N16384_H768/bfloat16", kind, 16384, 768,
+                   "bfloat16", {}),
+                  (f"{kind}_N16384_H768/float32", kind, 16384, 768,
+                   "float32", {}),
+                  (f"{kind}_N1000_H100/bfloat16_w_float32", kind, 1000, 100,
+                   "bfloat16", {"wdtype": "float32"}),
+                  (f"{kind}_N64_H20000/bfloat16", kind, 64, 20000,
+                   "bfloat16", {}),
+                  (f"{kind}_N4096_H768_eps1e-12/float32", kind, 4096, 768,
+                   "float32", {"eps": 1e-12})]
+    cases += [("dln_N16384_H768_p0.1/bfloat16", "dln", 16384, 768,
+               "bfloat16", {}),
+              ("dln_N16384_H768_eval/bfloat16", "dln", 16384, 768,
+               "bfloat16", {"training": False}),
+              ("dln_N16384_H768_p0.1/float32", "dln", 16384, 768,
+               "float32", {}),
+              ("dln_N16384_H768_p0.5/bfloat16", "dln", 16384, 768,
+               "bfloat16", {"p": 0.5}),
+              ("dln_N1000_H768_ragged/bfloat16", "dln", 1000, 768,
+               "bfloat16", {}),
+              ("dln_N130_H100/bfloat16", "dln", 130, 100, "bfloat16", {})]
+    return cases
+
+
 def phase_kernel(dev):
     Hkv, G, D, ps, W, P = 8, 4, 128, 64, 32, 8 * 32 + 1
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -605,14 +825,27 @@ def phase_kernel(dev):
               enumerate(_splash_cases(), start=12)]
     for c in splash:
         emit({"phase": "kernel", **c})
-    bad = [c["case"] for c in cases + gqa + ce + mha + splash if not c["ok"]]
+    # the multi-head kernels at the train_encoder phase's call: BERT-base
+    # width, non-causal
+    mha_enc = [_attention_case("mha_encoder_B32_S512_D64_noncausal/bfloat16",
+                               "mha", 32, 12, 1, 512, 512, 64, "bfloat16",
+                               30, dev, flush, causal=False)]
+    emit({"phase": "kernel", **mha_enc[0]})
+    norm = []
+    for seed, (name, kind, N, H, dtype, kw) in enumerate(_norm_cases(),
+                                                          start=40):
+        norm.append(_norm_case(name, kind, N, H, dtype, seed, dev, flush,
+                               **kw))
+        emit({"phase": "kernel", **norm[-1]})
+    bad = [c["case"] for c in cases + gqa + ce + mha + splash + mha_enc
+           + norm if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"or did not launch once: {bad}")
     del flush
     torch.cuda.empty_cache()
     return {"paged": cases, "gqa": gqa, "ce": ce, "mha": mha,
-            "splash": splash}
+            "splash": splash, "mha_encoder": mha_enc, "norm": norm}
 
 
 def _random_mask(nq, nk, seed, empty_row):
@@ -701,6 +934,76 @@ def _train_small(dev, state, cfg, tokens, labels):
     return losses, grads, {k: p.detach().cpu() for k, p in params.items()}
 
 
+def _encoder_small(dev, state, x, tgt):
+    """The small f32 encoder on ``dev`` from ``state`` at dropout 0: its
+    output, the gradients of the first step's loss (None for an unused
+    parameter), the losses of 3 steps and the parameters after them
+    (each on the CPU)."""
+    from paddle_tpu_torch.nn import load_numpy_state_dict
+
+    stack = load_numpy_state_dict(
+        _encoder(dev, 2, 128, 2, 512, 0.0, None, torch.float32), state)
+    x, tgt = x.to(dev), tgt.to(dev)
+    h = x
+    for layer in stack:
+        h = layer(h)
+    out = h.detach().cpu()
+    loss = _encoder_loss(stack, x, tgt)
+    grads = {k: None if g is None else g.cpu() for (k, _), g in zip(
+        stack.named_parameters(),
+        torch.autograd.grad(loss, list(stack.parameters()),
+                            allow_unused=True))}
+    losses, _, _ = _encoder_train(stack, x, tgt, 3, TRAIN_REF["lr"])
+    return out, losses, grads, {k: p.detach().cpu()
+                                for k, p in stack.named_parameters()}
+
+
+def _reference_encoder(dev):
+    """A small f32 post-LN encoder (2 layers, d = 128, 2 heads, FFN 512,
+    B = 2, S = 256: flash-eligible) on the card (the kernels) and on the
+    CPU (the plain versions), from the same weights: the output within
+    ``REF_ATOL``, then 3 training steps under ``TRAIN_REF`` (the key bias
+    under the lr bound only: ``NOISE_GRAD_PARAMS``)."""
+    from paddle_tpu_torch.core import Generator
+
+    cpu = torch.device("cpu")
+    state = {k: v.numpy() for k, v in _encoder(
+        cpu, 2, 128, 2, 512, 0.0, Generator(11), torch.float32)
+        .state_dict().items()}
+    rng = np.random.default_rng(13)
+    x, tgt = (torch.from_numpy(rng.standard_normal((2, 256, 128))
+                               .astype(np.float32)) for _ in range(2))
+    card = _encoder_small(dev, state, x, tgt)
+    host = _encoder_small(cpu, state, x, tgt)
+    out_diff = float((card[0] - host[0]).abs().max())
+    loss_diff = max(abs(a - b) for a, b in zip(card[1], host[1]))
+    unused = sorted(k for k, g in host[2].items() if g is None)
+    grad_diff = max(float((card[2][k] - g).abs().max())
+                    for k, g in host[2].items() if g is not None)
+    param_max, param_frac = 0.0, 0.0
+    for k in host[3]:
+        d = (card[3][k] - host[3][k]).abs()
+        param_max = max(param_max, float(d.max()))
+        if not k.endswith(NOISE_GRAD_PARAMS):
+            param_frac = max(param_frac,
+                             float((d > TRAIN_REF["param"]).float().mean()))
+    noise_grad = max(float(g.abs().max()) for k, g in host[2].items()
+                     if k.endswith(NOISE_GRAD_PARAMS))
+    ok = (out_diff <= REF_ATOL and loss_diff <= TRAIN_REF["loss"]
+          and grad_diff <= TRAIN_REF["grad"]
+          and param_frac <= TRAIN_REF["param_frac"]
+          and param_max <= TRAIN_REF["lr"] and card[1][-1] < card[1][0]
+          and unused == sorted(k for k, g in card[2].items() if g is None))
+    return {"encoder_out_max_diff": out_diff,
+            "encoder_losses_card": card[1], "encoder_losses_cpu": host[1],
+            "encoder_loss_max_diff": loss_diff,
+            "encoder_grad_max_diff": grad_diff,
+            "encoder_param_max_diff": param_max,
+            "encoder_param_frac_over_atol": param_frac,
+            "encoder_noise_grad_max": noise_grad,
+            "encoder_unused_params": unused, "encoder_ok": ok}
+
+
 def phase_reference(dev):
     from paddle_tpu_torch.models.nlp import LlamaConfig, LlamaForCausalLM
 
@@ -740,14 +1043,16 @@ def phase_reference(dev):
                 and param_frac <= TRAIN_REF["param_frac"]
                 and param_max <= TRAIN_REF["lr"]
                 and card[0][-1] < card[0][0])
+    enc = _reference_encoder(dev)
     out.update({"train_losses_card": card[0], "train_losses_cpu": cpu[0],
                 "train_loss_max_diff": loss_diff,
                 "train_grad_max_diff": grad_diff,
                 "train_param_max_diff": param_max,
                 "train_param_frac_over_atol": param_frac,
-                "train_tol": TRAIN_REF, "ok": ok and train_ok})
+                "train_tol": TRAIN_REF, **enc,
+                "ok": ok and train_ok and enc["encoder_ok"]})
     emit(out)
-    if not (ok and train_ok):
+    if not out["ok"]:
         raise AssertionError("the port on the card disagrees with the port "
                              "on the CPU")
 
@@ -955,28 +1260,39 @@ ATTENTION_KINDS = ("gqa", "mha", "splash")
 
 
 def _counters():
-    """{kind: the entry point holding its launch counts}, and the CE's."""
+    """{kind: the entry point holding its launch counts}, the CE's, and
+    {name: the norm entry point holding its count}."""
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention_gqa")
     fm = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     sa = importlib.import_module("paddle_tpu_torch.ops.splash_attention")
     ce = importlib.import_module("paddle_tpu_torch.ops.fused_ce")
+    lnm = importlib.import_module("paddle_tpu_torch.ops.layer_norm")
+    dl = importlib.import_module("paddle_tpu_torch.ops.dropout_ln")
     return ({"gqa": fa.grouped_flash_attention, "mha": fm.flash_attention,
-             "splash": sa.splash_attention}, ce.softmax_cross_entropy)
+             "splash": sa.splash_attention}, ce.softmax_cross_entropy,
+            {"dropout_add_ln": dl.fused_dropout_add_layer_norm,
+             "layer_norm": lnm.fused_layer_norm,
+             "rms_norm": lnm.fused_rms_norm})
 
 
 def _train_counts():
-    attn, c = _counters()
+    """The launch count of every kernel entry point a train phase could
+    reach."""
+    attn, c, norms = _counters()
     out = {f"{k}_{part}": getattr(attn[k], f"launches_{part}")
            for k in ATTENTION_KINDS for part in ("fwd", "dq", "dkv")}
     out.update({"ce_fwd": c.launches_fwd, "ce_bwd": c.launches_bwd})
+    out.update({k: owner.launches for k, owner in norms.items()})
     return out
 
 
 def _zero_train_counts():
-    attn, c = _counters()
+    attn, c, norms = _counters()
     for owner in attn.values():
         owner.launches_fwd = owner.launches_dq = owner.launches_dkv = 0
     c.launches_fwd = c.launches_bwd = 0
+    for owner in norms.values():
+        owner.launches = 0
 
 
 def _live_pairs_per_head(S, window):
@@ -1081,8 +1397,9 @@ def phase_train(dev, phase="train", profile=False):
     torch.cuda.synchronize()
     counts = _train_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {f"{k}_{part}": TRAIN_LAYERS * steps if k == kind else 0
-            for k in ATTENTION_KINDS for part in ("fwd", "dq", "dkv")}
+    want = {k: 0 for k in counts}
+    want.update({f"{kind}_{part}": TRAIN_LAYERS * steps
+                 for part in ("fwd", "dq", "dkv")})
     want.update({"ce_fwd": steps, "ce_bwd": steps})
     losses = res["losses"]
     step_s = statistics.median(res["step_s"])
@@ -1135,10 +1452,192 @@ def phase_train(dev, phase="train", profile=False):
     return out
 
 
+# --- phase 8: train the fused encoder (incubate.nn) at BERT-base width ----
+
+def _encoder(dev, layers, d_model, nhead, dim_feedforward, dropout_rate,
+             generator, dtype):
+    """A stack of post-LN ``FusedTransformerEncoderLayer``s (GELU) made on
+    ``dev`` from ``generator`` and cast to ``dtype``."""
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+
+    return torch.nn.ModuleList([
+        FusedTransformerEncoderLayer(d_model, nhead, dim_feedforward,
+                                     dropout_rate=dropout_rate,
+                                     activation="gelu", device=dev,
+                                     generator=generator)
+        for _ in range(layers)]).to(dtype)
+
+
+def _encoder_loss(stack, x, tgt):
+    h = x
+    for layer in stack:
+        h = layer(h)
+    return torch.square(h.float() - tgt.float()).mean()
+
+
+def _encoder_step(stack, opt, x, tgt, lr):
+    """One training step: the MSE loss, its gradients and the port's
+    ``adamw_update`` (f32 moments; the train-step factory's betas, eps and
+    weight decay) of every parameter that has a gradient (``ln_pre`` of a
+    post-LN layer has none). Returns the loss."""
+    from paddle_tpu_torch.models.nlp import adamw_update
+
+    params = dict(stack.named_parameters())
+    names = list(opt["m"])
+    loss = _encoder_loss(stack, x, tgt)
+    grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                allow_unused=True)
+    with torch.no_grad():
+        opt["step"] += 1
+        t = opt["step"].to(torch.float32)
+        for k, g in zip(names, grads):
+            if g is None:
+                continue
+            p, m, v = params[k], opt["m"][k], opt["v"][k]
+            new_p, m2, v2 = adamw_update(p, g, m, v, t, lr, 0.9, 0.95, 1e-8,
+                                         0.01)
+            p.copy_(new_p)
+            m.copy_(m2)
+            v.copy_(v2)
+    return loss.detach()
+
+
+def _encoder_train(stack, x, tgt, steps, lr):
+    """``steps`` training steps on one batch: (losses, host-clock seconds
+    of each step up to its loss on the host, the optimizer state)."""
+    from paddle_tpu_torch.models.nlp import make_adamw_state
+
+    opt = make_adamw_state(dict(stack.named_parameters()))
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(_encoder_step(stack, opt, x, tgt, lr)))
+        step_s.append(time.perf_counter() - t0)
+    return losses, step_s, opt
+
+
+def _encoder_swaps():
+    """(module, attribute, plain version) for the kernels of the encoder's
+    path: the multi-head flash kernels and the dropout-add-LN kernel."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention_gqa")
+    fm = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    dl = importlib.import_module("paddle_tpu_torch.ops.dropout_ln")
+    return [(fm, "mha_fwd", fa._gqa_fwd_plain),
+            (fm, "mha_bwd", fa._gqa_bwd_plain),
+            (dl, "dropout_add_ln_fwd", dl._forward_plain)]
+
+
+def _encoder_grads(swap, stack, x, tgt, gen, seed):
+    """Loss and gradients (None for an unused parameter) of one forward
+    and backward, the generator reseeded first so both calls draw the
+    same dropout; ``swap`` runs the plain versions in place of the
+    kernels."""
+    swaps = _encoder_swaps()
+    kept = [getattr(m, name) for m, name, _ in swaps]
+    if swap:
+        for m, name, plain in swaps:
+            setattr(m, name, plain)
+    try:
+        gen.manual_seed(seed)
+        loss = _encoder_loss(stack, x, tgt)
+        grads = torch.autograd.grad(loss, list(stack.parameters()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+    finally:
+        for (m, name, _), fn in zip(swaps, kept):
+            setattr(m, name, fn)
+    return float(loss.detach()), grads
+
+
+def phase_train_encoder(dev, profile=False):
+    from paddle_tpu_torch.core import Generator
+
+    e = ENCODER
+    L, d, heads, B, S = e["layers"], e["d_model"], e["nhead"], e["B"], e["S"]
+    steps, lr, seed = e["steps"], e["lr"], e["seed"]
+    gen = Generator(seed)               # weights, then every dropout draw
+    stack = _encoder(dev, L, d, heads, e["dim_feedforward"],
+                     e["dropout_rate"], gen, torch.bfloat16)
+    stack.train()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((B, S, d), generator=g, device=dev).to(torch.bfloat16)
+    tgt = torch.randn((B, S, d), generator=g, device=dev).to(torch.bfloat16)
+
+    # kernels against plain versions: one forward+backward each, identical
+    # weights, batch and dropout draws
+    loss_k, grads_k = _encoder_grads(False, stack, x, tgt, gen, seed + 2)
+    loss_p, grads_p = _encoder_grads(True, stack, x, tgt, gen, seed + 2)
+    rel, noise = {}, {}
+    for (k, _), a, b in zip(stack.named_parameters(), grads_k, grads_p):
+        if b is not None:
+            (noise if k.endswith(NOISE_GRAD_PARAMS) else rel)[k] = float(
+                (a.float() - b.float()).norm() / b.float().norm())
+    del grads_k, grads_p
+    worst = max(rel, key=rel.get)
+    t0 = time.perf_counter()
+    _encoder_grads(False, stack, x, tgt, gen, seed + 2)
+    fwd_bwd_s = time.perf_counter() - t0
+
+    # the main path: launch counts from 0, the training steps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    losses, step_s, opt = _encoder_train(stack, x, tgt, steps, lr)
+    torch.cuda.synchronize()
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: 0 for k in counts}
+    want.update({"mha_fwd": L * steps, "mha_dq": L * steps,
+                 "mha_dkv": L * steps, "dropout_add_ln": 2 * L * steps})
+    step = statistics.median(step_s)
+    hd = d // heads
+    matmul_params = L * (4 * d * d + 2 * d * e["dim_feedforward"])
+    pairs = B * heads * S * S                    # non-causal
+    flops = 6 * matmul_params * B * S + 12 * hd * pairs * L
+    out = {"phase": "train_encoder", "model": "bert_base_width_encoder",
+           "layer": "FusedTransformerEncoderLayer(768, 12, 3072, "
+                    "dropout_rate=0.1, activation='gelu'), post-LN",
+           "layers": L, "dtype": "bfloat16", "B": B, "S": S,
+           "steps": steps, "lr": lr, "loss": "MSE against N(0, 1)",
+           "losses": losses, "step_ms_median": 1e3 * step,
+           "step_ms": [1e3 * t for t in step_s],
+           "fwd_bwd_ms": 1e3 * fwd_bwd_s, "tokens_per_s": B * S / step,
+           "peak_mem_gb": peak_gb, "step_flops": flops,
+           "matmul_params": matmul_params,
+           "mfu": flops / step / BF16_FLOP_PER_S,
+           "mfu_formula": "(6*matmul_params*tokens + 12*head_dim*pairs*"
+                          "layers) / step_s / 989e12; pairs = B*heads*S^2 "
+                          "(non-causal)",
+           "launches": counts, "launches_expected": want,
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_diff": abs(loss_k - loss_p), "loss_atol": ENC_LOSS_ATOL,
+           "grad_rel_err_max": rel[worst], "grad_rel_err_worst": worst,
+           "grad_rel_err_median": statistics.median(rel.values()),
+           "grad_rel_limit": ENC_GRAD_REL, "grad_rel_err": rel,
+           "noise_grad_rel_err_max": max(noise.values())}
+    ok = (counts == want and all(np.isfinite(losses))
+          and losses[-1] < losses[0] and out["loss_diff"] <= ENC_LOSS_ATOL
+          and rel[worst] <= ENC_GRAD_REL)
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError("train_encoder phase failed: " + json.dumps(
+            {k: v for k, v in out.items() if k != "grad_rel_err"}))
+    if profile:
+        emit({"phase": "profile_train_encoder", **_profile(
+            lambda: float(_encoder_step(stack, opt, x, tgt, lr)),
+            {"flash_attention": ("causalwalk",),
+             "dropout_add_ln": ("rows_kernel",),
+             "matmul": MATMUL_NAMES}, n=3)})
+    del stack, opt
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "reference", "serve", "train", "train_mha",
-          "train_window")
+          "train_window", "train_encoder")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -1182,6 +1681,26 @@ def _attention_entries(prefix, source, replaces_fwd, replaces_bwd, kind,
     return [fwd, bwd]
 
 
+def _norm_entry(name, replaces, launches, cases, kind, card, path):
+    """The entry of one norm kernel: the numbers of its first kernel-phase
+    case (the shape that heads its row), the worst error over all its
+    cases, and its launches."""
+    mine = [c for c in cases if c["kind"] == kind]
+    head = mine[0]
+    return {"name": name, "route": "cuda", "source": NORM_SOURCE,
+            "replaces": replaces, "launches": launches, "path": path,
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_err_over_tol": max(c["max_err_over_tol"] for c in mine),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library_kernels": head["library_kernels"], "check": "pass",
+            "card": card, "case": head["case"],
+            "cases": [{k: c[k] for k in ("case", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms",
+                                         "library_ms")} for c in mine]}
+
+
 def _kernels_line(kern, serve, trains, card):
     kernels = []
     cases = kern.get("paged", [])
@@ -1222,6 +1741,27 @@ def _kernels_line(kern, serve, trains, card):
             "splash", SPLASH_SOURCE, SPLASH_FWD_REPLACES,
             SPLASH_BWD_REPLACES, "splash", kern["splash"][0],
             trains.get("train_window", {}).get("launches", {}), card)
+    enc_launches = trains.get("train_encoder", {}).get("launches", {})
+    if kern.get("mha_encoder"):
+        # the multi-head kernels again, at the train_encoder phase's call
+        kernels += _attention_entries(
+            "flash_mha_encoder", GQA_SOURCE, MHA_FWD_REPLACES,
+            MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0], enc_launches,
+            card)
+    norm = kern.get("norm", [])
+    if norm:
+        kernels += [
+            _norm_entry("fused_layer_norm", LN_REPLACES,
+                        sum(c["launched_once"] for c in norm
+                            if c["kind"] == "ln"), norm, "ln", card,
+                        "entry point only: one checked launch per kernel-phase case"),
+            _norm_entry("fused_rms_norm", RMS_REPLACES,
+                        sum(c["launched_once"] for c in norm
+                            if c["kind"] == "rms"), norm, "rms", card,
+                        "entry point only: one checked launch per kernel-phase case"),
+            _norm_entry("dropout_add_ln", DLN_REPLACES,
+                        enc_launches.get("dropout_add_ln"), norm, "dln",
+                        card, "train_encoder: 2 per layer and step")]
     return kernels
 
 
@@ -1252,6 +1792,9 @@ def main():
     for phase in TRAIN_CELLS:
         if phase in phases:
             trains[phase] = phase_train(dev, phase, profile=args.profile)
+    if "train_encoder" in phases:
+        trains["train_encoder"] = phase_train_encoder(dev,
+                                                      profile=args.profile)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -23,8 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...core.dtype import numpy_to_torch
 from ...core.place import resolve_device
+from ...nn.layer.layers import load_numpy_state_dict  # noqa: F401
 
 
 @dataclasses.dataclass
@@ -276,25 +276,3 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
         return params, opt_state, loss.detach()
 
     return params, opt_state, train_step
-
-
-def load_numpy_state_dict(model: LlamaForCausalLM, state: dict):
-    """Copy a reference state dict ``{name: np.ndarray}`` into ``model``,
-    in place, key for key and without transposing anything (both
-    packages keep projections as (in, out)). bfloat16 arrays are taken
-    bit-exactly. Raises KeyError on a missing or unexpected key and
-    ValueError on a shape mismatch."""
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(state))
-    extra = sorted(set(state) - set(params))
-    if missing or extra:
-        raise KeyError(f"state dict mismatch: missing {missing[:4]}, "
-                       f"unexpected {extra[:4]}")
-    with torch.no_grad():
-        for name, p in params.items():
-            t = numpy_to_torch(state[name])
-            if tuple(t.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(t.to(device=p.device, dtype=p.dtype))
-    return model

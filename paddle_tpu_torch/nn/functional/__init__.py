@@ -1,0 +1,7 @@
+"""nn.functional of the PyTorch port (counterpart of
+``paddle_tpu/nn/functional``): the pieces the fused transformer layers
+use."""
+from .activation import gelu, relu  # noqa: F401
+from .attention import scaled_dot_product_attention  # noqa: F401
+from .common import dropout, linear  # noqa: F401
+from .norm import layer_norm  # noqa: F401

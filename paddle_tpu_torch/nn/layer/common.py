@@ -1,0 +1,58 @@
+"""``Linear`` and ``Dropout`` of the PyTorch port.
+
+Counterpart of ``paddle_tpu/nn/layer/common.py`` (``Linear``, ``:23-43``;
+``Dropout``, ``:72``). ``Linear`` keeps its weight (in, out), drawn
+XavierNormal (N(0, 2 / (in + out))) and its bias zero, as the reference's
+``create_parameter`` defaults (``nn/layer/layers.py:123-139``), in f32 on
+``device`` (``cuda`` unless ``"cpu"`` is asked for) from ``generator``
+(the default generator when None); cast a module with ``.to(dtype)``.
+``weight_attr`` / ``name`` are not ported; ``bias_attr=False`` drops the
+bias, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ...core.generator import torch_generator
+from ...core.place import resolve_device
+from .. import functional as F
+
+
+class Linear(nn.Module):
+    """y = x @ weight (+ bias); weight (in_features, out_features)."""
+
+    def __init__(self, in_features, out_features, *, bias_attr=None,
+                 device=None, generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.in_features, self.out_features = in_features, out_features
+        std = math.sqrt(2.0 / (in_features + out_features))
+        weight = torch.empty((in_features, out_features), device=dev)
+        weight.normal_(0.0, std, generator=torch_generator(generator, dev))
+        self.weight = nn.Parameter(weight)
+        self.bias = None if bias_attr is False else nn.Parameter(
+            torch.zeros(out_features, device=dev))
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return f"in={self.in_features}, out={self.out_features}"
+
+
+class Dropout(nn.Module):
+    """``F.dropout`` in training mode, the identity in eval mode."""
+
+    def __init__(self, p=0.5, *, generator=None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, self.p, self.training, self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}"

@@ -567,3 +567,168 @@ def test_fused_ce_kernels_refuse_what_they_do_not_take(card):
                                                 device=card))
     with pytest.raises(TypeError, match="integer"):
         ce.softmax_cross_entropy(x.float(), torch.zeros(4, device=card))
+
+
+lnm = importlib.import_module("paddle_tpu_torch.ops.layer_norm")
+dl = importlib.import_module("paddle_tpu_torch.ops.dropout_ln")
+
+# norm kernels vs plain on the same inputs: f32 statistics on both sides,
+# apart by the order of the row sums; a bf16 output rounds once (one ulp,
+# 2^-7 of |want|), an f32 one stays within 1e-5
+NORM_TOL = {torch.bfloat16: (1e-5, 2 ** -7), torch.float32: (1e-5, 1e-5)}
+# dropout bits at the edges of keep = f32(bits) / 2^32 >= p: onto
+# f32(0.1) * 2^32 = 429496736, from 2^31 up, near 2^32 (u rounds to 1.0)
+EDGE_BITS = [0, 1, 429496719, 429496720, 429496721, 429496735, 429496736,
+             429496737, 2 ** 31 - 65, 2 ** 31 - 64, 2 ** 31 - 1, 2 ** 31,
+             2 ** 31 + 1, 2 ** 32 - 129, 2 ** 32 - 128, 2 ** 32 - 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,wdt", [(torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("shape,eps", [((512, 768), 1e-5),
+                                       ((3, 7, 100), 1e-5),
+                                       ((33, 4096), 1e-12),
+                                       ((5, 20000), 1e-5)])
+def test_norm_kernels_match_plain(card, dt, wdt, shape, eps):
+    """``fused_layer_norm`` and ``fused_rms_norm`` against ``_ln_plain`` /
+    ``_rms_plain``: 16-byte rows, odd widths (scalar loads), rows past the
+    registers (re-read), eps 1e-12; one launch each."""
+    g = torch.Generator(device=card).manual_seed(0)
+    H = shape[-1]
+    x = (torch.randn(shape, generator=g, device=card) * 2 + 0.5).to(dt)
+    w = (1 + 0.5 * torch.randn(H, generator=g, device=card)).to(wdt)
+    b = torch.randn(H, generator=g, device=card).to(wdt)
+    before = (lnm.fused_layer_norm.launches, lnm.fused_rms_norm.launches)
+    ln = lnm.fused_layer_norm(x, w, b, eps)
+    rms = lnm.fused_rms_norm(x, w, eps)
+    torch.cuda.synchronize()
+    assert (lnm.fused_layer_norm.launches, lnm.fused_rms_norm.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert ln.dtype == dt and ln.shape == x.shape
+    _reading("layer norm", ln, lnm._ln_plain(x, w, b, eps), *NORM_TOL[dt])
+    _reading("rms norm", rms, lnm._rms_plain(x, w, eps), *NORM_TOL[dt])
+
+
+def _dln_bits(N, H, dev, seed):
+    bits = torch.empty((N, H), dtype=torch.int32, device=dev).random_(
+        -2 ** 31, 2 ** 31, generator=torch.Generator(device=dev)
+        .manual_seed(seed))
+    edges = torch.tensor(EDGE_BITS, dtype=torch.int64)[:H].to(torch.int32)
+    bits[:, :edges.numel()] = edges.to(dev)
+    return bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,H", [(1024, 768), (130, 100), (7, 20000)])
+@pytest.mark.parametrize("p,training", [(0.1, True), (0.5, True),
+                                        (0.0, True), (0.1, False)])
+def test_dropout_add_ln_kernel_matches_plain(card, dt, N, H, p, training):
+    """The dropout-add-LayerNorm kernel against ``_forward_plain`` on the
+    same bits (every row holding the edges of the keep decision), and,
+    where it drops, the keep mask exactly: with x = 100, |res| < 1, w = 1,
+    b = 0 the output is above 0 exactly where x was kept. The bits are
+    given as int32 and as uint32 holding the same bits."""
+    g = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn((N, H), generator=g, device=card).to(dt)
+    res = torch.randn((N, H), generator=g, device=card).to(dt)
+    w = (1 + 0.5 * torch.randn(H, generator=g, device=card)).to(dt)
+    b = torch.randn(H, generator=g, device=card).to(dt)
+    bits = _dln_bits(N, H, card, 2)
+    before = dl.fused_dropout_add_layer_norm.launches
+    got = dl.fused_dropout_add_layer_norm(x, res, w, b, p, 1e-5, training,
+                                          bits=bits)
+    torch.cuda.synchronize()
+    assert dl.fused_dropout_add_layer_norm.launches == before + 1
+    want = dl._forward_plain(x, res, w, b, bits, p, 1e-5, training)
+    _reading("dropout-add-LN", got, want, *NORM_TOL[dt])
+    if training and p > 0:
+        xs = torch.full_like(x, 100.0)
+        rs = (torch.rand((N, H), generator=g, device=card) * 2 - 1).to(dt)
+        ones, zeros = torch.ones_like(w), torch.zeros_like(b)
+        rule = dl._uniform(bits) >= p
+        for given in (bits, bits.view(torch.uint32)):
+            kept = dl.fused_dropout_add_layer_norm(
+                xs, rs, ones, zeros, p, 1e-5, True, bits=given) > 0
+            assert torch.equal(kept, rule)
+        assert torch.equal(dl._forward_plain(xs, rs, ones, zeros, bits, p,
+                                             1e-5, True) > 0, rule)
+
+
+@pytest.mark.cuda
+def test_norm_kernels_refuse_what_they_do_not_take(card):
+    x = torch.randn(4, 64, device=card)
+    w, b = torch.ones(64, device=card), torch.zeros(64, device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        lnm.fused_layer_norm(x.half(), w, b)
+    with pytest.raises(TypeError, match="share one dtype"):
+        lnm.fused_layer_norm(x, w, b.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="must lie on"):
+        lnm.fused_rms_norm(x, w.cpu())
+    with pytest.raises(TypeError, match="residual dtype"):
+        dl.fused_dropout_add_layer_norm(x, x.to(torch.bfloat16), w, b)
+
+
+@pytest.mark.cuda
+def test_bf16_encoder_grads_are_as_close_to_f32_as_the_plain_versions(
+        card, monkeypatch):
+    """Two bf16 post-LN ``FusedTransformerEncoderLayer``s (d 256, 4 heads,
+    head_dim 64, FFN 1024, B=4, S=512, dropout 0.1 from one reseeded
+    generator, so every run draws the same masks and bits): the gradients
+    of an MSE loss through the kernels (multi-head flash, dropout-add-LN)
+    and through their plain versions, each against the same weights in
+    f32 through the plain versions (the truth). The kernels may not be
+    further from the truth than the plain versions by more than a tenth,
+    for the worst parameter and for the median one. The key bias is left
+    out: its gradient is 0 but for rounding noise (a key bias shifts a
+    query's scores alike, which the softmax does not see)."""
+    import statistics
+
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+
+    gen = Generator(0)
+    stack = torch.nn.ModuleList([
+        FusedTransformerEncoderLayer(256, 4, 1024, dropout_rate=0.1,
+                                     activation="gelu", device=card,
+                                     generator=gen) for _ in range(2)]
+    ).to(torch.bfloat16)          # the truth takes these weights in f32
+    g = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn((4, 512, 256), generator=g, device=card)
+    tgt = torch.randn((4, 512, 256), generator=g, device=card)
+
+    def grads(dtype, plain):
+        model = stack.to(dtype)
+        with monkeypatch.context() as m:
+            if plain:
+                m.setattr(fm, "mha_fwd", fa._gqa_fwd_plain)
+                m.setattr(fm, "mha_bwd", fa._gqa_bwd_plain)
+                m.setattr(dl, "dropout_add_ln_fwd", dl._forward_plain)
+            gen.manual_seed(5)
+            h = x.to(dtype)
+            for layer in model:
+                h = layer(h)
+            loss = torch.square(h.float() - tgt).mean()
+            out = torch.autograd.grad(loss, list(model.parameters()),
+                                      allow_unused=True)
+        return [None if t is None else t.float() for t in out]
+
+    g_true = grads(torch.float32, plain=True)
+    launches = (dl.fused_dropout_add_layer_norm.launches,
+                fm.flash_attention.launches_dkv)
+    g_kernel = grads(torch.bfloat16, plain=False)
+    assert (dl.fused_dropout_add_layer_norm.launches,
+            fm.flash_attention.launches_dkv) == (launches[0] + 4,
+                                                  launches[1] + 2)
+    g_plain = grads(torch.bfloat16, plain=True)
+    keep = [t is not None and not k.endswith("attn.k_proj.bias")
+            for (k, _), t in zip(stack.named_parameters(), g_true)]
+    kernel = [_rel(a, t) for a, t, k in zip(g_kernel, g_true, keep) if k]
+    plain = [_rel(a, t) for a, t, k in zip(g_plain, g_true, keep) if k]
+    print(f"reading vs f32: kernels max {max(kernel):.4g} median "
+          f"{statistics.median(kernel):.4g}; plain max {max(plain):.4g} "
+          f"median {statistics.median(plain):.4g}")
+    assert max(kernel) <= 1.1 * max(plain)
+    assert statistics.median(kernel) <= 1.1 * statistics.median(plain)

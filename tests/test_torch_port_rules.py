@@ -30,7 +30,13 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.ops.splash_attention",
              "paddle_tpu_torch.ops.fused_ce",
              "paddle_tpu_torch.models.nlp.train_utils",
-             "paddle_tpu_torch.examples.train_llama_compiled"):
+             "paddle_tpu_torch.examples.train_llama_compiled",
+             "paddle_tpu_torch.ops.layer_norm",
+             "paddle_tpu_torch.ops.dropout_ln",
+             "paddle_tpu_torch.core.generator",
+             "paddle_tpu_torch.nn.functional.attention",
+             "paddle_tpu_torch.nn.layer.transformer",
+             "paddle_tpu_torch.incubate.nn"):
     assert name in names, name
 """
 
@@ -58,6 +64,8 @@ def test_entry_points_refuse_a_missing_card():
     _needs_no_card()
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.examples.train_llama_compiled import train
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    from paddle_tpu_torch.nn import LayerNorm, Linear
     from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
                                              llama_paged_decode_factory,
                                              llama_train_step_factory)
@@ -72,6 +80,12 @@ def test_entry_points_refuse_a_missing_card():
             LlamaForCausalLM(cfg, device=device)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             PagedKVCache(4, 4, 1, 8, device=device)
+        for make in (lambda: FusedTransformerEncoderLayer(16, 2, 32,
+                                                          device=device),
+                     lambda: LayerNorm(16, device=device),
+                     lambda: Linear(16, 8, device=device)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
     model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         llama_paged_decode_factory(model, page_size=4, n_pool_pages=4)
@@ -81,6 +95,10 @@ def test_entry_points_refuse_a_missing_card():
         train(cfg, 1, 8, 1)
     assert llama_paged_decode_factory(model, page_size=4, n_pool_pages=4,
                                       device="cpu")[2][0].device.type == "cpu"
+    layer = FusedTransformerEncoderLayer(16, 2, 32, device="cpu")
+    assert layer(torch.randn(2, 4, 16)).shape == (2, 4, 16)
+    assert LayerNorm(16, device="cpu")(torch.randn(3, 16)).shape == (3, 16)
+    assert Linear(16, 8, device="cpu")(torch.randn(3, 16)).shape == (3, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
 
