@@ -12,15 +12,19 @@ trains.
 Phases, each printing JSON lines:
 
 1. ``build``: compile every kernel under ``paddle_tpu_torch/ops/kernels``
-   with ``nvcc`` for ``sm_90a`` (one process per source, in parallel).
+   with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
+   then count the HGMMA (wgmma) instructions of each bf16 attention
+   backward kernel in the libraries' SASS (``cuobjdump``): none fails.
 2. ``kernel``: each kernel through its wrapper at the shapes of the main
    paths, against its plain version on the same inputs, element by
    element within the stated tolerance; each call must launch its kernel
-   once. Times are CUDA events (median of ``REPS``, L2 flushed before each
-   call) beside the bound (the least time the card could take: the bytes
-   that must move at 3.35 TB/s, the operations at the data sheet's peak
-   for their type) and, where one PyTorch call computes the same function,
-   that call's time (a yardstick, never on the port's path).
+   once, and the attention backward kernels (dq, dk/dv) launched twice on
+   the same inputs must give the same bits. Times are CUDA events (median
+   of ``REPS``, L2 flushed before each call) beside the bound (the least
+   time the card could take: the bytes that must move at 3.35 TB/s, the
+   operations at the data sheet's peak for their type) and, where one
+   PyTorch call computes the same function, that call's time (a
+   yardstick, never on the port's path).
    * paged attention (``paged_attention``, ``paged_prefill_attention``)
      at the serving shapes of Llama-3-8B (32 query / 8 kv heads, head_dim
      128, page 64): decode at B=8 with ragged lengths 1..2048 and one pad
@@ -274,6 +278,34 @@ def gpu_ms(fn, reps=REPS, flush=None):
 
 # --- phase 1: build --------------------------------------------------------
 
+def _hgmma_counts(_build):
+    """HGMMA instructions (wgmma) in the SASS of each bf16 backward kernel
+    (dq_mma, dkv_mma at head_dim 64 and 128) of the two attention
+    libraries, read with cuobjdump beside nvcc. Raises if one has none."""
+    import re
+    from pathlib import Path
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    counts = {}
+    for lib in ("flash_attention_gqa", "splash_attention"):
+        sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                               str(_build.library_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        kernel = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = re.search(r"(dkv|dq)_mmaILi(\d+)E", line)
+                kernel = m and f"{lib}:{m.group(1)}_mma<{m.group(2)}>"
+                if kernel:
+                    counts[kernel] = 0
+            elif kernel and "HGMMA" in line:
+                counts[kernel] += 1
+    if len(counts) != 8 or not all(counts.values()):
+        raise AssertionError(f"bf16 backward kernels without wgmma: {counts}")
+    return counts
+
+
 def phase_build():
     from paddle_tpu_torch.ops.kernels import _build
 
@@ -282,8 +314,9 @@ def phase_build():
     for name, log in logs.items():
         if log.strip():
             print(f"[nvcc {name}]\n{log}", file=sys.stderr)
+    seconds = time.perf_counter() - t0
     emit({"phase": "build", "ok": True, "sources": _build.sources(),
-          "seconds": time.perf_counter() - t0})
+          "seconds": seconds, "hgmma": _hgmma_counts(_build)})
 
 
 # --- phase 2: the kernel against its plain version --------------------------
@@ -525,6 +558,12 @@ def _attention_case(name, kind, B, Hkv, G, Sq, Sk, D, dtype, seed, dev,
         checks[n] = _check(a, b, *tol["grad"])
     launched = (n1 == (n0[0] + 1, n0[1], n0[2])
                 and n2 == (n1[0], n1[1] + 1, n1[2] + 1))
+    # dq and dk/dv once more on the same inputs: the same bits (no atomics)
+    again = (dq(q, k, v, do, want_lse, delta),
+             *dkv(q, k, v, do, want_lse, delta))
+    repeat = all(torch.equal(a, b) for a, b in zip(grads, again))
+    checks["bitwise_repeat"] = (0.0, 0.0 if repeat else 2.0)
+    del again
     ok = launched and all(r <= 1.0 for _, r in checks.values())
     if pat is None:
         live, pos = None, torch.arange(Sq, device=dev)

@@ -25,8 +25,8 @@ Not ported, on purpose: ``_gqa_resolve_blocks``, ``_gqa_fits``,
 ``ResidentOverflowError`` and the splash delegation. They come from the
 TPU's 16 MiB of scoped VMEM; the CUDA kernel takes every sequence length
 the gate admits. The kernels take head_dim 64 and 128 (256 is open:
-ROADMAP Queue 1) and kv groups G that divide 32 (up to 32 query heads
-per kv head).
+ROADMAP Queue 1) and kv groups G that divide the query tile: 64 rows in
+bfloat16, 32 in float32.
 
 Launch counts: ``grouped_flash_attention.launches_fwd``, ``.launches_dq``
 and ``.launches_dkv``; a launch for ``flash_attention`` counts there
@@ -46,9 +46,10 @@ _KERNEL = "flash_attention_gqa"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (query rows, keys) per tile of the forward and dq kernels; the rows are
 # G heads x positions. The dk/dv kernels walk query tiles of _DKV_ROWS
-# rows in both dtypes, so G must divide it.
+# rows, so G must divide it. Both are kernels/flash_tiles.cuh's constants
+# (kRows, kKeys, kDkvRows for bfloat16; BM, BK for float32).
 _TILES = {torch.float32: (32, 32), torch.bfloat16: (64, 64)}
-_DKV_ROWS = 32
+_DKV_ROWS = {torch.float32: 32, torch.bfloat16: 64}
 
 
 def _shapes(q, k, v):
@@ -163,9 +164,10 @@ def _operands(what, tensors, q, k, v, do=None):
         raise ValueError(f"{what}: head_dim {D} (the kernels take 64 or "
                          "128; head_dim 256 is open, ROADMAP Queue 1)")
     rows, keys = _TILES[q.dtype]
-    if _DKV_ROWS % G:
+    if _DKV_ROWS[q.dtype] % G:
         raise ValueError(f"{what}: a kv group of {G} query heads does not "
-                         f"divide the kernels' {_DKV_ROWS}-row tile")
+                         f"divide the kernels' {_DKV_ROWS[q.dtype]}-row "
+                         "tile")
     if Sq % (rows // G) or Sk % keys:
         raise ValueError(f"{what}: sequence lengths ({Sq}, {Sk}) must be "
                          f"multiples of ({rows // G}, {keys})")

@@ -17,9 +17,10 @@
 // and design are described there), with the walk of causal or full
 // attention: a block of queries at positions [p0, p0 + BQ) visits the key
 // tiles from 0 up to its last live key, top-left causal (key <= query
-// position), every tile partial when causal; a block of keys visits the
-// query tiles from the first that reaches it. The walk starts at key tile
-// 0, which holds key 0 <= every row's position, so no row is ever empty.
+// position), partial only where a tile straddles the diagonal; a block of
+// keys visits the query tiles from the first that reaches it. The walk
+// starts at key tile 0, which holds key 0 <= every row's position, so no
+// row is ever empty.
 
 #include "flash_tiles.cuh"
 
@@ -28,12 +29,15 @@ namespace {
 struct CausalWalk {
   static constexpr bool kEmptyRows = false;
   int causal, Sq, Sk;
+  int bq, keys;  // query positions and keys of the dtype's tiles
 
   __device__ int row_count(int, int p0, int BQ, int keys) const {
     return ((causal ? min(Sk, p0 + BQ) : Sk) + keys - 1) / keys;
   }
-  __device__ int row_tile(int, int i, bool& partial) const {
-    partial = causal;
+  // A tile is partial iff it straddles the diagonal: its last key lies
+  // above its first query position (fully live iff k0 + keys - 1 <= p0).
+  __device__ int row_tile(int qt, int i, bool& partial) const {
+    partial = causal && (i + 1) * keys - 1 > qt * bq;
     return i;
   }
   __device__ int col_count(int, int k0, int BQ) const {
@@ -41,11 +45,19 @@ struct CausalWalk {
     return causal ? max(0, n_q - k0 / BQ) : n_q;
   }
   __device__ int col_tile(int, int k0, int BQ, int i, bool& partial) const {
-    partial = causal;
-    return (causal ? k0 / BQ : 0) + i;
+    const int tile = (causal ? k0 / BQ : 0) + i;
+    partial = causal && k0 + keys - 1 > tile * BQ;
+    return tile;
   }
   __device__ bool dead(int pos, int key) const { return key > pos; }
 };
+
+// The walk for the tiles of `dtype`: (64, 64) bf16, (32, 32) f32.
+CausalWalk causal_walk(int causal, int Sq, int Sk, int G, int dtype) {
+  const bool bf = dtype == kBF16;
+  return CausalWalk{causal, Sq, Sk, (bf ? kRows : BM) / (G > 0 ? G : 1),
+                    bf ? kKeys : BK};
+}
 
 }  // namespace
 
@@ -59,7 +71,8 @@ int gqa_fwd_launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int Hkv, int G, int Sq, int Sk, int D,
                    int causal, float scale_log2, int dtype, void* stream) {
   const Shape s{B, Hkv, G, Sq, Sk, scale_log2, 0.f};
-  return fwd_any(D, dtype, q, k, v, out, lse, s, CausalWalk{causal, Sq, Sk},
+  return fwd_any(D, dtype, q, k, v, out, lse, s,
+                 causal_walk(causal, Sq, Sk, G, dtype),
                  static_cast<cudaStream_t>(stream));
 }
 
@@ -70,7 +83,7 @@ int gqa_bwd_dq_launch(const void* q, const void* k, const void* v,
                       int dtype, void* stream) {
   const Shape s{B, Hkv, G, Sq, Sk, scale_log2, sm_scale};
   return dq_any(D, dtype, q, k, v, dout, lse, delta, dq, s,
-                CausalWalk{causal, Sq, Sk},
+                causal_walk(causal, Sq, Sk, G, dtype),
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -81,7 +94,7 @@ int gqa_bwd_dkv_launch(const void* q, const void* k, const void* v,
                        float sm_scale, int dtype, void* stream) {
   const Shape s{B, Hkv, G, Sq, Sk, scale_log2, sm_scale};
   return dkv_any(D, dtype, q, k, v, dout, lse, delta, dk, dv, s,
-                 CausalWalk{causal, Sq, Sk},
+                 causal_walk(causal, Sq, Sk, G, dtype),
                  static_cast<cudaStream_t>(stream));
 }
 

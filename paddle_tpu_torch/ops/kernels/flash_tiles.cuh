@@ -31,32 +31,50 @@
 // D = 128) each live (query, key) pair costs 4*D flops forward and 6*D /
 // 8*D in the two backward kernels against a few bytes per pair, far above
 // the card's ~295 flop/byte balance point. The design follows that:
-//   * bfloat16 runs on the tensor cores with `mma.sync` m16n8k16 (f32
-//     accumulators) and keeps every accumulator in registers: each warp
-//     owns 16 rows (queries; keys in dk/dv), so the online softmax's row
-//     statistics live in the lanes that hold the row, and the score
-//     fragments become the next product's A operand without leaving the
-//     registers (their f32 layout is the bf16 A layout). K/V tiles are
-//     staged in shared memory, padded by 16 bytes a row so the fragment
-//     loads hit 32 distinct banks; operands read along the other axis are
-//     staged transposed;
+//   * the bfloat16 backward (dq_mma, dkv_mma) runs on wgmma, Hopper's
+//     warpgroup products, fed by TMA. A CTA is one warpgroup (M = 64 rows:
+//     queries in dq, keys in dk/dv), two CTAs an SM; its thread 0 copies
+//     the streamed tiles (K/V for dq; Q and dO for dk/dv, whose lse and
+//     delta warp 0 copies beside them) into a 2-stage ring of
+//     128-byte-swizzled shared memory under full/empty mbarriers, one ring
+//     ahead of the products. The resident operands (q2 and dO;
+//     k2 and V) are copied once and scaled in place. The scores and dP
+//     come from wgmma with both operands in shared memory; p and ds are
+//     formed in the accumulators and packed to bf16 as the register A
+//     operand of the next products (the accumulator's layout is that
+//     operand's); those read their B (K for dQ, dO and Q for dV and dK)
+//     MN-major from the same tiles, so nothing is staged transposed. Two
+//     kernels, each CTA writing its own rows once: deterministic, no
+//     atomics, no f32 scratch;
+//   * the bfloat16 forward runs on `mma.sync` m16n8k16 (f32 accumulators)
+//     with every accumulator in registers: each warp owns 16 query rows,
+//     so the online softmax's row statistics live in the lanes that hold
+//     the row, and the score fragments become the next product's A operand
+//     without leaving the registers. K/V tiles are staged in shared memory
+//     by all threads, padded by 16 bytes a row so the fragment loads hit 32
+//     distinct banks; V is staged transposed;
 //   * float32 runs on the CUDA cores in full f32 from shared-memory tiles
 //     (simple, exact up to the order of its sums; small shapes only);
 //   * one block per (batch x kv head, tile of query positions) holds all
 //     G query heads of that kv head, so each K/V tile is read once for the
 //     whole group, as on the TPU;
 //   * dk/dv: one block per (batch x kv head, key tile) walks the query
-//     tiles of its walk for all G heads and sums in registers: no atomics;
+//     tiles of its walk for all G heads and sums in registers;
 //   * the mask is asked only inside partial tiles; a full tile runs the
 //     products and the softmax alone;
 //   * blocks of the last query tiles are launched first (causal imbalance).
-// Known limits, for later work: no wgmma/TMA, no cp.async double
-// buffering of the K/V (or Q/dO) tiles.
+// Known limits, for later work: in the backward one warpgroup a CTA waits
+// on each tile's products in turn (only dV overlaps the ds arithmetic; the
+// two CTAs of an SM cover each other's waits), the N = 64 score products
+// are small wgmma shapes, and dQ/dK/dV are stored from registers, not by
+// TMA. The forward has no wgmma, TMA or double buffering yet.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 namespace {
@@ -113,7 +131,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 64;     // query rows of a forward / dq block
 constexpr int kKeys = 64;     // keys per tile
-constexpr int kDkvRows = 32;  // query rows per tile of a dk/dv block
+constexpr int kDkvRows = 64;  // query rows per tile of a dk/dv block
 constexpr int kPad = 8;       // 16 bytes of padding per shared row
 
 // Copy `rows` rows of D bf16 (row r from src + ((r / rpg) * gstride +
@@ -339,243 +357,565 @@ fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D> constexpr size_t mma_dq_smem() {
-  return sizeof(bf16) * ((2 * kRows + 2 * kKeys) * (D + kPad) +
-                         D * (kKeys + kPad));
+// =========================================================================
+// bfloat16 backward: wgmma fed by TMA through mbarrier rings
+// =========================================================================
+//
+// A CTA is one warpgroup (128 threads: the wgmma M of 64 rows). Its thread
+// 0 also produces: it issues the TMA copies of the streamed tiles into a
+// ring of kStages stages, each guarded by a full and an empty mbarrier,
+// one ring ahead of the products (in dk/dv all of warp 0, whose lanes also
+// copy the streamed rows' lse and delta with cp.async). (A producer warp of its own would need
+// setmaxnreg to hand its registers to the consumers; ptxas did not raise
+// the consumers' budget for it, and at 128 registers a thread the dk/dv
+// accumulators spill. One warpgroup of two CTAs an SM has 255.) Tiles are
+// 64 rows of D bf16 in 128-byte-swizzled shared memory: a row of D = 128
+// is two boxes of 64 columns, the second 64 * 128 bytes after the first.
+// wgmma reads such a tile K-major (rows are M or N, columns K) or, with
+// its transpose bit, MN-major (rows are K, columns N), so no operand is
+// ever staged transposed.
+
+constexpr int kBwdThreads = 128;                // one warpgroup
+constexpr int kStages = 2;
+constexpr int kHalf = 64;                       // bf16 columns of a box
+constexpr int kBox = 64 * 128;                  // bytes of a 64-row box
+
+struct BwdMaps {  // TMA maps of the four bf16 operands, encoded per call
+  CUtensorMap q, dout, k, v;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait for the phase of `parity` to complete. A barrier that never
+// completes is a fault of the kernel: trap rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (n == (1u << 22)) __trap();
+  }
+}
+
+// TMA: one box of a 2-D / 3-D map into shared memory, completion counted
+// in bytes on `bar`
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously; cp_async_arrive
+// then counts one arrival on `bar` once all of this thread's copies have
+// landed (the barrier's expected count includes it)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Generic-proxy writes to shared memory, made visible to wgmma and TMA
+// (the async proxy); a barrier must follow before they read.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Tie the accumulators to the asm statements around them, so the compiler
+// neither reads them before wgmma_wait nor writes them after wgmma_fence.
+template <int N> __device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (in 16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// k-step kk (16 columns) of a 64-row tile read K-major: 8-row groups 1024
+// bytes apart (SBO), the step 32 bytes into the swizzled row of its box
+// (the swizzle is applied to the address, so tiles are 1024-aligned).
+__device__ __forceinline__ uint64_t desc_k(const void* tile, int kk) {
+  return sw128_desc(smem_u32(tile) + (kk / 4) * kBox + (kk % 4) * 32, 16,
+                    1024);
+}
+
+// k-step kk (16 rows) of a 64-row tile read MN-major: 8-row groups 1024
+// bytes apart (SBO), the second box of 64 columns kBox bytes on (LBO).
+__device__ __forceinline__ uint64_t desc_mn(const void* tile, int kk) {
+  return sw128_desc(smem_u32(tile) + kk * 16 * 128, kBox, 1024);
+}
+
+// d (64 x 64 f32) (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared,
+// K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss64(float* d, uint64_t a, uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64 f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t* a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128 f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs128(float* d, const uint32_t* a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b) {
+  if constexpr (N == 64) wgmma_rs64(d, a, b);
+  else wgmma_rs128(d, a, b);
+}
+
+// The A operands of the next products from a 64-column accumulator,
+// rounded to bf16: k-step kk takes columns 16kk..16kk+15, and the
+// accumulator's layout of them is wgmma's register A layout (as c_to_a for
+// mma.sync).
+__device__ __forceinline__ void acc_to_a(uint32_t (*a)[4], const float* d) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack(d[8 * kk], d[8 * kk + 1]);
+    a[kk][1] = pack(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = pack(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = pack(d[8 * kk + 6], d[8 * kk + 7]);
+  }
+}
+
+// x <- round(x * scale) over n bf16 of a tile, by the warpgroup. The
+// swizzle only permutes 16-byte chunks, so this pass need not know it.
+__device__ __forceinline__ void scale_tile(bf16* tile, int n, float scale) {
+  union Pack {
+    uint4 u;
+    bf16 t[8];
+  };
+  for (int e = threadIdx.x; e < n / 8; e += kBwdThreads) {
+    Pack p;
+    p.u = reinterpret_cast<const uint4*>(tile)[e];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      p.t[i] = __float2bfloat16(__bfloat162float(p.t[i]) * scale);
+    reinterpret_cast<uint4*>(tile)[e] = p.u;
+  }
+}
+
+// Shared memory of both kernels, from a 1024-aligned base: tiles 0 and 1
+// resident, tiles 2 + 2s and 3 + 2s the two streamed tiles of stage s (64
+// rows of D bf16 each); per stage the streamed rows' lse and delta (dk/dv);
+// then the barriers: full[kStages], empty[kStages] and one for the
+// resident tiles.
+template <int D> __host__ __device__ constexpr int tile_bytes() {
+  return 64 * D * 2;
+}
+template <int D> constexpr size_t bwd_smem() {
+  return 1024 + (2 + 2 * kStages) * tile_bytes<D>() +
+         kStages * 128 * sizeof(float) + (2 * kStages + 1) * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+template <int D> __device__ __forceinline__ float* bwd_rows(unsigned char* sm) {
+  return reinterpret_cast<float*>(sm + (2 + 2 * kStages) * tile_bytes<D>());
+}
+
+// Barriers at the end of the layout; thread 0 sets them up. A full barrier
+// completes on its TMA bytes and `full_count` arrivals, an empty one when
+// all four warps have released the stage.
+template <int D>
+__device__ __forceinline__ uint64_t* bwd_barriers(unsigned char* sm,
+                                                  int full_count) {
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bwd_rows<D>(sm) + kStages * 128);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar[s], full_count);
+      mbar_init(&bar[kStages + s], kBwdThreads / 32);
+    }
+    mbar_init(&bar[2 * kStages], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return bar;
+}
+
+// Thread 0's copies of a pair of tiles, completing on `bar`: q and dout
+// rows (3-D maps, at position row0 of heads head0..) or k and v rows (2-D
+// maps, at row0), as D / kHalf boxes each.
+template <int D>
+__device__ __forceinline__ void load_pair(unsigned char* dst, uint64_t* bar,
+                                          const CUtensorMap* a,
+                                          const CUtensorMap* b, int rank,
+                                          int row0, int head0) {
+  constexpr int T = tile_bytes<D>();
+  mbar_expect_tx(bar, 2 * T);
+#pragma unroll
+  for (int h = 0; h < D / kHalf; ++h) {
+    if (rank == 3) {
+      tma_3d(dst + h * kBox, a, bar, h * kHalf, row0, head0);
+      tma_3d(dst + T + h * kBox, b, bar, h * kHalf, row0, head0);
+    } else {
+      tma_2d(dst + h * kBox, a, bar, h * kHalf, row0);
+      tma_2d(dst + T + h * kBox, b, bar, h * kHalf, row0);
+    }
+  }
+}
+
+// The end of a streamed tile: each warp releases stage s; the producer
+// threads (thread 0 in dq, warp 0 in dk/dv) then wait until all four have
+// and refill it with tile i + kStages of the walk (`load(i + kStages)`),
+// so the copies run one ring ahead.
+template <class Load>
+__device__ __forceinline__ void release(uint64_t* bar, int i, int n,
+                                        int producers, const Load& load) {
+  const int s = i % kStages;
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(&bar[kStages + s]);
+  if (threadIdx.x < producers && i + kStages < n) {
+    mbar_wait(&bar[kStages + s], (i / kStages) & 1);
+    load(i + kStages);
+  }
+  __syncwarp();
+}
+
+// dq: one CTA per (batch x kv head, 64-row query tile). q2 and dO are
+// resident; the K/V tiles of the walk stream through the ring. Per tile:
+// S = q2 . K^T and dP = dO . V^T (wgmma, both operands in shared memory,
+// K-major), p and ds in the accumulators' registers, dQ += round(ds) . K
+// (ds as the register A operand, K read MN-major).
 template <int D, class Walk>
-__global__ void __launch_bounds__(kThreads)
-dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-       const float* __restrict__ lse, const float* __restrict__ delta,
-       bf16* __restrict__ dq, int BH, int G, int Sq, int Sk,
-       float scale_log2, float sm_scale, int n_q_tiles, Walk walk) {
-  constexpr int LD = D + kPad, LDK = kKeys + kPad;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kRows * LD;
-  bf16* k_s = do_s + kRows * LD;
-  bf16* v_s = k_s + kKeys * LD;
-  bf16* kt_s = v_s + kKeys * LD;  // K transposed: (D, keys)
+__global__ void __launch_bounds__(kBwdThreads, 2)
+dq_mma(const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
+       const float* __restrict__ delta, bf16* __restrict__ dq, int BH, int G,
+       int Sq, int Sk, float scale_log2, float sm_scale, int n_q_tiles,
+       Walk walk) {
+  constexpr int T = tile_bytes<D>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* bar = bwd_barriers<D>(sm, 1);
 
   const int bh = blockIdx.x % BH;
-  const int qt = n_q_tiles - 1 - blockIdx.x / BH;
+  const int qt = n_q_tiles - 1 - blockIdx.x / BH;  // longest rows first
   const int BQ = kRows / G;
   const int p0 = qt * BQ;
+  const int n_k = walk.row_count(qt, p0, BQ, kKeys);
+  const auto load = [&](int i) {  // tile i of the walk into its stage
+    bool partial;
+    const int k0 = walk.row_tile(qt, i, partial) * kKeys;
+    load_pair<D>(sm + (2 + 2 * (i % kStages)) * T, &bar[i % kStages],
+                 &maps.k, &maps.v, 2, bh * Sk + k0, 0);
+  };
+  if (threadIdx.x == 0) {
+    load_pair<D>(sm, &bar[2 * kStages], &maps.q, &maps.dout, 3, p0, bh * G);
+    for (int i = 0; i < kStages && i < n_k; ++i) load(i);
+  }
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16 + g, r1 = r0 + 8;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
   const int pos0 = p0 + r0 % BQ, pos1 = p0 + r1 % BQ;
   const size_t head0 = (size_t)bh * G * Sq + p0;
   const size_t row0 = head0 + (size_t)(r0 / BQ) * Sq + r0 % BQ;
   const size_t row1 = head0 + (size_t)(r1 / BQ) * Sq + r1 % BQ;
   const float ls0 = lse[row0] * kLog2e, ls1 = lse[row1] * kLog2e;
   const float dl0 = delta[row0], dl1 = delta[row1];
+  bf16* q_s = reinterpret_cast<bf16*>(sm);
+  const bf16* do_s = reinterpret_cast<const bf16*>(sm + T);
 
-  copy_rows<bf16, D, LD, kThreads>(q_s, q + head0 * D, kRows, BQ, Sq,
-                                   scale_log2);
-  copy_rows<bf16, D, LD, kThreads>(do_s, dout + head0 * D, kRows, BQ, Sq,
-                                   0.f);
-  float acc[D / 8][4];
+  mbar_wait(&bar[2 * kStages], 0);
+  scale_tile(q_s, 64 * D, scale_log2);  // q2, in place
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  const int n_k = walk.row_count(qt, p0, BQ, kKeys);
-  const bf16* kb = k + (size_t)bh * Sk * D;
-  const bf16* vb = v + (size_t)bh * Sk * D;
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
   for (int i = 0; i < n_k; ++i) {
+    const int s = i % kStages;
     bool partial;
     const int k0 = walk.row_tile(qt, i, partial) * kKeys;
-    __syncthreads();
-    copy_rows<bf16, D, LD, kThreads>(k_s, kb + (size_t)k0 * D, kKeys, kKeys,
-                                     0, 0.f);
-    copy_rows<bf16, D, LD, kThreads>(v_s, vb + (size_t)k0 * D, kKeys, kKeys,
-                                     0, 0.f);
-    copy_rows_t<D, LDK>(kt_s, kb + (size_t)k0 * D, kKeys, kKeys, 0);
-    __syncthreads();
+    const bf16* k_s = reinterpret_cast<const bf16*>(sm + (2 + 2 * s) * T);
+    const bf16* v_s = reinterpret_cast<const bf16*>(sm + (3 + 2 * s) * T);
+    mbar_wait(&bar[s], (i / kStages) & 1);
 
-    float s[kKeys / 8][4], dp[kKeys / 8][4];
+    float st[32], dpt[32];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss64(st, desc_k(q_s, kk), desc_k(k_s, kk), kk);
+    wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss64(dpt, desc_k(do_s, kk), desc_k(v_s, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs<32>(st);
+    // p = exp2(s - lse * log2 e), exactly 0 on a masked pair
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t aq[4], ado[4];
-      load_a(aq, q_s, LD, warp * 16, kc * 16, g, t);
-      load_a(ado, do_s, LD, warp * 16, kc * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kKeys / 8; ++nt) {
-        uint32_t b0, b1;
-        load_b(b0, b1, k_s, LD, nt * 8, kc * 16, g, t);
-        mma(s[nt], aq, b0, b1);
-        load_b(b0, b1, v_s, LD, nt * 8, kc * 16, g, t);
-        mma(dp[nt], ado, b0, b1);
-      }
+    for (int e = 0; e < 32; ++e) {
+      const int hi = (e / 2) % 2;
+      const int key = k0 + 8 * (e / 4) + 2 * t + e % 2;
+      st[e] = (partial && walk.dead(hi ? pos1 : pos0, key))
+                  ? 0.f : exp2f(st[e] - (hi ? ls1 : ls0));
     }
-    // ds = p * (dp - delta) * sm_scale, kept in s
+    wgmma_wait<0>();
+    fence_regs<32>(dpt);
+    // ds = p * (dp - delta) * sm_scale
 #pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
+    for (int e = 0; e < 32; ++e)
+      dpt[e] = st[e] * (dpt[e] - ((e / 2) % 2 ? dl1 : dl0)) * sm_scale;
+    uint32_t dsa[4][4];
+    acc_to_a(dsa, dpt);
+    fence_regs<D / 2>(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + nt * 8 + 2 * t + j;
-        const float p0v = (partial && walk.dead(pos0, key))
-                              ? 0.f : exp2f(s[nt][j] - ls0);
-        const float p1v = (partial && walk.dead(pos1, key))
-                              ? 0.f : exp2f(s[nt][2 + j] - ls1);
-        s[nt][j] = p0v * (dp[nt][j] - dl0) * sm_scale;
-        s[nt][2 + j] = p1v * (dp[nt][2 + j] - dl1) * sm_scale;
-      }
-    }
-#pragma unroll
-    for (int kc = 0; kc < kKeys / 16; ++kc) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b0, b1;
-        load_b(b0, b1, kt_s, LDK, dt * 8, kc * 16, g, t);
-        mma(acc[dt], a, b0, b1);
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, dsa[kk], desc_mn(k_s, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
+    release(bar, i, n_k, 1, load);
   }
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * t;
     *reinterpret_cast<uint32_t*>(dq + row0 * D + c) =
-        pack(acc[dt][0], acc[dt][1]);
+        pack(acc[4 * j], acc[4 * j + 1]);
     *reinterpret_cast<uint32_t*>(dq + row1 * D + c) =
-        pack(acc[dt][2], acc[dt][3]);
+        pack(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
-template <int D> constexpr size_t mma_dkv_smem() {
-  return sizeof(bf16) * ((2 * kKeys + 2 * kDkvRows) * (D + kPad) +
-                         2 * D * (kDkvRows + kPad)) +
-         sizeof(float) * 2 * kDkvRows;
-}
-
+// dk/dv: one CTA per (batch x kv head, 64-key tile); low key tiles first
+// (causal: they do the most work). k2 and V are resident; the query tiles
+// of the walk (64 rows: G heads x BQ positions) stream through the ring.
+// Per tile: S^T = k2 . Q^T and dP^T = V . dO^T (wgmma, shared memory,
+// K-major), p^T and ds^T in registers (each lane reads the lse and delta
+// of its 16 query rows while the products run), then dV += round(p)^T . dO
+// and dK += round(ds)^T . Q with p^T / ds^T as the register A operand and
+// dO / Q read MN-major from the same tiles. dK and dV are written once at
+// the end: no atomics.
 template <int D, class Walk>
-__global__ void __launch_bounds__(kThreads)
-dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        bf16* __restrict__ dk, bf16* __restrict__ dv, int BH, int G, int Sq,
-        int Sk, float scale_log2, float sm_scale, Walk walk) {
-  constexpr int LD = D + kPad, LDR = kDkvRows + kPad;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);  // k2 = round(k * scale)
-  bf16* v_s = k_s + kKeys * LD;
-  bf16* q_s = v_s + kKeys * LD;
-  bf16* do_s = q_s + kDkvRows * LD;
-  bf16* qt_s = do_s + kDkvRows * LD;   // Q transposed: (D, rows)
-  bf16* dot_s = qt_s + D * LDR;        // dO transposed: (D, rows)
-  float* lse_s = reinterpret_cast<float*>(dot_s + D * LDR);
-  float* dl_s = lse_s + kDkvRows;
+__global__ void __launch_bounds__(kBwdThreads, 2)
+dkv_mma(const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
+        const float* __restrict__ delta, bf16* __restrict__ dk,
+        bf16* __restrict__ dv, int BH, int G, int Sq, int Sk,
+        float scale_log2, float sm_scale, Walk walk) {
+  constexpr int T = tile_bytes<D>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  float* rows_s = bwd_rows<D>(sm);
+  uint64_t* bar = bwd_barriers<D>(sm, 33);  // 32 lanes' rows and the TMA
 
   const int bh = blockIdx.x % BH;
-  const int kt = blockIdx.x / BH;  // causal: low key tiles do the most work
+  const int kt = blockIdx.x / BH;
   const int k0 = kt * kKeys;
   const int BQ = kDkvRows / G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  // this lane's two keys (accumulator rows)
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
-
-  const size_t kv_row0 = (size_t)bh * Sk + k0;
-  copy_rows<bf16, D, LD, kThreads>(k_s, k + kv_row0 * D, kKeys, kKeys, 0,
-                                   scale_log2);
-  copy_rows<bf16, D, LD, kThreads>(v_s, v + kv_row0 * D, kKeys, kKeys, 0,
-                                   0.f);
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
-
   const int n_q = walk.col_count(kt, k0, BQ);
-  for (int i = 0; i < n_q; ++i) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bq_log2 = __ffs(BQ) - 1;
+  // by warp 0: query tile i of the walk into its stage, with its rows' lse
+  // and delta (row r: head r / BQ, position p0 + r % BQ)
+  const auto load = [&](int i) {
+    const int s = i % kStages;
     bool partial;
     const int p0 = walk.col_tile(kt, k0, BQ, i, partial) * BQ;
     const size_t head0 = (size_t)bh * G * Sq + p0;
-    __syncthreads();  // the previous query tile is consumed
-    copy_rows<bf16, D, LD, kThreads>(q_s, q + head0 * D, kDkvRows, BQ, Sq,
-                                     0.f);
-    copy_rows<bf16, D, LD, kThreads>(do_s, dout + head0 * D, kDkvRows, BQ,
-                                     Sq, 0.f);
-    copy_rows_t<D, LDR>(qt_s, q + head0 * D, kDkvRows, BQ, Sq);
-    copy_rows_t<D, LDR>(dot_s, dout + head0 * D, kDkvRows, BQ, Sq);
-    for (int r = threadIdx.x; r < kDkvRows; r += kThreads) {
-      const size_t row = head0 + (size_t)(r / BQ) * Sq + r % BQ;
-      lse_s[r] = lse[row] * kLog2e;
-      dl_s[r] = delta[row];
+    for (int r = lane; r < kDkvRows; r += 32) {
+      const size_t row = head0 + (size_t)(r >> bq_log2) * Sq + (r & (BQ - 1));
+      cp_async4(rows_s + s * 128 + r, lse + row);
+      cp_async4(rows_s + s * 128 + 64 + r, delta + row);
     }
-    __syncthreads();
-
-    // s^T = k2 . q^T and dp^T = v . do^T: rows are keys, columns queries
-    float s[kDkvRows / 8][4], dp[kDkvRows / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kDkvRows / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t ak[4], av[4];
-      load_a(ak, k_s, LD, warp * 16, kc * 16, g, t);
-      load_a(av, v_s, LD, warp * 16, kc * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kDkvRows / 8; ++nt) {
-        uint32_t b0, b1;
-        load_b(b0, b1, q_s, LD, nt * 8, kc * 16, g, t);
-        mma(s[nt], ak, b0, b1);
-        load_b(b0, b1, do_s, LD, nt * 8, kc * 16, g, t);
-        mma(dp[nt], av, b0, b1);
-      }
-    }
-    // p^T into s, ds^T into dp
-#pragma unroll
-    for (int nt = 0; nt < kDkvRows / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = nt * 8 + 2 * t + j;
-        const int pos = p0 + col % BQ;
-        const float l2 = lse_s[col], dl = dl_s[col];
-        const float pa = (partial && walk.dead(pos, key0))
-                             ? 0.f : exp2f(s[nt][j] - l2);
-        const float pb = (partial && walk.dead(pos, key1))
-                             ? 0.f : exp2f(s[nt][2 + j] - l2);
-        s[nt][j] = pa;
-        s[nt][2 + j] = pb;
-        dp[nt][j] = pa * (dp[nt][j] - dl) * sm_scale;
-        dp[nt][2 + j] = pb * (dp[nt][2 + j] - dl) * sm_scale;
-      }
-    }
-    // dv += round(p)^T . do, dk += round(ds)^T . q
-#pragma unroll
-    for (int kc = 0; kc < kDkvRows / 16; ++kc) {
-      uint32_t ap[4], ads[4];
-      c_to_a(ap, s[2 * kc], s[2 * kc + 1]);
-      c_to_a(ads, dp[2 * kc], dp[2 * kc + 1]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b0, b1;
-        load_b(b0, b1, dot_s, LDR, dt * 8, kc * 16, g, t);
-        mma(dva[dt], ap, b0, b1);
-        load_b(b0, b1, qt_s, LDR, dt * 8, kc * 16, g, t);
-        mma(dka[dt], ads, b0, b1);
-      }
-    }
+    cp_async_arrive(&bar[s]);
+    if (lane == 0)
+      load_pair<D>(sm + (2 + 2 * s) * T, &bar[s], &maps.q, &maps.dout, 3,
+                   p0, bh * G);
+  };
+  if (warp == 0) {
+    if (lane == 0)
+      load_pair<D>(sm, &bar[2 * kStages], &maps.k, &maps.v, 2, bh * Sk + k0,
+                   0);
+    for (int i = 0; i < kStages && i < n_q; ++i) load(i);
   }
-  const size_t rk0 = (kv_row0 + warp * 16 + g) * D;
+  __syncwarp();
+
+  const int g = lane / 4, t = lane % 4;
+  const int key0 = k0 + warp * 16 + g;  // this lane's keys: key0, key0 + 8
+  bf16* k_s = reinterpret_cast<bf16*>(sm);
+  const bf16* v_s = reinterpret_cast<const bf16*>(sm + T);
+
+  mbar_wait(&bar[2 * kStages], 0);
+  scale_tile(k_s, 64 * D, scale_log2);  // k2, in place
+  fence_proxy_async();
+  __syncthreads();
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dka[e] = dva[e] = 0.f;
+  for (int i = 0; i < n_q; ++i) {
+    const int s = i % kStages;
+    bool partial;
+    const int p0 = walk.col_tile(kt, k0, BQ, i, partial) * BQ;
+    const bf16* q_s = reinterpret_cast<const bf16*>(sm + (2 + 2 * s) * T);
+    const bf16* do_s = reinterpret_cast<const bf16*>(sm + (3 + 2 * s) * T);
+    const float* ls = rows_s + s * 128;  // lse, then delta, of its rows
+    mbar_wait(&bar[s], (i / kStages) & 1);
+
+    // s^T and dp^T: rows are keys, columns the tile's query rows
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss64(st, desc_k(k_s, kk), desc_k(q_s, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss64(dpt, desc_k(v_s, kk), desc_k(do_s, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs<32>(st);
+    // p^T = exp2(s^T - lse * log2 e), exactly 0 on a masked pair
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int col = 8 * (e / 4) + 2 * t + e % 2;
+      const int key = key0 + 8 * ((e / 2) % 2);
+      st[e] = (partial && walk.dead(p0 + (col & (BQ - 1)), key))
+                  ? 0.f : exp2f(st[e] - ls[col] * kLog2e);
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    acc_to_a(pa, st);
+    fence_regs<D / 2>(dva);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dva, pa[kk], desc_mn(do_s, kk));
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is in; dV may still run
+    fence_regs<32>(dpt);
+    // ds^T = p^T * (dp^T - delta) * sm_scale
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int col = 8 * (e / 4) + 2 * t + e % 2;
+      dpt[e] = st[e] * (dpt[e] - ls[64 + col]) * sm_scale;
+    }
+    acc_to_a(dsa, dpt);
+    fence_regs<D / 2>(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dka, dsa[kk], desc_mn(q_s, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(dka);
+    fence_regs<D / 2>(dva);
+    release(bar, i, n_q, 32, load);
+  }
+  const size_t rk0 = ((size_t)bh * Sk + key0) * D;
   const size_t rk1 = rk0 + 8 * D;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dk + rk0 + c) = pack(dka[dt][0], dka[dt][1]);
-    *reinterpret_cast<uint32_t*>(dk + rk1 + c) = pack(dka[dt][2], dka[dt][3]);
-    *reinterpret_cast<uint32_t*>(dv + rk0 + c) = pack(dva[dt][0], dva[dt][1]);
-    *reinterpret_cast<uint32_t*>(dv + rk1 + c) = pack(dva[dt][2], dva[dt][3]);
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(dk + rk0 + c) = pack(dka[4 * j], dka[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(dk + rk1 + c) = pack(dka[4 * j + 2], dka[4 * j + 3]);
+    *reinterpret_cast<uint32_t*>(dv + rk0 + c) = pack(dva[4 * j], dva[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(dv + rk1 + c) = pack(dva[4 * j + 2], dva[4 * j + 3]);
   }
 }
 
@@ -892,18 +1232,79 @@ struct Shape {
   float scale_log2, sm_scale;
 };
 
-// G must divide every row tile and the tiles must divide the sequences:
-// rows/keys per tile are (64, 64) for bfloat16 forward and dq, 32 query
-// rows for its dk/dv, and (32, 32) for float32.
+// G must divide the row tile and the tiles must divide the sequences:
+// rows/keys per tile are (64, 64) for bfloat16 (forward, dq and dk/dv)
+// and (32, 32) for float32.
 inline bool shape_ok(const Shape& s, int rows, int keys) {
   return s.B > 0 && s.Hkv > 0 && s.G > 0 && rows % s.G == 0 &&
-         kDkvRows % s.G == 0 && s.Sq > 0 && s.Sk > 0 &&
-         s.Sq % (rows / s.G) == 0 && s.Sk % keys == 0;
+         s.Sq > 0 && s.Sk > 0 && s.Sq % (rows / s.G) == 0 &&
+         s.Sk % keys == 0;
 }
+
+// cuTensorMapEncodeTiled, taken from the driver at run time so the library
+// links against the CUDA runtime alone
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// One bf16 map with 128-byte swizzle (the box's inner extent is kHalf
+// columns, 128 bytes).
+inline bool encode_map(CUtensorMap* m, const void* ptr, cuuint32_t rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  const auto encode = tensor_map_encoder();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The backward kernels' maps, which hold the data pointers: q and dout as
+// (D, Sq, B * Hq) with a box (kHalf, BQ, G), which lands the G heads x BQ
+// positions of a 64-row tile in its row order (row r: head r / BQ,
+// position p0 + r % BQ); k and v as (D, B * Hkv * Sk) with a box
+// (kHalf, 64).
+inline cudaError_t bwd_maps(BwdMaps* m, const void* q, const void* dout,
+                            const void* k, const void* v, const Shape& s,
+                            int D) {
+  static_assert(kRows == kDkvRows, "dq and dk/dv share the query tile");
+  const cuuint64_t row = (cuuint64_t)D * sizeof(bf16);
+  const cuuint64_t qdims[3] = {(cuuint64_t)D, (cuuint64_t)s.Sq,
+                               (cuuint64_t)s.B * s.Hkv * s.G};
+  const cuuint64_t qstrides[2] = {row, row * s.Sq};
+  const cuuint32_t qbox[3] = {kHalf, (cuuint32_t)(kRows / s.G),
+                              (cuuint32_t)s.G};
+  const cuuint64_t kdims[2] = {(cuuint64_t)D,
+                               (cuuint64_t)s.B * s.Hkv * s.Sk};
+  const cuuint32_t kbox[2] = {kHalf, kKeys};
+  const bool ok = encode_map(&m->q, q, 3, qdims, qstrides, qbox) &&
+                  encode_map(&m->dout, dout, 3, qdims, qstrides, qbox) &&
+                  encode_map(&m->k, k, 2, kdims, &row, kbox) &&
+                  encode_map(&m->v, v, 2, kdims, &row, kbox);
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 
 template <typename Kernel, typename... Args>
 cudaError_t run(Kernel kern, size_t smem, bool* done, long long blocks,
-                int threads, cudaStream_t stream, Args... args) {
+                int threads, cudaStream_t stream, const Args&... args) {
   cudaError_t err = prepare(kern, smem, done);
   if (err != cudaSuccess) return err;
   if (blocks <= 0 || blocks > 0x7fffffffLL)
@@ -947,13 +1348,14 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(delta);
   if (dtype == kBF16) {
     if (!shape_ok(s, kRows, kKeys)) return cudaErrorInvalidValue;
+    BwdMaps maps;
+    cudaError_t err = bwd_maps(&maps, q, dout, k, v, s, D);
+    if (err != cudaSuccess) return err;
     static bool done[kMaxDevices] = {};
     const int n_q = s.Sq / (kRows / s.G);
-    return run(dq_mma<D, Walk>, mma_dq_smem<D>(), done, (long long)BH * n_q,
-               kThreads, st, static_cast<const bf16*>(q),
-               static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-               static_cast<const bf16*>(dout), ls, dl, static_cast<bf16*>(dq),
-               BH, s.G, s.Sq, s.Sk, s.scale_log2, s.sm_scale, n_q, w);
+    return run(dq_mma<D, Walk>, bwd_smem<D>(), done, (long long)BH * n_q,
+               kBwdThreads, st, maps, ls, dl, static_cast<bf16*>(dq), BH,
+               s.G, s.Sq, s.Sk, s.scale_log2, s.sm_scale, n_q, w);
   }
   if (!shape_ok(s, BM, BK)) return cudaErrorInvalidValue;
   static bool done[kMaxDevices] = {};
@@ -975,14 +1377,15 @@ cudaError_t bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == kBF16) {
-    if (!shape_ok(s, kRows, kKeys)) return cudaErrorInvalidValue;
+    if (!shape_ok(s, kDkvRows, kKeys)) return cudaErrorInvalidValue;
+    BwdMaps maps;
+    cudaError_t err = bwd_maps(&maps, q, dout, k, v, s, D);
+    if (err != cudaSuccess) return err;
     static bool done[kMaxDevices] = {};
-    return run(dkv_mma<D, Walk>, mma_dkv_smem<D>(), done,
-               (long long)BH * (s.Sk / kKeys), kThreads, st,
-               static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-               static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-               ls, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH,
-               s.G, s.Sq, s.Sk, s.scale_log2, s.sm_scale, w);
+    return run(dkv_mma<D, Walk>, bwd_smem<D>(), done,
+               (long long)BH * (s.Sk / kKeys), kBwdThreads, st, maps, ls, dl,
+               static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH, s.G, s.Sq,
+               s.Sk, s.scale_log2, s.sm_scale, w);
   }
   if (!shape_ok(s, BM, BK)) return cudaErrorInvalidValue;
   static bool done[kMaxDevices] = {};

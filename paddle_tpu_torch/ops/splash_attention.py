@@ -34,8 +34,9 @@ that tiles the sequences works, smaller or larger than the kernels' tiles.
 Not ported, on purpose: ``fits_score_budget``, ``pick_splash_blocks``,
 ``SCORE_ELEMS``, ``MAX_ROWS``, ``_FORCE_STREAM`` and the resident fit.
 They budget the TPU's scoped VMEM; the CUDA kernels have one tiling. The
-kernels take head_dim 64 and 128 and groups G that divide 32, as the
-grouped flash kernels do.
+kernels take head_dim 64 and 128 and groups G that divide the query
+tile (64 rows in bfloat16, 32 in float32), as the grouped flash kernels
+do.
 
 Launch counts: ``splash_attention.launches_fwd``, ``.launches_dq`` and
 ``.launches_dkv``.
@@ -260,7 +261,7 @@ def _device_tables(pat: _Pattern, Sq, Sk, G, dtype, device):
     counts) per key tile of the dk/dv tiling, and the uint8 block mask."""
     rows_per_tile, keys = _TILES[dtype]
     rows = _walk(*_tile_tables(pat, Sq, Sk, rows_per_tile // G, keys))
-    live, full = _tile_tables(pat, Sq, Sk, _DKV_ROWS // G, keys)
+    live, full = _tile_tables(pat, Sq, Sk, _DKV_ROWS[dtype] // G, keys)
     cols = _walk(live.T, full.T)
 
     def on(a):

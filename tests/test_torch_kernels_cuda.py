@@ -191,6 +191,31 @@ def test_gqa_kernels_match_plain(card, dt, D, G, S, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_backward_kernels_at_one_head(card, D, G, causal):
+    """The wgmma dq and dk/dv kernels at one kv head and S = 256, where a
+    wrong shared-memory descriptor or TMA box shows as wrong numbers: each
+    against the plain backward element by element (tolerance as above),
+    and two launches on the same inputs bit-identical (no atomics)."""
+    dt = torch.bfloat16
+    q, k, v, do = _gqa_inputs(1, 1, G, 256, D, dt, card,
+                              seed=D + G + int(causal))
+    scale = D ** -0.5
+    want_out, lse = fa._gqa_fwd_plain(q, k, v, causal)
+    delta = (do.float() * want_out.float()).sum(-1)
+    runs = [(fa._launch_dq(q, k, v, do, lse, delta, causal, scale),
+             *fa._launch_dkv(q, k, v, do, lse, delta, causal, scale))
+            for _ in range(2)]
+    want = fa._gqa_bwd_plain(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    for name, a, b, w in zip(("dq", "dk", "dv"), *runs, want):
+        _reading(name, a, w, *GQA_TOL[dt]["grad"])
+        assert torch.equal(a, b), f"{name} differs between two launches"
+
+
+@pytest.mark.cuda
 def test_gqa_kernels_refuse_what_they_do_not_take(card):
     q, k, v, _ = _gqa_inputs(1, 2, 2, 256, 96, torch.bfloat16, card, 1)
     with pytest.raises(ValueError, match="head_dim 96"):
