@@ -8,13 +8,17 @@ trains.
     python3 chip_smoke.py --phases build,kernel,train
     python3 chip_smoke.py --phases build,kernel,train_mha,train_window
     python3 chip_smoke.py --phases build,kernel,train_encoder
+    python3 chip_smoke.py --phases build,train,train_mha,train_window \
+        --plain-curves
 
 Phases, each printing JSON lines:
 
 1. ``build``: compile every kernel under ``paddle_tpu_torch/ops/kernels``
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
-   then count the HGMMA (wgmma) instructions of each bf16 attention
-   backward kernel in the libraries' SASS (``cuobjdump``): none fails.
+   then count the HGMMA (wgmma) instructions of each 16-bit attention
+   kernel (forward, dq and dk/dv at head_dim 64, 128 and 256, bfloat16
+   and float16, both libraries) in their SASS (``cuobjdump``): one that
+   is missing or has none fails.
 2. ``kernel``: each kernel through its wrapper at the shapes of the main
    paths, against its plain version on the same inputs, element by
    element within the stated tolerance; each call must launch its kernel
@@ -71,7 +75,9 @@ Phases, each printing JSON lines:
    (the plain versions), from the same weights: greedy decode tokens
    identical and logits within ``REF_ATOL``; then the train step at B=2,
    S=256: the losses of 3 steps, every gradient of step 1 and every
-   parameter after step 3; then a small f32 post-LN encoder (2
+   parameter after step 3; the same for a second one at head_dim 256
+   with a kv group of 3 (hidden 768, 3 / 1 heads); then a small f32
+   post-LN encoder (2
    ``FusedTransformerEncoderLayer``s, d=128, 2 heads, B=2, S=256: the
    flash and dropout-add-LN kernels) the same way at dropout 0: its
    output, then 3 AdamW steps.
@@ -104,6 +110,9 @@ Phases, each printing JSON lines:
    below the first. With ``--profile``, a ``torch.profiler`` trace splits
    a train step into the flash and splash kernels, the CE kernels, matrix
    products and the rest, with the rest's costliest kernels by name.
+   With ``--plain-curves``, the 5 steps run once more from the same
+   weights and batch with the plain attention and CE versions, and both
+   loss curves are printed (``plain_curves_<phase>``).
 
 8. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
    ``incubate.nn`` at BERT-base's widths (768, 12 heads, FFN 3072, GELU,
@@ -123,6 +132,7 @@ exits non-zero and prints no result line. Without CUDA it exits at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -144,6 +154,9 @@ REPS = 25
 # atol covers the f32 order near 0. Largest reading: 3.9e-3 at |want|
 # near 1, i.e. one ulp (PERF.md, metrics table).
 KERNEL_ATOL, KERNEL_RTOL = 1e-4, 2 ** -7
+# the same with an f32 output: the order of the f32 sums only
+PAGED_TOL = {"bfloat16": (KERNEL_ATOL, KERNEL_RTOL),
+             "float32": (1e-5, 1e-5)}
 # f32 model, card (kernel, cuBLAS in full f32) vs CPU (plain, MKL):
 # summation order only
 REF_ATOL = 1e-4
@@ -161,7 +174,16 @@ STEP_ATOL = 0.5
 # multi-head (S=4096) 0.60, 0.47, 0.80 / 0.45; splash at the Mistral band
 # (S=8192) 0.52, 0.35, 0.46 / 0.45; at most 0.77 in the other cases. f32:
 # order of the sums only (readings at most 0.03 of the limit).
+# float16: the same roundings to f16, whose ulp is 2^-10 relative (2^-7
+# for bf16): out within two f16 ulps, 2^-9 of |plain| on an atol of 2e-4
+# (readings 0.35-0.77 of it). A gradient sums a key's or a query's
+# products of round(ds), whose f16 roundings flip apart where the f32
+# sums differ in order: its error does not shrink with its magnitude
+# (readings against the output's limit: up to 1.64, an abs err of 4.9e-4
+# at |plain| near 0.05, and 7.3e-4 in the card tests), so its limit is
+# about twice the readings: 1.5e-3 + 2^-8·|plain| (one H100; PERF.md §2).
 GQA_TOL = {"bfloat16": dict(out=(2e-3, 2 ** -6), grad=(2e-3, 2 ** -6)),
+           "float16": dict(out=(2e-4, 2 ** -9), grad=(1.5e-3, 2 ** -8)),
            "float32": dict(out=(1e-5, 1e-5), grad=(1e-4, 1e-4))}
 LSE_TOL = (1e-5, 1e-5)
 # fused CE: loss and lse are f32 sums in another order (readings 2e-6);
@@ -278,15 +300,25 @@ def gpu_ms(fn, reps=REPS, flush=None):
 
 # --- phase 1: build --------------------------------------------------------
 
+# the 16-bit attention kernels of each library: forward, dq and dk/dv at
+# head_dim 64, 128 and 256, in bfloat16 and float16 (mangled type names)
+WGMMA_KERNELS = ("fwd", "dq", "dkv")
+WGMMA_DIMS = (64, 128, 256)
+WGMMA_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+
 def _hgmma_counts(_build):
-    """HGMMA instructions (wgmma) in the SASS of each bf16 backward kernel
-    (dq_mma, dkv_mma at head_dim 64 and 128) of the two attention
-    libraries, read with cuobjdump beside nvcc. Raises if one has none."""
+    """HGMMA instructions (wgmma) in the SASS of each 16-bit attention
+    kernel (fwd_mma, dq_mma, dkv_mma at every head_dim and element type)
+    of the two attention libraries, read with cuobjdump beside nvcc.
+    Raises if one is missing or has none."""
     import re
     from pathlib import Path
 
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     counts = {}
+    pattern = re.compile(r"(fwd|dkv|dq)_mmaILi(\d+)E.*?("
+                         + "|".join(WGMMA_TYPES) + ")")
     for lib in ("flash_attention_gqa", "splash_attention"):
         sass = subprocess.run([str(cuobjdump), "--dump-sass",
                                str(_build.library_path(lib))],
@@ -295,14 +327,17 @@ def _hgmma_counts(_build):
         kernel = None
         for line in sass.splitlines():
             if "Function :" in line:
-                m = re.search(r"(dkv|dq)_mmaILi(\d+)E", line)
-                kernel = m and f"{lib}:{m.group(1)}_mma<{m.group(2)}>"
+                m = pattern.search(line)
+                kernel = m and (f"{lib}:{m.group(1)}_mma<{m.group(2)}, "
+                                f"{WGMMA_TYPES[m.group(3)]}>")
                 if kernel:
                     counts[kernel] = 0
             elif kernel and "HGMMA" in line:
                 counts[kernel] += 1
-    if len(counts) != 8 or not all(counts.values()):
-        raise AssertionError(f"bf16 backward kernels without wgmma: {counts}")
+    want = 2 * len(WGMMA_KERNELS) * len(WGMMA_DIMS) * len(WGMMA_TYPES)
+    if len(counts) != want or not all(counts.values()):
+        raise AssertionError(f"16-bit attention kernels missing or without "
+                             f"wgmma (want {want}): {counts}")
     return counts
 
 
@@ -322,7 +357,7 @@ def phase_build():
 # --- phase 2: the kernel against its plain version --------------------------
 
 def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
-                 seed, dev, flush):
+                 seed, dev, flush, q_dtype="bfloat16"):
     """One call of the port's wrapper at the given shapes, as the serving
     path makes it: ``paged_attention`` for decode (``start`` None, q
     (B, Hq, D)), ``paged_prefill_attention`` for a C-token chunk at
@@ -335,7 +370,8 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = G * C
     q_shape = (B, Hkv * G, D) if start is None else (B, Hkv * G, C, D)
-    q = torch.randn(q_shape, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn(q_shape, generator=g, device=dev).to(getattr(torch,
+                                                                 q_dtype))
     if kv_dtype == "int8":
         k = torch.randint(-127, 128, (Hkv, P, ps, D), generator=g,
                           device=dev, dtype=torch.int8)
@@ -345,12 +381,11 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
         vs = torch.rand((Hkv, P, ps), generator=g, device=dev) * 0.02
         kv_bytes = 1 + 4 / D      # a code per element, a scale per slot
     else:
-        k = torch.randn((Hkv, P, ps, D), generator=g, device=dev) \
-            .to(torch.bfloat16)
-        v = torch.randn((Hkv, P, ps, D), generator=g, device=dev) \
-            .to(torch.bfloat16)
+        kvt = getattr(torch, kv_dtype)
+        k = torch.randn((Hkv, P, ps, D), generator=g, device=dev).to(kvt)
+        v = torch.randn((Hkv, P, ps, D), generator=g, device=dev).to(kvt)
         ks = vs = None
-        kv_bytes = 2
+        kv_bytes = kvt.itemsize
     scales = {} if ks is None else {"k_scales": ks, "v_scales": vs}
     # distinct pages for every live sequence, from 1 up (page 0 reserved)
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
@@ -378,7 +413,8 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
     want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
-    allowed = KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
+    atol, rtol = PAGED_TOL[q_dtype]
+    allowed = atol + rtol * want.float().abs()
     ok = launched == 1 and bool(torch.all(err <= allowed))
     if lens.count(0):
         ok = ok and not got[[i for i, n in enumerate(lens) if n == 0]].any()
@@ -396,7 +432,7 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
         live_slots += Hkv * keys
         live_pages += -(-keys // ps)
     bytes_ = (2 * live_slots * D * kv_bytes          # K and V
-              + 2 * q.numel() * 2                    # q in, out back
+              + 2 * q.numel() * q.dtype.itemsize     # q in, out back
               + 4 * (live_pages + B))                # page ids, lens
     flops = 4 * D * pairs                            # q.k and p.v
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
@@ -404,13 +440,13 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
     return {"case": name, "ok": ok, "max_abs_err": float(err.max()),
             # the largest error over its limit, element by element
             "max_err_over_tol": float((err / allowed).max()),
-            "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
+            "atol": atol, "rtol": rtol,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(bytes_), "flops": int(flops),
             "shape": {"B": B, "Hkv": Hkv, "rows": rows, "D": D, "ps": ps,
-                      "W": W, "P": P, "q": "bfloat16", "kv": kv_dtype}}
+                      "W": W, "P": P, "q": q_dtype, "kv": kv_dtype}}
 
 
 def _check(got, want, atol, rtol, chunk=1 << 27):
@@ -595,7 +631,8 @@ def _attention_case(name, kind, B, Hkv, G, Sq, Sk, D, dtype, seed, dev,
     # the work these inputs need: each live (query, key) pair once; each
     # input read once and each output written once
     pairs = B * Hkv * G * per_head
-    rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
+    # the 16-bit types' tensor-core peak is one (989 TFLOP/s dense)
+    rate = F32_FLOP_PER_S if dtype == "float32" else BF16_FLOP_PER_S
     nq, nkv, rows = q.numel() * dt.itemsize, k.numel() * dt.itemsize, \
         B * Hkv * G * Sq * 4
     # The backward as one function, (q, k, v, dO, lse, delta) -> (dq, dk,
@@ -840,12 +877,24 @@ def phase_kernel(dev):
             cases.append(_kernel_case(
                 f"prefill_c256_start{start}/{kv}", 1, Hkv, G, D, ps, W, P,
                 [start + 200], start, 256, kv, 2 + start, dev, flush))
+    # head_dim 256: decode at 2 kv heads of 4 (G = 2), ragged lengths
+    for qt in ("bfloat16", "float32"):
+        cases.append(_kernel_case(
+            f"decode_D256/{qt}", 8, 2, 2, 256, ps, 8, 8 * 8 + 1,
+            [1, 512, 300, 0, 64, 129, 511, 7], None, 1, qt, 3, dev, flush,
+            q_dtype=qt))
     for c in cases:
         emit({"phase": "kernel", **c})
     gqa = [_attention_case("gqa_B2_S4096_D128/bfloat16", "gqa", 2, 8, 4,
                            4096, 4096, 128, "bfloat16", 7, dev, flush),
            _attention_case("gqa_B2_S256_D64/float32", "gqa", 2, 2, 2, 256,
                            256, 64, "float32", 8, dev, flush)]
+    # head_dim 256, and kv groups that do not divide the row tile (64 rows
+    # in the 16-bit kernels, 32 in float32): one query head a tile
+    gqa += [_attention_case(name, "gqa", *shape, seed, dev, flush,
+                            causal=causal)
+            for seed, (name, shape, causal) in
+            enumerate(_shape_cases(), start=50)]
     ce = [_ce_case(8192, 128256, 5, dev, flush)]
     for c in gqa + ce:
         emit({"phase": "kernel", **c})
@@ -855,7 +904,13 @@ def phase_kernel(dev):
                            256, 64, "float32", 10, dev, flush),
            _attention_case("mha_B2_Sq1024_Sk2048_D128/bfloat16", "mha", 2,
                            8, 1, 1024, 2048, 128, "bfloat16", 11, dev,
-                           flush)]
+                           flush),
+           # float16, as scaled_dot_product_attention sends it
+           _attention_case("mha_B2_S2048_D128/float16", "mha", 2, 8, 1,
+                           2048, 2048, 128, "float16", 60, dev, flush),
+           _attention_case("mha_B2_S1024_D64_noncausal/float16", "mha", 2,
+                           8, 1, 1024, 1024, 64, "float16", 61, dev, flush,
+                           causal=False)]
     for c in mha:
         emit({"phase": "kernel", **c})
     splash = [_attention_case(name, "splash", *shape, seed, dev, flush,
@@ -887,6 +942,24 @@ def phase_kernel(dev):
             "splash": splash, "mha_encoder": mha_enc, "norm": norm}
 
 
+def _shape_cases():
+    """(name, (B, Hkv, G, Sq, Sk, D, dtype), causal) of the grouped
+    kernels at head_dim 256 (bf16 and f32) and at kv groups that do not
+    divide the row tile: G = 3 and 6 in bf16, 64 in f32."""
+    return [
+        ("gqa_B2_S1024_D256/bfloat16", (2, 2, 2, 1024, 1024, 256,
+                                        "bfloat16"), True),
+        ("gqa_B1_S256_D256/float32", (1, 2, 2, 256, 256, 256, "float32"),
+         True),
+        ("gqa_G3_B2_S1024_D128/bfloat16", (2, 2, 3, 1024, 1024, 128,
+                                           "bfloat16"), True),
+        ("gqa_G6_B1_S1024_D64_noncausal/bfloat16", (1, 2, 6, 1024, 1024, 64,
+                                                    "bfloat16"), False),
+        ("gqa_G64_B1_S256_D64/float32", (1, 1, 64, 256, 256, 64,
+                                         "float32"), True),
+    ]
+
+
 def _random_mask(nq, nk, seed, empty_row):
     bm = np.random.default_rng(seed).random((nq, nk)) < 0.5
     bm[:, 0] = True
@@ -899,7 +972,8 @@ def _splash_cases():
     block_k, window, q_offset)): first the train_window phase's call (the
     Mistral band at S=8192, the model's mask of 128-blocks), then G = 1
     banded, a random mask with an empty block row, a shifted query frame,
-    mask blocks smaller than the kernels' tiles, and f32."""
+    mask blocks smaller than the kernels' tiles, f32, a kv group of 3
+    (one query head a tile) and head_dim 256 in bf16 and f32."""
     from paddle_tpu_torch.ops.splash_attention import banded_block_mask
 
     def band(S, b, w):
@@ -921,6 +995,12 @@ def _splash_cases():
          (_random_mask(64, 64, 1, 7), 16, 16, None, 0)),
         ("splash_band_S256_D64/float32",
          (2, 2, 2, 256, 256, 64, "float32"), True, band(256, 32, 100)),
+        ("splash_g3_B1_S2048_W512/bfloat16",
+         (1, 2, 3, 2048, 2048, 128, "bfloat16"), True, band(2048, 64, 512)),
+        ("splash_band_S1024_D256/bfloat16",
+         (1, 2, 2, 1024, 1024, 256, "bfloat16"), True, band(1024, 64, 300)),
+        ("splash_band_S256_D256/float32",
+         (1, 2, 2, 256, 256, 256, "float32"), True, band(256, 32, 100)),
     ]
 
 
@@ -1043,13 +1123,14 @@ def _reference_encoder(dev):
             "encoder_unused_params": unused, "encoder_ok": ok}
 
 
-def phase_reference(dev):
-    from paddle_tpu_torch.models.nlp import LlamaConfig, LlamaForCausalLM
+def _reference_llama(dev, cfg):
+    """A small f32 Llama on the card (the kernels) and on the CPU (the
+    plain versions), from the same weights: greedy decode tokens identical
+    and logits within ``REF_ATOL``; then the train step at B=2, S=256
+    (flash-eligible: the grouped kernels in f32) under ``TRAIN_REF``.
+    Returns (its readings, ok)."""
+    from paddle_tpu_torch.models.nlp import LlamaForCausalLM
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=4,
-                           kv_heads=2)                  # head_dim 64
     state = {k: v.numpy() for k, v in
              LlamaForCausalLM(cfg, device="cpu", seed=11).state_dict()
              .items()}
@@ -1057,11 +1138,8 @@ def phase_reference(dev):
     on_cpu = _drive_small(torch.device("cpu"), state, cfg)
     diff = float((on_card - on_cpu).abs().max())
     same = bool(torch.equal(on_card.argmax(-1), on_cpu.argmax(-1)))
-    out = {"phase": "reference", "max_logit_diff": diff,
-           "tokens_identical": same, "atol": REF_ATOL}
     ok = same and diff <= REF_ATOL
 
-    # the train step: B=2, S=256 (flash-eligible: the GQA kernels in f32)
     rng = np.random.default_rng(12)
     tokens, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                                     (2, 256)))
@@ -1082,14 +1160,38 @@ def phase_reference(dev):
                 and param_frac <= TRAIN_REF["param_frac"]
                 and param_max <= TRAIN_REF["lr"]
                 and card[0][-1] < card[0][0])
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    return ({"config": {"hidden": cfg.hidden_size,
+                        "heads": cfg.num_attention_heads,
+                        "kv_heads": cfg.num_key_value_heads, "head_dim": hd,
+                        "layers": cfg.num_hidden_layers},
+             "max_logit_diff": diff, "tokens_identical": same,
+             "atol": REF_ATOL,
+             "train_losses_card": card[0], "train_losses_cpu": cpu[0],
+             "train_loss_max_diff": loss_diff,
+             "train_grad_max_diff": grad_diff,
+             "train_param_max_diff": param_max,
+             "train_param_frac_over_atol": param_frac,
+             "train_tol": TRAIN_REF}, ok and train_ok)
+
+
+def phase_reference(dev):
+    from paddle_tpu_torch.models.nlp import LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"phase": "reference"}
+    llama, ok = _reference_llama(dev, LlamaConfig.tiny(
+        vocab=256, hidden=256, layers=2, heads=4, kv_heads=2))  # head_dim 64
+    out.update(llama)
+    # head_dim 256 and a kv group of 3, which does not divide the f32 row
+    # tile: the paged kernel at D = 256 in decode and prefill, the grouped
+    # f32 kernels one query head a tile
+    wide, wide_ok = _reference_llama(dev, LlamaConfig.tiny(
+        vocab=256, hidden=768, layers=2, heads=3, kv_heads=1))
     enc = _reference_encoder(dev)
-    out.update({"train_losses_card": card[0], "train_losses_cpu": cpu[0],
-                "train_loss_max_diff": loss_diff,
-                "train_grad_max_diff": grad_diff,
-                "train_param_max_diff": param_max,
-                "train_param_frac_over_atol": param_frac,
-                "train_tol": TRAIN_REF, **enc,
-                "ok": ok and train_ok and enc["encoder_ok"]})
+    out.update({"llama_d256_g3": {**wide, "ok": wide_ok}, **enc,
+                "ok": ok and wide_ok and enc["encoder_ok"]})
     emit(out)
     if not out["ok"]:
         raise AssertionError("the port on the card disagrees with the port "
@@ -1373,30 +1475,38 @@ def _plain_swaps(kind):
                    (ce, "ce_bwd", ce._ce_bwd_plain)]
 
 
-def _grads_with(swap, kind, cfg, params, tokens, labels):
-    """Loss and gradients of one forward+backward; ``swap`` runs the
-    plain versions in place of the kernels (module attributes swapped, as
-    the serve phase swaps ``paged_attention``)."""
-    from paddle_tpu_torch.models.nlp import param_views
-    from paddle_tpu_torch.models.nlp.llama_functional import loss_fn
-
+@contextlib.contextmanager
+def _plain_versions(kind, swap=True):
+    """Within it, the plain versions run in place of the attention kernels
+    of ``kind`` and the CE kernels (module attributes swapped, as the serve
+    phase swaps ``paged_attention``); with ``swap`` False, the kernels."""
     swaps = _plain_swaps(kind)
     kept = [getattr(m, name) for m, name, _ in swaps]
     if swap:
         for m, name, plain in swaps:
             setattr(m, name, plain)
     try:
+        yield
+    finally:
+        for (m, name, _), fn in zip(swaps, kept):
+            setattr(m, name, fn)
+
+
+def _grads_with(swap, kind, cfg, params, tokens, labels):
+    """Loss and gradients of one forward+backward; ``swap`` runs the
+    plain versions in place of the kernels."""
+    from paddle_tpu_torch.models.nlp import param_views
+    from paddle_tpu_torch.models.nlp.llama_functional import loss_fn
+
+    with _plain_versions(kind, swap):
         outer, layers = param_views(params, cfg.num_hidden_layers)
         loss = loss_fn(cfg, outer, layers, tokens, labels, remat=False)
         grads = torch.autograd.grad(loss, list(params.values()))
         torch.cuda.synchronize()
-    finally:
-        for (m, name, _), fn in zip(swaps, kept):
-            setattr(m, name, fn)
     return float(loss.detach()), grads
 
 
-def phase_train(dev, phase="train", profile=False):
+def phase_train(dev, phase="train", profile=False, plain_curves=False):
     from paddle_tpu_torch.examples.train_llama_compiled import train
     from paddle_tpu_torch.models.nlp import LlamaForCausalLM
 
@@ -1486,8 +1596,20 @@ def phase_train(dev, phase="train", profile=False):
                        "splash_attention": ("splashwalk",),
                        "fused_ce": ("ce_fwd", "ce_bwd"),
                        "matmul": MATMUL_NAMES}, n=3)})
+        del step, params, opt, one_step
     del res
     torch.cuda.empty_cache()
+    if plain_curves:
+        # the same 5 steps from the same weights and batch with the plain
+        # attention and CE versions: the curve the kernels should follow
+        with _plain_versions(kind):
+            plain = train(cfg, B, S, steps, lr=lr, device=dev, seed=seed,
+                          remat=False, log=None)["losses"]
+        torch.cuda.empty_cache()
+        out["losses_plain"] = plain
+        emit({"phase": f"plain_curves_{phase}", "losses_kernels": losses,
+              "losses_plain": plain,
+              "max_abs_diff": max(abs(a - b) for a, b in zip(losses, plain))})
     return out
 
 
@@ -1811,6 +1933,11 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also profile decode steps of the serve phase and "
                          "train steps of the train phases")
+    ap.add_argument("--plain-curves", action="store_true",
+                    help="in the Llama train phases, also run the 5 steps "
+                         "with the plain attention and CE versions on the "
+                         "same weights and batch, and record both loss "
+                         "curves")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1830,7 +1957,8 @@ def main():
         torch.cuda.empty_cache()
     for phase in TRAIN_CELLS:
         if phase in phases:
-            trains[phase] = phase_train(dev, phase, profile=args.profile)
+            trains[phase] = phase_train(dev, phase, profile=args.profile,
+                                        plain_curves=args.plain_curves)
     if "train_encoder" in phases:
         trains["train_encoder"] = phase_train_encoder(dev,
                                                       profile=args.profile)

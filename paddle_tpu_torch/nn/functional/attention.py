@@ -4,9 +4,10 @@ Counterpart of ``paddle_tpu/nn/functional/attention.py:19-79``. Inputs
 are (batch, seq, heads, head_dim), the reference's layout. Whether the
 flash kernels run is decided up front by the reference's own gate
 (``:46-48``): no mask, Sq >= 256, Sq and Sk multiples of 128, head_dim in
-(64, 128, 256). An eligible call runs the port's multi-head
-``flash_attention`` (the CUDA kernels on the card; head_dim 256 raises
-its ValueError there); any other call takes the reference's plain
+(64, 128, 256); like the reference's, it reads no dtype. An eligible
+call runs the port's multi-head ``flash_attention`` (the CUDA kernels on
+the card, which take every head_dim the gate admits, and float32,
+bfloat16 and float16); any other call takes the reference's plain
 softmax path, with the f32 softmax cast back to q's dtype (``:61-78``).
 The reference's ``use_pallas`` switch is not ported: as with the flash
 gate of the Llama path, an eligible shape always takes the kernels.

@@ -24,9 +24,10 @@ kernels, as the reference does (``flash_attention_gqa.py:390``).
 Not ported, on purpose: ``_gqa_resolve_blocks``, ``_gqa_fits``,
 ``ResidentOverflowError`` and the splash delegation. They come from the
 TPU's 16 MiB of scoped VMEM; the CUDA kernel takes every sequence length
-the gate admits. The kernels take head_dim 64 and 128 (256 is open:
-ROADMAP Queue 1) and kv groups G that divide the query tile: 64 rows in
-bfloat16, 32 in float32.
+the gate admits. The kernels take head_dim 64, 128 and 256, float32,
+bfloat16 and float16, and any kv group G: where G divides the query tile
+(64 rows in bfloat16 and float16, 32 in float32) a tile holds all G heads
+of a kv head, else one head's positions (``_group_tile``).
 
 Launch counts: ``grouped_flash_attention.launches_fwd``, ``.launches_dq``
 and ``.launches_dkv``; a launch for ``flash_attention`` counts there
@@ -43,13 +44,21 @@ from .flash_attention import LN2, LOG2E, NEG_INF
 from .kernels import _build
 
 _KERNEL = "flash_attention_gqa"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # (query rows, keys) per tile of the forward and dq kernels; the rows are
-# G heads x positions. The dk/dv kernels walk query tiles of _DKV_ROWS
-# rows, so G must divide it. Both are kernels/flash_tiles.cuh's constants
-# (kRows, kKeys, kDkvRows for bfloat16; BM, BK for float32).
-_TILES = {torch.float32: (32, 32), torch.bfloat16: (64, 64)}
-_DKV_ROWS = {torch.float32: 32, torch.bfloat16: 64}
+# _group_tile(G, rows) heads x positions. The dk/dv kernels walk query
+# tiles of _DKV_ROWS rows. Both are kernels/flash_tiles.cuh's constants
+# (kRows, kKeys, kDkvRows for the 16-bit types; BM, BK for float32).
+_TILES = {torch.float32: (32, 32), torch.bfloat16: (64, 64),
+          torch.float16: (64, 64)}
+_DKV_ROWS = {torch.float32: 32, torch.bfloat16: 64, torch.float16: 64}
+_HEAD_DIMS = (64, 128, 256)
+
+
+def _group_tile(G, rows):
+    """The query heads a tile of ``rows`` rows holds: all G of a kv head
+    where G divides the rows, else one (``group_tile`` of the header)."""
+    return G if rows % G == 0 else 1
 
 
 def _shapes(q, k, v):
@@ -156,21 +165,18 @@ def _operands(what, tensors, q, k, v, do=None):
     ``tensors`` made contiguous and 16-byte aligned."""
     B, Hq, Hkv, G, Sq, Sk, D = _shapes(q, k, v)
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{what}: dtype {q.dtype} (use float32 or "
-                        "bfloat16)")
+        raise TypeError(f"{what}: dtype {q.dtype} (use float32, bfloat16 "
+                        "or float16)")
     if any(t.dtype != q.dtype for t in (k, v, do) if t is not None):
         raise TypeError(f"{what}: q, k, v (and do) must share one dtype")
-    if D not in (64, 128):
-        raise ValueError(f"{what}: head_dim {D} (the kernels take 64 or "
-                         "128; head_dim 256 is open, ROADMAP Queue 1)")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {D} (the kernels take 64, 128 "
+                         "or 256)")
     rows, keys = _TILES[q.dtype]
-    if _DKV_ROWS[q.dtype] % G:
-        raise ValueError(f"{what}: a kv group of {G} query heads does not "
-                         f"divide the kernels' {_DKV_ROWS[q.dtype]}-row "
-                         "tile")
-    if Sq % (rows // G) or Sk % keys:
+    positions = rows // _group_tile(G, rows)
+    if Sq % positions or Sk % keys:
         raise ValueError(f"{what}: sequence lengths ({Sq}, {Sk}) must be "
-                         f"multiples of ({rows // G}, {keys})")
+                         f"multiples of ({positions}, {keys})")
     dev = q.device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{what}: every operand must lie on {dev}")

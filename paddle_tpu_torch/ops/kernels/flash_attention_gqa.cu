@@ -52,11 +52,12 @@ struct CausalWalk {
   __device__ bool dead(int pos, int key) const { return key > pos; }
 };
 
-// The walk for the tiles of `dtype`: (64, 64) bf16, (32, 32) f32.
+// The walk for the tiles of `dtype`: (64, 64) bf16 and f16, (32, 32) f32,
+// each holding group_tile(G, rows) heads.
 CausalWalk causal_walk(int causal, int Sq, int Sk, int G, int dtype) {
-  const bool bf = dtype == kBF16;
-  return CausalWalk{causal, Sq, Sk, (bf ? kRows : BM) / (G > 0 ? G : 1),
-                    bf ? kKeys : BK};
+  const int rows = dtype == kF32 ? BM : kRows;
+  return CausalWalk{causal, Sq, Sk, rows / group_tile(G > 0 ? G : 1, rows),
+                    dtype == kF32 ? BK : kKeys};
 }
 
 }  // namespace
@@ -65,7 +66,7 @@ extern "C" {
 
 // Each returns a cudaError_t: 0 on a launch the card accepted. They
 // allocate nothing and do not synchronise; everything runs on `stream`.
-// dtype: 0 float32, 1 bfloat16; D: 64 or 128.
+// dtype: 0 float32, 1 bfloat16, 2 float16; D: 64, 128 or 256; any G.
 
 int gqa_fwd_launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int Hkv, int G, int Sq, int Sk, int D,

@@ -287,7 +287,11 @@ cudaError_t by_dim(const void* q, const void* k, const void* v,
       return by_rows<TQ, TKV, 128>(q, k, v, ks, vs, tables, lens, starts,
                                    out, B, Hkv, R, P, ps, W, chunk, sm_scale,
                                    stream);
-    default:  // head_dim 256 waits for a configuration that needs it
+    case 256:  // 8 rows a warp: 4 * (32 * 256 + 32 * 257 + 32 * 256) B
+      return by_rows<TQ, TKV, 256>(q, k, v, ks, vs, tables, lens, starts,
+                                   out, B, Hkv, R, P, ps, W, chunk, sm_scale,
+                                   stream);
+    default:
       return cudaErrorInvalidValue;
   }
 }

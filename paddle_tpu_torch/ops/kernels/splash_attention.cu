@@ -86,7 +86,8 @@ extern "C" {
 
 // Each returns a cudaError_t: 0 on a launch the card accepted. They
 // allocate nothing and do not synchronise; everything runs on `stream`.
-// dtype: 0 float32, 1 bfloat16; D: 64 or 128. `tiles`/`counts`/`stride`
+// dtype: 0 float32, 1 bfloat16, 2 float16; D: 64, 128 or 256; any G.
+// `tiles`/`counts`/`stride`
 // are the walk for the kernel's tiles: per query tile for the forward and
 // dq, per key tile for dk/dv. `mask` is uint8 (Sq / bq, Sk / bk).
 

@@ -77,11 +77,14 @@ _SIGNATURES = {"paged_attention_launch":
                + [ctypes.c_float, ctypes.c_int, ctypes.c_int]}
 
 
-def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
-                   chunk, sm_scale, k_scales, v_scales):
-    """Check the operands, then launch the CUDA kernel on the current
-    stream. Raises on anything the kernel does not take and when the
-    card refuses the launch."""
+_HEAD_DIMS = (64, 128, 256)
+
+
+def _kernel_operands(q4, k_pages, v_pages, page_tables, seq_lens, starts,
+                     k_scales, v_scales):
+    """Check what the kernel takes, on any device; return q4 (contiguous,
+    16-byte aligned) and the int32 tables, lengths and starts. Raises on
+    anything the kernel does not take."""
     dev = q4.device
     B, Hkv, R, D = q4.shape
     _, P, page_size, _ = k_pages.shape
@@ -95,9 +98,9 @@ def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
     if (k_pages.dtype == torch.int8) != quantized:
         raise TypeError("paged attention kernel: int8 pools go with "
                         "k_scales/v_scales, float pools without")
-    if D not in (64, 128):
+    if D not in _HEAD_DIMS:
         raise ValueError(f"paged attention kernel: head_dim {D} "
-                         "(use 64 or 128)")
+                         "(use 64, 128 or 256)")
     tensors = [q4, k_pages, v_pages, page_tables, seq_lens, starts]
     if quantized:
         tensors += [k_scales, v_scales]
@@ -127,9 +130,21 @@ def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    pt = page_tables.to(torch.int32).contiguous()
-    sl = seq_lens.to(torch.int32).contiguous()
-    st = starts.to(torch.int32).contiguous()
+    return (q4, page_tables.to(torch.int32).contiguous(),
+            seq_lens.to(torch.int32).contiguous(),
+            starts.to(torch.int32).contiguous())
+
+
+def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
+                   chunk, sm_scale, k_scales, v_scales):
+    """Check the operands, then launch the CUDA kernel on the current
+    stream. Raises on anything the kernel does not take and when the
+    card refuses the launch."""
+    dev = q4.device
+    B, Hkv, R, D = q4.shape
+    _, P, page_size, _ = k_pages.shape
+    q4, pt, sl, st = _kernel_operands(q4, k_pages, v_pages, page_tables,
+                                      seq_lens, starts, k_scales, v_scales)
     out = torch.empty_like(q4)
     ptr = (lambda t: t.data_ptr() if t is not None else None)
     _build.launch(

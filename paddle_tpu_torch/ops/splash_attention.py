@@ -34,9 +34,9 @@ that tiles the sequences works, smaller or larger than the kernels' tiles.
 Not ported, on purpose: ``fits_score_budget``, ``pick_splash_blocks``,
 ``SCORE_ELEMS``, ``MAX_ROWS``, ``_FORCE_STREAM`` and the resident fit.
 They budget the TPU's scoped VMEM; the CUDA kernels have one tiling. The
-kernels take head_dim 64 and 128 and groups G that divide the query
-tile (64 rows in bfloat16, 32 in float32), as the grouped flash kernels
-do.
+kernels take head_dim 64, 128 and 256, float32, bfloat16 and float16, and
+any group G, as the grouped flash kernels do (a tile holds
+``_group_tile(G, rows)`` heads).
 
 Launch counts: ``splash_attention.launches_fwd``, ``.launches_dq`` and
 ``.launches_dkv``.
@@ -54,7 +54,8 @@ import torch
 from .flash_attention import LN2, LOG2E, NEG_INF
 from .flash_attention_gqa import (_DKV_ROWS, _DTYPE_CODE, _TILES,
                                   _bwd_operands, _device_kind, _f32,
-                                  _operands, _round, _scale_of, _shapes)
+                                  _group_tile, _operands, _round, _scale_of,
+                                  _shapes)
 from .kernels import _build
 
 _KERNEL = "splash_attention"
@@ -260,8 +261,12 @@ def _device_tables(pat: _Pattern, Sq, Sk, G, dtype, device):
     counts) per query tile of the forward/dq tiling, (columns, column
     counts) per key tile of the dk/dv tiling, and the uint8 block mask."""
     rows_per_tile, keys = _TILES[dtype]
-    rows = _walk(*_tile_tables(pat, Sq, Sk, rows_per_tile // G, keys))
-    live, full = _tile_tables(pat, Sq, Sk, _DKV_ROWS[dtype] // G, keys)
+    dkv_rows = _DKV_ROWS[dtype]
+    rows = _walk(*_tile_tables(pat, Sq, Sk,
+                               rows_per_tile // _group_tile(G, rows_per_tile),
+                               keys))
+    live, full = _tile_tables(pat, Sq, Sk,
+                              dkv_rows // _group_tile(G, dkv_rows), keys)
     cols = _walk(live.T, full.T)
 
     def on(a):

@@ -4,10 +4,11 @@ and the port's wrappers share, checked on the CPU (no kernel runs here):
 * the Python tile constants (``_TILES``, the per-dtype ``_DKV_ROWS``) are
   the header's ``constexpr``s, read from its text;
 * the splash dk/dv column tables at the bf16 dk/dv query tile (64 rows:
-  G heads x 64 / G positions) visit every live (query, key) pair exactly
-  once and mark as full exactly the tiles with no masked pair, on the
-  causal triangle, Mistral's band, a random mask with an empty row, mask
-  blocks of 16 and a shifted query frame.
+  G heads x 64 / G positions where G divides 64, else 64 positions of one
+  head) visit every live (query, key) pair exactly once and mark as full
+  exactly the tiles with no masked pair, on the causal triangle, Mistral's
+  band, a random mask with an empty row, mask blocks of 16, a shifted
+  query frame and a kv group of 3.
 """
 import re
 from pathlib import Path
@@ -31,6 +32,7 @@ def _constexpr(name):
 
 @pytest.mark.parametrize("dtype,rows,keys,dkv_rows",
                          [(torch.bfloat16, "kRows", "kKeys", "kDkvRows"),
+                          (torch.float16, "kRows", "kKeys", "kDkvRows"),
                           (torch.float32, "BM", "BK", "BM")])
 def test_tile_constants_match_the_header(dtype, rows, keys, dkv_rows):
     assert fa._TILES[dtype] == (_constexpr(rows), _constexpr(keys))
@@ -43,6 +45,30 @@ def test_bf16_query_tile_is_the_wgmma_m():
     whole number of 64-column boxes."""
     assert fa._DKV_ROWS[torch.bfloat16] == fa._TILES[torch.bfloat16][0] == 64
     assert _constexpr("kBwdThreads") == 128 and _constexpr("kHalf") == 64
+
+
+def test_group_tile_matches_the_header():
+    """The heads of a row tile: the header's ``group_tile`` rule, which
+    the Python tables (``_group_tile``) must follow for every G."""
+    m = re.search(r"constexpr int group_tile\(int G, int rows\) \{\s*"
+                  r"return rows % G == 0 \? G : 1;\s*\}", HEADER.read_text())
+    assert m, "group_tile's rule changed in the header"
+    for rows in (32, 64):
+        for G in range(1, 129):
+            gt = fa._group_tile(G, rows)
+            assert gt == (G if rows % G == 0 else 1)
+            assert rows % gt == 0 and G % gt == 0
+
+
+def test_the_16bit_kernels_use_no_mma_sync():
+    """Forward, dq and dk/dv are on wgmma: no mma.sync instruction (nor
+    its fragment loaders) is left in the header."""
+    text = HEADER.read_text()
+    assert "mma.sync" not in text
+    for gone in ("copy_rows_t", " load_a(", " load_b(", " c_to_a(",
+                 "mma_fwd_smem", "kPad"):
+        assert gone not in text, gone
+    assert text.count("wgmma.mma_async") == 4      # SS64, RS64/128/256
 
 
 def _random_mask(nq, nk, seed, empty_row):
@@ -67,14 +93,17 @@ COLUMN_CASES = [
      0),
     ("q_offset", 256, 512, 4, np.ones((2, 4), bool), 128, 128, True, 200,
      256),
+    ("band_g3", 1024, 1024, 3,
+     sa.banded_block_mask(1024, 1024, 64, 64, 300), 64, 64, True, 300, 0),
 ]
 
 
 @pytest.mark.parametrize("case", COLUMN_CASES, ids=[c[0] for c in COLUMN_CASES])
 def test_dkv_columns_cover_every_live_pair_once(case):
     """Replays the dk/dv kernel's walk over the tables it is handed: for
-    each 64-key tile, the query tiles of its column (64 / G positions),
-    and counts how often each (position, key) pair is visited."""
+    each 64-key tile, the query tiles of its column (64 / GT positions,
+    GT = ``_group_tile(G, 64)``), and counts how often each (position,
+    key) pair is visited."""
     _, Sq, Sk, G, bm, bq, bk, causal, window, off = case
     q = torch.empty((1, G, Sq, 64), dtype=torch.bfloat16)
     k = torch.empty((1, 1, Sk, 64), dtype=torch.bfloat16)
@@ -82,7 +111,8 @@ def test_dkv_columns_cover_every_live_pair_once(case):
     _, _, cols, counts, _ = sa._device_tables(pat, Sq, Sk, G, torch.bfloat16,
                                               "cpu")
     cols, counts = cols.numpy(), counts.numpy()
-    BQ, keys = fa._DKV_ROWS[torch.bfloat16] // G, fa._TILES[torch.bfloat16][1]
+    rows = fa._DKV_ROWS[torch.bfloat16]
+    BQ, keys = rows // fa._group_tile(G, rows), fa._TILES[torch.bfloat16][1]
     live = sa._live_pairs(pat, Sq, Sk, "cpu").numpy()
     seen = np.zeros((Sq, Sk), np.int32)
     assert len(counts) == Sk // keys

@@ -41,7 +41,9 @@ def _pools(kv, Hkv, P, ps, D, dev, rng):
                                           ("bfloat16", "int8", 128),
                                           ("float32", "float32", 128),
                                           ("float32", "bfloat16", 64),
-                                          ("bfloat16", "float32", 64)])
+                                          ("bfloat16", "float32", 64),
+                                          ("bfloat16", "bfloat16", 256),
+                                          ("float32", "float32", 256)])
 def test_paged_kernel_matches_plain(card, q_dtype, kv, D):
     """Decode (a pad row of length 0 gives exact zeros) and a 256-token
     chunk at start 256. Tolerance: 1e-4 + 2^-7·|want| for a bf16 output
@@ -117,13 +119,20 @@ ce = importlib.import_module("paddle_tpu_torch.ops.fused_ce")
 # (CUDA cores against cuBLAS in full f32). bfloat16: the same roundings on
 # f32 sums in another order, plus the forward's online softmax, which rounds
 # each probability against the running max rather than the final one: an
-# element may land a bf16 ulp or two apart.
+# element may land a bf16 ulp or two apart. float16: the same roundings
+# to f16, whose ulp is 2^-10 relative: out within two f16 ulps on an atol
+# of 2e-4; a gradient sums f16 roundings of ds that flip apart with the
+# order of the f32 sums, so its error does not shrink with its size:
+# about twice the readings (chip_smoke.py's GQA_TOL says which).
 GQA_TOL = {torch.float32: dict(out=(1e-5, 1e-5), grad=(1e-4, 1e-4)),
-           torch.bfloat16: dict(out=(2e-3, 2 ** -6), grad=(2e-3, 2 ** -6))}
+           torch.bfloat16: dict(out=(2e-3, 2 ** -6), grad=(2e-3, 2 ** -6)),
+           torch.float16: dict(out=(2e-4, 2 ** -9), grad=(1.5e-3, 2 ** -8))}
 # the autograd path end to end: the backward of the kernel's own forward
 # (its out and lse) against the plain backward of the plain forward, as
-# ||g_kernel - g_plain|| / ||g_plain||
-GQA_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# ||g_kernel - g_plain|| / ||g_plain||; float16 an eighth of bfloat16's
+# (its ulp is 8 times finer)
+GQA_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+                torch.float16: 1.25e-3}
 
 
 def _gqa_inputs(B, Hkv, G, S, D, dt, dev, seed):
@@ -155,7 +164,17 @@ def _rel(got, want):
                           (torch.bfloat16, 64, 8, 256, False),
                           (torch.bfloat16, 128, 2, 512, False),
                           (torch.float32, 64, 2, 256, True),
-                          (torch.float32, 128, 4, 256, False)])
+                          (torch.float32, 128, 4, 256, False),
+                          (torch.bfloat16, 256, 2, 512, True),
+                          (torch.bfloat16, 64, 3, 256, True),
+                          (torch.bfloat16, 128, 6, 256, False),
+                          (torch.bfloat16, 128, 5, 512, True),
+                          (torch.float16, 128, 1, 512, True),
+                          (torch.float16, 64, 4, 256, False),
+                          (torch.float16, 256, 2, 256, True),
+                          (torch.float32, 256, 2, 256, True),
+                          (torch.float32, 64, 3, 256, False),
+                          (torch.float32, 64, 64, 256, True)])
 def test_gqa_kernels_match_plain(card, dt, D, G, S, causal):
     """The forward kernel (out, lse), then the dq and dkv kernels on the
     plain forward's residuals, each against its plain version element by
@@ -191,14 +210,16 @@ def test_gqa_kernels_match_plain(card, dt, D, G, S, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 3])
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_backward_kernels_at_one_head(card, D, G, causal):
     """The wgmma dq and dk/dv kernels at one kv head and S = 256, where a
     wrong shared-memory descriptor or TMA box shows as wrong numbers: each
     against the plain backward element by element (tolerance as above),
-    and two launches on the same inputs bit-identical (no atomics)."""
+    and two launches on the same inputs bit-identical (no atomics). At
+    D = 256 two CTAs share a tile's output columns; G = 3 does not divide
+    the row tile, so a tile holds one query head."""
     dt = torch.bfloat16
     q, k, v, do = _gqa_inputs(1, 1, G, 256, D, dt, card,
                               seed=D + G + int(causal))
@@ -220,8 +241,8 @@ def test_gqa_kernels_refuse_what_they_do_not_take(card):
     q, k, v, _ = _gqa_inputs(1, 2, 2, 256, 96, torch.bfloat16, card, 1)
     with pytest.raises(ValueError, match="head_dim 96"):
         fa.grouped_flash_attention(q, k, v, True)
-    q, k, v, _ = _gqa_inputs(1, 2, 2, 256, 64, torch.float16, card, 2)
-    with pytest.raises(TypeError, match="float16"):
+    q, k, v, _ = _gqa_inputs(1, 2, 2, 256, 64, torch.float64, card, 2)
+    with pytest.raises(TypeError, match="float64"):
         fa.grouped_flash_attention(q, k, v, True)
     q, k, v, _ = _gqa_inputs(1, 2, 2, 256, 64, torch.bfloat16, card, 3)
     with pytest.raises(ValueError, match="not a multiple"):
@@ -314,6 +335,34 @@ def test_mha_at_flash_shapes_launches_the_kernels(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 256])
+def test_sdpa_float16_launches_the_flash_kernels(card, D):
+    """``scaled_dot_product_attention`` on float16 at a flash-eligible
+    shape (the gate reads no dtype, as the reference's) launches the
+    multi-head flash kernels, returns float16 and agrees with the plain
+    forward; its backward launches dq and dk/dv."""
+    from paddle_tpu_torch.nn.functional.attention import \
+        scaled_dot_product_attention
+
+    g = torch.Generator(device=card).manual_seed(D)
+    q, k, v, do = (torch.randn((1, 256, 2, D), generator=g, device=card)
+                   .to(torch.float16) for _ in range(4))
+    mha = fm.flash_attention
+    before = (mha.launches_fwd, mha.launches_dq, mha.launches_dkv)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float16
+    assert (mha.launches_fwd, mha.launches_dq, mha.launches_dkv) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    want, _ = fa._gqa_fwd_plain(*(t.transpose(1, 2) for t in (q, k, v)),
+                                True)
+    _reading("out", out.detach(), want.transpose(1, 2),
+             *GQA_TOL[torch.float16]["out"])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt,D,Sq,Sk,causal",
                          [(torch.bfloat16, 128, 1024, 1024, True),
                           (torch.bfloat16, 128, 512, 1024, True),
@@ -371,7 +420,8 @@ def _random_mask(nq, nk, seed, empty_row):
 # q_offset): the band of the windowed models at G = 4 and G = 1, a random
 # mask with an empty block row (out 0, lse NEG_INF), a live block wholly
 # above the diagonal (its rows see no key), a shifted query frame, mask
-# blocks smaller than the kernels' tiles, and f32
+# blocks smaller than the kernels' tiles, f32, a kv group of 3 (one query
+# head a tile), head_dim 256 and float16
 SPLASH_CASES = [
     ("band_g4", torch.bfloat16, 4, 1024, 1024, 128, 128, 128,
      sa.banded_block_mask(1024, 1024, 128, 128, 300), True, 300, 0),
@@ -386,6 +436,14 @@ SPLASH_CASES = [
     ("small_blocks", torch.bfloat16, 4, 512, 512, 128, 16, 16,
      _random_mask(32, 32, 1, 5), True, None, 0),
     ("f32_band", torch.float32, 2, 256, 256, 64, 32, 32,
+     sa.banded_block_mask(256, 256, 32, 32, 100), True, 100, 0),
+    ("band_g3", torch.bfloat16, 3, 1024, 1024, 128, 64, 64,
+     sa.banded_block_mask(1024, 1024, 64, 64, 300), True, 300, 0),
+    ("band_d256", torch.bfloat16, 2, 512, 512, 256, 64, 64,
+     sa.banded_block_mask(512, 512, 64, 64, 200), True, 200, 0),
+    ("f16_random_empty_row", torch.float16, 2, 512, 512, 64, 64, 64,
+     _random_mask(8, 8, 2, 5), False, None, 0),
+    ("f32_band_g3_d256", torch.float32, 3, 256, 256, 256, 32, 32,
      sa.banded_block_mask(256, 256, 32, 32, 100), True, 100, 0),
 ]
 
@@ -444,11 +502,11 @@ def test_splash_kernels_match_plain(card, case):
 @pytest.mark.cuda
 def test_splash_kernels_refuse_what_they_do_not_take(card):
     bm = np.ones((2, 2), bool)
-    q, k, v, _ = _splash_inputs(torch.bfloat16, 2, 256, 256, 256, card, 1)
-    with pytest.raises(ValueError, match="head_dim 256"):
+    q, k, v, _ = _splash_inputs(torch.bfloat16, 2, 256, 256, 96, card, 1)
+    with pytest.raises(ValueError, match="head_dim 96"):
         sa.splash_attention(q, k, v, bm, True)
-    q, k, v, _ = _splash_inputs(torch.float16, 2, 256, 256, 64, card, 2)
-    with pytest.raises(TypeError, match="float16"):
+    q, k, v, _ = _splash_inputs(torch.float64, 2, 256, 256, 64, card, 2)
+    with pytest.raises(TypeError, match="float64"):
         sa.splash_attention(q, k, v, bm, True)
     q, k, v, _ = _splash_inputs(torch.bfloat16, 2, 256, 256, 64, card, 3)
     with pytest.raises(ValueError, match="does not tile"):
