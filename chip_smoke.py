@@ -33,7 +33,11 @@ Phases, each printing JSON lines:
      at the serving shapes of Llama-3-8B (32 query / 8 kv heads, head_dim
      128, page 64): decode at B=8 with ragged lengths 1..2048 and one pad
      row of length 0, and a 256-token prefill chunk at starts 0 and 512;
-     q in bf16, pools in bf16 and in int8 with per-slot scales;
+     q in bf16, pools in bf16 and in int8 with per-slot scales; decode of
+     one 16,384-token sequence, at B=32 with ragged lengths up to 2048, at
+     G = 1 over 32 kv heads (Llama-2-7B's) and at G = 8. Each case records
+     the kernel's instance (``split``: decode split over pages, with its
+     ``n_split``; ``rows``: one block per row tile) and ``n_split``;
    * grouped flash attention (``gqa_fwd``; ``gqa_bwd``: the dq and dkv
      kernels) at the training shapes of Llama-3-8B: B=2, 32 query / 8 kv
      heads, S=4096, head_dim 128, bf16, causal; and at head_dim 64, f32,
@@ -407,6 +411,9 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
         return pa.paged_attention_reference(q, k, v, pt, lens_t, **scales,
                                             q_start=start)
 
+    split = pa._decode_route(1 if start is None else C, rows)
+    n_split = (pa._decode_splits(B, Hkv, W, ps, pa._sm_count(
+        torch.cuda.current_device()))[0] if split else 0)
     before = pa.paged_attention.launches
     got = kernel()
     launched = pa.paged_attention.launches - before
@@ -441,6 +448,7 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
             # the largest error over its limit, element by element
             "max_err_over_tol": float((err / allowed).max()),
             "atol": atol, "rtol": rtol,
+            "instance": "split" if split else "rows", "n_split": n_split,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -883,6 +891,22 @@ def phase_kernel(dev):
             f"decode_D256/{qt}", 8, 2, 2, 256, ps, 8, 8 * 8 + 1,
             [1, 512, 300, 0, 64, 129, 511, 7], None, 1, qt, 3, dev, flush,
             q_dtype=qt))
+    # decode where the one-block-per-(sequence, kv head) grid starves: one
+    # 16,384-token sequence (8 blocks); B=32 at ragged lengths up to 2048
+    # (a pad row, one full table); G = 1 at Llama-2-7B's 32 kv heads; G = 8
+    cases.append(_kernel_case("decode_16k/bfloat16", 1, Hkv, G, D, ps, 256,
+                              257, [16384], None, 1, "bfloat16", 4, dev,
+                              flush))
+    lens32 = np.random.default_rng(5).integers(1, 2049, 32).tolist()
+    lens32[:2] = [0, 2048]
+    cases.append(_kernel_case("decode_B32/bfloat16", 32, Hkv, G, D, ps, W,
+                              32 * W + 1, lens32, None, 1, "bfloat16", 5,
+                              dev, flush))
+    cases.append(_kernel_case("decode_G1_Hkv32/bfloat16", 8, 32, 1, D, ps,
+                              W, P, dec_lens, None, 1, "bfloat16", 6, dev,
+                              flush))
+    cases.append(_kernel_case("decode_G8/bfloat16", 8, 4, 8, D, ps, W, P,
+                              dec_lens, None, 1, "bfloat16", 7, dev, flush))
     for c in cases:
         emit({"phase": "kernel", **c})
     gqa = [_attention_case("gqa_B2_S4096_D128/bfloat16", "gqa", 2, 8, 4,
@@ -1876,8 +1900,9 @@ def _kernels_line(kern, serve, trains, card):
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": None,
             "check": "pass", "card": card,
-            "cases": [{k: c[k] for k in ("case", "max_abs_err", "ms",
-                                         "plain_ms", "bound_ms", "bound_by")}
+            "cases": [{k: c[k] for k in ("case", "instance", "n_split",
+                                         "max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")}
                       for c in cases]})
     launches = trains.get("train", {}).get("launches", {})
     if kern.get("gqa"):                     # [0]: the training shapes

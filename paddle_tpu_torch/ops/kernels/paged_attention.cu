@@ -13,30 +13,78 @@
 //   lens, starts (B,) int32
 //   out    (B, Hkv, R, D)      q's dtype
 //
-// Key slot t is live for row r iff t <= position(r) and t < lens[b].
-// Scores are q.k * sm_scale in f32, masked to -1e30, run through an online
-// softmax; the output is acc / max(l, 1e-20), so a row with no live key is
-// exactly 0 (serving pad rows rely on it).
+// Key slot t is live for row r iff t <= position(r) and t < lens[b]; a
+// slot on a page id outside [0, P) reads nothing and is not live. Scores
+// are q.k * sm_scale in f32, masked, run through an online softmax; the
+// output is acc / max(l, 1e-20), so a row with no live key is exactly 0
+// (serving pad rows rely on it).
 //
 // What bounds it: the bytes of the live K/V pages. Decode does 4*D flops
-// per key per query row against 2*D*bytes(kv) bytes per key, well under
-// the card's ~295 flop/byte balance point, so the kernel is a streaming
-// read of the pages. The design follows that:
-//   * one block per (sequence, kv head, tile of query rows); all G query
-//     heads of a kv head share the block, so each K/V tile is read from
-//     device memory once per row tile (once per kv head in decode);
-//   * the block reads its own page ids and walks only the pages below
-//     min(lens, last row position + 1), in tiles of 32 keys; the TPU
-//     version still DMAs the dead pages, this one never loads them;
-//   * each tile is staged in shared memory as f32, int8 dequantized there
+// per key per query row against 2*D*bytes(kv) bytes per key, far under the
+// card's ~295 flop/byte balance point: a streaming read of the live pages.
+// Prefill (R = G * chunk rows against the same pages) does chunk times the
+// flops on the same bytes: at chunk 256 the tensor cores' rate bounds it.
+//
+// The C entry routes on shapes alone, between two kernels:
+//
+// * Decode (chunk == 1, G <= kDecodeMaxGroup): flash-decoding, one kernel.
+//   - The keys of each (sequence, kv head) are split into n_split
+//     contiguous ranges of `split_pages` whole pages, planned from W, ps,
+//     B, Hkv and the SM count only (`plan_splits`, mirrored by
+//     `_decode_splits` in ops/paged_attention.py): about kSplitItemsPerSm
+//     items an SM, and at least kSplitMinKeys keys a split. The host never
+//     reads lens, so a call never synchronises and can be captured in a
+//     CUDA graph.
+//   - The grid is persistent: as many blocks as the card holds at once,
+//     each taking (split, sequence, kv head) items from an atomic counter,
+//     split-major, so the early splits, live in most sequences, go first.
+//     The lengths are read on the card, once a block: an item past
+//     min(lens, pos + 1) adds nothing and costs a look at its length, and
+//     the splits below it are the sequence's live ones.
+//   - An item streams its keys through a kStages-deep ring in shared
+//     memory, in the pool's own dtype, by cp.async (16-byte copies; a dead
+//     slot or a bad page zero-fills), with kStages - 1 tiles in flight
+//     while one is scored. Its page ids sit in shared memory; int8 slots
+//     are dequantised at use with their scales, copied beside the tile.
+//   - All kDecodeWarps warps work on every tile: a warp takes a slice of
+//     its keys, the D / 8 lanes of a key hold 8 of its dims each (the q
+//     rows of those dims in registers), and shuffles reduce the dot
+//     products. All G query rows of the kv head score against the same K
+//     tile. A warp scores a batch of its keys before one max and rescale a
+//     row; m, l and acc stay in f32 registers (the softmax in base 2, by
+//     the SFU's ex2), summed over the warp's keys and then over the warps.
+//   - A sequence with one live split writes its output there. Otherwise
+//     each live item writes (acc[D], m, l) of its G rows to a workspace of
+//     (B, Hkv, n_split, G, D + 2) floats that the wrapper allocates, and
+//     the last of them to finish, found by an atomic ticket, merges the
+//     partials in split order (no atomics on values, so two launches give
+//     the same bits) and writes the output in q's dtype. The tickets and
+//     the item counter (B * Hkv + 2 ints, zero between calls) are reset by
+//     the kernel itself.
+//   What holds it (one H100, PERF.md): the SMs' issue rate while every
+//   live item is in flight, about a fifth of a tile's instructions the
+//   copies' addressing (cp.async moves 16 bytes a thread) and the rest the
+//   scoring around the FMAs (shuffles, conversions, the online softmax);
+//   then the longest sequence's items in series and its merge. At the
+//   serve shape a call reads 4-5x its byte bound.
+//
+// * Everything else (prefill chunks, and decode with G > kDecodeMaxGroup):
+//   one kernel, one block per (sequence, kv head, tile of query rows):
+//   - all G query heads of a kv head share the block, so each K/V tile is
+//     read from device memory once per row tile;
+//   - the block walks only the pages below min(lens, last row position +
+//     1), in tiles of 32 keys; the TPU version still DMAs the dead pages;
+//   - each tile is staged in shared memory as f32, int8 dequantized there
 //     with its per-slot scale; m, l and acc stay in registers in f32;
-//   * one warp per query row: lane i scores key i of the tile (K rows are
+//   - one warp per query row: lane i scores key i of the tile (K rows are
 //     padded to D+1 floats so the 32 lanes hit 32 banks), then the lanes
 //     split the D output columns for the P.V update.
-// Known limits, left for later work: CUDA cores only (no mma/wgmma), no
-// cp.async/TMA double buffering, and decode launches only B*Hkv blocks
-// (64 at B=8, Hkv=8) on the card's 132 SMs; split-K over pages would fix
-// that.
+//   On the CUDA cores, a prefill chunk of 256 tokens reads 80-140x its
+//   tensor-core bound (PERF.md).
+//
+// Each call runs one CUDA kernel. Left for later work: prefill on the
+// tensor cores (wgmma, a row tile of G * chunk queries against a TMA-fed
+// K/V ring), and decode's tiles by bulk copies (one instruction a page).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +99,16 @@ constexpr int kKeyTile = 32;  // keys per shared-memory tile: one per lane
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;
+
+// the decode instance: its route and its split plan (mirrored in Python)
+constexpr int kDecodeMaxGroup = 8;    // query rows a kv head, at most
+constexpr int kSplitMinKeys = 256;    // keys a split holds, at least
+constexpr int kSplitItemsPerSm = 4;  // split items an SM the plan aims at
+constexpr int kDecodeWarps = 8;
+constexpr int kDecodeThreads = kDecodeWarps * kWarp;
+constexpr int kStages = 3;            // tiles in the ring
+constexpr int kTileBytes = 16384;     // K (or V) bytes of a tile, at most
+constexpr int kMaxTileKeys = 64;
 
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -321,19 +379,623 @@ cudaError_t by_kv(const void* q, const void* k, const void* v,
   }
 }
 
+// --- decode: split-K over pages (flash-decoding) ---------------------------
+
+// The split plan, from shapes alone: about kSplitItemsPerSm (split,
+// sequence, kv head) items an SM, each split at least kSplitMinKeys keys
+// (whole pages), no split empty of pages. Returns n_split; *pages gets the
+// pages a split holds.
+int plan_splits(int B, int Hkv, int W, int ps, int n_sm, int* pages) {
+  const long long min_pages = (kSplitMinKeys + ps - 1) / ps;
+  const long long bh = (long long)B * Hkv > 0 ? (long long)B * Hkv : 1;
+  const long long want = (kSplitItemsPerSm * (long long)n_sm + bh - 1) / bh;
+  const long long most = W / min_pages;  // splits of min_pages or more
+  long long n = want < most ? want : most;
+  if (n < 1) n = 1;
+  *pages = (int)((W + n - 1) / n);
+  return (W + *pages - 1) / *pages;
+}
+
+// Tile geometry of one instance: kKeys keys a tile (K and V at most
+// kTileBytes each); the D / 8 lanes of a key each hold 8 dims.
+template <typename TKV, int D>
+struct DecodeTile {
+  static constexpr int kRowBytes = D * (int)sizeof(TKV);
+  static constexpr int kKeys = kTileBytes / kRowBytes < kMaxTileKeys
+                                   ? kTileBytes / kRowBytes
+                                   : kMaxTileKeys;
+  static constexpr int kChunks = kRowBytes / 16;   // 16-byte copies a row
+  static constexpr int kLanes = D / 8;             // lanes a key
+  static constexpr int kKeysPerPass = kWarp / kLanes;
+  static constexpr int kPasses = kKeys / kDecodeWarps / kKeysPerPass;
+  static constexpr int kRingBytes = kStages * 2 * kKeys * kRowBytes;
+  // the copies of a tile: a thread's chunks lie kCopyStep keys apart at
+  // one offset of the row, kCopyKeys of them (for K, and as many for V)
+  static constexpr int kCopyStep = kDecodeThreads / kChunks;
+  static constexpr int kCopyKeys = kKeys / kCopyStep;
+  static_assert(kPasses >= 1 && kKeys % (kDecodeWarps * kKeysPerPass) == 0,
+                "a tile must give every warp whole passes");
+  static_assert(kDecodeThreads % kChunks == 0 && kKeys % kCopyStep == 0,
+                "a tile must give every thread whole copies");
+};
+
+// Dim i (0..7) of lane lk among the LPK lanes of a key. 16-bit and int8
+// rows: 8 contiguous dims a lane (one 16- or 8-byte word); f32 rows: two
+// words of 4, LPK words apart, so a key's lanes read contiguous bytes.
+template <typename TKV, int LPK>
+__device__ __forceinline__ int dim_of(int lk, int i) {
+  return sizeof(TKV) == 4 ? ((i / 4) * LPK + lk) * 4 + i % 4 : lk * 8 + i;
+}
+
+template <int LPK>
+__device__ __forceinline__ void load8(const float* row, int lk, float* o) {
+  load4(row + lk * 4, o);
+  load4(row + (LPK + lk) * 4, o + 4);
+}
+
+template <int LPK>
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int lk,
+                                      float* o) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(row + lk * 8);
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // a bf16 is the top half of its f32
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+template <int LPK>
+__device__ __forceinline__ void load8(const int8_t* row, int lk, float* o) {
+  load4(row + lk * 8, o);
+  load4(row + lk * 8 + 4, o + 4);
+}
+
+// 2^x by the SFU alone (relative error below 2^-22; 0 for x < -126)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// cp.async of 16 (or 4) bytes; ok == false copies nothing and zero-fills
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The last of the n_split live items of one (sequence, kv head) to finish,
+// found by an atomic ticket, merges their partials in split order (no
+// atomics on values, so two launches give the same bits) and resets the
+// ticket for the next call. A split with l == 0 (all its pages bad) is
+// skipped, so a row with no live key anywhere is exactly 0. `sm` holds
+// (2 * n_split + 1) * G floats.
+template <typename TQ>
+__device__ __forceinline__ void merge_if_last(const float* part, int* ticket,
+                                              TQ* out, int G, int D,
+                                              int n_split, float* sm) {
+  __shared__ int last;
+  __threadfence();  // this block's partial, visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1) == n_split - 1;
+    if (last) atomicExch(ticket, 0);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int n = n_split * G, PS = D + 2;
+  float* wt = sm;       // (split, row): m, then its weight
+  float* ls = wt + n;   // (split, row): l
+  float* den = ls + n;  // row: the weighted sum of l
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    wt[i] = __ldcg(part + (size_t)i * PS + D);
+    ls[i] = __ldcg(part + (size_t)i * PS + D + 1);
+  }
+  __syncthreads();
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float M = kNegInf;
+    for (int s = 0; s < n_split; ++s)
+      if (ls[s * G + g] > 0.f) M = fmaxf(M, wt[s * G + g]);
+    float L = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const int i = s * G + g;
+      wt[i] = ls[i] > 0.f ? exp2f(wt[i] - M) : 0.f;
+      L = fmaf(wt[i], ls[i], L);
+    }
+    den[g] = fmaxf(L, 1e-20f);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
+    const int g = e / D, d = e % D;
+    float A = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_split; ++s) {
+      const float w = wt[s * G + g];
+      if (w > 0.f)  // an empty split's acc was never written
+        A = fmaf(w, __ldcg(part + (size_t)(s * G + g) * PS + d), A);
+    }
+    store1(out + e, A / den[g]);
+  }
+}
+
+// One item: the keys of one split of one (sequence, kv head), GP >= G
+// query rows in registers. Writes the split's partial (acc[D], m, l per
+// row, m in base 2) to `part`, and the last live split of the (sequence,
+// kv head) merges them; a sequence with one live split writes its output
+// there. key_end: min(lens, pos + 1, W * ps) of the sequence.
+template <typename TQ, typename TKV, int D, int GP>
+__device__ __forceinline__ void decode_item(
+    const TQ* __restrict__ q, const TKV* __restrict__ kp,
+    const TKV* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ vs, const int* __restrict__ tables,
+    TQ* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
+    int Hkv, int G, int P, int ps, int W, int n_split, int split_pages,
+    float scale_log2, int split, int bh, int key_end) {
+  using Tile = DecodeTile<TKV, D>;
+  constexpr int KK = Tile::kKeys, LPK = Tile::kLanes, RB = Tile::kRowBytes;
+  constexpr int KPP = Tile::kKeysPerPass, CH = Tile::kChunks;
+  constexpr int PS = D + 2;  // a partial row: acc[D], m, l
+  // passes scored together: at most 32 scores a lane in flight
+  constexpr int PB = Tile::kPasses < 32 / GP ? Tile::kPasses : 32 / GP;
+  extern __shared__ __align__(16) unsigned char ring_smem[];
+  unsigned char* ring = ring_smem;  // kStages x (K tile, V tile)
+  float* scl = reinterpret_cast<float*>(
+      ring_smem + (Tile::kRingBytes > kDecodeWarps * GP * PS * 4
+                  ? Tile::kRingBytes
+                  : kDecodeWarps * GP * PS * 4));  // kStages x (ks, vs) x KK
+  int* live_s = reinterpret_cast<int*>(scl + kStages * 2 * KK);
+  int* pages_s = live_s + kStages * KK;  // split_pages page ids
+
+  const int h = bh % Hkv;
+  const int b = bh / Hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid / kWarp, lane = tid % kWarp;
+  const int lk = lane % LPK, grp = lane / LPK;
+  const size_t row0 = (size_t)bh * G;  // the block's first q / out row
+  const int k0 = split * split_pages * ps;
+  const int k1 = min(k0 + split_pages * ps, key_end);
+  // the splits that hold live keys: the merge waits for them alone
+  const int split_keys = split_pages * ps;
+  const int n_live = min((key_end + split_keys - 1) / split_keys, n_split);
+  if (split >= n_live) {  // no live key in this split: nothing to add
+    if (split == 0)       // nor in any: the rows are exactly 0
+      for (int e = tid; e < G * D; e += kDecodeThreads)
+        store1(out + row0 * D + e, 0.f);
+    return;
+  }
+  // the split's page ids
+  const int j0 = split * split_pages;
+  const int n_pages = min(split_pages, W - j0);
+  for (int j = tid; j < n_pages; j += kDecodeThreads)
+    pages_s[j] = tables[(size_t)b * W + j0 + j];
+  const float* part_bh = part + (size_t)bh * n_split * G * PS;
+  float* mine = part + ((size_t)bh * n_split + split) * G * PS;
+
+  // this lane's 8 dims of each q row, in log2 units of the softmax
+  float qr[GP][8];
+#pragma unroll
+  for (int g = 0; g < GP; ++g)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      qr[g][i] = g < G ? to_f32(q[(row0 + g) * D + dim_of<TKV, LPK>(lk, i)])
+                             * scale_log2
+                       : 0.f;
+
+  constexpr bool quant = sizeof(TKV) == 1;  // int8 slots carry scales
+  __syncthreads();  // pages_s
+  // A thread copies keys kk0 + i * kCopyStep of each tile (and, for
+  // tid < 2 * KK, reads the liveness and scales of key tid % KK); it walks
+  // their (page, slot) from tile to tile without dividing by ps.
+  const int kk0 = tid / CH, off = (tid % CH) * 16;
+  int cj = kk0 / ps, cs = kk0 % ps;                    // key kk0 of tile t
+  int fj = (tid % KK) / ps, fs = (tid % KK) % ps;      // key tid % KK
+  auto advance = [&](int& j, int& slot, int by) {
+    slot += by;
+    while (slot >= ps) {
+      slot -= ps;
+      ++j;
+    }
+  };
+  // the pool row of the key at (page j, slot) of the split, relative key
+  // r; -1 past the split's live keys or on a bad page (it reads nothing)
+  auto row_of = [&](int r, int j, int slot) -> long long {
+    if (r >= k1 - k0) return -1;
+    const int page = pages_s[j];
+    if (page < 0 || page >= P) return -1;
+    return ((long long)h * P + page) * ps + slot;
+  };
+  auto load_tile = [&](int t) {  // tiles load in order: 0, 1, 2, ...
+    const int st = t % kStages;
+    unsigned char* kd = ring + (size_t)st * 2 * KK * RB;
+    unsigned char* vd = kd + KK * RB;
+    long long rows[Tile::kCopyKeys];  // every page id read before a copy
+    int j = cj, slot = cs;
+#pragma unroll
+    for (int i = 0; i < Tile::kCopyKeys; ++i) {
+      rows[i] = row_of(t * KK + kk0 + i * Tile::kCopyStep, j, slot);
+      advance(j, slot, Tile::kCopyStep);
+    }
+    advance(cj, cs, KK);
+#pragma unroll
+    for (int i = 0; i < Tile::kCopyKeys; ++i) {
+      const int kk = kk0 + i * Tile::kCopyStep;
+      const size_t src = rows[i] < 0 ? 0 : (size_t)rows[i] * RB + off;
+      cp_async16(kd + kk * RB + off,
+                 reinterpret_cast<const unsigned char*>(kp) + src,
+                 rows[i] >= 0);
+      cp_async16(vd + kk * RB + off,
+                 reinterpret_cast<const unsigned char*>(vp) + src,
+                 rows[i] >= 0);
+    }
+    if (tid < 2 * KK) {  // each key's liveness, and its int8 scales
+      const int kk = tid % KK;
+      const long long row = row_of(t * KK + kk, fj, fs);
+      advance(fj, fs, KK);
+      if (tid < KK) live_s[st * KK + kk] = row >= 0;
+      if (quant) {
+        const float* src = (tid < KK ? ks : vs) + (row < 0 ? 0 : row);
+        cp_async4(scl + (st * 2 + tid / KK) * KK + kk, src, row >= 0);
+      }
+    }
+  };
+
+  float m[GP], l[GP], acc[GP][8];
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
+  }
+
+  const int n_tiles = (k1 - k0 + KK - 1) / KK;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_tile(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile t landed
+    __syncthreads();  // everyone's did, and tile t - 1's stage is free
+    if (t + kStages - 1 < n_tiles) load_tile(t + kStages - 1);
+    cp_async_commit();
+    const int st = t % kStages;
+    const TKV* kt = reinterpret_cast<const TKV*>(ring + (size_t)st * 2 * KK
+                                                 * RB);
+    const TKV* vt = kt + KK * D;
+    const float* kscl = scl + st * 2 * KK;
+    const int* lv = live_s + st * KK;
+    // a warp's keys of the tile, PB passes at a time: score them all,
+    // then one max and rescale a row, then P.V
+#pragma unroll 1
+    for (int b0 = 0; b0 < Tile::kPasses; b0 += PB) {
+      float s[PB][GP];
+      bool live[PB];
+#pragma unroll
+      for (int j = 0; j < PB; ++j) {
+        const int kk = (warp * Tile::kPasses + b0 + j) * KPP + grp;
+        live[j] = lv[kk] != 0;
+        float kf[8];
+        load8<LPK>(kt + kk * D, lk, kf);
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          float d = 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) d = fmaf(qr[g][i], kf[i], d);
+          s[j][g] = d;
+        }
+      }
+#pragma unroll
+      for (int o = LPK / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int j = 0; j < PB; ++j)
+#pragma unroll
+          for (int g = 0; g < GP; ++g)
+            s[j][g] += __shfl_xor_sync(kFull, s[j][g], o);
+      float mx[GP];
+#pragma unroll
+      for (int g = 0; g < GP; ++g) mx[g] = kNegInf;
+#pragma unroll
+      for (int j = 0; j < PB; ++j) {
+        const int kk = (warp * Tile::kPasses + b0 + j) * KPP + grp;
+        const float ksc = quant ? kscl[kk] : 1.f;
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          s[j][g] = live[j] ? (quant ? s[j][g] * ksc : s[j][g]) : kNegInf;
+          mx[g] = fmaxf(mx[g], s[j][g]);
+        }
+      }
+#pragma unroll
+      for (int o = kWarp / 2; o >= LPK; o >>= 1)
+#pragma unroll
+        for (int g = 0; g < GP; ++g)
+          mx[g] = fmaxf(mx[g], __shfl_xor_sync(kFull, mx[g], o));
+      // no live key in the warp's batch (the rows share their keys): skip.
+      // Otherwise every m is finite after the update, and a masked score
+      // gives exp2(-1e30 - m) = 0 exactly.
+      if (mx[0] == kNegInf) continue;
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        if (mx[g] > m[g]) {  // warp-uniform
+          const float a = fast_exp2(m[g] - mx[g]);
+          l[g] *= a;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[g][i] *= a;
+          m[g] = mx[g];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < PB; ++j) {
+        const int kk = (warp * Tile::kPasses + b0 + j) * KPP + grp;
+        const float vsc = quant ? kscl[KK + kk] : 1.f;
+        float vf[8];
+        load8<LPK>(vt + kk * D, lk, vf);
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          const float p = fast_exp2(s[j][g] - m[g]);
+          l[g] += p;
+          const float pv = quant ? p * vsc : p;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(pv, vf[i], acc[g][i]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' partials now
+
+  // sum over the warp's key groups (they share m), then over the warps
+#pragma unroll
+  for (int o = kWarp / 2; o >= LPK; o >>= 1)
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      l[g] += __shfl_xor_sync(kFull, l[g], o);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        acc[g][i] += __shfl_xor_sync(kFull, acc[g][i], o);
+    }
+  float* red = reinterpret_cast<float*>(ring_smem);  // warps x GP x PS
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+    if (g < G && grp == 0) {
+      float* r = red + (warp * GP + g) * PS;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) r[dim_of<TKV, LPK>(lk, i)] = acc[g][i];
+      if (lk == 0) {
+        r[D] = m[g];
+        r[D + 1] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < G * D; e += kDecodeThreads) {
+    const int g = e / D, d = e % D;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w)
+      M = fmaxf(M, red[(w * GP + g) * PS + D]);
+    float A = 0.f, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float* r = red + (w * GP + g) * PS;
+      const float wt = exp2f(r[D] - M);
+      A = fmaf(wt, r[d], A);
+      L = fmaf(wt, r[D + 1], L);
+    }
+    if (n_live == 1) {
+      store1(out + (row0 + g) * D + d, A / fmaxf(L, 1e-20f));
+    } else {
+      mine[g * PS + d] = A;
+      if (d == 0) {
+        mine[g * PS + D] = M;
+        mine[g * PS + D + 1] = L;
+      }
+    }
+  }
+  if (n_live > 1)
+    merge_if_last(part_bh, tickets + bh, out + row0 * D, G, D, n_live,
+                  reinterpret_cast<float*>(ring_smem));
+}
+
+// Persistent: at most as many blocks as the card holds at once, each
+// taking items (split-major: the early splits, live in most sequences,
+// first) from a counter until none is left, so an item with no live key
+// costs a look at its sequence's length and a block never waits for a
+// slot. tickets[n_bh] counts the items taken, tickets[n_bh + 1] the blocks
+// done; the last block out resets both. Which block takes an item changes
+// none of its arithmetic.
+template <typename TQ, typename TKV, int D, int GP>
+__global__ void __launch_bounds__(kDecodeThreads)
+paged_attention_split_kernel(const TQ* __restrict__ q,
+                             const TKV* __restrict__ kp,
+                             const TKV* __restrict__ vp,
+                             const float* __restrict__ ks,
+                             const float* __restrict__ vs,
+                             const int* __restrict__ tables,
+                             const int* __restrict__ lens,
+                             const int* __restrict__ starts,
+                             TQ* __restrict__ out, float* __restrict__ part,
+                             int* __restrict__ tickets, int B, int Hkv,
+                             int G, int P, int ps, int W, int n_split,
+                             int split_pages, int ends_at,
+                             float scale_log2) {
+  extern __shared__ __align__(16) unsigned char ring_smem[];
+  __shared__ int item_s;
+  int* end_s = reinterpret_cast<int*>(ring_smem + ends_at);  // B key ends
+  const int n_bh = B * Hkv;
+  // decode: every row sits at starts[b] (lens[b] - 1 without starts)
+  for (int i = threadIdx.x; i < B; i += kDecodeThreads)
+    end_s[i] = min(starts ? min(lens[i], starts[i] + 1) : lens[i], W * ps);
+  for (;;) {
+    __syncthreads();  // end_s; the last item's shared memory is free
+    if (threadIdx.x == 0) item_s = atomicAdd(tickets + n_bh, 1);
+    __syncthreads();
+    const int item = item_s;
+    if (item >= n_bh * n_split) break;
+    const int bh = item % n_bh;
+    decode_item<TQ, TKV, D, GP>(q, kp, vp, ks, vs, tables, out, part,
+                                tickets, Hkv, G, P, ps, W, n_split,
+                                split_pages, scale_log2, item / n_bh, bh,
+                                end_s[bh / Hkv]);
+  }
+  if (threadIdx.x == 0
+      && atomicAdd(tickets + n_bh + 1, 1) == (int)gridDim.x - 1) {
+    atomicExch(tickets + n_bh, 0);
+    atomicExch(tickets + n_bh + 1, 0);
+  }
+}
+
+struct DecodeArgs {
+  const void *q, *k, *v;
+  const float *ks, *vs;
+  const int *tables, *lens, *starts;
+  void* out;
+  float* part;
+  int* tickets;
+  int B, Hkv, G, D, P, ps, W, n_split, split_pages, n_sm;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TKV, int D, int GP>
+cudaError_t launch_split(const DecodeArgs& a) {
+  using Tile = DecodeTile<TKV, D>;
+  const size_t red = sizeof(float) * kDecodeWarps * GP * (D + 2);
+  const size_t ring = (size_t)Tile::kRingBytes > red ? Tile::kRingBytes : red;
+  // the last block's merge reuses the ring: (2 * n_split + 1) * G floats
+  const size_t merge = sizeof(float) * (2 * (size_t)a.n_split + 1) * a.G;
+  const size_t ends_at = (ring > merge ? ring : merge)
+                         + sizeof(float) * kStages * 2 * Tile::kKeys
+                         + sizeof(int) * kStages * Tile::kKeys
+                         + sizeof(int) * a.split_pages;
+  const size_t smem = ends_at + sizeof(int) * a.B;
+  auto kern = paged_attention_split_kernel<TQ, TKV, D, GP>;
+  // above 48 KB a block's shared memory must be asked for explicitly, per
+  // instance and device, whenever a launch takes more than was asked
+  static size_t smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = smem;
+  }
+  const long long items = (long long)a.B * a.Hkv * a.n_split;
+  if (items <= 0) return cudaSuccess;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  // as many blocks as the card holds at once (per device and smem size)
+  static size_t occ_smem[kMaxDevices] = {};
+  static int occ_blocks[kMaxDevices] = {};
+  if (occ_smem[dev] != smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ_blocks[dev], kern, kDecodeThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (occ_blocks[dev] < 1) return cudaErrorInvalidConfiguration;
+    occ_smem[dev] = smem;
+  }
+  const long long held = (long long)occ_blocks[dev] * a.n_sm;
+  kern<<<(unsigned)(items < held ? items : held), kDecodeThreads, smem,
+         a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), a.ks, a.vs, a.tables, a.lens, a.starts,
+      static_cast<TQ*>(a.out), a.part, a.tickets, a.B, a.Hkv, a.G, a.P,
+      a.ps, a.W, a.n_split, a.split_pages, (int)ends_at, a.scale_log2);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, int D>
+cudaError_t split_by_group(const DecodeArgs& a) {
+  if (a.G <= 1) return launch_split<TQ, TKV, D, 1>(a);
+  if (a.G <= 2) return launch_split<TQ, TKV, D, 2>(a);
+  if (a.G <= 4) return launch_split<TQ, TKV, D, 4>(a);
+  return launch_split<TQ, TKV, D, 8>(a);
+}
+
+template <typename TQ, typename TKV>
+cudaError_t split_by_dim(const DecodeArgs& a) {
+  switch (a.D) {
+    case 64: return split_by_group<TQ, TKV, 64>(a);
+    case 128: return split_by_group<TQ, TKV, 128>(a);
+    case 256: return split_by_group<TQ, TKV, 256>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TQ>
+cudaError_t split_by_kv(const DecodeArgs& a, int kv_dtype) {
+  switch (kv_dtype) {
+    case kF32: return split_by_dim<TQ, float>(a);
+    case kBF16: return split_by_dim<TQ, __nv_bfloat16>(a);
+    case kI8: return split_by_dim<TQ, int8_t>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the SM count of the current device, read once per device
+cudaError_t sm_count(int* n) {
+  static int counts[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (counts[dev] == 0) {
+    err = cudaDeviceGetAttribute(&counts[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *n = counts[dev];
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns a cudaError_t: 0 on a launch the card accepted. Allocates nothing
-// and does not synchronise; everything runs on `stream`.
+// and does not synchronise; everything runs on `stream`. Decode (chunk ==
+// 1, R <= kDecodeMaxGroup) takes the split instance: `n_split` must be the
+// plan's for these shapes on this device, `tickets` holds B * Hkv + 2 ints
+// that are 0 (each call leaves them 0 again; calls that may run at once
+// need their own), at n_split > 1 `workspace` holds (B, Hkv, n_split, R,
+// D + 2) floats, and `starts` may be null (each row at lens - 1). Other calls take
+// one kernel, need `starts` and ignore workspace, tickets and n_split.
 int paged_attention_launch(const void* q, const void* k, const void* v,
                            const void* k_scales, const void* v_scales,
                            const void* tables, const void* lens,
-                           const void* starts, void* out, int B, int Hkv,
-                           int R, int D, int P, int ps, int W, int chunk,
-                           float sm_scale, int q_dtype, int kv_dtype,
-                           void* stream) {
+                           const void* starts, void* out, void* workspace,
+                           void* tickets, int B, int Hkv, int R, int D,
+                           int P, int ps,
+                           int W, int chunk, int n_split, float sm_scale,
+                           int q_dtype, int kv_dtype, void* stream) {
   if (chunk < 1 || ps < 1 || W < 1 || R < 1) return cudaErrorInvalidValue;
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
@@ -341,6 +1003,29 @@ int paged_attention_launch(const void* q, const void* k, const void* v,
   const int* sl = static_cast<const int*>(lens);
   const int* st = static_cast<const int*>(starts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_dtype == kI8 && (ks == nullptr || vs == nullptr))
+    return cudaErrorInvalidValue;
+  if (chunk == 1 && R <= kDecodeMaxGroup) {
+    int n_sm = 0, pages = 0;
+    cudaError_t err = sm_count(&n_sm);
+    if (err != cudaSuccess) return err;
+    if (n_split != plan_splits(B, Hkv, W, ps, n_sm, &pages)
+        || tickets == nullptr || (n_split > 1 && workspace == nullptr))
+      return cudaErrorInvalidValue;
+    const DecodeArgs a{q, k, v, kv_dtype == kI8 ? ks : nullptr,
+                       kv_dtype == kI8 ? vs : nullptr, t, sl, st, out,
+                       static_cast<float*>(workspace),
+                       static_cast<int*>(tickets), B, Hkv, R, D, P, ps,
+                       W, n_split, pages, n_sm,
+                       sm_scale * 1.4426950408889634f,  // log2(e)
+                       s};
+    switch (q_dtype) {
+      case kF32: return split_by_kv<float>(a, kv_dtype);
+      case kBF16: return split_by_kv<__nv_bfloat16>(a, kv_dtype);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (st == nullptr) return cudaErrorInvalidValue;
   switch (q_dtype) {
     case kF32:
       return by_kv<float>(q, k, v, ks, vs, t, sl, st, out, B, Hkv, R, D, P,

@@ -11,8 +11,12 @@ prefill), reach it through ``_paged_call``:
 * a CPU tensor runs ``_paged_plain``, the plain PyTorch version of the
   same function (the tests' path). Nothing else selects the plain version.
 
-``paged_attention.launches`` counts the kernel's launches from both entry
-points, so a run can show that it went through the kernel.
+``paged_attention.launches`` counts the wrapper's launches from both entry
+points, so a run can show that it went through the kernel. Decode takes
+the kernel's split-K instance (``_decode_route``): the keys of each
+(sequence, kv head) are split as ``_decode_splits`` plans from shapes
+alone, and the last split to finish merges the others' partials. Every
+call runs one CUDA kernel and counts one launch.
 
 API (the reference's layouts):
   paged_attention(q, k_pages, v_pages, page_tables, seq_lens)
@@ -25,6 +29,7 @@ API (the reference's layouts):
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, List, Tuple
 
@@ -39,13 +44,20 @@ _KERNEL = "paged_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+def _decode_starts(seq_lens):
+    return (seq_lens.to(torch.int32) - 1).clamp_min(0)
+
+
 def _paged_plain(q4, k_pages, v_pages, page_tables, seq_lens, starts, chunk,
                  sm_scale, k_scales=None, v_scales=None):
     """The plain PyTorch version of the kernel: gather every page of the
     table, mask, exact softmax in f32. q4 (B, Hkv, R, D), row r at
-    absolute position starts[b] + r % chunk. A row with no live key is
-    exactly 0, as in the kernel."""
+    absolute position starts[b] + r % chunk (decode: starts None, each
+    row at seq_lens[b] - 1). A row with no live key is exactly 0, as in
+    the kernel."""
     B, Hkv, R, D = q4.shape
+    if starts is None:
+        starts = _decode_starts(seq_lens)
     page_size = k_pages.shape[2]
     pt = page_tables.long()
     S = pt.shape[1] * page_size
@@ -73,8 +85,58 @@ def _paged_plain(q4, k_pages, v_pages, page_tables, seq_lens, starts, chunk,
 
 
 _SIGNATURES = {"paged_attention_launch":
-               [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                + [ctypes.c_float, ctypes.c_int, ctypes.c_int]}
+
+# the kernel's decode instance and its split plan: kDecodeMaxGroup,
+# kSplitMinKeys and kSplitItemsPerSm of kernels/paged_attention.cu
+_DECODE_MAX_GROUP = 8
+_SPLIT_MIN_KEYS = 256
+_SPLIT_ITEMS_PER_SM = 4
+
+
+def _decode_route(chunk: int, rows: int) -> bool:
+    """Whether a call takes the split-K decode instance: one position per
+    sequence (chunk 1) and at most _DECODE_MAX_GROUP query rows a kv
+    head. Other calls take the row-tile instance (PR 1's kernel)."""
+    return chunk == 1 and rows <= _DECODE_MAX_GROUP
+
+
+def _decode_splits(B: int, Hkv: int, W: int, ps: int,
+                   n_sm: int) -> Tuple[int, int]:
+    """(n_split, pages a split holds) for a decode call, from shapes alone
+    (the kernel's ``plan_splits``): about _SPLIT_ITEMS_PER_SM of the
+    B * Hkv * n_split (split, sequence, kv head) items an SM, each split
+    at least _SPLIT_MIN_KEYS keys of whole pages, and no split without a
+    page of the table. Split s holds table columns
+    [s * pages, (s + 1) * pages)."""
+    min_pages = -(-_SPLIT_MIN_KEYS // ps)
+    want = -(-_SPLIT_ITEMS_PER_SM * n_sm // max(B * Hkv, 1))
+    n = max(1, min(want, W // min_pages))
+    pages = -(-W // n)
+    return -(-W // pages), pages
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The decode instance's counters: a merge ticket a (sequence, kv head),
+# then the items taken and the blocks done, all int32 and zero between
+# calls (the kernel resets them). Kept per device and stream, since calls
+# on two streams may run at once; made with torch.zeros on that stream, so
+# the first call needs no synchronisation.
+_TICKETS: Dict[tuple, torch.Tensor] = {}
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 _HEAD_DIMS = (64, 128, 256)
@@ -83,8 +145,8 @@ _HEAD_DIMS = (64, 128, 256)
 def _kernel_operands(q4, k_pages, v_pages, page_tables, seq_lens, starts,
                      k_scales, v_scales):
     """Check what the kernel takes, on any device; return q4 (contiguous,
-    16-byte aligned) and the int32 tables, lengths and starts. Raises on
-    anything the kernel does not take."""
+    16-byte aligned) and the int32 tables, lengths and starts (None stays
+    None: decode). Raises on anything the kernel does not take."""
     dev = q4.device
     B, Hkv, R, D = q4.shape
     _, P, page_size, _ = k_pages.shape
@@ -101,7 +163,9 @@ def _kernel_operands(q4, k_pages, v_pages, page_tables, seq_lens, starts,
     if D not in _HEAD_DIMS:
         raise ValueError(f"paged attention kernel: head_dim {D} "
                          "(use 64, 128 or 256)")
-    tensors = [q4, k_pages, v_pages, page_tables, seq_lens, starts]
+    tensors = [q4, k_pages, v_pages, page_tables, seq_lens]
+    if starts is not None:
+        tensors.append(starts)
     if quantized:
         tensors += [k_scales, v_scales]
         for sc in (k_scales, v_scales):
@@ -121,7 +185,8 @@ def _kernel_operands(q4, k_pages, v_pages, page_tables, seq_lens, starts,
             raise ValueError(f"{name} must be contiguous (pools are "
                              "updated in place and never copied)")
     if page_tables.dim() != 2 or page_tables.shape[0] != B \
-            or seq_lens.shape != (B,) or starts.shape != (B,):
+            or seq_lens.shape != (B,) \
+            or (starts is not None and starts.shape != (B,)):
         raise ValueError("page_tables (B, W), seq_lens (B,), starts (B,) "
                          f"expected for B={B}")
     q4 = q4.contiguous()
@@ -132,7 +197,7 @@ def _kernel_operands(q4, k_pages, v_pages, page_tables, seq_lens, starts,
             raise ValueError(f"{name} must start on a 16-byte boundary")
     return (q4, page_tables.to(torch.int32).contiguous(),
             seq_lens.to(torch.int32).contiguous(),
-            starts.to(torch.int32).contiguous())
+            None if starts is None else starts.to(torch.int32).contiguous())
 
 
 def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
@@ -145,13 +210,25 @@ def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
     _, P, page_size, _ = k_pages.shape
     q4, pt, sl, st = _kernel_operands(q4, k_pages, v_pages, page_tables,
                                       seq_lens, starts, k_scales, v_scales)
+    W = pt.shape[1]
     out = torch.empty_like(q4)
+    n_split, work, tickets = 0, None, None
+    if _decode_route(chunk, R):
+        index = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        n_split, _ = _decode_splits(B, Hkv, W, page_size, _sm_count(index))
+        tickets = _tickets(torch.device("cuda", index), B * Hkv + 2)
+        if n_split > 1:       # the splits' partials: acc[D], m, l a row
+            work = torch.empty((B, Hkv, n_split, R, D + 2),
+                               dtype=torch.float32, device=dev)
+    elif st is None:
+        st = _decode_starts(sl)
     ptr = (lambda t: t.data_ptr() if t is not None else None)
     _build.launch(
         _build.load(_KERNEL, _SIGNATURES), "paged_attention_launch", dev,
         ptr(q4), ptr(k_pages), ptr(v_pages), ptr(k_scales), ptr(v_scales),
-        ptr(pt), ptr(sl), ptr(st), ptr(out),
-        B, Hkv, R, D, P, page_size, pt.shape[1], chunk, float(sm_scale),
+        ptr(pt), ptr(sl), ptr(st), ptr(out), ptr(work), ptr(tickets),
+        B, Hkv, R, D, P, page_size, W, chunk, n_split, float(sm_scale),
         _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype])
     paged_attention.launches += 1
     return out
@@ -193,11 +270,10 @@ def paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
     G = Hq // Hkv
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    sl = _as_lens(seq_lens, q.device)
     out = _paged_call(q.reshape(B, Hkv, G, D), k_pages, v_pages,
-                      torch.as_tensor(page_tables, device=q.device), sl,
-                      (sl - 1).clamp_min(0), 1, sm_scale, k_scales,
-                      v_scales)
+                      torch.as_tensor(page_tables, device=q.device),
+                      _as_lens(seq_lens, q.device), None, 1, sm_scale,
+                      k_scales, v_scales)
     return out.reshape(B, Hq, D)
 
 
@@ -247,7 +323,7 @@ def paged_attention_reference(q, k_pages, v_pages, page_tables, seq_lens,
         sm_scale = 1.0 / math.sqrt(D)
     sl = _as_lens(seq_lens, q.device)
     if q_start is None:
-        starts = (sl - 1).clamp_min(0)
+        starts = None
     else:
         starts = torch.full((B,), int(q_start), dtype=torch.int32,
                             device=q.device)

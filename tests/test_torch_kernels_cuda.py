@@ -108,6 +108,113 @@ def test_paged_kernel_refuses_what_it_does_not_take(card):
                             vp, pt, sl)
 
 
+# --- paged decode: the split-K instance ------------------------------------
+
+def _split_inputs(q_dtype, kv, D, G, B, Hkv, W, ps, dev, seed):
+    """Pools, distinct pages from 1 up (pad rows point at page 0) and q."""
+    rng = np.random.default_rng(seed)
+    P = B * W + 1
+    kp, vp, sc = _pools(kv, Hkv, P, ps, D, dev, rng)
+    pt = rng.permutation(np.arange(1, P))[:B * W].reshape(B, W)
+    q = torch.from_numpy(rng.normal(0, 1, (B, Hkv * G, D))
+                         .astype(np.float32)).to(dev, getattr(torch,
+                                                             q_dtype))
+    return q, kp, vp, pt.astype(np.int32), sc, P
+
+
+def _split_config(name, ps, W):
+    """(B, Hkv, lens) of each config. "many": 3 of 4 rows past the first
+    split's 256 keys, one at the table's end (W * ps), a pad row and a row
+    whose pages all are bad ids; "one": too few keys to split (W * ps <
+    256), pages of 48 slots so tiles straddle pages."""
+    if name == "many":
+        return 5, 2, [1, W * ps, 0, 300, 700]
+    return 4, 2, [W * ps, 0, 97, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("kv", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+def test_split_decode_matches_plain(card, q_dtype, kv, D, G):
+    """The decode instance at n_split > 1 and == 1, against the plain
+    version. Row 1 of "many" has a bad last page id (P + 5): it reads
+    nothing, so the plain version's answer is that of the other pages
+    alone; row 4's pages are all bad (-1): exactly 0, as the pad row.
+    Tolerance as test_paged_kernel_matches_plain."""
+    atol, rtol = (1e-4, 2 ** -7) if q_dtype == "bfloat16" else (1e-5, 1e-5)
+    n_sm = tpa._sm_count(torch.cuda.current_device())
+    for seed, (name, ps, W) in enumerate((("many", 64, 16),
+                                          ("one", 48, 5))):
+        B, Hkv, lens = _split_config(name, ps, W)
+        q, kp, vp, pt, sc, P = _split_inputs(q_dtype, kv, D, G, B, Hkv, W,
+                                             ps, card, seed)
+        n_split, _ = tpa._decode_splits(B, Hkv, W, ps, n_sm)
+        assert (n_split > 1) == (name == "many"), (name, n_split)
+        pt[[i for i, n in enumerate(lens) if n == 0]] = 0
+        want_pt, want_lens = pt.copy(), list(lens)
+        if name == "many":
+            pt[1, -1] = P + 5
+            want_lens[1] = (W - 1) * ps
+            pt[4] = -1
+            want_lens[4] = 0
+        sl = torch.tensor(lens, dtype=torch.int32, device=card)
+        before = tpa.paged_attention.launches
+        got = tpa.paged_attention(q, kp, vp, torch.from_numpy(pt).to(card),
+                                  sl, **sc)
+        want = tpa.paged_attention_reference(
+            q, kp, vp, torch.from_numpy(want_pt).to(card),
+            torch.tensor(want_lens, dtype=torch.int32, device=card), **sc)
+        torch.cuda.synchronize()
+        assert tpa.paged_attention.launches == before + 1
+        _reading(f"split decode {name} n_split={n_split} q {q_dtype} kv "
+                 f"{kv} D={D} G={G}", got, want, atol, rtol)
+        for i, n in enumerate(want_lens):
+            if n == 0:
+                assert not got[i].any(), f"row {i} must be exactly 0"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_split_decode_is_deterministic(card, kv):
+    """Two launches on the same inputs give the same bits: the splits
+    merge in a fixed order, with no atomics on values."""
+    q, kp, vp, pt, sc, _ = _split_inputs("bfloat16", kv, 128, 4, 8, 8, 32,
+                                         64, card, 3)
+    pt = torch.from_numpy(pt).to(card)
+    sl = torch.tensor([1, 2048, 777, 64, 0, 1500, 129, 1023],
+                      dtype=torch.int32, device=card)
+    a = tpa.paged_attention(q, kp, vp, pt, sl, **sc)
+    b = tpa.paged_attention(q, kp, vp, pt, sl, **sc)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_split_decode_never_synchronises(card):
+    """A decode call, workspace and merge included, under
+    ``set_sync_debug_mode("error")``: the host never reads lens, so the
+    call neither synchronises nor copies from the card."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    q, kp, vp, pt, sc, _ = _split_inputs("bfloat16", "int8", 128, 4, 8, 8,
+                                         32, 64, card, 4)
+    pt = torch.from_numpy(pt).to(card)
+    sl = torch.tensor([1, 2048, 777, 64, 0, 1500, 129, 1023],
+                      dtype=torch.int32, device=card)
+    _build.load(tpa._KERNEL, tpa._SIGNATURES)     # the build, beforehand
+    assert tpa._decode_splits(8, 8, 32, 64, tpa._sm_count(
+        torch.cuda.current_device()))[0] > 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tpa.paged_attention(q, kp, vp, pt, sl, **sc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = tpa.paged_attention_reference(q, kp, vp, pt, sl, **sc)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=2 ** -7)
+
+
 # --- grouped and multi-head flash attention (forward, dq, dkv) --------------
 
 fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention_gqa")
