@@ -17,13 +17,15 @@ Phases, each printing JSON lines:
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
    then count the HGMMA (wgmma) instructions of each 16-bit attention
    kernel (forward, dq and dk/dv at head_dim 64, 128 and 256, bfloat16
-   and float16, both libraries) in their SASS (``cuobjdump``): one that
-   is missing or has none fails.
+   and float16, both libraries) and of each paged prefill instance
+   (``paged_prefill_mma`` over bf16 and int8 pools at head_dim 64, 128
+   and 256) in their SASS (``cuobjdump``): one that is missing or has
+   none fails.
 2. ``kernel``: each kernel through its wrapper at the shapes of the main
    paths, against its plain version on the same inputs, element by
    element within the stated tolerance; each call must launch its kernel
-   once, and the attention backward kernels (dq, dk/dv) launched twice on
-   the same inputs must give the same bits. Times are CUDA events (median
+   once, and the paged calls and the attention backward kernels (dq,
+   dk/dv) launched twice on the same inputs must give the same bits. Times are CUDA events (median
    of ``REPS``, L2 flushed before each call) beside the bound (the least
    time the card could take: the bytes that must move at 3.35 TB/s, the
    operations at the data sheet's peak for their type) and, where one
@@ -35,9 +37,15 @@ Phases, each printing JSON lines:
      row of length 0, and a 256-token prefill chunk at starts 0 and 512;
      q in bf16, pools in bf16 and in int8 with per-slot scales; decode of
      one 16,384-token sequence, at B=32 with ragged lengths up to 2048, at
-     G = 1 over 32 kv heads (Llama-2-7B's) and at G = 8. Each case records
-     the kernel's instance (``split``: decode split over pages, with its
-     ``n_split``; ``rows``: one block per row tile) and ``n_split``;
+     G = 1 over 32 kv heads (Llama-2-7B's) and at G = 8; the 256-token
+     chunk at start 512 at G = 1 over 32 kv heads, at G = 8, at head_dim
+     64 and 256, over pages of 16, for four sequences of ragged lengths,
+     and in float32. Each case records the instance that the kernel's
+     entry reports it launched (``split``: decode split over pages, with
+     its ``n_split``; ``mma``: a bf16 chunk on the tensor cores; ``rows``:
+     one block per row tile), which must be the one its shapes call for
+     (a bf16 chunk ``mma``, float32 ``rows``), and whether a second launch
+     gives the same bits;
    * grouped flash attention (``gqa_fwd``; ``gqa_bwd``: the dq and dkv
      kernels) at the training shapes of Llama-3-8B: B=2, 32 query / 8 kv
      heads, S=4096, head_dim 128, bf16, causal; and at head_dim 64, f32,
@@ -89,12 +97,17 @@ Phases, each printing JSON lines:
    from a seed, through ``examples/serve_paged_llama.serve``: 16 requests,
    continuous batching in 8 slots of 2048 tokens, chunked prefill of 256
    tokens through the kernel, fixed-shape decode steps with pad rows on
-   the reserved page 0. The kernel's launch count is set to 0 just before
-   and read just after, and must equal the launches the run implies. Then
+   the reserved page 0. The kernel's launch counts, in all and by the
+   instance its entry reports, are set to 0 just before and read just
+   after, and must equal the launches the run implies: a decode step's
+   layers the split instance, a prefill chunk's the tensor cores'. Then
    one decode step runs with the kernel and with the plain version on
    identical pools, and their logits are compared. With ``--profile``, a
    ``torch.profiler`` trace of decode steps splits the step's device time
-   into the attention kernel, matrix products and the rest.
+   into the attention kernel's three instances, matrix products and the
+   rest, and one of a
+   1024-token request's prefill (4 chunks; ``profile_prefill``) does the
+   same for the time to the first token.
 5. ``train``, ``train_mha``, ``train_window``: Llama-3-8B (GQA, B=2,
    S=4096), Llama-2-7B (multi-head, ``LlamaConfig()``, B=2, S=4096) and
    Mistral-7B-v0.1 (GQA with a sliding window of 4096, B=1, S=8192), each
@@ -311,11 +324,35 @@ WGMMA_DIMS = (64, 128, 256)
 WGMMA_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
+# the paged prefill instances: pools in bf16 and int8 (mangled), each at
+# head_dim 64, 128 and 256
+PREFILL_POOLS = {"13__nv_bfloat16": "bf16", "a": "int8"}
+
+
+def _sass_counts(cuobjdump, lib, pattern, name):
+    """{kernel name: HGMMA instructions in its SASS} for the functions of
+    library ``lib`` whose mangled name ``pattern`` matches (``name`` makes
+    the key from the match)."""
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = pattern.search(line)
+            kernel = m and name(m)
+            if kernel:
+                counts[kernel] = 0
+        elif kernel and "HGMMA" in line:
+            counts[kernel] += 1
+    return counts
+
+
 def _hgmma_counts(_build):
     """HGMMA instructions (wgmma) in the SASS of each 16-bit attention
     kernel (fwd_mma, dq_mma, dkv_mma at every head_dim and element type)
-    of the two attention libraries, read with cuobjdump beside nvcc.
-    Raises if one is missing or has none."""
+    of the two attention libraries, and of each paged prefill instance
+    (paged_prefill_mma over bf16 and int8 pools at every head_dim), read
+    with cuobjdump beside nvcc. Raises if one is missing or has none."""
     import re
     from pathlib import Path
 
@@ -324,21 +361,18 @@ def _hgmma_counts(_build):
     pattern = re.compile(r"(fwd|dkv|dq)_mmaILi(\d+)E.*?("
                          + "|".join(WGMMA_TYPES) + ")")
     for lib in ("flash_attention_gqa", "splash_attention"):
-        sass = subprocess.run([str(cuobjdump), "--dump-sass",
-                               str(_build.library_path(lib))],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        kernel = None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                m = pattern.search(line)
-                kernel = m and (f"{lib}:{m.group(1)}_mma<{m.group(2)}, "
-                                f"{WGMMA_TYPES[m.group(3)]}>")
-                if kernel:
-                    counts[kernel] = 0
-            elif kernel and "HGMMA" in line:
-                counts[kernel] += 1
-    want = 2 * len(WGMMA_KERNELS) * len(WGMMA_DIMS) * len(WGMMA_TYPES)
+        counts.update(_sass_counts(
+            cuobjdump, _build.library_path(lib), pattern,
+            lambda m: (f"{lib}:{m.group(1)}_mma<{m.group(2)}, "
+                       f"{WGMMA_TYPES[m.group(3)]}>")))
+    counts.update(_sass_counts(
+        cuobjdump, _build.library_path("paged_attention"),
+        re.compile(r"paged_prefill_mmaI(" + "|".join(PREFILL_POOLS)
+                   + r")Li(\d+)E"),
+        lambda m: (f"paged_attention:paged_prefill_mma<"
+                   f"{PREFILL_POOLS[m.group(1)]}, {m.group(2)}>")))
+    want = (2 * len(WGMMA_KERNELS) * len(WGMMA_DIMS) * len(WGMMA_TYPES)
+            + len(PREFILL_POOLS) * len(WGMMA_DIMS))
     if len(counts) != want or not all(counts.values()):
         raise AssertionError(f"16-bit attention kernels missing or without "
                              f"wgmma (want {want}): {counts}")
@@ -411,18 +445,24 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
         return pa.paged_attention_reference(q, k, v, pt, lens_t, **scales,
                                             q_start=start)
 
-    split = pa._decode_route(1 if start is None else C, rows)
-    n_split = (pa._decode_splits(B, Hkv, W, ps, pa._sm_count(
-        torch.cuda.current_device()))[0] if split else 0)
     before = pa.paged_attention.launches
+    by_instance = dict(pa.paged_attention.instance_launches)
     got = kernel()
     launched = pa.paged_attention.launches - before
+    # the instance the kernel's entry reports it launched
+    ran = [k for k, n in pa.paged_attention.instance_launches.items()
+           if n != by_instance[k]]
+    instance = ran[0] if len(ran) == 1 else ",".join(ran) or None
+    n_split = (pa._decode_splits(B, Hkv, W, ps, pa._sm_count(
+        torch.cuda.current_device()))[0] if instance == "split" else 0)
+    # launched again on the same inputs: the same bits (no atomics)
+    bitwise = bool(torch.equal(got, kernel()))
     want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
     atol, rtol = PAGED_TOL[q_dtype]
     allowed = atol + rtol * want.float().abs()
-    ok = launched == 1 and bool(torch.all(err <= allowed))
+    ok = launched == 1 and bitwise and bool(torch.all(err <= allowed))
     if lens.count(0):
         ok = ok and not got[[i for i, n in enumerate(lens) if n == 0]].any()
     ms = gpu_ms(kernel, flush=flush)
@@ -443,12 +483,15 @@ def _kernel_case(name, B, Hkv, G, D, ps, W, P, lens, start, C, kv_dtype,
               + 4 * (live_pages + B))                # page ids, lens
     flops = 4 * D * pairs                            # q.k and p.v
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    # the tensor cores' rate for 16-bit operands, f32's outside them
+    t_ops = flops / (F32_FLOP_PER_S if "float32" in (q_dtype, kv_dtype)
+                     else BF16_FLOP_PER_S) * 1e3
     return {"case": name, "ok": ok, "max_abs_err": float(err.max()),
             # the largest error over its limit, element by element
             "max_err_over_tol": float((err / allowed).max()),
             "atol": atol, "rtol": rtol,
-            "instance": "split" if split else "rows", "n_split": n_split,
+            "instance": instance, "n_split": n_split,
+            "bitwise_repeat": bitwise,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -907,6 +950,33 @@ def phase_kernel(dev):
                               flush))
     cases.append(_kernel_case("decode_G8/bfloat16", 8, 4, 8, D, ps, W, P,
                               dec_lens, None, 1, "bfloat16", 7, dev, flush))
+    # a 256-token chunk at start 512 (712 keys) at other shapes: Llama-2-7B's
+    # 32 kv heads of one query head each, G = 8 over 4 kv heads, head_dim 64
+    # and 256, pages of 16, and four sequences of ragged lengths (a pad row,
+    # one shorter than the chunk's start, one past its end); then float32,
+    # which keeps the row-tile kernel
+    for name, B, Hkv_, G_, D_, ps_, lens in (
+            ("prefill_G1_Hkv32/bfloat16", 1, 32, 1, D, ps, [712]),
+            ("prefill_G8/bfloat16", 1, 4, 8, D, ps, [712]),
+            ("prefill_D64/bfloat16", 1, Hkv, G, 64, ps, [712]),
+            ("prefill_D256/bfloat16", 1, Hkv, G, 256, ps, [712]),
+            ("prefill_ps16/bfloat16", 1, Hkv, G, D, 16, [712]),
+            ("prefill_B4_ragged/bfloat16", 4, Hkv, G, D, ps,
+             [0, 300, 700, 2048])):
+        W_ = 2048 // ps_
+        cases.append(_kernel_case(name, B, Hkv_, G_, D_, ps_, W_, B * W_ + 1,
+                                  lens, 512, 256, "bfloat16", 20 + len(cases),
+                                  dev, flush))
+    cases.append(_kernel_case("prefill_c256_start512/float32", 1, Hkv, G, D,
+                              ps, W, P, [712], 512, 256, "float32", 19, dev,
+                              flush, q_dtype="float32"))
+    # each call's instance, as the kernel's entry reported it: decode the
+    # split one, a bf16 chunk the tensor cores', float32 the row-tile kernel
+    for c in cases:
+        want = ("split" if c["case"].startswith("decode")
+                else "mma" if c["shape"]["q"] == "bfloat16" else "rows")
+        c["instance_expected"] = want
+        c["ok"] = c["ok"] and c["instance"] == want
     for c in cases:
         emit({"phase": "kernel", **c})
     gqa = [_attention_case("gqa_B2_S4096_D128/bfloat16", "gqa", 2, 8, 4,
@@ -1257,16 +1327,23 @@ def phase_serve(dev, profile=False):
     reqs = _requests(0, 16, cfg.vocab_size)
 
     paged_attention.launches = 0
+    by_instance = paged_attention.instance_launches
+    for name in by_instance:
+        by_instance[name] = 0
     t0 = time.perf_counter()
     res = serve(outer, layers, pools, prefill, decode, book, reqs,
                 slots=slots, width=width, pad_to=C, log=None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = paged_attention.launches
+    launched_by = dict(by_instance)
 
     pools = res["pools"]
     chunks = sum(-(-len(p) // C) for _, p, _ in reqs)
     want_launches = L * (chunks + res["steps"])
+    # a decode step's layers take the split instance, a prefill chunk's
+    # (bf16 over bf16 pools of 64 slots) the tensor cores'
+    want_by = {"split": L * res["steps"], "mma": L * chunks, "rows": 0}
     generated = sum(len(t) for t in res["done"].values())
     streams_ok = (len(res["done"]) == len(reqs)
                   and all(len(res["done"][s]) == n for s, _, n in reqs)
@@ -1281,6 +1358,8 @@ def phase_serve(dev, profile=False):
            "decode_step_ms_median": 1e3 * statistics.median(res["decode_s"]),
            "prefill_ms_median": 1e3 * statistics.median(res["prefill_s"]),
            "launches": launches, "launches_expected": want_launches,
+           "launches_by_instance": launched_by,
+           "launches_by_instance_expected": want_by,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
     # one decode step, kernel vs plain attention, on identical pools
@@ -1313,16 +1392,28 @@ def phase_serve(dev, profile=False):
                 "step_logits_finite": bool(torch.isfinite(with_kernel)
                                            .all())})
     ok = (streams_ok and launches > 0 and launches == want_launches
-          and out["step_logits_finite"] and diff <= STEP_ATOL)
+          and launched_by == want_by and out["step_logits_finite"] and diff <= STEP_ATOL)
     out["ok"] = ok
     emit(out)
     if not ok:
         raise AssertionError("serve phase failed: " + json.dumps(out))
     if profile:
+        # the paged kernel's instances, each its own family
+        families = {"paged_split": ("paged_attention_split_kernel",),
+                    "paged_mma": ("paged_prefill_mma",),
+                    "paged_rows": ("paged_attention_kernel",),
+                    "matmul": MATMUL_NAMES}
         emit({"phase": "profile", **_profile(
-            lambda: decode(outer, layers, tok, pt, ln, pools),
-            {"paged_attention": ("paged_attention",),
-             "matmul": MATMUL_NAMES})})
+            lambda: decode(outer, layers, tok, pt, ln, pools), families)})
+        # time to the first token: one 1024-token request (4 chunks of 256
+        # through 32 layers) on the first slot's pages
+        toks1 = toks[:1].to(dev)
+        ln1 = torch.full((1,), toks1.shape[1], dtype=torch.int32,
+                         device=dev)
+        emit({"phase": "profile_prefill", "tokens": toks1.shape[1],
+              "chunks": toks1.shape[1] // C, **_profile(
+                  lambda: prefill(outer, layers, toks1, pt[:1], ln1, pools),
+                  families)})
     return out
 
 
@@ -1892,16 +1983,27 @@ def _kernels_line(kern, serve, trains, card):
     main_case = next((c for c in cases if c["case"] == "decode/bfloat16"),
                      None)
     if main_case is not None:
+        # the serve run's launches by the instance the kernel reported
+        by_instance = serve.get("launches_by_instance", {})
         kernels.append({
             "name": "paged_attention", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": serve.get("launches"),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_err_over_tol": max(c["max_err_over_tol"] for c in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": None,
             "check": "pass", "card": card,
+            "instances": {
+                name: {"kernel": fn, "launches": by_instance.get(name),
+                       "cases": [c["case"] for c in cases
+                                 if c["instance"] == name]}
+                for name, fn in (("split", "paged_attention_split_kernel"),
+                                 ("mma", "paged_prefill_mma"),
+                                 ("rows", "paged_attention_kernel"))},
             "cases": [{k: c[k] for k in ("case", "instance", "n_split",
-                                         "max_abs_err", "ms", "plain_ms",
+                                         "max_abs_err", "max_err_over_tol",
+                                         "bitwise_repeat", "ms", "plain_ms",
                                          "bound_ms", "bound_by")}
                       for c in cases]})
     launches = trains.get("train", {}).get("launches", {})

@@ -256,6 +256,17 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
 
+// coordinates out of bounds (a paged pool's bad page id) fill zeros
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
 // 4 bytes from global to shared memory, asynchronously; cp_async_arrive
 // then counts one arrival on `bar` once all of this thread's copies have
 // landed (the barrier's expected count includes it)
@@ -1333,18 +1344,18 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// One 16-bit map with 128-byte swizzle (the box's inner extent is kHalf
-// columns, 128 bytes).
-inline bool encode_map(CUtensorMap* m, CUtensorMapDataType type,
-                       const void* ptr, cuuint32_t rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box) {
+// One map of rank 1 to 5, by default 16-bit with 128-byte swizzle (the
+// box's inner extent kHalf columns, 128 bytes).
+inline bool encode_map(
+    CUtensorMap* m, CUtensorMapDataType type, const void* ptr,
+    cuuint32_t rank, const cuuint64_t* dims, const cuuint64_t* strides,
+    const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const auto encode = tensor_map_encoder();
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode != nullptr &&
          encode(m, type, rank, const_cast<void*>(ptr), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

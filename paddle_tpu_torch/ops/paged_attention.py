@@ -12,11 +12,27 @@ prefill), reach it through ``_paged_call``:
   same function (the tests' path). Nothing else selects the plain version.
 
 ``paged_attention.launches`` counts the wrapper's launches from both entry
-points, so a run can show that it went through the kernel. Decode takes
-the kernel's split-K instance (``_decode_route``): the keys of each
-(sequence, kv head) are split as ``_decode_splits`` plans from shapes
-alone, and the last split to finish merges the others' partials. Every
-call runs one CUDA kernel and counts one launch.
+points, so a run can show that it went through the kernel. The kernel has
+three instances, chosen on shapes alone by the kernel's own route
+(``paged_attention_instance`` in the ``.cu``, which ``_instance`` asks):
+
+* ``split``, decode (chunk 1, at most ``_DECODE_MAX_GROUP`` rows a kv
+  head): the keys of each (sequence, kv head) are split as
+  ``_decode_splits`` plans from shapes alone, and the last split to finish
+  merges the others' partials;
+* ``mma``, a prefill chunk in bf16 over bf16 or int8 pools, head_dim 64,
+  128 or 256, pages of a multiple of 64 slots or of a divisor of 64 of at
+  least 8: ``wgmma`` on the tensor cores, 64 query rows a CTA against
+  64-key tiles of the pages that TMA brings, p split into two bf16 parts
+  for P.V;
+* ``rows``, everything else (float32 q or pools, other page sizes,
+  decode at more than ``_DECODE_MAX_GROUP`` rows a kv head): one block a
+  row tile, on the CUDA cores.
+
+Every call runs one CUDA kernel and counts one launch, also in
+``paged_attention.instance_launches`` under the instance that the kernel's
+entry reports it launched. No call reads a length on the host, so none
+synchronises.
 
 API (the reference's layouts):
   paged_attention(q, k_pages, v_pages, page_tables, seq_lens)
@@ -42,6 +58,7 @@ from .kernels import _build
 NEG_INF = -1e30
 _KERNEL = "paged_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_HEAD_DIMS = (64, 128, 256)
 
 
 def _decode_starts(seq_lens):
@@ -85,8 +102,10 @@ def _paged_plain(q4, k_pages, v_pages, page_tables, seq_lens, starts, chunk,
 
 
 _SIGNATURES = {"paged_attention_launch":
-               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+               [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                + [ctypes.c_float, ctypes.c_int, ctypes.c_int]}
+# the kernel's instances, by the number its entry reports
+_INSTANCES = {0: "split", 1: "mma", 2: "rows"}
 
 # the kernel's decode instance and its split plan: kDecodeMaxGroup,
 # kSplitMinKeys and kSplitItemsPerSm of kernels/paged_attention.cu
@@ -96,10 +115,24 @@ _SPLIT_ITEMS_PER_SM = 4
 
 
 def _decode_route(chunk: int, rows: int) -> bool:
-    """Whether a call takes the split-K decode instance: one position per
-    sequence (chunk 1) and at most _DECODE_MAX_GROUP query rows a kv
-    head. Other calls take the row-tile instance (PR 1's kernel)."""
+    """Whether a call takes the split-K decode instance, which needs its
+    workspace planned here: one position per sequence (chunk 1) and at
+    most _DECODE_MAX_GROUP query rows a kv head. Other calls take the
+    prefill or the row-tile instance."""
     return chunk == 1 and rows <= _DECODE_MAX_GROUP
+
+
+def _instance(chunk: int, rows: int, q_dtype, kv_dtype, head_dim: int,
+              page_size: int) -> str:
+    """The kernel instance a call of these shapes runs, from the kernel's
+    own route (``paged_attention_instance``, by which its launch
+    dispatches): "split" (decode), "mma" (prefill on the tensor cores) or
+    "rows" (the row-tile kernel). Loads the built library, so it needs
+    the card's toolchain."""
+    lib = _build.load(_KERNEL, _SIGNATURES)
+    return _INSTANCES[lib.paged_attention_instance(
+        chunk, rows, _DTYPE_CODE[q_dtype], _DTYPE_CODE[kv_dtype], head_dim,
+        page_size)]
 
 
 def _decode_splits(B: int, Hkv: int, W: int, ps: int,
@@ -138,8 +171,6 @@ def _tickets(device, n: int) -> torch.Tensor:
         _TICKETS[key] = t
     return t
 
-
-_HEAD_DIMS = (64, 128, 256)
 
 
 def _kernel_operands(q4, k_pages, v_pages, page_tables, seq_lens, starts,
@@ -224,13 +255,16 @@ def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
     elif st is None:
         st = _decode_starts(sl)
     ptr = (lambda t: t.data_ptr() if t is not None else None)
+    instance = ctypes.c_int(-1)   # the entry reports what it launched
     _build.launch(
         _build.load(_KERNEL, _SIGNATURES), "paged_attention_launch", dev,
         ptr(q4), ptr(k_pages), ptr(v_pages), ptr(k_scales), ptr(v_scales),
         ptr(pt), ptr(sl), ptr(st), ptr(out), ptr(work), ptr(tickets),
+        ctypes.addressof(instance),
         B, Hkv, R, D, P, page_size, W, chunk, n_split, float(sm_scale),
         _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype])
     paged_attention.launches += 1
+    paged_attention.instance_launches[_INSTANCES[instance.value]] += 1
     return out
 
 
@@ -278,6 +312,8 @@ def paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
 
 
 paged_attention.launches = 0
+paged_attention.instance_launches = {name: 0 for name in
+                                     _INSTANCES.values()}
 
 
 def paged_prefill_attention(q, k_pages, v_pages, page_tables, seq_lens,
@@ -289,7 +325,8 @@ def paged_prefill_attention(q, k_pages, v_pages, page_tables, seq_lens,
     q (B, Hq, C, D); pools as in paged_attention; q_start: absolute
     position of the chunk's first token, shared across the batch.
     Returns (B, Hq, C, D). The chunk=C case of the shared kernel; its
-    launches count on ``paged_attention.launches``."""
+    launches count on ``paged_attention.launches`` and
+    ``paged_attention.instance_launches``."""
     B, Hq, C, D = q.shape
     Hkv = k_pages.shape[0]
     if Hq % Hkv:

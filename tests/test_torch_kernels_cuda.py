@@ -36,6 +36,16 @@ def _pools(kv, Hkv, P, ps, D, dev, rng):
             torch.randn((Hkv, P, ps, D), device=dev).to(dt), {})
 
 
+def _launched(call):
+    """(call(), the instances it launched): the wrapper counts each launch
+    under the instance that the kernel's entry reports it ran."""
+    before = dict(tpa.paged_attention.instance_launches)
+    out = call()
+    return out, [name for name, n in
+                 tpa.paged_attention.instance_launches.items()
+                 for _ in range(n - before[name])]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype,kv,D", [("bfloat16", "bfloat16", 128),
                                           ("bfloat16", "int8", 128),
@@ -61,16 +71,22 @@ def test_paged_kernel_matches_plain(card, q_dtype, kv, D):
     atol, rtol = (1e-4, 2 ** -7) if dt == torch.bfloat16 else (1e-5, 1e-5)
     q = torch.randn((B, Hkv * G, D), device=card).to(dt)
     before = tpa.paged_attention.launches
-    got = tpa.paged_attention(q, kp, vp, pt, sl, **sc)
+    got, ran = _launched(lambda: tpa.paged_attention(q, kp, vp, pt, sl,
+                                                     **sc))
     want = tpa.paged_attention_reference(q, kp, vp, pt, sl, **sc)
     torch.cuda.synchronize()
     assert tpa.paged_attention.launches == before + 1
+    assert ran == ["split"]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
     assert not got[3].any()
+    # the chunk takes the tensor-core instance only with q in bf16 and
+    # bf16 or int8 pools: a float32 row stays on the row-tile kernel
     qc = torch.randn((1, Hkv * G, 256, D), device=card).to(dt)
     lens = torch.tensor([400], dtype=torch.int32, device=card)
-    got = tpa.paged_prefill_attention(qc, kp, vp, pt[:1], lens, 256, **sc)
+    got, ran = _launched(lambda: tpa.paged_prefill_attention(
+        qc, kp, vp, pt[:1], lens, 256, **sc))
+    assert ran == ["rows" if torch.float32 in (dt, kp.dtype) else "mma"]
     want = tpa.paged_attention_reference(qc, kp, vp, pt[:1], lens, **sc,
                                          q_start=256)
     torch.cuda.synchronize()
@@ -213,6 +229,101 @@ def test_split_decode_never_synchronises(card):
     want = tpa.paged_attention_reference(q, kp, vp, pt, sl, **sc)
     torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
                                rtol=2 ** -7)
+
+
+# --- paged prefill: the tensor-core instance --------------------------------
+
+def _prefill_case(kv, D, G, ps, start, dev, seed):
+    """A 100-token chunk at ``start`` for B = 3 over 2 kv heads: row 0 of
+    length 0 (page 0: exactly 0), row 1 shorter than start + C, row 2 the
+    whole table with its last page id past the pool (P + 5: it reads
+    nothing). Returns the call's operands and the plain version's
+    (tables with a good id there, row 2 cut before that page)."""
+    B, Hkv, C = 3, 2, 100
+    W = -(-(256 + C) // ps)
+    rng = np.random.default_rng(seed)
+    P = B * W + 1
+    kp, vp, sc = _pools(kv, Hkv, P, ps, D, dev, rng)
+    pt = rng.permutation(np.arange(1, P))[:B * W].reshape(B, W) \
+        .astype(np.int32)
+    pt[0] = 0
+    lens = [0, start + C - 30, W * ps]
+    want_pt, want_lens = pt.copy(), list(lens)
+    pt[2, -1] = P + 5
+    want_lens[2] = (W - 1) * ps
+    q = torch.from_numpy(rng.normal(0, 1, (B, Hkv * G, C, D))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    i32 = (lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
+                                  device=dev))
+    return ((q, kp, vp, i32(pt), i32(lens), start), sc,
+            (q, kp, vp, i32(want_pt), i32(want_lens)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [16, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_mma_prefill_matches_plain(card, kv, D, G, ps):
+    """The tensor-core prefill instance at starts 0 and 256 against the
+    plain version, tolerance as test_paged_kernel_matches_plain (p enters
+    P.V as two bf16 parts, so the kernel's f32 value stays within about
+    2^-17 of the plain version's before the one rounding of the output).
+    Each call launches the kernel once, two launches give the same bits
+    (no atomics), and a call under ``set_sync_debug_mode("error")``
+    raises nothing (the host reads no length)."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    _build.load(tpa._KERNEL, tpa._SIGNATURES)     # the build, beforehand
+    for start in (0, 256):
+        args, sc, plain = _prefill_case(kv, D, G, ps, start, card,
+                                        start + ps + G + D)
+        before = tpa.paged_attention.launches
+        got, ran = _launched(lambda: tpa.paged_prefill_attention(*args,
+                                                                 **sc))
+        torch.cuda.synchronize()
+        assert tpa.paged_attention.launches == before + 1
+        assert ran == ["mma"], "the kernel's entry reports what it ran"
+        again = tpa.paged_prefill_attention(*args, **sc)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            quiet = tpa.paged_prefill_attention(*args, **sc)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = tpa.paged_attention_reference(*plain, **sc, q_start=start)
+        torch.cuda.synchronize()
+        _reading(f"mma prefill kv {kv} D={D} G={G} ps={ps} start={start}",
+                 got, want, 1e-4, 2 ** -7)
+        assert torch.equal(got, again) and torch.equal(got, quiet)
+        assert not got[0].any(), "a length-0 row must be exactly 0"
+
+
+@pytest.mark.cuda
+def test_prefill_route_of_the_kernel(card):
+    """The kernel's own route (``paged_attention_instance``, by which its
+    launch dispatches): a chunk of more than one position with q in bf16,
+    pools in bf16 or int8, head_dim 64, 128 or 256 and pages that tile a
+    64-key tile whole (a multiple of 64 slots, or a divisor of 64 of at
+    least 8) takes the tensor cores; float32, pages of 48, 96, 4 or 2
+    slots, head_dim 96 and decode do not."""
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    for kv in (bf, i8):
+        for D in (64, 128, 256):
+            for ps in (8, 16, 32, 64, 128, 256):
+                for chunk, G in ((2, 1), (256, 4), (7, 3), (64, 8),
+                                 (16, 32)):
+                    assert tpa._instance(chunk, G * chunk, bf, kv, D,
+                                         ps) == "mma", (kv, D, ps, chunk)
+    for args in ((256, f32, bf, 128, 64), (256, bf, f32, 128, 64),
+                 (256, f32, f32, 64, 16), (256, f32, i8, 128, 64),
+                 (256, bf, bf, 128, 48), (256, bf, i8, 128, 96),
+                 (256, bf, bf, 128, 4), (256, bf, i8, 64, 2),
+                 (256, bf, bf, 96, 64)):
+        assert tpa._instance(args[0], 4 * args[0], *args[1:]) == "rows", \
+            args
+    # decode: the split instance at G <= 8, the row-tile kernel above
+    assert tpa._instance(1, 4, bf, bf, 128, 64) == "split"
+    assert tpa._instance(1, 16, bf, bf, 128, 64) == "rows"
 
 
 # --- grouped and multi-head flash attention (forward, dq, dkv) --------------

@@ -16,6 +16,7 @@ kernel itself runs only on the card):
 
 Tolerance: f32, atol 1e-5 / rtol 1e-5 (the order of the f32 sums only).
 """
+import ctypes
 import importlib
 import inspect
 import math
@@ -118,9 +119,13 @@ def test_plan_reads_no_tensor_value(monkeypatch):
     assert params == ["B", "Hkv", "W", "ps", "n_sm"]
 
     calls = []
+
+    def launch(lib, fn, dev, *args):
+        ctypes.c_int.from_address(args[11]).value = 0   # reported: split
+        calls.append(args)
+
     monkeypatch.setattr(tpa._build, "load", lambda name, sig: None)
-    monkeypatch.setattr(tpa._build, "launch",
-                        lambda lib, fn, dev, *args: calls.append(args))
+    monkeypatch.setattr(tpa._build, "launch", launch)
     monkeypatch.setattr(tpa, "_sm_count", lambda index: 132)
     monkeypatch.setattr(tpa, "_tickets",
                         lambda device, n: torch.zeros(n, dtype=torch.int32))
