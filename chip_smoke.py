@@ -8,6 +8,7 @@ trains.
     python3 chip_smoke.py --phases build,kernel,train
     python3 chip_smoke.py --phases build,kernel,train_mha,train_window
     python3 chip_smoke.py --phases build,kernel,train_encoder
+    python3 chip_smoke.py --phases build,reference,train_bert
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -78,7 +79,11 @@ Phases, each printing JSON lines:
      p = 0.5, ragged N, odd H, with dropout bits at the edges of the keep
      decision and the keep mask checked exactly. Yardsticks:
      ``F.layer_norm``, ``F.rms_norm`` (where this PyTorch has it, with the
-     kernels one call launches); none for dropout-add-LN.
+     kernels one call launches); none for dropout-add-LN. Then row 12
+     once more against ``F.layer_norm`` at 8192 x 4096 and 16384 x 768
+     bf16, ``REPS`` calls of each in turns: medians, quartiles and
+     extremes, and whether either is slower beyond the noise (its first
+     quartile above the other's third).
    Bounds count the live (query, key) pairs of each call's data. This
    phase runs before any model is on the card: the plain attention at
    S=4096 holds 4.3 GB score tensors.
@@ -92,7 +97,11 @@ Phases, each printing JSON lines:
    post-LN encoder (2
    ``FusedTransformerEncoderLayer``s, d=128, 2 heads, B=2, S=256: the
    flash and dropout-add-LN kernels) the same way at dropout 0: its
-   output, then 3 AdamW steps.
+   output, then 3 AdamW steps; and a small f32 ``BertForPretraining``
+   (``BERT_SMALL``: hidden 128, 2 heads, 2 layers, B=2, S=256: the
+   multi-head flash kernels) at dropout 0: its MLM and NSP logits without
+   and with an attention mask (the dense path), then 3 steps of
+   ``bert_pretrain_step_factory``.
 4. ``serve``: Llama-3-8B at full width and depth, bf16, random weights
    from a seed, through ``examples/serve_paged_llama.serve``: 16 requests,
    continuous batching in 8 slots of 2048 tokens, chunked prefill of 256
@@ -141,6 +150,24 @@ Phases, each printing JSON lines:
    launch counts are set to 0, the 5 steps run, and the counts must be
    24 dropout-add-LN and 12 + 12 + 12 multi-head flash launches per step
    and none of any other kernel.
+
+9. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
+   vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072, GELU, dropout
+   0.1), bf16, random weights from a seed, full depth, in training mode
+   (dropout live, drawn from one generator), on seeded data (B=32, S=512:
+   ids uniform over the vocabulary, token types 0 then 1, MLM labels on
+   15 % of the positions, NSP labels), through
+   ``bert_pretrain_step_factory`` (its AdamW defaults, no remat, no
+   mesh). First one forward and backward of the pretraining loss with the
+   multi-head flash kernels and one with their plain versions, on
+   identical weights, batch and dropout draws; one warm-up step; then the
+   launch counts are set to 0, 5 steps run, and the counts must be 12 +
+   12 + 12 multi-head flash launches per step and none of any other
+   kernel; the losses finite and falling. Records step ms, tokens/s,
+   MFU, ``fwd_bwd_ms`` and peak memory; with ``--profile``
+   (``profile_train_bert``) the step's device time by family (flash,
+   log-softmax, matrix products, the rest), idle share and kernels a
+   step.
 
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -235,7 +262,10 @@ TRAIN_LAYERS = 8
 # (1.2e-10 in the f32 reference phase). So its relative gradient error
 # between two roundings is noise over noise (0.9-1.8 in train_encoder),
 # and AdamW steps it by the sign of that noise, differently on the card
-# and the CPU: it is reported apart and held to the lr bound alone.
+# and the CPU: it is reported apart and held to the lr bound alone (the
+# fused encoder's, ``fused_attn.attn.k_proj.bias``), or, where the noise
+# is above AdamW's eps and each side steps it by about lr a step (BERT's
+# ``self_attn.k_proj.bias``), to 2 x steps x lr.
 NOISE_GRAD_PARAMS = ("attn.k_proj.bias",)
 # train_encoder: 12 post-LN FusedTransformerEncoderLayers at BERT-base's
 # widths (BertConfig's defaults: hidden 768, 12 heads, FFN 3072, GELU,
@@ -251,6 +281,27 @@ ENC_LOSS_ATOL = 8e-6
 ENC_GRAD_REL = 0.25
 ENCODER = dict(layers=12, d_model=768, nhead=12, dim_feedforward=3072,
                dropout_rate=0.1, B=32, S=512, steps=5, lr=1e-4, seed=0)
+# train_bert: BertForPretraining at BertConfig()'s BERT-base (vocab 30522,
+# hidden 768, 12 layers, 12 heads, FFN 3072, GELU, dropout 0.1, 512
+# positions), bf16, seeded, B=32, S=512, through
+# bert_pretrain_step_factory (its AdamW defaults: lr 1e-4, weight decay
+# 0.01, betas (0.9, 0.999)); one warm-up step, then 5 timed. One
+# forward+backward with the multi-head flash kernels against one with
+# their plain versions, identical weights, batch and dropout draws: bf16
+# roundings apart in each of 12 layers, carried into bf16 MLM logits of
+# size up to ~100 (tied N(0, 1) word embeddings). Readings: loss 0.0114
+# apart (of 116.8; 9.7e-5 relative); gradients 0.0023 median, 0.0192
+# worst (layer 11's q projection); the key bias apart
+# (NOISE_GRAD_PARAMS). Limits about twice them (PERF.md §2).
+BERT = dict(B=32, S=512, steps=5, warmup=1, seed=0, mlm_share=0.15)
+BERT_LOSS_ATOL = 0.025
+BERT_GRAD_REL = 0.04
+# the small f32 BERT of the reference phase: head_dim 64 at S = 256, the
+# flash gate's shape (card: the kernels; CPU: their plain versions)
+BERT_SMALL = dict(vocab_size=1024, hidden_size=128, num_hidden_layers=2,
+                  num_attention_heads=2, intermediate_size=512,
+                  hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                  max_position_embeddings=256)
 
 SOURCE = "paddle_tpu_torch/ops/kernels/paged_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:46"
@@ -293,26 +344,29 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def gpu_ms(fn, reps=REPS, flush=None):
-    """Median device time of ``fn()`` in ms. Before each call the L2 is
+def _event_ms(fn, flush=None):
+    """Device time of one call of ``fn()`` in ms. Before it the L2 is
     flushed and the stream is held busy by a spin kernel, so the host's
     enqueue of ``fn`` overlaps it and the events time the device alone."""
+    if flush is not None:
+        flush.zero_()
+    torch.cuda._sleep(2_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def gpu_ms(fn, reps=REPS, flush=None):
+    """Median device time of ``fn()`` in ms over ``reps`` calls timed by
+    ``_event_ms``, after 3 warm-up calls."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return statistics.median(_event_ms(fn, flush) for _ in range(reps))
 
 
 # --- phase 1: build --------------------------------------------------------
@@ -916,6 +970,50 @@ def _norm_cases():
     return cases
 
 
+def _interleaved_ms(fns, flush, reps=REPS):
+    """Device ms of each of ``fns`` ({name: fn}), called in turns
+    ``reps`` times, each call timed alone by ``_event_ms``: {name:
+    median, min, max, first and third quartile}."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            times[name].append(_event_ms(fn, flush))
+    out = {}
+    for name, ts in times.items():
+        q1, _, q3 = statistics.quantiles(ts, n=4)
+        out[name] = {"median": statistics.median(ts), "min": min(ts),
+                     "max": max(ts), "q1": q1, "q3": q3}
+    return out
+
+
+def _ln_against_library(N, H, seed, dev, flush):
+    """Row 12 (``fused_layer_norm``) against ``F.layer_norm`` on the same
+    bf16 inputs, ``REPS`` calls of each in turns: whether the kernel is
+    slower beyond the noise, i.e. its first quartile above the library's
+    third (their middle halves do not overlap)."""
+    import torch.nn.functional as F
+
+    lnm = importlib.import_module("paddle_tpu_torch.ops.layer_norm")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((N, H), generator=g, device=dev) * 2 + 0.5) \
+        .to(torch.bfloat16)
+    w = (1 + 0.5 * torch.randn(H, generator=g, device=dev)) \
+        .to(torch.bfloat16)
+    b = torch.randn(H, generator=g, device=dev).to(torch.bfloat16)
+    t = _interleaved_ms({
+        "fused_layer_norm": lambda: lnm.fused_layer_norm(x, w, b, 1e-5),
+        "F.layer_norm": lambda: F.layer_norm(x, (H,), w, b, 1e-5)}, flush)
+    k, lib = t["fused_layer_norm"], t["F.layer_norm"]
+    return {"case": f"ln_interleaved_N{N}_H{H}/bfloat16", "reps": REPS,
+            **t, "median_ratio": k["median"] / lib["median"],
+            "kernel_slower_beyond_noise": k["q1"] > lib["q3"],
+            "library_slower_beyond_noise": lib["q1"] > k["q3"]}
+
+
 def phase_kernel(dev):
     Hkv, G, D, ps, W, P = 8, 4, 128, 64, 32, 8 * 32 + 1
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -1025,6 +1123,12 @@ def phase_kernel(dev):
         norm.append(_norm_case(name, kind, N, H, dtype, seed, dev, flush,
                                **kw))
         emit({"phase": "kernel", **norm[-1]})
+    # row 12 against F.layer_norm in turns, at Llama-3-8B's width and
+    # the encoder's
+    ln_retime = [_ln_against_library(N, H, 70 + i, dev, flush)
+                 for i, (N, H) in enumerate(((8192, 4096), (16384, 768)))]
+    for c in ln_retime:
+        emit({"phase": "kernel", **c})
     bad = [c["case"] for c in cases + gqa + ce + mha + splash + mha_enc
            + norm if not c["ok"]]
     if bad:
@@ -1033,7 +1137,8 @@ def phase_kernel(dev):
     del flush
     torch.cuda.empty_cache()
     return {"paged": cases, "gqa": gqa, "ce": ce, "mha": mha,
-            "splash": splash, "mha_encoder": mha_enc, "norm": norm}
+            "splash": splash, "mha_encoder": mha_enc, "norm": norm,
+            "ln_retime": ln_retime}
 
 
 def _shape_cases():
@@ -1217,6 +1322,88 @@ def _reference_encoder(dev):
             "encoder_unused_params": unused, "encoder_ok": ok}
 
 
+def _bert_small(dev, state, batch, mask):
+    """The small f32 BERT on ``dev`` from ``state`` at dropout 0: its MLM
+    and NSP logits without and with ``mask``, the gradients of the first
+    step's loss, the losses of 3 factory steps and the parameters after
+    them (each on the CPU)."""
+    from paddle_tpu_torch.models.nlp import (BertConfig, BertForPretraining,
+                                             bert_pretrain_step_factory)
+    from paddle_tpu_torch.models.nlp.bert import pretrain_loss
+    from paddle_tpu_torch.nn import load_numpy_state_dict
+
+    model = load_numpy_state_dict(
+        BertForPretraining(BertConfig(**BERT_SMALL), device=dev), state)
+    batch = [t.to(dev) for t in batch]
+    with torch.no_grad():
+        outs = [t.cpu() for t in (*model(*batch[:2]),
+                                  *model(*batch[:2], mask.to(dev)))]
+    params, opt, step = bert_pretrain_step_factory(
+        model, None, learning_rate=TRAIN_REF["lr"], device=dev)
+    loss = pretrain_loss(model, *batch)
+    grads = {k: g.cpu() for k, g in
+             zip(params, torch.autograd.grad(loss, list(params.values())))}
+    losses = [float(step(params, opt, *batch)[2]) for _ in range(3)]
+    return outs, losses, grads, {k: p.detach().cpu()
+                                 for k, p in params.items()}
+
+
+def _reference_bert(dev):
+    """A small f32 ``BertForPretraining`` (``BERT_SMALL``: hidden 128, 2
+    heads, head_dim 64, 2 layers; B = 2, S = 256: flash-eligible) on the
+    card (the kernels) and on the CPU (the plain versions), from the same
+    weights: MLM and NSP logits within ``REF_ATOL``, without a mask and
+    with one (the dense path); then 3 factory steps under ``TRAIN_REF``
+    (the key bias, whose gradient is noise: 2 x 3 x lr)."""
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.models.nlp import BertConfig, BertForPretraining
+
+    cfg = BertConfig(**BERT_SMALL)
+    state = {k: v.numpy() for k, v in BertForPretraining(
+        cfg, device="cpu", generator=Generator(11)).state_dict().items()}
+    B, S = 2, 256
+    rng = np.random.default_rng(14)
+    ids = rng.integers(0, cfg.vocab_size, (B, S))
+    types = np.broadcast_to(np.arange(S) >= S // 2, (B, S)).astype(np.int64)
+    mlm = np.where(rng.random((B, S)) < BERT["mlm_share"],
+                   rng.integers(0, cfg.vocab_size, (B, S)), -100)
+    nsp = rng.integers(0, 2, (B,))
+    mask = np.ones((B, S), np.int64)
+    mask[1, 3 * S // 4:] = 0
+    batch = [torch.from_numpy(a) for a in (ids, types, mlm, nsp)]
+    card = _bert_small(dev, state, batch, torch.from_numpy(mask))
+    host = _bert_small(torch.device("cpu"), state, batch,
+                       torch.from_numpy(mask))
+    out_diff = [float((a - b).abs().max()) for a, b in zip(card[0], host[0])]
+    loss_diff = max(abs(a - b) for a, b in zip(card[1], host[1]))
+    grad_diff = max(float((card[2][k] - g).abs().max())
+                    for k, g in host[2].items())
+    param_max, param_frac, noise_max = 0.0, 0.0, 0.0
+    for k in host[3]:
+        d = (card[3][k] - host[3][k]).abs()
+        if k.endswith(NOISE_GRAD_PARAMS):
+            noise_max = max(noise_max, float(d.max()))
+            continue
+        param_max = max(param_max, float(d.max()))
+        param_frac = max(param_frac,
+                         float((d > TRAIN_REF["param"]).float().mean()))
+    ok = (max(out_diff) <= REF_ATOL and loss_diff <= TRAIN_REF["loss"]
+          and grad_diff <= TRAIN_REF["grad"]
+          and param_frac <= TRAIN_REF["param_frac"]
+          and param_max <= TRAIN_REF["lr"]
+          and noise_max <= 2 * 3 * TRAIN_REF["lr"]
+          and card[1][-1] < card[1][0])
+    return {"bert_config": BERT_SMALL, "bert_B": B, "bert_S": S,
+            "bert_out_max_diff": dict(zip(
+                ("mlm", "nsp", "mlm_masked", "nsp_masked"), out_diff)),
+            "bert_losses_card": card[1], "bert_losses_cpu": host[1],
+            "bert_loss_max_diff": loss_diff,
+            "bert_grad_max_diff": grad_diff,
+            "bert_param_max_diff": param_max,
+            "bert_param_frac_over_atol": param_frac,
+            "bert_noise_param_max_diff": noise_max, "bert_ok": ok}
+
+
 def _reference_llama(dev, cfg):
     """A small f32 Llama on the card (the kernels) and on the CPU (the
     plain versions), from the same weights: greedy decode tokens identical
@@ -1284,8 +1471,10 @@ def phase_reference(dev):
     wide, wide_ok = _reference_llama(dev, LlamaConfig.tiny(
         vocab=256, hidden=768, layers=2, heads=3, kv_heads=1))
     enc = _reference_encoder(dev)
-    out.update({"llama_d256_g3": {**wide, "ok": wide_ok}, **enc,
-                "ok": ok and wide_ok and enc["encoder_ok"]})
+    bert = _reference_bert(dev)
+    out.update({"llama_d256_g3": {**wide, "ok": wide_ok}, **enc, **bert,
+                "ok": ok and wide_ok and enc["encoder_ok"]
+                and bert["bert_ok"]})
     emit(out)
     if not out["ok"]:
         raise AssertionError("the port on the card disagrees with the port "
@@ -1517,37 +1706,39 @@ ATTENTION_KINDS = ("gqa", "mha", "splash")
 
 def _counters():
     """{kind: the entry point holding its launch counts}, the CE's, and
-    {name: the norm entry point holding its count}."""
+    {name: the norm or paged entry point holding its count}."""
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention_gqa")
     fm = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     sa = importlib.import_module("paddle_tpu_torch.ops.splash_attention")
     ce = importlib.import_module("paddle_tpu_torch.ops.fused_ce")
     lnm = importlib.import_module("paddle_tpu_torch.ops.layer_norm")
     dl = importlib.import_module("paddle_tpu_torch.ops.dropout_ln")
+    pa = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
     return ({"gqa": fa.grouped_flash_attention, "mha": fm.flash_attention,
              "splash": sa.splash_attention}, ce.softmax_cross_entropy,
             {"dropout_add_ln": dl.fused_dropout_add_layer_norm,
              "layer_norm": lnm.fused_layer_norm,
-             "rms_norm": lnm.fused_rms_norm})
+             "rms_norm": lnm.fused_rms_norm,
+             "paged": pa.paged_attention})
 
 
 def _train_counts():
     """The launch count of every kernel entry point a train phase could
     reach."""
-    attn, c, norms = _counters()
+    attn, c, others = _counters()
     out = {f"{k}_{part}": getattr(attn[k], f"launches_{part}")
            for k in ATTENTION_KINDS for part in ("fwd", "dq", "dkv")}
     out.update({"ce_fwd": c.launches_fwd, "ce_bwd": c.launches_bwd})
-    out.update({k: owner.launches for k, owner in norms.items()})
+    out.update({k: owner.launches for k, owner in others.items()})
     return out
 
 
 def _zero_train_counts():
-    attn, c, norms = _counters()
+    attn, c, others = _counters()
     for owner in attn.values():
         owner.launches_fwd = owner.launches_dq = owner.launches_dkv = 0
     c.launches_fwd = c.launches_bwd = 0
-    for owner in norms.values():
+    for owner in others.values():
         owner.launches = 0
 
 
@@ -1591,11 +1782,11 @@ def _plain_swaps(kind):
 
 
 @contextlib.contextmanager
-def _plain_versions(kind, swap=True):
-    """Within it, the plain versions run in place of the attention kernels
-    of ``kind`` and the CE kernels (module attributes swapped, as the serve
-    phase swaps ``paged_attention``); with ``swap`` False, the kernels."""
-    swaps = _plain_swaps(kind)
+def _swapped(swaps, swap=True):
+    """Within it, each (module, attribute, plain version) of ``swaps`` has
+    its plain version in place of the kernel (module attributes swapped,
+    as the serve phase swaps ``paged_attention``); with ``swap`` False,
+    the kernels."""
     kept = [getattr(m, name) for m, name, _ in swaps]
     if swap:
         for m, name, plain in swaps:
@@ -1605,6 +1796,12 @@ def _plain_versions(kind, swap=True):
     finally:
         for (m, name, _), fn in zip(swaps, kept):
             setattr(m, name, fn)
+
+
+def _plain_versions(kind, swap=True):
+    """``_swapped`` over the attention kernels of ``kind`` and the CE
+    kernels."""
+    return _swapped(_plain_swaps(kind), swap)
 
 
 def _grads_with(swap, kind, cfg, params, tokens, labels):
@@ -1753,28 +1950,16 @@ def _encoder_loss(stack, x, tgt):
 
 def _encoder_step(stack, opt, x, tgt, lr):
     """One training step: the MSE loss, its gradients and the port's
-    ``adamw_update`` (f32 moments; the train-step factory's betas, eps and
-    weight decay) of every parameter that has a gradient (``ln_pre`` of a
-    post-LN layer has none). Returns the loss."""
-    from paddle_tpu_torch.models.nlp import adamw_update
+    ``apply_adamw`` (f32 moments; the Llama train-step factory's betas,
+    eps and weight decay) of every parameter that has a gradient
+    (``ln_pre`` of a post-LN layer has none). Returns the loss."""
+    from paddle_tpu_torch.models.nlp.train_utils import apply_adamw
 
     params = dict(stack.named_parameters())
-    names = list(opt["m"])
     loss = _encoder_loss(stack, x, tgt)
-    grads = torch.autograd.grad(loss, [params[k] for k in names],
-                                allow_unused=True)
-    with torch.no_grad():
-        opt["step"] += 1
-        t = opt["step"].to(torch.float32)
-        for k, g in zip(names, grads):
-            if g is None:
-                continue
-            p, m, v = params[k], opt["m"][k], opt["v"][k]
-            new_p, m2, v2 = adamw_update(p, g, m, v, t, lr, 0.9, 0.95, 1e-8,
-                                         0.01)
-            p.copy_(new_p)
-            m.copy_(m2)
-            v.copy_(v2)
+    grads = list(torch.autograd.grad(loss, list(params.values()),
+                                     allow_unused=True))
+    apply_adamw(params, grads, opt, lr, 0.9, 0.95, 1e-8, 0.01)
     return loss.detach()
 
 
@@ -1792,15 +1977,20 @@ def _encoder_train(stack, x, tgt, steps, lr):
     return losses, step_s, opt
 
 
-def _encoder_swaps():
-    """(module, attribute, plain version) for the kernels of the encoder's
-    path: the multi-head flash kernels and the dropout-add-LN kernel."""
+def _mha_swaps():
+    """(module, attribute, plain version) for the multi-head flash
+    kernels."""
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention_gqa")
     fm = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
-    dl = importlib.import_module("paddle_tpu_torch.ops.dropout_ln")
     return [(fm, "mha_fwd", fa._gqa_fwd_plain),
-            (fm, "mha_bwd", fa._gqa_bwd_plain),
-            (dl, "dropout_add_ln_fwd", dl._forward_plain)]
+            (fm, "mha_bwd", fa._gqa_bwd_plain)]
+
+
+def _encoder_swaps():
+    """The same for the kernels of the encoder's path: the multi-head
+    flash kernels and the dropout-add-LN kernel."""
+    dl = importlib.import_module("paddle_tpu_torch.ops.dropout_ln")
+    return _mha_swaps() + [(dl, "dropout_add_ln_fwd", dl._forward_plain)]
 
 
 def _encoder_grads(swap, stack, x, tgt, gen, seed):
@@ -1808,20 +1998,12 @@ def _encoder_grads(swap, stack, x, tgt, gen, seed):
     and backward, the generator reseeded first so both calls draw the
     same dropout; ``swap`` runs the plain versions in place of the
     kernels."""
-    swaps = _encoder_swaps()
-    kept = [getattr(m, name) for m, name, _ in swaps]
-    if swap:
-        for m, name, plain in swaps:
-            setattr(m, name, plain)
-    try:
+    with _swapped(_encoder_swaps(), swap):
         gen.manual_seed(seed)
         loss = _encoder_loss(stack, x, tgt)
         grads = torch.autograd.grad(loss, list(stack.parameters()),
                                     allow_unused=True)
         torch.cuda.synchronize()
-    finally:
-        for (m, name, _), fn in zip(swaps, kept):
-            setattr(m, name, fn)
     return float(loss.detach()), grads
 
 
@@ -1910,10 +2092,140 @@ def phase_train_encoder(dev, profile=False):
     return out
 
 
+# --- phase 9: BERT-base pretraining (models/nlp/bert.py) -------------------
+
+def _bert_batch(vocab, B, S, seed, dev):
+    """Seeded pretraining data: ids uniform over the vocabulary, token
+    types 0 on each row's first half and 1 on its second, MLM labels a
+    vocabulary id on ``BERT["mlm_share"]`` of the positions and -100
+    elsewhere, NSP labels uniform over {0, 1}."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, vocab, (B, S), generator=g, device=dev)
+    types = (torch.arange(S, device=dev) >= S // 2).long().expand(B, S)
+    picked = torch.rand((B, S), generator=g, device=dev) < BERT["mlm_share"]
+    mlm = torch.where(picked, torch.randint(0, vocab, (B, S), generator=g,
+                                            device=dev), -100)
+    nsp = torch.randint(0, 2, (B,), generator=g, device=dev)
+    return [ids, types.contiguous(), mlm, nsp]
+
+
+def _bert_grads(swap, model, batch, gen, seed):
+    """Loss and gradients of one forward and backward of the pretraining
+    loss, the generator reseeded first so both calls draw the same
+    dropout; ``swap`` runs the multi-head flash kernels' plain versions."""
+    from paddle_tpu_torch.models.nlp.bert import pretrain_loss
+
+    with _swapped(_mha_swaps(), swap):
+        gen.manual_seed(seed)
+        loss = pretrain_loss(model, *batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def phase_train_bert(dev, profile=False):
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.models.nlp import (BertConfig, BertForPretraining,
+                                             bert_pretrain_step_factory)
+
+    b = BERT
+    B, S, steps, seed = b["B"], b["S"], b["steps"], b["seed"]
+    cfg = BertConfig()
+    L, d, heads = (cfg.num_hidden_layers, cfg.hidden_size,
+                   cfg.num_attention_heads)
+    gen = Generator(seed)               # weights, then every dropout draw
+    model = BertForPretraining(cfg, device=dev, generator=gen) \
+        .to(torch.bfloat16)
+    model.train()
+    batch = _bert_batch(cfg.vocab_size, B, S, seed + 1, dev)
+    params, opt, step = bert_pretrain_step_factory(model, None, device=dev)
+
+    # kernels against plain versions: one forward+backward each, identical
+    # weights, batch and dropout draws
+    loss_k, grads_k = _bert_grads(False, model, batch, gen, seed + 2)
+    loss_p, grads_p = _bert_grads(True, model, batch, gen, seed + 2)
+    rel, noise = {}, {}
+    for k, a, g in zip(params, grads_k, grads_p):
+        (noise if k.endswith(NOISE_GRAD_PARAMS) else rel)[k] = float(
+            (a.float() - g.float()).norm() / g.float().norm())
+    del grads_k, grads_p
+    worst = max(rel, key=rel.get)
+    t0 = time.perf_counter()
+    _bert_grads(False, model, batch, gen, seed + 2)
+    fwd_bwd_s = time.perf_counter() - t0
+
+    # the main path: a warm-up step, then launch counts from 0 and the
+    # timed steps, each up to its loss on the host
+    warmup = [float(step(params, opt, *batch)[2])
+              for _ in range(b["warmup"])]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, opt, *batch)[2]))
+        step_s.append(time.perf_counter() - t0)
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: 0 for k in counts}
+    want.update({"mha_fwd": L * steps, "mha_dq": L * steps,
+                 "mha_dkv": L * steps})
+    step_med = statistics.median(step_s)
+    F, V = cfg.intermediate_size, cfg.vocab_size
+    matmul_params = L * (4 * d * d + 2 * d * F) + d * d + d * V
+    pairs = B * heads * S * S                    # non-causal
+    flops = 6 * matmul_params * B * S + 12 * (d // heads) * pairs * L
+    out = {"phase": "train_bert", "model": "bert_base",
+           "config": dataclasses.asdict(cfg), "layers": L,
+           "dtype": "bfloat16", "B": B, "S": S, "tokens_per_step": B * S,
+           "mlm_share": b["mlm_share"], "steps": steps,
+           "warmup_steps": b["warmup"], "warmup_losses": warmup,
+           "optimizer": "AdamW lr 1e-4, weight decay 0.01, betas (0.9, "
+                        "0.999), eps 1e-8, f32 moments",
+           "remat": False, "losses": losses,
+           "step_ms_median": 1e3 * step_med,
+           "step_ms": [1e3 * t for t in step_s],
+           "fwd_bwd_ms": 1e3 * fwd_bwd_s, "tokens_per_s": B * S / step_med,
+           "peak_mem_gb": peak_gb, "step_flops": flops,
+           "matmul_params": matmul_params,
+           "mfu": flops / step_med / BF16_FLOP_PER_S,
+           "mfu_formula": "(6*matmul_params*tokens + 12*head_dim*pairs*"
+                          "layers) / step_s / 989e12; matmul_params = "
+                          "L*(4d^2 + 2dF) + d^2 (MLM transform) + dV (tied "
+                          "head), the pooler and NSP head left out (they "
+                          "act on B rows); pairs = B*heads*S^2 "
+                          "(non-causal)",
+           "launches": counts, "launches_expected": want,
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_diff": abs(loss_k - loss_p), "loss_atol": BERT_LOSS_ATOL,
+           "grad_rel_err_max": rel[worst], "grad_rel_err_worst": worst,
+           "grad_rel_err_median": statistics.median(rel.values()),
+           "grad_rel_limit": BERT_GRAD_REL, "grad_rel_err": rel,
+           "noise_grad_rel_err_max": max(noise.values())}
+    ok = (counts == want and all(np.isfinite(losses))
+          and losses[-1] < losses[0] and out["loss_diff"] <= BERT_LOSS_ATOL
+          and rel[worst] <= BERT_GRAD_REL)
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError("train_bert phase failed: " + json.dumps(
+            {k: v for k, v in out.items() if k != "grad_rel_err"}))
+    if profile:
+        emit({"phase": "profile_train_bert", **_profile(
+            lambda: float(step(params, opt, *batch)[2]),
+            {"flash_attention": ("causalwalk",),
+             "log_softmax": ("softmax",), "matmul": MATMUL_NAMES}, n=3)})
+    del model, params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "reference", "serve", "train", "train_mha",
-          "train_window", "train_encoder")
+          "train_window", "train_encoder", "train_bert")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -2036,6 +2348,12 @@ def _kernels_line(kern, serve, trains, card):
             "flash_mha_encoder", GQA_SOURCE, MHA_FWD_REPLACES,
             MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0], enc_launches,
             card)
+    if kern.get("mha_encoder"):
+        # and at the train_bert phase's call: the same shapes
+        kernels += _attention_entries(
+            "flash_mha_bert", GQA_SOURCE, MHA_FWD_REPLACES,
+            MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0],
+            trains.get("train_bert", {}).get("launches", {}), card)
     norm = kern.get("norm", [])
     if norm:
         kernels += [
@@ -2089,6 +2407,8 @@ def main():
     if "train_encoder" in phases:
         trains["train_encoder"] = phase_train_encoder(dev,
                                                       profile=args.profile)
+    if "train_bert" in phases:
+        trains["train_bert"] = phase_train_bert(dev, profile=args.profile)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

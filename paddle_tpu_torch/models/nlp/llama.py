@@ -222,7 +222,7 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
     ``mesh`` axes (data/sep/model/sharding: ROADMAP Queue 1, distributed
     and parallel)."""
     from .llama_functional import loss_fn, param_views
-    from .train_utils import adamw_update, make_adamw_state
+    from .train_utils import apply_adamw, make_adamw_state
 
     dev = resolve_device(device)
     if mesh is not None:
@@ -261,18 +261,8 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
         outer, layers = param_views(params, n_layers)
         loss = loss_fn(cfg, outer, layers, tokens, labels, remat)
         grads = list(torch.autograd.grad(loss, [params[k] for k in keys]))
-        with torch.no_grad():
-            opt_state["step"] += 1
-            t = opt_state["step"].to(torch.float32)
-            for i, k in enumerate(keys):
-                m, v = opt_state["m"][k], opt_state["v"][k]
-                new_p, m2, v2 = adamw_update(
-                    params[k], grads[i], m, v, t, learning_rate, beta1,
-                    beta2, eps, weight_decay, accum_dtype)
-                grads[i] = None              # free each gradient once used
-                params[k].copy_(new_p)
-                m.copy_(m2)
-                v.copy_(v2)
+        apply_adamw(params, grads, opt_state, learning_rate, beta1, beta2,
+                    eps, weight_decay, accum_dtype)
         return params, opt_state, loss.detach()
 
     return params, opt_state, train_step

@@ -1,9 +1,10 @@
-"""Activations of the PyTorch port: ``gelu`` and ``relu``.
+"""Activations of the PyTorch port: ``gelu``, ``relu`` and ``tanh``.
 
-Counterpart of the reference's ``gelu`` and ``relu`` lowerings
-(``paddle_tpu/ops/specs.yaml:173``, ``ops/activation.py``):
+Counterpart of the reference's ``gelu``, ``relu`` and ``tanh`` lowerings
+(``paddle_tpu/ops/specs.yaml:173, :142``, ``ops/activation.py``):
 ``jax.nn.gelu(x, approximate)``, the exact erf form unless
-``approximate=True`` (then the tanh form), and ``jax.nn.relu``.
+``approximate=True`` (then the tanh form), ``jax.nn.relu`` and
+``jnp.tanh``.
 """
 from __future__ import annotations
 
@@ -17,3 +18,7 @@ def gelu(x, approximate=False):
 
 def relu(x):
     return torch.relu(x)
+
+
+def tanh(x):
+    return torch.tanh(x)

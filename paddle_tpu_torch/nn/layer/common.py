@@ -1,13 +1,16 @@
-"""``Linear`` and ``Dropout`` of the PyTorch port.
+"""``Linear``, ``Embedding`` and ``Dropout`` of the PyTorch port.
 
 Counterpart of ``paddle_tpu/nn/layer/common.py`` (``Linear``, ``:23-43``;
-``Dropout``, ``:72``). ``Linear`` keeps its weight (in, out), drawn
+``Embedding``, ``:46-69``; ``Dropout``, ``:72``). ``Linear`` keeps its weight (in, out), drawn
 XavierNormal (N(0, 2 / (in + out))) and its bias zero, as the reference's
 ``create_parameter`` defaults (``nn/layer/layers.py:123-139``), in f32 on
 ``device`` (``cuda`` unless ``"cpu"`` is asked for) from ``generator``
 (the default generator when None); cast a module with ``.to(dtype)``.
 ``weight_attr`` / ``name`` are not ported; ``bias_attr=False`` drops the
-bias, as in the reference.
+bias, as in the reference. ``Embedding`` keeps its weight (num, dim)
+drawn N(0, 1) in f32 from ``generator``, its ``padding_idx`` row zeroed,
+and looks rows up through ``F.embedding``; ``sparse=True`` is refused
+there.
 """
 from __future__ import annotations
 
@@ -41,6 +44,30 @@ class Linear(nn.Module):
 
     def extra_repr(self):
         return f"in={self.in_features}, out={self.out_features}"
+
+
+class Embedding(nn.Module):
+    """Rows of ``weight`` (num_embeddings, embedding_dim) at integer
+    ids."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, *, device=None, generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.num_embeddings, self.embedding_dim = (num_embeddings,
+                                                   embedding_dim)
+        self.padding_idx, self.sparse = padding_idx, sparse
+        weight = torch.empty((num_embeddings, embedding_dim), device=dev)
+        weight.normal_(0.0, 1.0, generator=torch_generator(generator, dev))
+        if padding_idx is not None:
+            weight[padding_idx] = 0.0
+        self.weight = nn.Parameter(weight)
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, self.padding_idx, self.sparse)
+
+    def extra_repr(self):
+        return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
 class Dropout(nn.Module):

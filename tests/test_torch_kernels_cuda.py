@@ -1033,3 +1033,65 @@ def test_bf16_encoder_grads_are_as_close_to_f32_as_the_plain_versions(
           f"median {statistics.median(plain):.4g}")
     assert max(kernel) <= 1.1 * max(plain)
     assert statistics.median(kernel) <= 1.1 * statistics.median(plain)
+
+
+@pytest.mark.cuda
+def test_bf16_bert_grads_are_as_close_to_f32_as_the_plain_versions(
+        card, monkeypatch):
+    """A bf16 ``BertForPretraining`` (2 layers, hidden 256, 4 heads,
+    head_dim 64, FFN 1024, vocab 2048, B=4, S=512, dropout 0.1 from one
+    reseeded generator, so every run draws the same masks): the
+    gradients of the pretraining loss (``bert.pretrain_loss``: MLM on 15 %
+    of positions, NSP) through the multi-head flash kernels and through
+    their plain versions, each against the same weights in f32 through
+    the plain versions (the truth). One forward+backward launches each
+    flash kernel once a layer. The kernels may not be further from the
+    truth than the plain versions by more than a tenth, for the worst
+    parameter and for the median one; the key bias is left out (its
+    gradient is rounding noise)."""
+    import statistics
+
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.models.nlp import BertConfig, BertForPretraining
+    from paddle_tpu_torch.models.nlp.bert import pretrain_loss
+
+    cfg = BertConfig(vocab_size=2048, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=1024)
+    gen = Generator(0)
+    model = BertForPretraining(cfg, device=card, generator=gen) \
+        .to(torch.bfloat16)       # the truth takes these weights in f32
+    g = torch.Generator(device=card).manual_seed(1)
+    B, S = 4, 512
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=card)
+    types = (torch.arange(S, device=card) >= S // 2).long().expand(B, S)
+    mlm = torch.where(torch.rand((B, S), generator=g, device=card) < 0.15,
+                      ids, -100)
+    nsp = torch.randint(0, 2, (B,), generator=g, device=card)
+
+    def grads(dtype, plain):
+        m = model.to(dtype)
+        with monkeypatch.context() as mp:
+            if plain:
+                mp.setattr(fm, "mha_fwd", fa._gqa_fwd_plain)
+                mp.setattr(fm, "mha_bwd", fa._gqa_bwd_plain)
+            gen.manual_seed(5)
+            loss = pretrain_loss(m, ids, types, mlm, nsp)
+            out = torch.autograd.grad(loss, list(m.parameters()))
+        return [t.float() for t in out]
+
+    g_true = grads(torch.float32, plain=True)
+    before = (fm.flash_attention.launches_fwd, fm.flash_attention.launches_dq,
+              fm.flash_attention.launches_dkv)
+    g_kernel = grads(torch.bfloat16, plain=False)
+    assert (fm.flash_attention.launches_fwd, fm.flash_attention.launches_dq,
+            fm.flash_attention.launches_dkv) == tuple(n + 2 for n in before)
+    g_plain = grads(torch.bfloat16, plain=True)
+    keep = [not k.endswith("self_attn.k_proj.bias")
+            for k, _ in model.named_parameters()]
+    kernel = [_rel(a, t) for a, t, k in zip(g_kernel, g_true, keep) if k]
+    plain = [_rel(a, t) for a, t, k in zip(g_plain, g_true, keep) if k]
+    print(f"reading vs f32: kernels max {max(kernel):.4g} median "
+          f"{statistics.median(kernel):.4g}; plain max {max(plain):.4g} "
+          f"median {statistics.median(plain):.4g}")
+    assert max(kernel) <= 1.1 * max(plain)
+    assert statistics.median(kernel) <= 1.1 * statistics.median(plain)

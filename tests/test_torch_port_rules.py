@@ -36,6 +36,8 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.core.generator",
              "paddle_tpu_torch.nn.functional.attention",
              "paddle_tpu_torch.nn.layer.transformer",
+             "paddle_tpu_torch.nn.functional.loss",
+             "paddle_tpu_torch.models.nlp.bert",
              "paddle_tpu_torch.incubate.nn"):
     assert name in names, name
 """
