@@ -9,6 +9,7 @@ trains.
     python3 chip_smoke.py --phases build,kernel,train_mha,train_window
     python3 chip_smoke.py --phases build,kernel,train_encoder
     python3 chip_smoke.py --phases build,reference,train_bert
+    python3 chip_smoke.py --phases build,reference,train_resnet50
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -101,7 +102,14 @@ Phases, each printing JSON lines:
    (``BERT_SMALL``: hidden 128, 2 heads, 2 layers, B=2, S=256: the
    multi-head flash kernels) at dropout 0: its MLM and NSP logits without
    and with an attention mask (the dense path), then 3 steps of
-   ``bert_pretrain_step_factory``.
+   ``bert_pretrain_step_factory``. Then the vision slice, which runs no
+   TPU kernel's counterpart, with TF32 off: a small f32 ResNet-18 (10
+   classes, B=8, 64 x 64) and LeNet (B=16 synthetic digits): train-mode
+   logits, loss and running statistics, then 3 steps of
+   ``resnet_train_step_factory`` (losses, step 1's gradients, parameters,
+   velocities and buffers); and the max-pool tie case (a 6 x 6 map of
+   zeros after a ReLU, kernel 3, stride 2, pad 1), whose gradient must land
+   where the CPU's does.
 4. ``serve``: Llama-3-8B at full width and depth, bf16, random weights
    from a seed, through ``examples/serve_paged_llama.serve``: 16 requests,
    continuous batching in 8 slots of 2048 tokens, chunked prefill of 256
@@ -168,6 +176,24 @@ Phases, each printing JSON lines:
    (``profile_train_bert``) the step's device time by family (flash,
    log-softmax, matrix products, the rest), idle share and kernels a
    step.
+
+10. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
+    width), bf16 parameters with f32 masters, f32 batch-norm buffers, on
+    B=256 seeded class-template images of 3 x 224 x 224 (NCHW; one
+    repeated batch), through ``resnet_train_step_factory`` (its defaults:
+    momentum SGD, lr 0.1, momentum 0.9, L2 decay 1e-4 on every parameter;
+    BASELINE.md config 2's recipe). One forward and backward is timed
+    alone (``fwd_bwd_ms``); one warm-up step; then the launch counts are
+    set to 0, 5 steps run, and every count must stay 0 (no TPU kernel's
+    counterpart lies on this path: the convolutions are cuDNN's, the
+    batch norms and pools the reference's formulas). Records images/s,
+    step ms, MFU (the step's FLOPs counted from the model's own
+    convolution and fc shapes: 2 x multiply-adds forward, x 3 for the
+    step), peak memory and the losses (finite, the last below the first);
+    with ``--profile`` (``profile_train_resnet50``) the step's device time
+    by family (pooling, layout transforms, convolutions, matrix products,
+    elementwise and reduction kernels, the rest), idle share and kernels
+    a step.
 
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -302,6 +328,27 @@ BERT_SMALL = dict(vocab_size=1024, hidden_size=128, num_hidden_layers=2,
                   num_attention_heads=2, intermediate_size=512,
                   hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
                   max_position_embeddings=256)
+
+# train_resnet50: resnet50() at 1000 classes, bf16 (f32 masters and BN
+# buffers), B=256 x 3 x 224 x 224, resnet_train_step_factory's defaults
+RESNET = dict(B=256, hw=224, classes=1000, steps=5, warmup=1, seed=0)
+# the reference phase's small vision models, card (cuDNN, TF32 off) vs CPU:
+# the order of the f32 sums only. ResNet-18 runs at 64 x 64: at 32 x 32
+# its last stage normalises 1 x 1 x 8 positions a channel, where a ReLU
+# input within f32 noise of 0 falls to either side and moves a gradient
+# by 0.5 % (tests/test_torch_resnet.py -s); at 64 x 64 f32 lies within
+# 4e-6 of float64. Momentum SGD at lr 0.01: each step's noise is carried
+# on in the velocity and grows with the step's size (a first run at lr
+# 0.05, whose first step takes the loss from 3.29 to 0.03, moved 1.6 % of
+# a parameter's elements beyond 1e-5). Logits within REF_ATOL; TRAIN_REF's
+# rule for the losses, step 1's gradients and the parameters after 3
+# steps (at most 1e-4 of a parameter's elements beyond 1e-5, none beyond
+# lr); running statistics after one forward within 1e-5 + 1e-5 x |cpu|,
+# the buffers after 3 steps (blends of three batches' statistics) within
+# 1e-4 + 1e-5 x |cpu|.
+VISION_SMALL = dict(B=8, hw=64, classes=10, lenet_B=16, lr=0.01, seed=21)
+VISION_STATS_TOL = (1e-5, 1e-5)
+VISION_BUFFER_TOL = (1e-4, 1e-5)
 
 SOURCE = "paddle_tpu_torch/ops/kernels/paged_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:46"
@@ -1404,6 +1451,112 @@ def _reference_bert(dev):
             "bert_noise_param_max_diff": noise_max, "bert_ok": ok}
 
 
+def _vision_small(dev, state, make, x, y):
+    """A small f32 vision model on ``dev`` from ``state``: its train-mode
+    logits and running statistics after them, the gradients of the first
+    step's loss, then the losses of 3 factory steps and the parameters,
+    velocities and buffers after them (each on the CPU)."""
+    from paddle_tpu_torch.nn import load_numpy_state_dict
+    from paddle_tpu_torch.vision.models import resnet_train_step_factory
+
+    model = load_numpy_state_dict(make(dev), state).train()
+    x, y = x.to(dev), y.to(dev)
+    with torch.no_grad():
+        logits = model(x).cpu()
+    stats = {k: v.cpu() for k, v in model.state_dict().items()
+             if k.endswith(("_mean", "_variance"))}
+    model = load_numpy_state_dict(make(dev), state)
+    params, bufs, opt, step = resnet_train_step_factory(
+        model, learning_rate=VISION_SMALL["lr"], device=dev)
+    logp = torch.log_softmax(model.train()(x).float(), -1)
+    loss = -logp.gather(-1, y[:, None])[:, 0].mean()
+    grads = {k: g.cpu() for k, g in
+             zip(params, torch.autograd.grad(loss, list(params.values())))}
+    load_numpy_state_dict(model, state)     # the forward above blended
+    losses = [float(step(params, bufs, opt, x, y)[3]) for _ in range(3)]
+    return (logits, stats, grads, losses,
+            {k: p.detach().cpu() for k, p in params.items()},
+            {k: v.cpu() for k, v in opt["velocity"].items()},
+            {k: b.cpu() for k, b in bufs.items()})
+
+
+def _reference_vision(dev):
+    """The small f32 ResNet-18 and LeNet on the card and on the CPU from
+    the same weights (``VISION_SMALL``), and the max-pool tie case."""
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision import datasets
+    from paddle_tpu_torch.vision.models import LeNet, resnet18
+
+    v = VISION_SMALL
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(v["seed"])
+    templates = rng.normal(0, 1, (v["classes"], 3, v["hw"], v["hw"]))
+    y = rng.integers(0, v["classes"], v["B"])
+    x = (templates[y] + 0.3 * rng.normal(0, 1, (v["B"], 3, v["hw"],
+                                                 v["hw"])))
+    digits = datasets.MNIST(mode="test")
+    cases = {
+        "resnet18": (lambda d: resnet18(num_classes=v["classes"], device=d,
+                                        generator=Generator(v["seed"])),
+                     torch.from_numpy(x.astype(np.float32)),
+                     torch.from_numpy(y)),
+        "lenet": (lambda d: LeNet(device=d, generator=Generator(v["seed"])),
+                  torch.from_numpy(np.stack([digits[i][0] for i in
+                                             range(v["lenet_B"])])),
+                  torch.from_numpy(digits.labels[:v["lenet_B"]]))}
+    out, ok = {}, True
+    for name, (make, xs, ys) in cases.items():
+        state = {k: t.numpy() for k, t in make(cpu).state_dict().items()}
+        card = _vision_small(dev, state, make, xs, ys)
+        host = _vision_small(cpu, state, make, xs, ys)
+        logit_diff = float((card[0] - host[0]).abs().max())
+        stat_over = max([float(((card[1][k] - t).abs() / (
+            VISION_STATS_TOL[0] + VISION_STATS_TOL[1] * t.abs())).max())
+            for k, t in host[1].items()], default=0.0)
+        grad_diff = max(float((card[2][k] - g).abs().max())
+                        for k, g in host[2].items())
+        loss_diff = max(abs(a - b) for a, b in zip(card[3], host[3]))
+        param_max, param_frac = 0.0, 0.0
+        for k, t in host[4].items():
+            d = (card[4][k] - t).abs()
+            param_max = max(param_max, float(d.max()))
+            param_frac = max(param_frac,
+                             float((d > TRAIN_REF["param"]).float().mean()))
+        vel_diff = max(float((card[5][k] - t).abs().max())
+                       for k, t in host[5].items())
+        buf_over = max([float(((card[6][k] - t).abs() / (
+            VISION_BUFFER_TOL[0] + VISION_BUFFER_TOL[1] * t.abs())).max())
+            for k, t in host[6].items()], default=0.0)
+        case_ok = (logit_diff <= REF_ATOL and stat_over <= 1
+                   and grad_diff <= TRAIN_REF["grad"]
+                   and loss_diff <= TRAIN_REF["loss"]
+                   and param_frac <= TRAIN_REF["param_frac"]
+                   and param_max <= VISION_SMALL["lr"]
+                   and buf_over <= 1 and all(np.isfinite(card[3])))
+        ok = ok and case_ok
+        out[name] = {"logits_max_diff": logit_diff,
+                     "stats_max_err_over_tol": stat_over,
+                     "grad_max_diff": grad_diff, "losses_card": card[3],
+                     "losses_cpu": host[3], "loss_max_diff": loss_diff,
+                     "param_max_diff": param_max,
+                     "param_frac_over_atol": param_frac,
+                     "velocity_max_diff": vel_diff,
+                     "buffer_max_err_over_tol": buf_over, "ok": case_ok}
+    # ties: every element of each window is 0, as after a ReLU; the
+    # gradient of each window goes to one of them
+    grads = []
+    for d in (dev, cpu):
+        t = F.relu(torch.zeros((1, 1, 6, 6), device=d)).requires_grad_(True)
+        F.max_pool2d(t, 3, 2, 1).sum().backward()
+        grads.append(t.grad.cpu())
+    ties_same = bool(torch.equal(grads[0], grads[1]))
+    out["maxpool_ties"] = {"grad_card_equals_cpu": ties_same,
+                           "grad_card": grads[0][0, 0].tolist()}
+    out["ok"] = ok and ties_same and float(grads[1].sum()) == 9
+    return out
+
+
 def _reference_llama(dev, cfg):
     """A small f32 Llama on the card (the kernels) and on the CPU (the
     plain versions), from the same weights: greedy decode tokens identical
@@ -1472,9 +1625,11 @@ def phase_reference(dev):
         vocab=256, hidden=768, layers=2, heads=3, kv_heads=1))
     enc = _reference_encoder(dev)
     bert = _reference_bert(dev)
+    vision = _reference_vision(dev)
     out.update({"llama_d256_g3": {**wide, "ok": wide_ok}, **enc, **bert,
+                "vision": vision,
                 "ok": ok and wide_ok and enc["encoder_ok"]
-                and bert["bert_ok"]})
+                and bert["bert_ok"] and vision["ok"]})
     emit(out)
     if not out["ok"]:
         raise AssertionError("the port on the card disagrees with the port "
@@ -2222,10 +2377,148 @@ def phase_train_bert(dev, profile=False):
     return out
 
 
+# --- phase 10: ResNet-50 training (vision/models/resnet.py) ----------------
+
+def _conv_fc_macs(model, x):
+    """Multiply-adds of one image through every ``Conv1D/2D/3D`` and
+    ``Linear`` of ``model``, from the shapes a forward of ``x`` (one image,
+    eval mode, no gradient) gives them: a convolution's output elements x
+    in / groups x the kernel's size, an fc's in x out."""
+    from paddle_tpu_torch import nn as pnn
+
+    macs, hooks = [0], []
+
+    def conv(m, inp, out):
+        macs[0] += out.numel() // out.shape[0] * m.weight[0].numel()
+
+    def fc(m, inp, out):
+        macs[0] += out.numel() // out.shape[0] * m.weight.shape[0]
+
+    for m in model.modules():
+        if isinstance(m, (pnn.Conv1D, pnn.Conv2D, pnn.Conv3D)):
+            hooks.append(m.register_forward_hook(conv))
+        elif isinstance(m, pnn.Linear):
+            hooks.append(m.register_forward_hook(fc))
+    was_training = model.training
+    with torch.no_grad():
+        model.eval()(x)
+    model.train(was_training)
+    for h in hooks:
+        h.remove()
+    return macs[0]
+
+
+def _resnet_batch(B, hw, classes, seed, dev, dtype):
+    """Class-template images plus noise (``tests/test_resnet_train.py``'s
+    recipe), made on ``dev`` by one seeded generator: a template N(0, 1)
+    per class that the batch draws, labels uniform over the classes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randint(0, classes, (B,), generator=g, device=dev)
+    labels, idx = torch.unique(y, return_inverse=True)
+    templates = torch.randn((len(labels), 3, hw, hw), generator=g,
+                            device=dev)
+    x = templates[idx] + 0.3 * torch.randn((B, 3, hw, hw), generator=g,
+                                           device=dev)
+    return x.to(dtype), y
+
+
+def phase_train_resnet50(dev, profile=False):
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.vision.models import (resnet50,
+                                                resnet_train_step_factory)
+
+    r = RESNET
+    B, hw, steps, seed = r["B"], r["hw"], r["steps"], r["seed"]
+    model = resnet50(num_classes=r["classes"], device=dev,
+                     generator=Generator(seed)).to(torch.bfloat16)
+    x, y = _resnet_batch(B, hw, r["classes"], seed + 1, dev, torch.bfloat16)
+    macs = _conv_fc_macs(model, x[:1])
+    params, bufs, opt, step = resnet_train_step_factory(model, device=dev)
+    n_params = sum(p.numel() for p in params.values())
+
+    def fwd_bwd():
+        logits = model.train()(x)
+        logp = torch.log_softmax(logits.float(), -1)
+        loss = -logp.gather(-1, y[:, None])[:, 0].mean()
+        torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+
+    # the forward and backward alone (no update), warm, host clock; the
+    # batch norms blend their statistics as a step's forward does
+    fwd_bwd()
+    t0 = time.perf_counter()
+    fwd_bwd()
+    fwd_bwd_s = time.perf_counter() - t0
+
+    # the main path: a warm-up step, then launch counts from 0 and the
+    # timed steps, each up to its loss on the host
+    warmup = [float(step(params, bufs, opt, x, y)[3])
+              for _ in range(r["warmup"])]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, bufs, opt, x, y)[3]))
+        step_s.append(time.perf_counter() - t0)
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_med = statistics.median(step_s)
+    flops = 3 * 2 * macs * B
+    dtypes = {"params": sorted({str(p.dtype) for p in params.values()}),
+              "buffers": sorted({str(b.dtype) for b in bufs.values()}),
+              "masters": sorted({str(m.dtype)
+                                 for m in opt["master"].values()})}
+    out = {"phase": "train_resnet50", "model": "resnet50",
+           "classes": r["classes"], "params": n_params, "dtype": "bfloat16",
+           "dtypes": dtypes, "layout": "NCHW", "B": B,
+           "image": [3, hw, hw], "steps": steps, "warmup_steps": r["warmup"],
+           "warmup_losses": warmup,
+           "optimizer": "momentum SGD, lr 0.1, momentum 0.9, L2 decay 1e-4 "
+                        "coupled into every gradient, f32 velocity and "
+                        "masters",
+           "losses": losses, "step_ms_median": 1e3 * step_med,
+           "step_ms": [1e3 * t for t in step_s],
+           "fwd_bwd_ms": 1e3 * fwd_bwd_s, "images_per_s": B / step_med,
+           "peak_mem_gb": peak_gb, "macs_per_image": macs,
+           "step_flops": flops, "mfu": flops / step_med / BF16_FLOP_PER_S,
+           "mfu_formula": "3 * 2 * macs_per_image * B / step_s / 989e12; "
+                          "macs_per_image summed over every convolution "
+                          "(output elements x in/groups x kernel size) and "
+                          "the fc (in x out) at this image size; batch "
+                          "norms, ReLUs, pools and the update not counted",
+           "launches": counts, "launches_expected": {k: 0 for k in counts}}
+    ok = (counts == out["launches_expected"] and all(np.isfinite(losses))
+          and losses[-1] < losses[0]
+          and dtypes == {"params": ["torch.bfloat16"],
+                         "buffers": ["torch.float32"],
+                         "masters": ["torch.float32"]})
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError("train_resnet50 phase failed: "
+                             + json.dumps(out))
+    if profile:
+        emit({"phase": "profile_train_resnet50", **_profile(
+            lambda: float(step(params, bufs, opt, x, y)[3]),
+            {"pooling": ("pool",),
+             "layout": ("nchwtonhwc", "nhwctonchw"),
+             "convolution": ("conv", "xmma", "fprop", "dgrad", "wgrad",
+                             "implicit", "cudnn", "sm90_"),
+             "matmul": MATMUL_NAMES,
+             "elementwise_and_reductions": ("elementwise", "reduce")},
+            n=3)})
+    del model, params, bufs, opt, step, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "reference", "serve", "train", "train_mha",
-          "train_window", "train_encoder", "train_bert")
+          "train_window", "train_encoder", "train_bert", "train_resnet50")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -2409,6 +2702,9 @@ def main():
                                                       profile=args.profile)
     if "train_bert" in phases:
         trains["train_bert"] = phase_train_bert(dev, profile=args.profile)
+    if "train_resnet50" in phases:
+        trains["train_resnet50"] = phase_train_resnet50(
+            dev, profile=args.profile)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

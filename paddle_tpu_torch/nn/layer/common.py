@@ -1,8 +1,10 @@
-"""``Linear``, ``Embedding`` and ``Dropout`` of the PyTorch port.
+"""``Linear``, ``Embedding``, ``Dropout`` and ``Flatten`` of the PyTorch
+port.
 
 Counterpart of ``paddle_tpu/nn/layer/common.py`` (``Linear``, ``:23-43``;
-``Embedding``, ``:46-69``; ``Dropout``, ``:72``). ``Linear`` keeps its weight (in, out), drawn
-XavierNormal (N(0, 2 / (in + out))) and its bias zero, as the reference's
+``Embedding``, ``:46-69``; ``Dropout``, ``:72``; ``Flatten``, ``:118``).
+``Linear`` keeps its weight (in, out), drawn XavierNormal (N(0, 2 / (in
++ out))) and its bias zero, as the reference's
 ``create_parameter`` defaults (``nn/layer/layers.py:123-139``), in f32 on
 ``device`` (``cuda`` unless ``"cpu"`` is asked for) from ``generator``
 (the default generator when None); cast a module with ``.to(dtype)``.
@@ -21,6 +23,7 @@ from torch import nn
 
 from ...core.generator import torch_generator
 from ...core.place import resolve_device
+from ...ops.manipulation import flatten
 from .. import functional as F
 
 
@@ -71,15 +74,29 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """``F.dropout`` in training mode, the identity in eval mode."""
+    """``F.dropout`` with the layer's ``p``, ``axis`` and ``mode``, in
+    training mode when the module is."""
 
-    def __init__(self, p=0.5, *, generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", *,
+                 generator=None):
         super().__init__()
-        self.p = p
+        self.p, self.axis, self.mode = p, axis, mode
         self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training, self.generator)
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode, generator=self.generator)
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class Flatten(nn.Module):
+    """``ops.flatten`` of the axes ``start_axis`` .. ``stop_axis``."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return flatten(x, self.start_axis, self.stop_axis)

@@ -1,11 +1,17 @@
-"""The weight bridge of the PyTorch port.
+"""The weight bridge and ``Sequential`` of the PyTorch port.
 
-Counterpart of ``Layer.set_state_dict`` (``paddle_tpu/nn/layer/layers.py
-:278``) for the port's ``torch.nn.Module``s: a reference state dict,
-``{name: np.ndarray}`` built from a reference layer's ``state_dict()``,
-copied into a port module whose names are the reference's.
+``load_numpy_state_dict`` is the counterpart of ``Layer.set_state_dict``
+(``paddle_tpu/nn/layer/layers.py:278``) for the port's
+``torch.nn.Module``s: a reference state dict, ``{name: np.ndarray}``
+built from a reference layer's ``state_dict()``, copied into a port
+module whose names are the reference's. ``Sequential`` is the
+counterpart of ``paddle_tpu/nn/layer/layers.py:371``: its children are
+named ``"0"``, ``"1"``, ... in order, or by the keys of one
+``OrderedDict``, or by the names of ``(name, layer)`` pairs.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -33,3 +39,20 @@ def load_numpy_state_dict(module: torch.nn.Module, state: dict):
                                  f"{tuple(t.shape)}")
             t.copy_(src.to(device=t.device, dtype=t.dtype))
     return module
+
+
+class Sequential(torch.nn.Sequential):
+    """Calls its children in order."""
+
+    def __init__(self, *layers):
+        torch.nn.Module.__init__(self)
+        if len(layers) == 1 and isinstance(layers[0],
+                                           collections.OrderedDict):
+            for name, layer in layers[0].items():
+                self.add_module(name, layer)
+            return
+        for i, layer in enumerate(layers):
+            if isinstance(layer, (tuple, list)) and len(layer) == 2:
+                self.add_module(layer[0], layer[1])
+            else:
+                self.add_module(str(i), layer)

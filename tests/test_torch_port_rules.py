@@ -38,7 +38,17 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.nn.layer.transformer",
              "paddle_tpu_torch.nn.functional.loss",
              "paddle_tpu_torch.models.nlp.bert",
-             "paddle_tpu_torch.incubate.nn"):
+             "paddle_tpu_torch.incubate.nn",
+             "paddle_tpu_torch.nn.functional.conv",
+             "paddle_tpu_torch.nn.functional.pooling",
+             "paddle_tpu_torch.nn.functional.norm",
+             "paddle_tpu_torch.nn.layer.conv",
+             "paddle_tpu_torch.nn.layer.pooling",
+             "paddle_tpu_torch.nn.layer.activation",
+             "paddle_tpu_torch.ops.manipulation",
+             "paddle_tpu_torch.vision.datasets",
+             "paddle_tpu_torch.vision.models.lenet",
+             "paddle_tpu_torch.vision.models.resnet"):
     assert name in names, name
 """
 
@@ -103,6 +113,33 @@ def test_entry_points_refuse_a_missing_card():
     assert Linear(16, 8, device="cpu")(torch.randn(3, 16)).shape == (3, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_vision_entry_points_refuse_a_missing_card():
+    """The vision slice's layers, models and train step: without CUDA a
+    default or "cuda" device raises; "cpu" runs."""
+    _needs_no_card()
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision.models import (LeNet, resnet18,
+                                                resnet_train_step_factory)
+
+    for device in (None, "cuda"):
+        for make in (lambda: nn.Conv2D(1, 2, 3, device=device),
+                     lambda: nn.BatchNorm2D(2, device=device),
+                     lambda: LeNet(device=device),
+                     lambda: resnet18(num_classes=4, device=device)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
+    model = LeNet(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resnet_train_step_factory(model)
+    params, _, _, step = resnet_train_step_factory(model, device="cpu")
+    out = step(params, {}, {"step": torch.zeros((), dtype=torch.int32),
+                            "velocity": {k: torch.zeros_like(p)
+                                         for k, p in params.items()},
+                            "master": {}},
+               torch.zeros(2, 1, 28, 28), [0, 1])
+    assert out[3].device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_a_card():
