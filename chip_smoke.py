@@ -10,6 +10,7 @@ trains.
     python3 chip_smoke.py --phases build,kernel,train_encoder
     python3 chip_smoke.py --phases build,reference,train_bert
     python3 chip_smoke.py --phases build,reference,train_resnet50
+    python3 chip_smoke.py --phases build,reference,train_full,train_long
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -66,6 +67,9 @@ Phases, each printing JSON lines:
      ``F.scaled_dot_product_attention`` (causal, or the live pairs as a
      boolean mask; K/V repeated where a backend refuses ``enable_gqa``)
      forward, and its backward alone, with the backend that ran it;
+   * grouped flash attention once more at the train_long phase's call:
+     B=1, 24 query / 8 kv heads (G = 3), S=8192, head_dim 128, bf16,
+     causal;
    * fused cross-entropy (``ce_fwd``, ``ce_bwd``) at N=8192 rows of
      V=128256 bf16 logits, int64 labels. Yardstick: ``F.cross_entropy(...,
      reduction="none")`` forward, and its backward alone.
@@ -102,7 +106,11 @@ Phases, each printing JSON lines:
    (``BERT_SMALL``: hidden 128, 2 heads, 2 layers, B=2, S=256: the
    multi-head flash kernels) at dropout 0: its MLM and NSP logits without
    and with an attention mask (the dense path), then 3 steps of
-   ``bert_pretrain_step_factory``. Then the vision slice, which runs no
+   ``bert_pretrain_step_factory``. The training step's options, on a
+   small f32 tied Llama with fused qkv and gate/up weights: logits with
+   explicit (B, S) positions, then 3 steps with ``remat="dots"``, the
+   chunked CE (chunks of 48 over 256: the last padded) and offloaded
+   moments (pinned on the card), card against CPU by the same rules. Then the vision slice, which runs no
    TPU kernel's counterpart, with TF32 off: a small f32 ResNet-18 (10
    classes, B=8, 64 x 64) and LeNet (B=16 synthetic digits): train-mode
    logits, loss and running statistics, then 3 steps of
@@ -148,7 +156,34 @@ Phases, each printing JSON lines:
    weights and batch with the plain attention and CE versions, and both
    loss curves are printed (``plain_curves_<phase>``).
 
-8. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
+8. ``train_full`` and 9. ``train_long``: Llama-3-8B at all 32 layers (the host's memory
+   permitting: else the deepest cut whose moments it can pin, printed as
+   ``cut``), bf16, B=2, S=4096, ``remat=True`` and ``offload_moments``:
+   AdamW's f32 moments (64.2 GB) in pinned host memory, streamed through
+   the card in chunks of 4 tensors. ``train_long``: Llama-3.2-3B's widths
+   (the long-context example's config: tied, fused qkv and gate/up,
+   plain rope) at all 28 layers, bf16, B=1, S=8192, ``remat="dots"`` and
+   the chunked CE (chunks of 16384). Each first checks, at full width and
+   2 layers: the kernels against their plain versions (one
+   forward+backward each: |Δloss| and every parameter's relative gradient
+   error); that ``remat`` False, True and ``"dots"`` give the same bits;
+   ``train_long`` the chunked CE against the dense f32 one on its final
+   hidden states and embedding (loss, dx, dw); ``train_full`` 3 steps with
+   offloaded moments against 3 with moments on the card (the same bits,
+   every moment pinned). Then the launch counts are set to 0, a warm-up
+   step and 5 steps run through ``examples/train_llama_compiled.train``
+   (AdamW lr 1e-3 and 3e-4, one repeated batch), and the counts must be
+   exactly the path's: per step 2 x layers grouped flash forward (each
+   layer's forward runs again in the backward), layers dq and layers dk/dv,
+   1 + 1 fused CE for ``train_full`` and none for ``train_long``, no other
+   kernel. A forward and backward alone (``fwd_bwd_ms``) and one more
+   whole step are timed (``update_ms``: the step less the forward and
+   backward), and the moments' copies alone, each direction on its
+   own (``pcie``). Records step ms, tokens/s, MFU, peak device memory,
+   the moments' bytes and where they live, the host's memory, and the
+   losses (finite, the last below the first).
+
+10. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
    ``incubate.nn`` at BERT-base's widths (768, 12 heads, FFN 3072, GELU,
    dropout 0.1), bf16, random weights from a seed, on hidden states
    (B=32, S=512) against an N(0, 1) target (MSE), trained 5 steps on one
@@ -159,7 +194,7 @@ Phases, each printing JSON lines:
    24 dropout-add-LN and 12 + 12 + 12 multi-head flash launches per step
    and none of any other kernel.
 
-9. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
+11. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
    vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072, GELU, dropout
    0.1), bf16, random weights from a seed, full depth, in training mode
    (dropout live, drawn from one generator), on seeded data (B=32, S=512:
@@ -177,7 +212,7 @@ Phases, each printing JSON lines:
    log-softmax, matrix products, the rest), idle share and kernels a
    step.
 
-10. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
+12. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
     width), bf16 parameters with f32 masters, f32 batch-norm buffers, on
     B=256 seeded class-template images of 3 x 224 x 224 (NCHW; one
     repeated batch), through ``resnet_train_step_factory`` (its defaults:
@@ -204,6 +239,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import statistics
@@ -1135,7 +1171,12 @@ def phase_kernel(dev):
             for seed, (name, shape, causal) in
             enumerate(_shape_cases(), start=50)]
     ce = [_ce_case(8192, 128256, 5, dev, flush)]
-    for c in gqa + ce:
+    # the grouped kernels at train_long's call: Llama-3.2-3B's 24 / 8 heads
+    # (G = 3) at S=8192
+    gqa_long = [_attention_case("gqa_G3_B1_S8192_D128/bfloat16", "gqa", 1, 8,
+                                3, 8192, 8192, 128, "bfloat16", 80, dev,
+                                flush)]
+    for c in gqa + ce + gqa_long:
         emit({"phase": "kernel", **c})
     mha = [_attention_case("mha_B2_S4096_D128/bfloat16", "mha", 2, 32, 1,
                            4096, 4096, 128, "bfloat16", 9, dev, flush),
@@ -1176,14 +1217,15 @@ def phase_kernel(dev):
                  for i, (N, H) in enumerate(((8192, 4096), (16384, 768)))]
     for c in ln_retime:
         emit({"phase": "kernel", **c})
-    bad = [c["case"] for c in cases + gqa + ce + mha + splash + mha_enc
-           + norm if not c["ok"]]
+    bad = [c["case"] for c in cases + gqa + ce + gqa_long + mha + splash
+           + mha_enc + norm if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"or did not launch once: {bad}")
     del flush
     torch.cuda.empty_cache()
-    return {"paged": cases, "gqa": gqa, "ce": ce, "mha": mha,
+    return {"paged": cases, "gqa": gqa, "ce": ce, "gqa_long": gqa_long,
+            "mha": mha,
             "splash": splash, "mha_encoder": mha_enc, "norm": norm,
             "ln_retime": ln_retime}
 
@@ -1274,10 +1316,12 @@ def _drive_small(dev, state, cfg):
     return torch.cat([logits[None], emits]).cpu()
 
 
-def _train_small(dev, state, cfg, tokens, labels):
-    """The tiny train step on ``dev`` from ``state``: the gradients of the
-    first step's loss, the losses of 3 steps and the parameters after them
-    (each on the CPU)."""
+def _train_small(dev, state, cfg, tokens, labels, remat=False,
+                 chunked_vocab_ce=None, offload_moments=False):
+    """The tiny train step on ``dev`` from ``state`` with the factory's
+    options: the gradients of the first step's loss, the losses of 3 steps
+    and the parameters after them (each on the CPU), and whether every
+    moment is pinned host memory."""
     from paddle_tpu_torch.models.nlp import (LlamaForCausalLM,
                                              llama_train_step_factory,
                                              load_numpy_state_dict,
@@ -1286,17 +1330,46 @@ def _train_small(dev, state, cfg, tokens, labels):
 
     model = load_numpy_state_dict(LlamaForCausalLM(cfg, device=dev), state)
     params, opt, step = llama_train_step_factory(
-        model, learning_rate=TRAIN_REF["lr"], remat=False, device=dev)
+        model, learning_rate=TRAIN_REF["lr"], remat=remat, device=dev,
+        offload_moments=offload_moments, chunked_vocab_ce=chunked_vocab_ce)
     tokens, labels = tokens.to(dev), labels.to(dev)
     outer, layers = param_views(params, cfg.num_hidden_layers)
-    loss = loss_fn(cfg, outer, layers, tokens, labels, remat=False)
+    loss = loss_fn(cfg, outer, layers, tokens, labels, remat,
+                   chunked_vocab_ce)
     grads = {k: g.cpu() for k, g in
              zip(params, torch.autograd.grad(loss, list(params.values())))}
     losses = []
     for _ in range(3):
         params, opt, loss = step(params, opt, tokens, labels)
         losses.append(float(loss))
-    return losses, grads, {k: p.detach().cpu() for k, p in params.items()}
+    torch.cuda.synchronize()
+    pinned = all(m.is_pinned() for name in ("m", "v")
+                 for m in opt[name].values())
+    return (losses, grads, {k: p.detach().cpu() for k, p in params.items()},
+            pinned)
+
+
+def _train_agree(card, cpu):
+    """Card against CPU runs of ``_train_small`` under ``TRAIN_REF``: (the
+    readings, ok)."""
+    loss_diff = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
+    grad_diff = max(float((card[1][k] - cpu[1][k]).abs().max())
+                    for k in cpu[1])
+    param_max, param_frac = 0.0, 0.0
+    for k in cpu[2]:
+        d = (card[2][k] - cpu[2][k]).abs()
+        param_max = max(param_max, float(d.max()))
+        param_frac = max(param_frac,
+                         float((d > TRAIN_REF["param"]).float().mean()))
+    ok = (loss_diff <= TRAIN_REF["loss"] and grad_diff <= TRAIN_REF["grad"]
+          and param_frac <= TRAIN_REF["param_frac"]
+          and param_max <= TRAIN_REF["lr"] and card[0][-1] < card[0][0])
+    return ({"train_losses_card": card[0], "train_losses_cpu": cpu[0],
+             "train_loss_max_diff": loss_diff,
+             "train_grad_max_diff": grad_diff,
+             "train_param_max_diff": param_max,
+             "train_param_frac_over_atol": param_frac,
+             "train_tol": TRAIN_REF}, ok)
 
 
 def _encoder_small(dev, state, x, tgt):
@@ -1578,35 +1651,63 @@ def _reference_llama(dev, cfg):
     tokens, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                                     (2, 256)))
                       for _ in range(2))
-    card = _train_small(dev, state, cfg, tokens, labels)
-    cpu = _train_small(torch.device("cpu"), state, cfg, tokens, labels)
-    loss_diff = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
-    grad_diff = max(float((card[1][k] - cpu[1][k]).abs().max())
-                    for k in cpu[1])
-    param_max, param_frac = 0.0, 0.0
-    for k in cpu[2]:
-        d = (card[2][k] - cpu[2][k]).abs()
-        param_max = max(param_max, float(d.max()))
-        param_frac = max(param_frac,
-                         float((d > TRAIN_REF["param"]).float().mean()))
-    train_ok = (loss_diff <= TRAIN_REF["loss"]
-                and grad_diff <= TRAIN_REF["grad"]
-                and param_frac <= TRAIN_REF["param_frac"]
-                and param_max <= TRAIN_REF["lr"]
-                and card[0][-1] < card[0][0])
+    train, train_ok = _train_agree(
+        _train_small(dev, state, cfg, tokens, labels),
+        _train_small(torch.device("cpu"), state, cfg, tokens, labels))
     hd = cfg.hidden_size // cfg.num_attention_heads
     return ({"config": {"hidden": cfg.hidden_size,
                         "heads": cfg.num_attention_heads,
                         "kv_heads": cfg.num_key_value_heads, "head_dim": hd,
                         "layers": cfg.num_hidden_layers},
              "max_logit_diff": diff, "tokens_identical": same,
-             "atol": REF_ATOL,
-             "train_losses_card": card[0], "train_losses_cpu": cpu[0],
-             "train_loss_max_diff": loss_diff,
-             "train_grad_max_diff": grad_diff,
-             "train_param_max_diff": param_max,
-             "train_param_frac_over_atol": param_frac,
-             "train_tol": TRAIN_REF}, ok and train_ok)
+             "atol": REF_ATOL, **train}, ok and train_ok)
+
+
+# the training step's options in the reference phase: chunks of 48 over
+# the vocabulary of 256 (the last chunk padded)
+REF_CHUNK = 48
+
+
+def _reference_llama_options(dev):
+    """The training step's options, card against CPU, on a small f32 Llama
+    (hidden 256, 4 / 2 heads, 2 layers, vocab 256) with tied embeddings
+    and fused qkv and gate/up weights: logits with explicit (B, S)
+    positions within ``REF_ATOL``; then 3 steps with ``remat="dots"``,
+    the chunked CE (``REF_CHUNK``) and offloaded moments (pinned on the
+    card) under ``TRAIN_REF``. Returns (its readings, ok)."""
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             load_numpy_state_dict)
+
+    cfg = dataclasses.replace(
+        LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=4,
+                         kv_heads=2), tie_word_embeddings=True,
+        fuse_attention_qkv=True, fuse_ffn_gate_up=True)
+    state = {k: v.numpy() for k, v in
+             LlamaForCausalLM(cfg, device="cpu", seed=13).state_dict()
+             .items()}
+    rng = np.random.default_rng(14)
+    tokens, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                    (2, 256)))
+                      for _ in range(2))
+    positions = torch.from_numpy(np.sort(rng.integers(0, 1024, (2, 256)),
+                                         -1))
+    logits = []
+    for d in (dev, torch.device("cpu")):
+        model = load_numpy_state_dict(LlamaForCausalLM(cfg, device=d), state)
+        with torch.no_grad():
+            logits.append(model(tokens.to(d), positions.to(d)).cpu())
+    diff = float((logits[0] - logits[1]).abs().max())
+    options = dict(remat="dots", chunked_vocab_ce=REF_CHUNK,
+                   offload_moments=True)
+    card = _train_small(dev, state, cfg, tokens, labels, **options)
+    cpu = _train_small(torch.device("cpu"), state, cfg, tokens, labels,
+                       **options)
+    train, train_ok = _train_agree(card, cpu)
+    ok = diff <= REF_ATOL and train_ok and card[3]
+    return ({"config": "tiny, tied, fused qkv and gate/up", "options": {
+        **options, "positions": "(B, S)"},
+        "max_logit_diff_with_positions": diff, "atol": REF_ATOL,
+        "moments_pinned": card[3], **train, "ok": ok}, ok)
 
 
 def phase_reference(dev):
@@ -1623,13 +1724,16 @@ def phase_reference(dev):
     # f32 kernels one query head a tile
     wide, wide_ok = _reference_llama(dev, LlamaConfig.tiny(
         vocab=256, hidden=768, layers=2, heads=3, kv_heads=1))
+    options, options_ok = _reference_llama_options(dev)
     enc = _reference_encoder(dev)
     bert = _reference_bert(dev)
     vision = _reference_vision(dev)
-    out.update({"llama_d256_g3": {**wide, "ok": wide_ok}, **enc, **bert,
-                "vision": vision,
-                "ok": ok and wide_ok and enc["encoder_ok"]
+    out.update({"llama_d256_g3": {**wide, "ok": wide_ok},
+                "llama_options": options, **enc, **bert, "vision": vision,
+                "ok": ok and wide_ok and options_ok and enc["encoder_ok"]
                 and bert["bert_ok"] and vision["ok"]})
+    # the offloaded steps' pinned blocks go back to the host
+    _release_pinned()
     emit(out)
     if not out["ok"]:
         raise AssertionError("the port on the card disagrees with the port "
@@ -1959,15 +2063,17 @@ def _plain_versions(kind, swap=True):
     return _swapped(_plain_swaps(kind), swap)
 
 
-def _grads_with(swap, kind, cfg, params, tokens, labels):
-    """Loss and gradients of one forward+backward; ``swap`` runs the
-    plain versions in place of the kernels."""
+def _grads_with(swap, kind, cfg, params, tokens, labels, remat=False,
+                chunked=None):
+    """Loss and gradients of one forward+backward (``remat``, and the
+    chunked CE with ``chunked``); ``swap`` runs the plain versions in
+    place of the kernels."""
     from paddle_tpu_torch.models.nlp import param_views
     from paddle_tpu_torch.models.nlp.llama_functional import loss_fn
 
     with _plain_versions(kind, swap):
         outer, layers = param_views(params, cfg.num_hidden_layers)
-        loss = loss_fn(cfg, outer, layers, tokens, labels, remat=False)
+        loss = loss_fn(cfg, outer, layers, tokens, labels, remat, chunked)
         grads = torch.autograd.grad(loss, list(params.values()))
         torch.cuda.synchronize()
     return float(loss.detach()), grads
@@ -2080,7 +2186,412 @@ def phase_train(dev, phase="train", profile=False, plain_curves=False):
     return out
 
 
-# --- phase 8: train the fused encoder (incubate.nn) at BERT-base width ----
+# --- phases 8-9: Llama-3-8B at full depth with its moments in pinned host
+# memory (train_full); a tied Llama-3.2-3B at S=8192 (train_long) ----------
+
+def _llama32_3b_long():
+    from paddle_tpu_torch.examples.train_llama_long_context import \
+        llama32_3b_long
+
+    return llama32_3b_long()
+
+
+# phase -> (model, its config, B, S, lr, remat, offload_moments, chunked
+# CE): train_full is Llama-3-8B at all 32 layers with remat=True and AdamW's
+# f32 moments (64.2 GB) in pinned host memory; train_long is Llama-3.2-3B's
+# widths (the long-context example's config: tied, fused qkv and gate/up,
+# plain rope) at all 28 layers with remat="dots" and the chunked CE in
+# chunks of 16384 (8 chunks, the last padded). Both run the grouped flash
+# kernels (G = 4 and G = 3); train_full the fused CE kernels too.
+DEPTH_CELLS = {
+    "train_full": ("llama3_8b", _llama3_8b, 2, 4096, 1e-3, True, True, None),
+    "train_long": ("llama3_2_3b", _llama32_3b_long, 1, 8192, 3e-4, "dots",
+                   False, 16384),
+}
+DEPTH_STEPS, DEPTH_WARMUP = 5, 1
+# the phases' checks run at full width and this depth
+CHECK_LAYERS = 2
+# host memory left free beside the pinned moments: the process, the
+# checkout and the rest of the machine
+HOST_MARGIN = 8 * 2 ** 30
+# 2-layer bf16 forward+backward at full width, kernels vs plain versions,
+# identical weights: bf16 roundings in 2 layers. Readings |Δloss| 4.10e-5
+# (train_full, of 12.60) and 4.86e-5 (train_long, of 12.38); relative
+# gradient errors 0.0124 / 0.0114 median, 0.0199 / 0.0123 worst, held to
+# TRAIN_GRAD_REL. The loss limits are about twice the readings (one H100,
+# PERF.md §2).
+DEPTH_LOSS_ATOL = {"train_full": 1e-4, "train_long": 1e-4}
+# chunked against dense f32 CE on train_long's final hidden states and
+# embedding: the loss is the same f32 sums in another order (reading
+# 3.1e-7 relative on one H100, the limit 2e-6 about six times that); dx
+# and dw round the chunk's (p - onehot) / N to bf16 before its products
+# and the results to bf16 once, so ||chunked - dense|| / ||dense|| sits
+# near bf16's relative rounding: readings 1.66e-3 for both, the limit
+# 2^-8 (3.9e-3) about twice that
+CHUNKED_TOL = dict(loss_rel=2e-6, grad_rel=2 ** -8)
+
+
+def _param_count(cfg):
+    H, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.num_key_value_heads * (H // cfg.num_attention_heads)
+    layer = 2 * H * H + 2 * H * kv + 3 * H * F + 2 * H
+    head = 0 if cfg.tie_word_embeddings else H * V
+    return cfg.num_hidden_layers * layer + V * H + H + head
+
+
+def _pinned_block(nbytes):
+    """The bytes the pinned host allocator takes for a block: the next
+    power of two."""
+    return 1 << (nbytes - 1).bit_length()
+
+
+def _host_memory():
+    """MemTotal and MemAvailable of /proc/meminfo, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":")
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def _offload_depth(cfg, available):
+    """The deepest cut of ``cfg`` whose two f32 moment blocks the host can
+    pin with ``HOST_MARGIN`` to spare (all its layers where it can)."""
+    for layers in range(cfg.num_hidden_layers, 0, -1):
+        n = _param_count(dataclasses.replace(cfg, num_hidden_layers=layers))
+        if 2 * _pinned_block(4 * n) + HOST_MARGIN <= available:
+            return layers
+    raise RuntimeError(f"the host cannot pin the moments of one layer "
+                       f"({available / 2 ** 30:.1f} GiB available)")
+
+
+def _batch(cfg, B, S, seed, dev):
+    """The batch ``train`` makes from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+            .to(dev) for _ in range(2)]
+
+
+def _rel_errs(params, got, want):
+    return {k: float((a.float() - b.float()).norm() / b.float().norm())
+            for k, a, b in zip(params, got, want)}
+
+
+def _chunked_vs_dense(cfg, params, tokens, labels, chunk):
+    """``chunked_causal_lm_loss`` against the dense f32 log-softmax loss on
+    the final hidden states and the embedding of ``params``: loss, dx and
+    dw."""
+    from paddle_tpu_torch.models.nlp import param_views
+    from paddle_tpu_torch.models.nlp.llama_functional import hidden_states
+    from paddle_tpu_torch.ops.chunked_ce import chunked_causal_lm_loss
+
+    outer, layers = param_views(params, cfg.num_hidden_layers)
+    with torch.no_grad():
+        h = hidden_states(cfg, outer, layers, tokens, remat=False)
+    emb = params["model.embed_tokens.weight"].detach()
+    x, w = h.clone().requires_grad_(), emb.clone().requires_grad_()
+    loss_c = chunked_causal_lm_loss(x, w, labels, chunk)
+    dx_c, dw_c = torch.autograd.grad(loss_c, (x, w))
+    # dense: the (N, V) f32 logits of the same bf16 values (f32 products
+    # of bf16 values are exact; TF32 is off, PyTorch's default and the
+    # reference phase's setting), log-softmax, mean NLL
+    xf, wf = h.float().requires_grad_(), emb.float().requires_grad_()
+    logp = torch.log_softmax(xf.reshape(-1, xf.shape[-1]) @ wf.T, -1)
+    loss_d = -logp.gather(1, labels.reshape(-1, 1)).mean()
+    dx_d, dw_d = torch.autograd.grad(loss_d, (xf, wf))
+    del logp
+    out = {"chunk": chunk, "chunks": -(-cfg.vocab_size // chunk),
+           "loss_chunked": loss_c.item(), "loss_dense": loss_d.item(),
+           "loss_rel_err": abs(loss_c.item() - loss_d.item())
+           / abs(loss_d.item())}
+    for name, a, b in (("dx", dx_c, dx_d), ("dw", dw_c, dw_d)):
+        out[f"{name}_rel_err"] = float((a.float() - b).norm() / b.norm())
+        out[f"{name}_max_abs_err"] = float((a.float() - b).abs().max())
+    out["tol"] = CHUNKED_TOL
+    out["ok"] = (out["loss_rel_err"] <= CHUNKED_TOL["loss_rel"]
+                 and out["dx_rel_err"] <= CHUNKED_TOL["grad_rel"]
+                 and out["dw_rel_err"] <= CHUNKED_TOL["grad_rel"])
+    return out
+
+
+def _offload_vs_device(cfg, B, S, lr, remat, chunked, dev):
+    """3 steps of the factory with moments in pinned host memory and 3 with
+    moments on the card, from the same weights and batch: whether the
+    parameters and the moments are the same bits, and every moment is
+    pinned."""
+    from paddle_tpu_torch.models.nlp import (LlamaForCausalLM,
+                                             llama_train_step_factory)
+
+    tokens, labels = _batch(cfg, B, S, 0, dev)
+    runs = {}
+    for offload in (False, True):
+        model = LlamaForCausalLM(cfg, device=dev, seed=0)
+        params, opt, step = llama_train_step_factory(
+            model, learning_rate=lr, remat=remat, device=dev,
+            offload_moments=offload, chunked_vocab_ce=chunked)
+        losses = [float(step(params, opt, tokens, labels)[2])
+                  for _ in range(3)]
+        torch.cuda.synchronize()
+        runs[offload] = (losses, params, opt)
+        del model, step
+    (losses, params, opt), (o_losses, o_params, o_opt) = runs[False], \
+        runs[True]
+    params_equal = all(torch.equal(params[k], o_params[k]) for k in params)
+    moments_equal = all(torch.equal(opt[n][k].cpu(), o_opt[n][k])
+                        for n in ("m", "v") for k in params)
+    pinned = all(m.is_pinned() for n in ("m", "v")
+                 for m in o_opt[n].values())
+    out = {"steps": 3, "losses_device": losses, "losses_offload": o_losses,
+           "params_bit_equal": params_equal,
+           "moments_bit_equal": moments_equal, "moments_pinned": pinned,
+           "ok": params_equal and moments_equal and pinned
+           and losses == o_losses}
+    del runs, params, opt, o_params, o_opt
+    torch.cuda.empty_cache()
+    _release_pinned()
+    return out
+
+
+def _depth_checks(dev, phase, cfg, B, S, lr, remat, offload, chunked):
+    """The phase's checks at full width and ``CHECK_LAYERS`` layers: the
+    kernels against their plain versions (one forward+backward each, the
+    phase's options), the three remat modes (the same bits), the chunked
+    CE against the dense one (with the chunked CE), and offloaded moments
+    against moments on the card (with offload)."""
+    from paddle_tpu_torch.models.nlp import LlamaForCausalLM
+
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    params = {k: p.requires_grad_() for k, p in model.named_parameters()}
+    tokens, labels = _batch(cfg, B, S, 0, dev)
+    loss_k, grads_k = _grads_with(False, "gqa", cfg, params, tokens, labels,
+                                  remat, chunked)
+    loss_p, grads_p = _grads_with(True, "gqa", cfg, params, tokens, labels,
+                                  remat, chunked)
+    rel = _rel_errs(params, grads_k, grads_p)
+    del grads_p
+    worst = max(rel, key=rel.get)
+    out = {"layers": cfg.num_hidden_layers, "loss_kernel": loss_k,
+           "loss_plain": loss_p, "loss_diff": abs(loss_k - loss_p),
+           "loss_atol": DEPTH_LOSS_ATOL[phase],
+           "grad_rel_err_max": rel[worst], "grad_rel_err_worst": worst,
+           "grad_rel_err_median": statistics.median(rel.values()),
+           "grad_rel_limit": TRAIN_GRAD_REL}
+    ok = (out["loss_diff"] <= DEPTH_LOSS_ATOL[phase]
+          and rel[worst] <= TRAIN_GRAD_REL)
+    # the remat modes against the phase's own: the same operations on the
+    # same values, so the same bits
+    modes = {}
+    for mode in (False, True, "dots"):
+        loss_m, grads_m = _grads_with(False, "gqa", cfg, params, tokens,
+                                      labels, mode, chunked)
+        modes[str(mode)] = {
+            "loss": loss_m,
+            "max_grad_diff": max(float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(grads_m, grads_k)),
+            "bit_equal": loss_m == loss_k and all(
+                torch.equal(a, b) for a, b in zip(grads_m, grads_k))}
+        del grads_m
+    del grads_k
+    out["remat_modes"] = modes
+    ok = ok and all(m["bit_equal"] for m in modes.values())
+    if chunked:
+        out["chunked_vs_dense"] = _chunked_vs_dense(cfg, params, tokens,
+                                                    labels, chunked)
+        ok = ok and out["chunked_vs_dense"]["ok"]
+    del model, params
+    torch.cuda.empty_cache()
+    if offload:
+        out["offload_vs_device"] = _offload_vs_device(cfg, B, S, lr, remat,
+                                                      chunked, dev)
+        ok = ok and out["offload_vs_device"]["ok"]
+    out["ok"] = ok
+    return out
+
+
+def _pcie_ms(opt, dev):
+    """Every moment host -> card, then card -> host, each direction alone
+    on the current stream, then both at once on two streams (CUDA
+    events): the copies of an offloaded update without the update."""
+    moments = [t for n in ("m", "v") for t in opt[n].values()]
+    largest = max(t.numel() for t in moments)
+    buf = torch.empty(largest, dtype=moments[0].dtype, device=dev)
+    src = torch.empty(largest, dtype=moments[0].dtype, device=dev)
+    back = torch.empty(largest, dtype=moments[0].dtype, pin_memory=True)
+
+    def h2d(t):
+        buf[:t.numel()].copy_(t.reshape(-1), non_blocking=True)
+
+    def d2h(t):
+        back[:t.numel()].copy_(src[:t.numel()], non_blocking=True)
+
+    def timed(run):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def both():
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for t in moments:
+                d2h(t)
+        for t in moments:
+            h2d(t)
+        main.wait_stream(side)
+
+    out = {"bytes": sum(t.numel() * t.element_size() for t in moments)}
+    for name, run in (("h2d", lambda: [h2d(t) for t in moments]),
+                      ("d2h", lambda: [d2h(t) for t in moments]),
+                      ("both", both)):
+        out[f"{name}_ms"] = timed(run)
+        out[f"{name}_gb_s"] = (2 if name == "both" else 1) * out["bytes"] \
+            / out[f"{name}_ms"] / 1e6
+    del buf, src, back
+    return out
+
+
+def _release_pinned():
+    """Give the host allocator's cached pinned blocks back to the host."""
+    gc.collect()
+    torch._C._host_emptyCache()
+
+
+def _time_parts(res, cfg, remat, chunked):
+    """Two more steps on the trained model, host clock, each up to a
+    synchronise: its forward and backward alone (the gradients dropped),
+    then one whole step of the factory's own ``train_step``. Returns
+    (fwd_bwd_ms, update_ms), the update being the whole step less the
+    forward and backward."""
+    from paddle_tpu_torch.models.nlp import param_views
+    from paddle_tpu_torch.models.nlp.llama_functional import loss_fn
+
+    params = res["params"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outer, layers = param_views(params, cfg.num_hidden_layers)
+    loss = loss_fn(cfg, outer, layers, res["tokens"], res["labels"], remat,
+                   chunked)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    del loss, grads
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res["params"], res["opt_state"], _ = res["step"](
+        params, res["opt_state"], res["tokens"], res["labels"])
+    torch.cuda.synchronize()
+    fwd_bwd, step = t1 - t0, time.perf_counter() - t1
+    return 1e3 * fwd_bwd, 1e3 * (step - fwd_bwd)
+
+
+def phase_train_depth(dev, phase):
+    from paddle_tpu_torch.examples.train_llama_compiled import train
+
+    model_name, make_cfg, B, S, lr, remat, offload, chunked = \
+        DEPTH_CELLS[phase]
+    full = make_cfg()
+    host = _host_memory()
+    layers, cut = full.num_hidden_layers, None
+    if offload:
+        layers = _offload_depth(full, host["MemAvailable"])
+        if layers < full.num_hidden_layers:
+            cut = (f"{layers} of {full.num_hidden_layers} layers: the host "
+                   f"has {host['MemAvailable'] / 2 ** 30:.1f} GiB "
+                   f"available, and the moments of every layer take "
+                   f"{2 * _pinned_block(4 * _param_count(full)) / 2 ** 30:.0f}"
+                   f" GiB of pinned blocks")
+    cfg = dataclasses.replace(full, num_hidden_layers=layers)
+    checks = _depth_checks(dev, phase, dataclasses.replace(
+        full, num_hidden_layers=CHECK_LAYERS), B, S, lr, remat, offload,
+        chunked)
+
+    # the main path: launch counts from 0, a warm-up step and 5 timed ones
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    t0 = time.perf_counter()
+    res = train(cfg, B, S, DEPTH_STEPS, lr=lr, device=dev, seed=0,
+                remat=remat, log=None, offload_moments=offload,
+                chunked_vocab_ce=chunked, warmup=DEPTH_WARMUP)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = DEPTH_STEPS + DEPTH_WARMUP
+    fwd_per_step = (2 if remat else 1) * layers
+    want = {k: 0 for k in counts}
+    want.update({"gqa_fwd": fwd_per_step * steps, "gqa_dq": layers * steps,
+                 "gqa_dkv": layers * steps})
+    if not chunked:
+        want.update({"ce_fwd": steps, "ce_bwd": steps})
+    opt = res["opt_state"]
+    moment_bytes = sum(t.numel() * t.element_size() for n in ("m", "v")
+                       for t in opt[n].values())
+    pinned = {"moment_bytes": moment_bytes,
+              "where": "pinned host memory" if offload else "the card",
+              "all_pinned": offload and all(
+                  t.is_pinned() for n in ("m", "v") for t in opt[n].values())}
+    if offload:
+        pinned["host_allocator_bytes"] = \
+            torch.cuda.memory.host_memory_stats()["allocated_bytes.current"]
+    fwd_bwd_ms, update_ms = _time_parts(res, cfg, remat, chunked)
+    pcie = _pcie_ms(opt, dev) if offload else None
+    losses = res["losses"]
+    step_s = statistics.median(res["step_s"])
+    flops, matmul_params = _step_flops(cfg, B, S)
+    out = {"phase": phase, "model": model_name, "layers": layers,
+           "layers_full": full.num_hidden_layers, "cut": cut,
+           "params": _param_count(cfg), "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads,
+           "kv_heads": cfg.num_key_value_heads, "vocab": cfg.vocab_size,
+           "tied": cfg.tie_word_embeddings,
+           "fused_qkv": cfg.fuse_attention_qkv,
+           "fused_gate_up": cfg.fuse_ffn_gate_up,
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "B": B, "S": S, "steps": DEPTH_STEPS,
+           "warmup_steps": DEPTH_WARMUP, "lr": lr, "remat": remat,
+           "offload_moments": offload, "chunked_vocab_ce": chunked,
+           "host_memory_gib": {k: v / 2 ** 30 for k, v in host.items()},
+           "losses": losses, "warmup_losses": res["warmup_losses"],
+           "step_ms_median": 1e3 * step_s,
+           "step_ms": [1e3 * t for t in res["step_s"]],
+           "fwd_bwd_ms": fwd_bwd_ms, "update_ms": update_ms,
+           "pcie": pcie, "main_path_s": run_s,
+           "tokens_per_s": B * S / step_s, "peak_mem_gb": peak_gb,
+           "moments": pinned, "step_flops": flops,
+           "matmul_params": matmul_params,
+           "mfu": flops / step_s / BF16_FLOP_PER_S,
+           "mfu_formula": "(6*matmul_params*tokens + 12*head_dim*pairs*"
+                          "layers) / step_s / 989e12 (model FLOPs: the "
+                          "remat recomputation and the chunked CE's second "
+                          "head product are not counted)",
+           "launches": counts, "launches_expected": want,
+           "launches_per_step": {"gqa_fwd": fwd_per_step, "gqa_dq": layers,
+                                 "gqa_dkv": layers,
+                                 "ce": 0 if chunked else 1},
+           "checks": checks}
+    ok = (counts == want and checks["ok"] and all(np.isfinite(losses))
+          and losses[-1] < losses[0] and (not offload or pinned["all_pinned"]))
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError(f"{phase} phase failed: " + json.dumps(out))
+    del res, opt
+    torch.cuda.empty_cache()
+    _release_pinned()
+    emit({"phase": f"{phase}_release",
+          "host_memory_gib": {k: v / 2 ** 30
+                              for k, v in _host_memory().items()},
+          "host_allocator": torch.cuda.memory.host_memory_stats()})
+    return out
+
+
+# --- phase 10: train the fused encoder (incubate.nn) at BERT-base width ---
 
 def _encoder(dev, layers, d_model, nhead, dim_feedforward, dropout_rate,
              generator, dtype):
@@ -2247,7 +2758,7 @@ def phase_train_encoder(dev, profile=False):
     return out
 
 
-# --- phase 9: BERT-base pretraining (models/nlp/bert.py) -------------------
+# --- phase 11: BERT-base pretraining (models/nlp/bert.py) ------------------
 
 def _bert_batch(vocab, B, S, seed, dev):
     """Seeded pretraining data: ids uniform over the vocabulary, token
@@ -2377,7 +2888,7 @@ def phase_train_bert(dev, profile=False):
     return out
 
 
-# --- phase 10: ResNet-50 training (vision/models/resnet.py) ----------------
+# --- phase 12: ResNet-50 training (vision/models/resnet.py) ----------------
 
 def _conv_fc_macs(model, x):
     """Multiply-adds of one image through every ``Conv1D/2D/3D`` and
@@ -2518,7 +3029,8 @@ def phase_train_resnet50(dev, profile=False):
 # --- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "reference", "serve", "train", "train_mha",
-          "train_window", "train_encoder", "train_bert", "train_resnet50")
+          "train_window", "train_full", "train_long", "train_encoder",
+          "train_bert", "train_resnet50")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -2538,11 +3050,22 @@ def _entry(name, source, replaces, launches, case, part, plain_part,
             "check": "pass", "card": card, "case": case["case"]}
 
 
+def _phase_launches(trains, phases):
+    """The launch counts of those of ``phases`` that ran, summed, and each
+    one's own counts."""
+    runs = {p: trains[p]["launches"] for p in phases if p in trains}
+    total = {}
+    for counts in runs.values():
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total, runs
+
+
 def _attention_entries(prefix, source, replaces_fwd, replaces_bwd, kind,
-                       case, launches, card):
+                       case, launches, card, by_phase=None):
     """The forward and backward entries of one attention kind, from its
     kernel-phase case at the main path's shapes and the launches of the
-    train phase that runs it."""
+    train phases that run it (``by_phase``: each phase's own counts)."""
     fwd = _entry(f"{prefix}_fwd", source, replaces_fwd,
                  launches.get(f"{kind}_fwd"), case, "fwd", "fwd",
                  ("out", "lse"), card)
@@ -2559,6 +3082,12 @@ def _attention_entries(prefix, source, replaces_fwd, replaces_bwd, kind,
                 "launches_dkv": launches.get(f"{kind}_dkv")})
     for e in (fwd, bwd):
         e["library"] = case["library"]
+    if by_phase:
+        fwd["launches_by_phase"] = {p: n[f"{kind}_fwd"]
+                                    for p, n in by_phase.items()}
+        bwd["launches_by_phase"] = {
+            p: {"dq": n[f"{kind}_dq"], "dkv": n[f"{kind}_dkv"]}
+            for p, n in by_phase.items()}
     return [fwd, bwd]
 
 
@@ -2611,19 +3140,31 @@ def _kernels_line(kern, serve, trains, card):
                                          "bitwise_repeat", "ms", "plain_ms",
                                          "bound_ms", "bound_by")}
                       for c in cases]})
-    launches = trains.get("train", {}).get("launches", {})
+    # the GQA and CE kernels at B=2, S=4096 (G = 4) run in train and
+    # train_full; the GQA kernels at G = 3, S=8192 in train_long
+    launches, by_phase = _phase_launches(trains, ("train", "train_full"))
     if kern.get("gqa"):                     # [0]: the training shapes
         kernels += _attention_entries("gqa_flash", GQA_SOURCE,
                                       GQA_FWD_REPLACES, GQA_BWD_REPLACES,
-                                      "gqa", kern["gqa"][0], launches, card)
+                                      "gqa", kern["gqa"][0], launches, card,
+                                      by_phase)
+    if kern.get("gqa_long"):
+        long_launches, long_by_phase = _phase_launches(trains,
+                                                       ("train_long",))
+        kernels += _attention_entries("gqa_flash_long", GQA_SOURCE,
+                                      GQA_FWD_REPLACES, GQA_BWD_REPLACES,
+                                      "gqa", kern["gqa_long"][0],
+                                      long_launches, card, long_by_phase)
     if kern.get("ce"):
         c = kern["ce"][0]
-        kernels.append(_entry("fused_ce_fwd", CE_SOURCE, CE_FWD_REPLACES,
-                              launches.get("ce_fwd"), c, "fwd", "fwd",
-                              ("loss", "lse"), card))
-        kernels.append(_entry("fused_ce_bwd", CE_SOURCE, CE_BWD_REPLACES,
-                              launches.get("ce_bwd"), c, "bwd", "bwd",
-                              ("dx",), card))
+        for name, replaces, part, errs in (
+                ("fused_ce_fwd", CE_FWD_REPLACES, "fwd", ("loss", "lse")),
+                ("fused_ce_bwd", CE_BWD_REPLACES, "bwd", ("dx",))):
+            e = _entry(name, CE_SOURCE, replaces, launches.get(f"ce_{part}"),
+                       c, part, part, errs, card)
+            e["launches_by_phase"] = {p: n[f"ce_{part}"]
+                                      for p, n in by_phase.items()}
+            kernels.append(e)
     if kern.get("mha"):
         kernels += _attention_entries(
             "flash_mha", GQA_SOURCE, MHA_FWD_REPLACES, MHA_BWD_REPLACES,
@@ -2697,6 +3238,9 @@ def main():
         if phase in phases:
             trains[phase] = phase_train(dev, phase, profile=args.profile,
                                         plain_curves=args.plain_curves)
+    for phase in DEPTH_CELLS:
+        if phase in phases:
+            trains[phase] = phase_train_depth(dev, phase)
     if "train_encoder" in phases:
         trains["train_encoder"] = phase_train_encoder(dev,
                                                       profile=args.profile)

@@ -5,8 +5,9 @@ Counterpart of ``paddle_tpu/models/nlp/llama.py`` (``LlamaConfig``,
 ``_rope_freqs``, ``apply_rotary``, ``LlamaForCausalLM`` and
 ``llama_train_step_factory``, ``llama.py:500-738``). Layouts are the
 reference's: every projection weight is ``(in, out)`` and is applied as
-``x @ w``, and ``state_dict()`` keys equal the reference's, so a
-reference state dict loads with ``load_numpy_state_dict`` unchanged.
+``x @ w``, and ``state_dict()`` keys equal the reference's, fused
+projections included (``qkv_proj``, ``gate_up_proj``), so a reference
+state dict loads with ``load_numpy_state_dict`` unchanged.
 
 ``LlamaForCausalLM.forward`` and the train step share one implementation
 of the layer math, ``llama_functional.forward``: on the card, the flash
@@ -103,9 +104,13 @@ class _Attention(nn.Module):
         super().__init__()
         H = c.hidden_size
         kv_out = c.num_key_value_heads * (H // c.num_attention_heads)
-        self.q_proj = _Weight((H, H), dtype, device)
-        self.k_proj = _Weight((H, kv_out), dtype, device)
-        self.v_proj = _Weight((H, kv_out), dtype, device)
+        if c.fuse_attention_qkv:
+            # one (H, H + 2*kv) product, sliced q, k, v (llama.py:195-199)
+            self.qkv_proj = _Weight((H, H + 2 * kv_out), dtype, device)
+        else:
+            self.q_proj = _Weight((H, H), dtype, device)
+            self.k_proj = _Weight((H, kv_out), dtype, device)
+            self.v_proj = _Weight((H, kv_out), dtype, device)
         self.o_proj = _Weight((H, H), dtype, device)
 
 
@@ -113,8 +118,12 @@ class _MLP(nn.Module):
     def __init__(self, c: LlamaConfig, dtype, device):
         super().__init__()
         H, F = c.hidden_size, c.intermediate_size
-        self.gate_proj = _Weight((H, F), dtype, device)
-        self.up_proj = _Weight((H, F), dtype, device)
+        if c.fuse_ffn_gate_up:
+            # one (H, 2F) product, sliced gate, up (llama.py:388-390)
+            self.gate_up_proj = _Weight((H, 2 * F), dtype, device)
+        else:
+            self.gate_proj = _Weight((H, F), dtype, device)
+            self.up_proj = _Weight((H, F), dtype, device)
         self.down_proj = _Weight((F, H), dtype, device)
 
 
@@ -141,9 +150,12 @@ class _LlamaModel(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """Parameter holder with the reference's state-dict keys:
-    ``model.embed_tokens.weight`` (V, H), ``model.layers.{i}.<LAYER_KEYS>``
-    (projections (in, out)), ``model.norm.weight``, ``lm_head.weight``
-    (H, V; absent when ``tie_word_embeddings``).
+    ``model.embed_tokens.weight`` (V, H), ``model.layers.{i}.<key>`` for
+    each key of ``llama_functional.layer_keys(config)`` (projections (in,
+    out); ``self_attn.qkv_proj.weight`` (H, H + 2·kv·hd) under
+    ``fuse_attention_qkv``, ``mlp.gate_up_proj.weight`` (H, 2F) under
+    ``fuse_ffn_gate_up``), ``model.norm.weight``, ``lm_head.weight`` (H,
+    V; absent when ``tie_word_embeddings``).
 
     Parameters are made on ``device`` (``cuda`` unless ``"cpu"`` is
     asked for) and filled from a ``torch.Generator`` seeded with ``seed``:
@@ -152,10 +164,6 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        if config.fuse_attention_qkv or config.fuse_ffn_gate_up:
-            raise NotImplementedError(
-                "fused qkv / gate_up weights are not ported yet "
-                "(ROADMAP Queue 1: fused projection weights)")
         if config.sliding_window is not None and config.sliding_window < 1:
             raise ValueError(f"sliding_window must be >= 1 (got "
                              f"{config.sliding_window}); use None to "
@@ -182,18 +190,16 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, positions=None):
         """Logits (B, S, V) for input_ids (B, S): the functional forward
         (``llama_functional.forward``) over this model's own parameters,
-        differentiable in those that require grad."""
-        if positions is not None:
-            raise NotImplementedError(
-                "explicit positions are not ported yet (ROADMAP Queue 1: "
-                "the dense decode factory); positions are 0..S-1")
+        differentiable in those that require grad. ``positions`` ((S,) or
+        (B, S)) feed the rotary in place of 0..S-1, as in the reference;
+        the causal mask stays that of the sequence order."""
         from .llama_functional import forward, param_views
 
         outer, layers = param_views(dict(self.named_parameters()),
                                     self.config.num_hidden_layers)
         return forward(self.config, outer, layers,
                        torch.as_tensor(input_ids, device=self.device).long(),
-                       remat=False)
+                       remat=False, positions=positions)
 
 
 def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
@@ -206,22 +212,35 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
 
     ``params`` are the model's own parameters ({state-dict key: tensor},
     made trainable; no copy is held), ``opt_state`` is
-    ``make_adamw_state(params, accum_dtype)``, and
+    ``make_adamw_state(params, accum_dtype, offload_moments)``, and
     ``train_step(params, opt_state, tokens, labels) -> (params, opt_state,
     loss)`` runs the forward (the attention kernels of
-    ``llama_functional``), the fused CE loss, the
-    backward and AdamW. The update is IN PLACE: the counterpart of the
-    reference's ``donate_argnums``, and the model holds the trained
-    weights. ``remat=True`` checkpoints each decoder layer
-    (``torch.utils.checkpoint``), which recomputes its forward in the
-    backward: the numbers are the same, the attention kernels' forward
-    launches double.
+    ``llama_functional``), the loss, the backward and AdamW. The update
+    is IN PLACE: the counterpart of the reference's ``donate_argnums``,
+    and the model holds the trained weights.
 
-    Not ported yet, and refused: ``remat="dots"``, ``offload_moments``,
-    ``chunked_vocab_ce`` (ROADMAP Queue 1, the training step) and
-    ``mesh`` axes (data/sep/model/sharding: ROADMAP Queue 1, distributed
-    and parallel)."""
-    from .llama_functional import loss_fn, param_views
+    remat: False keeps every activation; True checkpoints each decoder
+    layer and recomputes its forward in the backward; ``"dots"`` keeps
+    the projections' outputs and recomputes the rest (the reference's
+    ``dots_with_no_batch_dims_saveable``). The numbers are the same; the
+    attention forward launches double under True and ``"dots"``
+    (``llama_functional.hidden_states``).
+
+    offload_moments: AdamW's f32 moments live in pinned host memory and
+    stream through the card in chunks of 4 tensors around the update
+    (``train_utils.apply_adamw``): what a 7-8 B model needs to train on
+    one 80 GB card. The result equals device-resident moments bit for
+    bit.
+
+    chunked_vocab_ce: a chunk size; the tied embedding's head and the CE
+    run chunk by chunk (``ops/chunked_ce.py``), so the (B·S, V) logits are
+    never built. Requires tied word embeddings (ValueError otherwise, as
+    in the reference).
+
+    Not ported yet, and refused: ``mesh`` axes (data/sep/model/sharding:
+    ROADMAP Queue 1, distributed and parallel)."""
+    from .llama_functional import (CHUNKED_NEEDS_TIED, _check_remat,
+                                   loss_fn, param_views)
     from .train_utils import apply_adamw, make_adamw_state
 
     dev = resolve_device(device)
@@ -229,21 +248,9 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
         raise NotImplementedError(
             "mesh axes (data/sep/model/sharding) are not ported yet: ROADMAP "
             "Queue 1, distributed / parallel")
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save matmul outputs, recompute the rest) is not "
-            "ported yet: ROADMAP Queue 1, the training step")
-    if remat not in (True, False):
-        raise ValueError(f"remat must be True, False or 'dots'; got "
-                         f"{remat!r}")
-    if offload_moments:
-        raise NotImplementedError(
-            "offload_moments (AdamW moments in pinned host memory) is not "
-            "ported yet: ROADMAP Queue 1, the training step")
-    if chunked_vocab_ce:
-        raise NotImplementedError(
-            "chunked_vocab_ce (the fused head projection + CE) is not "
-            "ported yet: ROADMAP Queue 1, the training step")
+    _check_remat(remat)
+    if chunked_vocab_ce and model.lm_head is not None:
+        raise ValueError(CHUNKED_NEEDS_TIED)
     cfg = model.config
     if model.device.type != dev.type:
         raise ValueError(f"the model lives on {model.device}; build it with "
@@ -251,7 +258,7 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
-    opt_state = make_adamw_state(params, accum_dtype)
+    opt_state = make_adamw_state(params, accum_dtype, offload=offload_moments)
     n_layers = cfg.num_hidden_layers
 
     def train_step(params, opt_state, tokens, labels):
@@ -259,10 +266,11 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
         labels = torch.as_tensor(labels, device=dev).long()
         keys = list(params)
         outer, layers = param_views(params, n_layers)
-        loss = loss_fn(cfg, outer, layers, tokens, labels, remat)
+        loss = loss_fn(cfg, outer, layers, tokens, labels, remat,
+                       chunked_vocab_ce)
         grads = list(torch.autograd.grad(loss, [params[k] for k in keys]))
         apply_adamw(params, grads, opt_state, learning_rate, beta1, beta2,
-                    eps, weight_decay, accum_dtype)
+                    eps, weight_decay, accum_dtype, offload=offload_moments)
         return params, opt_state, loss.detach()
 
     return params, opt_state, train_step

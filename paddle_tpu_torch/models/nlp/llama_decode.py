@@ -137,10 +137,19 @@ def llama_paged_decode_factory(model: LlamaForCausalLM,
 
     Not ported yet (ROADMAP Queue 1): ``tp``, ``lora``, ``grammar``,
     ``kv_quant="pressure"``, ``prefill_ragged``; ``scan_layers`` has no
-    meaning here (the layers are a Python loop).
+    meaning here (the layers are a Python loop). A model with fused
+    projection weights is refused: the decode programs read the unfused
+    keys, as the reference's do.
     """
     dev = resolve_device(device)
     cfg = model.config
+    for option in ("fuse_attention_qkv", "fuse_ffn_gate_up"):
+        if getattr(cfg, option):
+            raise ValueError(
+                f"llama_paged_decode_factory reads the unfused projection "
+                f"weights (q/k/v_proj, gate/up_proj), as the reference's "
+                f"decode factories do; this model has {option}=True: load "
+                f"its weights into a model built without it")
     outer, layers = split_params(model)
     outer = {k: v.to(dev) for k, v in outer.items()}
     layers = {k: v.to(dev) for k, v in layers.items()}

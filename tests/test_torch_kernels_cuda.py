@@ -1095,3 +1095,117 @@ def test_bf16_bert_grads_are_as_close_to_f32_as_the_plain_versions(
           f"median {statistics.median(plain):.4g}")
     assert max(kernel) <= 1.1 * max(plain)
     assert statistics.median(kernel) <= 1.1 * statistics.median(plain)
+
+
+# --- the Llama training step's options (remat, offload, chunked CE) ------
+
+def _option_model(dev, **fields):
+    """A bf16 GQA Llama at a flash-eligible shape (hidden 1024, 8 / 2
+    heads, head_dim 128, 2 layers, vocab 4096), made from a seed, and a
+    batch (B=2, S=512)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models.nlp import LlamaConfig, LlamaForCausalLM
+
+    cfg = dataclasses.replace(
+        LlamaConfig.tiny(vocab=4096, hidden=1024, layers=2, heads=8,
+                         kv_heads=2), dtype=torch.bfloat16, **fields)
+    rng = np.random.default_rng(0)
+    batch = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512)))
+             .to(dev) for _ in range(2)]
+    return LlamaForCausalLM(cfg, device=dev, seed=0), batch
+
+
+@pytest.mark.cuda
+def test_offloaded_moments_are_pinned_and_bit_equal(card):
+    """3 steps with AdamW's moments in pinned host memory, streamed
+    through the card in chunks, against 3 with the moments on the card:
+    the same losses, parameters and moments, bit for bit."""
+    from paddle_tpu_torch.models.nlp import llama_train_step_factory
+
+    runs = {}
+    for offload in (False, True):
+        model, (tokens, labels) = _option_model(card)
+        params, opt, step = llama_train_step_factory(
+            model, learning_rate=1e-3, remat=False, device=card,
+            offload_moments=offload)
+        losses = [float(step(params, opt, tokens, labels)[2])
+                  for _ in range(3)]
+        torch.cuda.synchronize()
+        runs[offload] = (losses, params, opt)
+    (losses, params, opt), (o_losses, o_params, o_opt) = \
+        runs[False], runs[True]
+    assert all(m.is_pinned() and not m.is_cuda for name in ("m", "v")
+               for m in o_opt[name].values())
+    assert losses == o_losses
+    for k in params:
+        assert torch.equal(params[k], o_params[k]), k
+        for name in ("m", "v"):
+            assert torch.equal(opt[name][k].cpu(), o_opt[name][k]), k
+
+
+@pytest.mark.cuda
+def test_remat_modes_give_the_same_bits_on_the_card(card):
+    """remat False / True / "dots" on a fused-projection model: the same
+    loss and gradients, bit for bit (the same operations, deterministic
+    kernels); the grouped flash forward launches once a layer without
+    remat and twice with True or "dots", dq and dk/dv once a layer in
+    all."""
+    from paddle_tpu_torch.models.nlp import param_views
+    from paddle_tpu_torch.models.nlp.llama_functional import loss_fn
+
+    model, (tokens, labels) = _option_model(
+        card, fuse_attention_qkv=True, fuse_ffn_gate_up=True)
+    params = {k: p.requires_grad_() for k, p in model.named_parameters()}
+    L = model.config.num_hidden_layers
+    owner = fa.grouped_flash_attention
+    out = {}
+    for remat in (False, True, "dots"):
+        before = (owner.launches_fwd, owner.launches_dq, owner.launches_dkv)
+        outer, layers = param_views(params, L)
+        loss = loss_fn(model.config, outer, layers, tokens, labels, remat)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        launched = tuple(n - b for n, b in zip(
+            (owner.launches_fwd, owner.launches_dq, owner.launches_dkv),
+            before))
+        assert launched == ((L if remat is False else 2 * L), L, L), remat
+        out[remat] = (loss.detach(), grads)
+    for remat in (True, "dots"):
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(out[remat][1], out[False][1]))
+        print(f"remat={remat!r}: loss {float(out[remat][0]):.6f} against "
+              f"{float(out[False][0]):.6f}, largest gradient difference "
+              f"{diff:.3g}")
+        assert torch.equal(out[remat][0], out[False][0])
+        assert diff == 0.0
+
+
+@pytest.mark.cuda
+def test_chunked_ce_on_the_card_matches_the_cpu(card):
+    """The chunked CE on bf16 inputs (V = 4099 in chunks of 1024, the
+    last padded), card against CPU: the chunk logits are f32 products of
+    the same bf16 values (cuBLAS writes f32 on the card, the CPU widens
+    first), apart by the order of the sums: loss 1e-5 relative; dx and dw
+    round f32 sums to bf16 once, so one bf16 ulp apart at most: 1e-6 +
+    2^-7 of |cpu|."""
+    from paddle_tpu_torch.ops.chunked_ce import chunked_causal_lm_loss
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 256, 512), generator=g).to(torch.bfloat16)
+    w = (torch.randn((4099, 512), generator=g) * 0.05).to(torch.bfloat16)
+    labels = torch.randint(0, 4099, (2, 256), generator=g)
+
+    def run(dev):
+        xd = x.to(dev).requires_grad_()
+        wd = w.to(dev).requires_grad_()
+        loss = chunked_causal_lm_loss(xd, wd, labels.to(dev), 1024)
+        return (loss.detach().cpu(), *(t.float().cpu() for t in
+                                       torch.autograd.grad(loss, (xd, wd))))
+
+    got, want = run(card), run(torch.device("cpu"))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    for name, a, b in zip(("dx", "dw"), got[1:], want[1:]):
+        print(f"{name}: largest err / tol "
+              f"{float(((a - b).abs() / (1e-6 + 2 ** -7 * b.abs())).max()):.3g}")
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=2 ** -7)

@@ -9,6 +9,8 @@ summation order (XLA vs ATen matmuls, online vs exact softmax). Greedy
 tokens must be identical. fp pools atol 1e-5; int8 pool codes may differ
 by one step where a value sits within rounding noise of a .5 boundary.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -210,6 +212,11 @@ def test_factory_refuses_unported_options():
         llama_paged_decode_factory(tm, kv_quant="pressure", device="cpu")
     with pytest.raises(TypeError):
         llama_paged_decode_factory(tm, tp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.zeros((1, 4), dtype=torch.long),
-           positions=torch.arange(4))
+    # a model with fused projection weights: the decode programs read the
+    # unfused keys, as the reference's do (explicit positions, refused
+    # here before, are ported: tests/test_torch_train_options.py)
+    fused = LlamaForCausalLM(dataclasses.replace(tm.config,
+                                                 fuse_attention_qkv=True),
+                             device="cpu")
+    with pytest.raises(ValueError, match="fuse_attention_qkv"):
+        llama_paged_decode_factory(fused, device="cpu")

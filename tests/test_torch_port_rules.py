@@ -29,6 +29,8 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.ops.flash_attention_gqa",
              "paddle_tpu_torch.ops.splash_attention",
              "paddle_tpu_torch.ops.fused_ce",
+             "paddle_tpu_torch.ops.chunked_ce",
+             "paddle_tpu_torch.examples.train_llama_long_context",
              "paddle_tpu_torch.models.nlp.train_utils",
              "paddle_tpu_torch.examples.train_llama_compiled",
              "paddle_tpu_torch.ops.layer_norm",

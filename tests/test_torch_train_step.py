@@ -19,7 +19,7 @@ by ``load_numpy_state_dict``) and the same numpy batch:
   (``sliding_window`` 64 < S: grouped splash), a multi-head config
   (kv_heads == heads: multi-head flash) and a windowed multi-head one
   (splash at G = 1), each a variant of the config above;
-* the refusal of every option the port has not ported.
+* the refusal of the option the port has not ported (``mesh``).
 
 Tolerances (f32 on both sides, apart by the order of sums only): logits
 atol 1e-4 (reading 4e-6); loss atol 1e-5 (reading 1e-6); gradients atol
@@ -138,25 +138,19 @@ def test_three_train_steps_match_jax(remat):
 
 
 def test_factory_refuses_unported_options():
+    """Only ``mesh`` is still refused; ``remat`` outside False / True /
+    "dots" and a window below 1 are errors. The options ported since
+    (remat="dots", offload_moments, chunked_vocab_ce, positions, fused
+    projections) are held against the JAX package in
+    tests/test_torch_train_options.py."""
     _, tm, _ = _models()
-    for kw, match in [(dict(remat="dots"), "remat='dots'"),
-                      (dict(offload_moments=True), "offload_moments"),
-                      (dict(chunked_vocab_ce=32), "chunked_vocab_ce"),
-                      (dict(mesh=object()), "mesh axes")]:
-        with pytest.raises(NotImplementedError, match=match):
-            llama_train_step_factory(tm, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="mesh axes"):
+        llama_train_step_factory(tm, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="remat"):
         llama_train_step_factory(tm, device="cpu", remat="full")
     with pytest.raises(ValueError, match="sliding_window"):
         LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(**CFG),
                                              sliding_window=0), device="cpu")
-    with pytest.raises(NotImplementedError, match="positions"):
-        tm(torch.zeros((1, 8), dtype=torch.long),
-           positions=torch.arange(8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(**CFG),
-                                             fuse_attention_qkv=True),
-                         device="cpu")
 
 
 # the windowed and multi-head configs: (kv_heads, sliding_window). At
