@@ -11,6 +11,7 @@ trains.
     python3 chip_smoke.py --phases build,reference,train_bert
     python3 chip_smoke.py --phases build,reference,train_resnet50
     python3 chip_smoke.py --phases build,reference,train_full,train_long
+    python3 chip_smoke.py --phases build,reference,serve_engine
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -117,8 +118,18 @@ Phases, each printing JSON lines:
    ``resnet_train_step_factory`` (losses, step 1's gradients, parameters,
    velocities and buffers); and the max-pool tie case (a 6 x 6 map of
    zeros after a ReLU, kernel 3, stride 2, pad 1), whose gradient must land
-   where the CPU's does.
-4. ``serve``: Llama-3-8B at full width and depth, bf16, random weights
+   where the CPU's does. Then ``ServingEngine`` on the fixed clock over
+   the serving factory of a small f32 Llama (hidden 256, 4 / 2 heads,
+   head_dim 64, 2 layers, vocab 97; pages of 16, 4 slots), on the card
+   and on the CPU, under the routed, dense and paged policies, on one
+   mixed trace (Poisson singles with churn merged with a uniform burst):
+   outputs identical across devices and policies, slot logs and reports
+   identical across devices, the dense policy on the dense backend, the
+   paged policy on the paged one, the paged kernel launched on the card;
+   and the routed run once more with ``kv_quant="int8"`` (int8 pages and
+   dense caches) through the constructor's model path, card against CPU.
+4. ``serve``: Llama-3-8B at full width and 8 of its 32 layers (printed as
+   ``cut``: ``serve_engine`` serves all 32), bf16, random weights
    from a seed, through ``examples/serve_paged_llama.serve``: 16 requests,
    continuous batching in 8 slots of 2048 tokens, chunked prefill of 256
    tokens through the kernel, fixed-shape decode steps with pad rows on
@@ -133,7 +144,28 @@ Phases, each printing JSON lines:
    rest, and one of a
    1024-token request's prefill (4 chunks; ``profile_prefill``) does the
    same for the time to the first token.
-5. ``train``, ``train_mha``, ``train_window``: Llama-3-8B (GQA, B=2,
+5. ``serve_engine``: Llama-3-8B at full width and depth, bf16, random
+   weights from a seed, through ``llama_serving_decode_factory`` (max_len
+   2048, pages of 64, 8 x 32 + 1 pool pages, dense capacity 8, chunked
+   prefill of 64 by the plain page gather, as the reference builds it)
+   and ``ServingEngine(slots=8, policy="routed", expect_churn=False)``.
+   The trace: a uniform burst of 8 requests that arrives alone (prompts
+   256-512, 32-64 new tokens), then 24 Poisson singles (prompts 128-1024,
+   32-128 new tokens, half opening with one of two 256-token prefixes, a
+   fifth cancelled early), ``ENGINE_INTERARRIVAL`` apart on average.
+   First the first 12 requests on the fixed clock, twice: outputs and
+   slot logs identical. Then the kernel's counts are set to 0, the 32
+   requests run on the measured clock (each backend call timed up to its
+   result on the card), and the counts are read: exactly 32 ``split``
+   launches a paged decode step, no ``mma`` or ``rows`` (prefill chunks
+   attend by the gather, the dense wave in plain PyTorch). Also checked:
+   every stream has min(budget, cancel_after) tokens, the pool's census
+   (resident + evictable + free == pool) holds, a dense and a paged wave
+   ran. Records tokens/s on the wall clock, TTFT p50/p95 and TPOT p50 of
+   ``report()``, the median decode turn, prefill chunk and dense step
+   (from the run's trace spans), ``engine_host_frac``, the routing
+   decisions by backend and rule, prefix-cache hits and peak memory.
+6. ``train``, ``train_mha``, ``train_window``: Llama-3-8B (GQA, B=2,
    S=4096), Llama-2-7B (multi-head, ``LlamaConfig()``, B=2, S=4096) and
    Mistral-7B-v0.1 (GQA with a sliding window of 4096, B=1, S=8192), each
    at full width with 8 of its 32 layers (the cut that lets params, grads
@@ -156,8 +188,8 @@ Phases, each printing JSON lines:
    weights and batch with the plain attention and CE versions, and both
    loss curves are printed (``plain_curves_<phase>``).
 
-8. ``train_full`` and 9. ``train_long``: Llama-3-8B at all 32 layers (the host's memory
-   permitting: else the deepest cut whose moments it can pin, printed as
+7. ``train_full`` and 8. ``train_long``: Llama-3-8B at all 32 layers (the
+   host's memory permitting: else the deepest cut whose moments it can pin, printed as
    ``cut``), bf16, B=2, S=4096, ``remat=True`` and ``offload_moments``:
    AdamW's f32 moments (64.2 GB) in pinned host memory, streamed through
    the card in chunks of 4 tensors. ``train_long``: Llama-3.2-3B's widths
@@ -183,7 +215,7 @@ Phases, each printing JSON lines:
    the moments' bytes and where they live, the host's memory, and the
    losses (finite, the last below the first).
 
-10. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
+9. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
    ``incubate.nn`` at BERT-base's widths (768, 12 heads, FFN 3072, GELU,
    dropout 0.1), bf16, random weights from a seed, on hidden states
    (B=32, S=512) against an N(0, 1) target (MSE), trained 5 steps on one
@@ -194,7 +226,7 @@ Phases, each printing JSON lines:
    24 dropout-add-LN and 12 + 12 + 12 multi-head flash launches per step
    and none of any other kernel.
 
-11. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
+10. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
    vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072, GELU, dropout
    0.1), bf16, random weights from a seed, full depth, in training mode
    (dropout live, drawn from one generator), on seeded data (B=32, S=512:
@@ -212,7 +244,7 @@ Phases, each printing JSON lines:
    log-softmax, matrix products, the rest), idle share and kernels a
    step.
 
-12. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
+11. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
     width), bf16 parameters with f32 masters, f32 batch-norm buffers, on
     B=256 seeded class-template images of 3 x 224 x 224 (NCHW; one
     repeated batch), through ``resnet_train_step_factory`` (its defaults:
@@ -267,8 +299,9 @@ PAGED_TOL = {"bfloat16": (KERNEL_ATOL, KERNEL_RTOL),
 # summation order only
 REF_ATOL = 1e-4
 # 8B decode step, kernel vs plain attention on identical pools: one bf16
-# rounding apart per layer, carried through 32 bf16 layers. Reading
-# 0.238 (max |logit| 6.19); the limit is about twice it.
+# rounding apart per layer, carried through the serve phase's bf16 layers.
+# Reading at 32 layers 0.238 (max |logit| 6.19); the limit, about twice
+# it, stays at the phase's 8 (reading 0.102 there).
 STEP_ATOL = 0.5
 
 # attention kernels (grouped and multi-head flash, splash), kernel vs
@@ -1710,6 +1743,104 @@ def _reference_llama_options(dev):
         "moments_pinned": card[3], **train, "ok": ok}, ok)
 
 
+# the reference phase's engine check: a small f32 Llama at head_dim 64 (the
+# paged kernel's smallest) behind the serving factory, page 16, 4 slots
+ENGINE_SMALL = dict(vocab=97, hidden=256, layers=2, heads=4, kv_heads=2,
+                    max_len=64, page_size=16, slots=4)
+
+
+def _engine_small_trace():
+    """The mixed trace of the reference engine test: Poisson singles with
+    churn, merged with one uniform burst."""
+    from paddle_tpu_torch.serving import merge_traces, synthesize_trace
+
+    ragged = synthesize_trace(seed=3, n_requests=5, arrival="poisson",
+                              mean_interarrival=0.5, prompt_len=(4, 14),
+                              output_len=(3, 6), vocab_size=97,
+                              churn_frac=0.3, rid_prefix="r")
+    burst = synthesize_trace(seed=9, n_requests=4, arrival="bursty",
+                             burst_size=4, mean_interarrival=0.7,
+                             prompt_len=(8, 12), output_len=(3, 5),
+                             vocab_size=97, rid_prefix="b")
+    return merge_traces(ragged, burst)
+
+
+def _reference_engine(dev):
+    """``ServingEngine`` on the fixed clock over the serving factory of a
+    small f32 Llama, on the card and on the CPU, under the routed, dense
+    and paged policies: outputs identical across devices and policies,
+    slot logs and reports identical across devices, both backends
+    exercised, the paged kernel launched on the card only. Returns (its
+    readings, ok)."""
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_serving_decode_factory,
+                                             load_numpy_state_dict)
+    from paddle_tpu_torch.ops import paged_attention
+    from paddle_tpu_torch.serving import ServingEngine
+
+    e = ENGINE_SMALL
+    cfg = LlamaConfig.tiny(vocab=e["vocab"], hidden=e["hidden"],
+                           layers=e["layers"], heads=e["heads"],
+                           kv_heads=e["kv_heads"])
+    state = {k: v.numpy() for k, v in
+             LlamaForCausalLM(cfg, device="cpu", seed=15).state_dict()
+             .items()}
+    trace = _engine_small_trace()
+    runs, launches, int8_pools = {}, {}, {}
+    for d in (dev, torch.device("cpu")):
+        model = load_numpy_state_dict(LlamaForCausalLM(cfg, device=d), state)
+        srv = llama_serving_decode_factory(
+            model, max_len=e["max_len"], page_size=e["page_size"],
+            n_pool_pages=e["slots"] * (e["max_len"] // e["page_size"]) + 1,
+            batch_capacity=e["slots"], chunked_prefill=e["page_size"],
+            device=d)
+        paged_attention.launches = 0
+        for pol in ("routed", "dense", "paged"):
+            res = ServingEngine(serving=srv, slots=e["slots"], policy=pol,
+                                clock="fixed").run(trace)
+            runs[d.type, pol] = res
+        launches[d.type] = paged_attention.launches
+        # int8 pages and dense caches, through the constructor's model
+        # path (greedy tokens may differ from full precision, not
+        # between card and CPU)
+        eng = ServingEngine(
+            model, slots=e["slots"], max_len=e["max_len"],
+            page_size=e["page_size"], policy="routed", clock="fixed",
+            kv_quant="int8", device=d)
+        runs[d.type, "int8"] = eng.run(trace)
+        int8_pools[d.type] = (str(eng._pools[0][0].dtype),
+                              eng.pool_bytes_per_device())
+    want = {r.rid: min(r.max_new_tokens, r.cancel_after or 10 ** 9)
+            for r in trace}
+    outs = {k: r.outputs for k, r in runs.items()}
+    same_outputs = all(o == outs["cpu", "paged"] for k, o in outs.items()
+                       if k[1] != "int8")
+    same_logs = all(runs[dev.type, p].outputs == runs["cpu", p].outputs
+                    and runs[dev.type, p].slot_log == runs["cpu", p].slot_log
+                    and runs[dev.type, p].report()
+                    == runs["cpu", p].report()
+                    for p in ("routed", "dense", "paged", "int8"))
+    int8_ok = (int8_pools[dev.type] == int8_pools["cpu"]
+               and int8_pools["cpu"][0] == "torch.int8")
+    backends = {p: sorted({d["backend"] for d in runs[dev.type, p]
+                           .decisions}) for p in ("routed", "dense",
+                                                  "paged")}
+    streams = all(len(o[rid]) == n for o in outs.values()
+                  for rid, n in want.items())
+    ok = (same_outputs and same_logs and streams and int8_ok
+          and backends["dense"] == ["dense"]
+          and backends["paged"] == ["paged"]
+          and launches[dev.type] > 0 and launches["cpu"] == 0)
+    return ({"config": {k: e[k] for k in ("hidden", "heads", "kv_heads",
+                                          "layers", "page_size", "slots")},
+             "requests": len(trace), "outputs_identical": same_outputs,
+             "slot_logs_and_reports_identical": same_logs,
+             "streams_full": streams, "backends": backends,
+             "int8_pools": int8_pools[dev.type],
+             "paged_launches_card": launches[dev.type],
+             "paged_launches_cpu": launches["cpu"], "ok": ok}, ok)
+
+
 def phase_reference(dev):
     from paddle_tpu_torch.models.nlp import LlamaConfig
 
@@ -1725,13 +1856,15 @@ def phase_reference(dev):
     wide, wide_ok = _reference_llama(dev, LlamaConfig.tiny(
         vocab=256, hidden=768, layers=2, heads=3, kv_heads=1))
     options, options_ok = _reference_llama_options(dev)
+    engine, engine_ok = _reference_engine(dev)
     enc = _reference_encoder(dev)
     bert = _reference_bert(dev)
     vision = _reference_vision(dev)
     out.update({"llama_d256_g3": {**wide, "ok": wide_ok},
-                "llama_options": options, **enc, **bert, "vision": vision,
-                "ok": ok and wide_ok and options_ok and enc["encoder_ok"]
-                and bert["bert_ok"] and vision["ok"]})
+                "llama_options": options, "engine": engine, **enc, **bert,
+                "vision": vision,
+                "ok": ok and wide_ok and options_ok and engine_ok
+                and enc["encoder_ok"] and bert["bert_ok"] and vision["ok"]})
     # the offloaded steps' pinned blocks go back to the host
     _release_pinned()
     emit(out)
@@ -1748,6 +1881,11 @@ def _requests(seed, n, vocab):
              .tolist(), int(rng.integers(32, 129))) for i in range(n)]
 
 
+# the hand loop's depth: serve_engine serves all 32 layers, and the whole
+# script keeps near its earlier wall time with this phase cut to 8
+SERVE_LAYERS = 8
+
+
 def phase_serve(dev, profile=False):
     from paddle_tpu_torch.examples.serve_paged_llama import serve
     from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
@@ -1756,7 +1894,8 @@ def phase_serve(dev, profile=False):
     from paddle_tpu_torch.ops import (PagedKVCache, paged_attention,
                                       paged_attention_reference)
 
-    cfg = LlamaConfig.llama3_8b()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=SERVE_LAYERS)
     L, Hkv = cfg.num_hidden_layers, cfg.num_key_value_heads
     hd = cfg.hidden_size // cfg.num_attention_heads
     ps, slots, slot_tokens, C = 64, 8, 2048, 256
@@ -1798,6 +1937,7 @@ def phase_serve(dev, profile=False):
                   and all(0 <= t < cfg.vocab_size
                           for out in res["done"].values() for t in out))
     out = {"phase": "serve", "model": "llama3_8b", "layers": L,
+           "cut": f"{L} of 32 layers (serve_engine serves all 32)",
            "dtype": "bfloat16", "requests": len(reqs),
            "served": len(res["done"]), "generated_tokens": generated,
            "decode_steps": res["steps"], "prefill_chunks": chunks,
@@ -1862,6 +2002,181 @@ def phase_serve(dev, profile=False):
               "chunks": toks1.shape[1] // C, **_profile(
                   lambda: prefill(outer, layers, toks1, pt[:1], ln1, pools),
                   families)})
+    return out
+
+
+# --- phase 5: serve Llama-3-8B through ServingEngine ----------------------
+
+# the serving factory and engine of the serve_engine phase: 8 slots of 2048
+# tokens, pages of 64, a pool of 8 x 32 pages + the reserved page 0,
+# chunked prefill of one page (the engine's own build), dense capacity 8
+SERVE_ENGINE = dict(max_len=2048, page_size=64, slots=8, chunked_prefill=64,
+                    replay=12)
+# the Poisson part's mean interarrival, virtual seconds: about one paged
+# decode turn of the measured run (medians of 28.4-36.5 ms on one H100
+# 80GB HBM3 at 700 W; PERF.md §4)
+ENGINE_INTERARRIVAL = 0.03
+
+
+def _serve_engine_trace(vocab):
+    """32 requests: one uniform burst of 8 (prompts 256-512, 32-64 new
+    tokens) that arrives alone, then 24 Poisson singles from its arrival
+    on (prompts 128-1024, 32-128 new tokens, half opening with one of two
+    256-token prefixes, a fifth cancelled early)."""
+    from paddle_tpu_torch.serving import merge_traces, synthesize_trace
+
+    burst = synthesize_trace(seed=1, n_requests=8, arrival="bursty",
+                             burst_size=8, prompt_len=(256, 512),
+                             output_len=(32, 64), vocab_size=vocab,
+                             rid_prefix="b")
+    singles = synthesize_trace(seed=0, n_requests=24, arrival="poisson",
+                               mean_interarrival=ENGINE_INTERARRIVAL,
+                               prompt_len=(128, 1024), output_len=(32, 128),
+                               vocab_size=vocab, shared_prefix_frac=0.5,
+                               prefix_len=256, n_prefix_groups=2,
+                               churn_frac=0.2, start=burst[0].arrival)
+    return merge_traces(burst, singles)
+
+
+def _engine_spans(events, name):
+    return [e for e in events if e["ph"] == "X" and e["name"] == name]
+
+
+def phase_serve_engine(dev):
+    """Llama-3-8B, full width and depth, bf16, seeded weights, through
+    ``llama_serving_decode_factory`` and ``ServingEngine(policy="routed",
+    clock="measured")`` on ``_serve_engine_trace``. First a fixed-clock
+    replay of the first 12 requests, twice (identical outputs and slot
+    logs; it also warms the card up). Then the paged kernel's counts are
+    set to 0, the measured run serves the 32 requests, and the counts are
+    read: every launch must be a paged decode step's (``split``, 32 a
+    step); prefill chunks attend by the plain page gather and the dense
+    wave in plain PyTorch, as in the reference."""
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_serving_decode_factory)
+    from paddle_tpu_torch.obs import Tracer
+    from paddle_tpu_torch.ops import paged_attention
+    from paddle_tpu_torch.serving import ServingEngine
+
+    e = SERVE_ENGINE
+    cfg = LlamaConfig.llama3_8b()
+    L = cfg.num_hidden_layers
+    ps, C = e["page_size"], e["chunked_prefill"]
+    n_pages = e["slots"] * (e["max_len"] // ps) + 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    srv = llama_serving_decode_factory(
+        model, max_len=e["max_len"], page_size=ps, n_pool_pages=n_pages,
+        batch_capacity=e["slots"], chunked_prefill=C)
+    del model                      # the factory holds the stacked copy
+    gc.collect()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    trace = _serve_engine_trace(cfg.vocab_size)
+
+    def engine(clock, tracer=None):
+        return ServingEngine(serving=srv, slots=e["slots"], policy="routed",
+                             clock=clock, expect_churn=False, trace=tracer)
+
+    # fixed clock: the first requests by arrival, twice
+    first = sorted(trace, key=lambda r: (r.arrival, r.rid))[:e["replay"]]
+    replays = [engine("fixed").run(first) for _ in range(2)]
+    replay_ok = (replays[0].outputs == replays[1].outputs
+                 and replays[0].slot_log == replays[1].slot_log
+                 and len(replays[0].outputs) == len(first))
+    replay_backends = sorted({d["backend"] for d in replays[0].decisions})
+    del replays
+
+    tracer = Tracer()
+    paged_attention.launches = 0
+    by_instance = paged_attention.instance_launches
+    for name in by_instance:
+        by_instance[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = engine("measured", tracer).run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_attention.launches
+    launched_by = dict(by_instance)
+
+    events = tracer.events
+    decode = _engine_spans(events, "decode")
+    steps = sum(s["args"].get("n", 1) for s in decode)
+    want_by = {"split": L * steps, "mma": 0, "rows": 0}
+    prompts = {r.rid: len(r.prompt) for r in trace}
+    chunk_ms = []
+    for s in _engine_spans(events, "prefill"):
+        T = max(C, -(-prompts[s["args"]["rid"]] // C) * C)
+        chunks = (T - min(s["args"].get("resume", 0), T - C)) // C
+        chunk_ms.append(1e3 * s["dur"] / chunks)
+    dense_steps = _engine_spans(events, "dense_decode")
+    want = {r.rid: min(r.max_new_tokens, r.cancel_after or 10 ** 9)
+            for r in trace}
+    got = {rid: len(out) for rid, out in res.outputs.items()}
+    streams_ok = got == want and all(
+        0 <= tok < cfg.vocab_size for out in res.outputs.values()
+        for tok in out)
+    cs = res.cache_stats
+    census_ok = (cs["resident_pages"] + cs["evictable_pages"]
+                 + cs["free_pages"] == cs["n_pages"] == n_pages - 1
+                 and cs["invariant_ok"])
+    by_backend = {}
+    for d in res.decisions:
+        b = by_backend.setdefault(d["backend"], {"waves": 0, "requests": 0,
+                                                 "rules": {}})
+        b["waves"] += 1
+        b["requests"] += d["wave"]
+        rule = d["rule"].split(" (")[0]
+        b["rules"][rule] = b["rules"].get(rule, 0) + 1
+    rep = res.report()
+    generated = sum(got.values())
+    out = {"phase": "serve_engine", "model": "llama3_8b", "layers": L,
+           "dtype": "bfloat16", "requests": len(trace),
+           "policy": "routed", "clock": "measured",
+           "completed": rep["completed"], "cancelled": rep["evicted"],
+           "generated_tokens": generated, "wall_s": wall,
+           "tokens_per_s_wall": generated / wall, "setup_s": setup_s,
+           "ttft_p50_s": rep["ttft_p50"], "ttft_p95_s": rep["ttft_p95"],
+           "tpot_p50_s": rep["tpot_p50"],
+           "decode_turns": len(decode), "decode_steps": steps,
+           "decode_turn_ms_median": 1e3 * statistics.median(
+               s["dur"] for s in decode) if decode else None,
+           "prefill_calls": len(chunk_ms),
+           "prefill_chunks": res.prefill_tokens // C,
+           "prefill_chunk_ms_median": statistics.median(chunk_ms)
+           if chunk_ms else None,
+           "dense_decode_steps": len(dense_steps),
+           "dense_decode_ms_median": 1e3 * statistics.median(
+               s["dur"] for s in dense_steps) if dense_steps else None,
+           "overhead": res.overhead,
+           "engine_host_frac": (res.overhead or {}).get("engine_host_frac"),
+           "routing": by_backend,
+           "prefix_hit_tokens": cs["hit_tokens"],
+           "prefix_lookup_tokens": cs["lookup_tokens"],
+           "prefix_hit_requests": sum(1 for n in res.prefix_cached.values()
+                                      if n),
+           "cache_stats": cs,
+           "launches": launches, "launches_expected": L * steps,
+           "launches_by_instance": launched_by,
+           "launches_by_instance_expected": want_by,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "streams_ok": streams_ok, "census_ok": census_ok,
+           "replay": {"requests": len(first), "identical": replay_ok,
+                      "backends": replay_backends},
+           "interarrival_s": ENGINE_INTERARRIVAL}
+    ok = (streams_ok and census_ok and replay_ok and steps > 0
+          and launches == L * steps and launched_by == want_by
+          and "dense" in by_backend and "paged" in by_backend)
+    out["ok"] = ok
+    del res, tracer, events, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    if not ok:
+        raise AssertionError("serve_engine phase failed: "
+                             + json.dumps(out, default=str))
     return out
 
 
@@ -3028,7 +3343,8 @@ def phase_train_resnet50(dev, profile=False):
 
 # --- main -------------------------------------------------------------------
 
-PHASES = ("build", "kernel", "reference", "serve", "train", "train_mha",
+PHASES = ("build", "kernel", "reference", "serve", "serve_engine", "train",
+          "train_mha",
           "train_window", "train_full", "train_long", "train_encoder",
           "train_bert", "train_resnet50")
 
@@ -3111,17 +3427,24 @@ def _norm_entry(name, replaces, launches, cases, kind, card, path):
                                          "library_ms")} for c in mine]}
 
 
-def _kernels_line(kern, serve, trains, card):
+def _kernels_line(kern, serve, engine, trains, card):
     kernels = []
     cases = kern.get("paged", [])
     main_case = next((c for c in cases if c["case"] == "decode/bfloat16"),
                      None)
     if main_case is not None:
-        # the serve run's launches by the instance the kernel reported
-        by_instance = serve.get("launches_by_instance", {})
+        # the serve and serve_engine runs' launches, by the instance the
+        # kernel reported
+        runs = [r for r in (serve, engine) if r]
+        by_instance = {}
+        for r in runs:
+            for name, n in r["launches_by_instance"].items():
+                by_instance[name] = by_instance.get(name, 0) + n
         kernels.append({
             "name": "paged_attention", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": serve.get("launches"),
+            "replaces": REPLACES,
+            "launches": sum(r["launches"] for r in runs) if runs else None,
+            "launches_by_phase": {r["phase"]: r["launches"] for r in runs},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_err_over_tol": max(c["max_err_over_tol"] for c in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -3224,7 +3547,7 @@ def main():
               "an NVIDIA card", file=sys.stderr)
         sys.exit(2)
     dev = torch.device("cuda")
-    kern, serve, trains = {}, {}, {}
+    kern, serve, engine, trains = {}, {}, {}, {}
     if "build" in phases:
         phase_build()
     if "kernel" in phases:
@@ -3233,7 +3556,10 @@ def main():
         phase_reference(dev)
     if "serve" in phases:
         serve = phase_serve(dev, profile=args.profile)
+        gc.collect()
         torch.cuda.empty_cache()
+    if "serve_engine" in phases:
+        engine = phase_serve_engine(dev)
     for phase in TRAIN_CELLS:
         if phase in phases:
             trains[phase] = phase_train(dev, phase, profile=args.profile,
@@ -3255,7 +3581,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card)
-    emit({"kernels": _kernels_line(kern, serve, trains, card)})
+    emit({"kernels": _kernels_line(kern, serve, engine, trains, card)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,21 +1,29 @@
-"""Paged KV-cache decode for Llama in the PyTorch port: the
-continuous-batching serving path.
+"""Llama decode for the PyTorch port: the paged KV-cache factory (the
+continuous-batching serving path), the dense KV-cache factory, the
+router between them and the serving factory that holds both.
 
 Counterpart of ``paddle_tpu/models/nlp/llama_decode.py`` (the helpers
-``_mm``, ``_proj_qkv``, ``_q8``, ``_attend``, ``_layer_math``, ``_logits``
-and ``llama_paged_decode_factory``). The reference jits each program and
-scans over the stacked layers; PyTorch runs eagerly, so each program here
-is a Python loop over the layers, and the attention over the pool is the
-paged-attention CUDA kernel (``ops/paged_attention.py``) on the card, or
-its plain version on the CPU.
+``_mm``, ``_proj_qkv``, ``_q8``, ``_cache_write``, ``_cache_read``,
+``_attend``, ``_layer_math``, ``_logits``; ``llama_paged_decode_factory``,
+``llama_decode_factory``, ``route_decode``, ``PagedOnlyDense``,
+``llama_serving_decode_factory`` and the host configs ``TPConfig``,
+``LoRAConfig``, ``SpecConfig``, ``GrammarConfig``). The reference jits
+each program and scans over the stacked layers; PyTorch runs eagerly, so
+each program here is a Python loop over the layers. The attention over a
+paged pool is the paged-attention CUDA kernel (``ops/paged_attention.py``)
+on the card, or its plain version on the CPU; the dense cache attends in
+plain PyTorch, as the reference's does.
 
-Pools are updated IN PLACE (the reference donates them to its jitted
-programs); every function returns the same pool tensors it was given.
+Pools and dense caches are updated IN PLACE (the reference donates them
+to its jitted programs); every function returns the same tensors it was
+given.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,7 +35,8 @@ from .llama_functional import _rms, split_params
 
 def _mm(x, w):
     """x @ w for a plain (in, out) weight. The reference's int8 weight
-    tuples come with the dense factory (ROADMAP Queue 1)."""
+    tuples (``weight_dtype="int8"``) are not ported yet (ROADMAP item
+    10)."""
     return x @ w
 
 
@@ -93,6 +102,58 @@ def _logits(cfg, outer, x_last):
     return _mm(x_last, head)
 
 
+def _cache_write(cache, kv, write_at: int):
+    """Write a (B, nkv, T, hd) block at slot ``write_at`` of a dense
+    cache (B, nkv, C, hd), in place; quantized caches are (int8 data,
+    f32 scales) tuples."""
+    T = kv.shape[2]
+    if isinstance(cache, tuple):
+        data, sc = cache
+        qv, s = _q8(kv)
+        data[:, :, write_at:write_at + T] = qv
+        sc[:, :, write_at:write_at + T] = s
+        return cache
+    cache[:, :, write_at:write_at + T] = kv.to(cache.dtype)
+    return cache
+
+
+def _cache_read(cache, dtype, n: int):
+    """The first ``n`` slots of a dense cache in ``dtype``. Dequantized
+    in f32: casting the scales to bf16 first would stack a second
+    quantization on top of the int8 rounding."""
+    if isinstance(cache, tuple):
+        data, sc = cache
+        return (data[:, :, :n].to(torch.float32)
+                * sc[:, :, :n, None]).to(dtype)
+    return cache[:, :, :n]
+
+
+def _layer_step(cfg, lp, x, k_cache, v_cache, pos_vec, key_mask,
+                write_at: int):
+    """One decoder layer over T positions with a dense cache read and
+    write. x (B, T, H); caches (B, nkv, C, hd) for this layer; the block
+    lands at slot ``write_at`` and attends to slots < write_at + T under
+    ``key_mask`` (T, write_at + T). The reference attends all C slots
+    with the slots beyond masked, whose probabilities are exactly 0; the
+    slice does the same work without them."""
+    def attend(q, k, v):
+        T = k.shape[2]
+        n = write_at + T
+        kc = _cache_write(k_cache, k, write_at)
+        vc = _cache_write(v_cache, v, write_at)
+        k_all = _cache_read(kc, q.dtype, n)
+        v_all = _cache_read(vc, q.dtype, n)
+        if isinstance(kc, tuple):
+            # the EXACT current block over the dequantized cache: this
+            # step's own keys are not round-tripped (quantization error
+            # applies only to the stored past)
+            k_all[:, :, write_at:n] = k.to(k_all.dtype)
+            v_all[:, :, write_at:n] = v.to(v_all.dtype)
+        return _attend(cfg, q, k_all, v_all, key_mask)
+
+    return _layer_math(cfg, lp, x, pos_vec, attend)
+
+
 def llama_paged_decode_factory(model: LlamaForCausalLM,
                                page_size: int = 64,
                                n_pool_pages: int = 256,
@@ -135,24 +196,41 @@ def llama_paged_decode_factory(model: LlamaForCausalLM,
     ``emit="logits"``: return last-position logits (B, V) f32 instead of
     greedy tokens.
 
-    Not ported yet (ROADMAP Queue 1): ``tp``, ``lora``, ``grammar``,
+    Not ported yet (ROADMAP item 11): ``tp``, ``lora``, ``grammar``,
     ``kv_quant="pressure"``, ``prefill_ragged``; ``scan_layers`` has no
     meaning here (the layers are a Python loop). A model with fused
     projection weights is refused: the decode programs read the unfused
     keys, as the reference's do.
     """
     dev = resolve_device(device)
-    cfg = model.config
+    outer, layers = _split_for(model, dev, "llama_paged_decode_factory")
+    return _paged_from(model.config, outer, layers, dev, page_size,
+                       n_pool_pages, chunked_prefill, kv_cache_dtype, emit,
+                       prefill_attention, kv_quant)
+
+
+def _split_for(model, dev, who: str):
+    """(outer, stacked layers) of ``model`` on ``dev``: the stacked
+    layers are new tensors, so a caller that holds no other reference
+    to the model may drop it to halve the weights' memory."""
     for option in ("fuse_attention_qkv", "fuse_ffn_gate_up"):
-        if getattr(cfg, option):
+        if getattr(model.config, option):
             raise ValueError(
-                f"llama_paged_decode_factory reads the unfused projection "
+                f"{who} reads the unfused projection "
                 f"weights (q/k/v_proj, gate/up_proj), as the reference's "
                 f"decode factories do; this model has {option}=True: load "
                 f"its weights into a model built without it")
     outer, layers = split_params(model)
-    outer = {k: v.to(dev) for k, v in outer.items()}
-    layers = {k: v.to(dev) for k, v in layers.items()}
+    return ({k: v.to(dev) for k, v in outer.items()},
+            {k: v.to(dev) for k, v in layers.items()})
+
+
+def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
+                chunked_prefill, kv_cache_dtype, emit, prefill_attention,
+                kv_quant):
+    """The paged factory's programs over split parameters already on
+    ``dev`` (the serving factory shares one copy with the dense
+    backend)."""
     L = cfg.num_hidden_layers
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     hd = cfg.hidden_size // nh
@@ -163,7 +241,7 @@ def llama_paged_decode_factory(model: LlamaForCausalLM,
                          "(model dtype) or 'int8'")
     if kv_quant not in (None, "int8"):
         raise ValueError(f"kv_quant {kv_quant!r}: use None or 'int8' "
-                         "('pressure' is not ported yet, ROADMAP Queue 1)")
+                         "('pressure' is not ported yet, ROADMAP item 11)")
     quantized = kv_cache_dtype == "int8" or kv_quant == "int8"
     if emit not in ("token", "logits"):
         raise ValueError(f"emit {emit!r}: use 'token' or 'logits'")
@@ -396,3 +474,633 @@ def llama_paged_decode_factory(model: LlamaForCausalLM,
         return torch.stack(emits), tok, pools
 
     return outer, layers, init_pools(), prefill, decode_step, decode_n
+
+
+def llama_decode_factory(model: LlamaForCausalLM, max_len: int = 256,
+                         kv_cache_dtype: str | None = None,
+                         weight_dtype: str | None = None, device=None):
+    """Returns ``generate(tokens, max_new_tokens, generator=None,
+    temperature=0.0, top_k=0, top_p=1.0, eos_token_id=None,
+    pad_token_id=0) -> (B, S0 + max_new) token tensor``: a prefill and
+    per-token decode steps over DENSE KV caches (L, B, nkv, max_len, hd),
+    updated in place. ``device`` (``cuda`` unless ``"cpu"`` is asked
+    for) holds the weights and caches.
+
+    ``kv_cache_dtype="int8"`` stores the cache quantized (per-slot absmax
+    over head_dim, ``_q8``); each step's own keys attend exactly, the
+    stored past dequantized.
+
+    ``generate.compiled(tokens, max_new_tokens)`` is the reference's
+    one-program greedy variant; eagerly it is the same loop at
+    temperature 0, returned as a numpy array as the reference returns
+    it. ``sample`` draws from an explicit ``torch.Generator``, so sampled
+    tokens cannot match the reference's JAX keys; greedy tokens do.
+    ``generate._parts`` holds what the serving engine reads: ``outer``,
+    ``layers``, ``prefill``, ``decode_step``, ``init_caches``,
+    ``compiled_greedy``, ``rolling``.
+
+    Not ported yet (ROADMAP item 10): ``weight_dtype="int8"`` and the
+    rolling cache of a ``sliding_window`` shorter than ``max_len``.
+    ``scan_layers`` has no meaning here (the layers are a Python loop).
+    """
+    dev = resolve_device(device)
+    cfg = model.config
+    _check_dense(cfg, max_len, kv_cache_dtype, weight_dtype)
+    outer, layers = _split_for(model, dev, "llama_decode_factory")
+    return _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype)
+
+
+def _check_dense(cfg, max_len, kv_cache_dtype, weight_dtype):
+    if weight_dtype not in (None, "int8"):
+        raise ValueError(f"weight_dtype {weight_dtype!r}: use None or "
+                         "'int8'")
+    if weight_dtype == "int8":
+        raise NotImplementedError(
+            "weight_dtype='int8' (the int8 weight tuples through _mm) is "
+            "not ported yet (ROADMAP item 10)")
+    if kv_cache_dtype not in (None, "int8"):
+        raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: use None "
+                         "(model dtype) or 'int8'")
+    window = getattr(cfg, "sliding_window", None)
+    if window is not None and window < max_len:
+        raise NotImplementedError(
+            f"sliding_window {window} < max_len {max_len}: the rolling "
+            "dense cache (_layer_step_rolling_prefill) is not ported yet "
+            "(ROADMAP item 10)")
+
+
+def _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype):
+    """The dense factory's programs over split parameters already on
+    ``dev`` (the serving factory shares one copy with the paged
+    backend)."""
+    L = cfg.num_hidden_layers
+    nkv = cfg.num_key_value_heads
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    quantized = kv_cache_dtype == "int8"
+    embed = outer["model.embed_tokens.weight"]
+
+    def init_caches(B, dtype):
+        shape = (L, B, nkv, max_len, hd)
+        if quantized:
+            return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.ones(shape[:-1], dtype=torch.float32,
+                               device=dev))
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def _layer_cache(caches, l):
+        if isinstance(caches, tuple):
+            return caches[0][l], caches[1][l]
+        return caches[l]
+
+    def _run(outer, layers_, x, pos_vec, key_mask, write_at, kc, vc):
+        for l in range(L):
+            x = _layer_step(cfg, {k: v[l] for k, v in layers_.items()}, x,
+                            _layer_cache(kc, l), _layer_cache(vc, l),
+                            pos_vec, key_mask, write_at)
+        return _rms(x, outer["model.norm.weight"], cfg.rms_norm_eps)
+
+    @torch.no_grad()
+    def prefill(outer, layers_, tokens, k_caches, v_caches):
+        """tokens (B, S0) -> (last-position logits (B, V), caches)."""
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        S0 = tokens.shape[1]
+        causal = torch.tril(torch.ones((S0, S0), dtype=torch.bool,
+                                       device=dev))
+        x = _run(outer, layers_, outer["model.embed_tokens.weight"][tokens],
+                 torch.arange(S0, device=dev), causal, 0, k_caches,
+                 v_caches)
+        return _logits(cfg, outer, x[:, -1]), k_caches, v_caches
+
+    @torch.no_grad()
+    def decode_step(outer, layers_, token, pos, k_caches, v_caches):
+        """token (B,); ``pos``: the absolute position of ``token``, a
+        Python int (a slice bound on the host: no read from the
+        card)."""
+        pos = int(pos)
+        token = torch.as_tensor(token, device=dev).long()
+        x = outer["model.embed_tokens.weight"][token][:, None]
+        key_mask = torch.ones((1, pos + 1), dtype=torch.bool, device=dev)
+        x = _run(outer, layers_, x, torch.full((1,), pos, device=dev),
+                 key_mask, pos, k_caches, v_caches)
+        return _logits(cfg, outer, x[:, 0]), k_caches, v_caches
+
+    def sample(logits, generator, temperature, top_k, top_p):
+        if temperature <= 0.0:
+            return torch.argmax(logits, -1)
+        logits = logits / temperature
+        top_k = min(top_k, logits.shape[-1])  # huge k = no truncation
+        if top_k > 0:
+            kth = torch.sort(logits, -1).values[:, -top_k][:, None]
+            logits = torch.where(logits < kth, -math.inf, logits)
+        if top_p < 1.0:
+            # nucleus: the smallest prefix of the sorted distribution
+            # whose mass reaches top_p; top_p <= 0 clamps to top-1
+            p = max(float(top_p), 1e-9)
+            srt = torch.sort(logits, -1, descending=True).values
+            probs = torch.softmax(srt.to(torch.float32), -1)
+            cum = torch.cumsum(probs, -1)
+            keep = (cum - probs) < p  # mass BEFORE this token
+            cutoff = torch.where(keep, srt, math.inf).amin(-1, keepdim=True)
+            logits = torch.where(logits < cutoff, -math.inf, logits)
+        probs = torch.softmax(logits.to(torch.float32), -1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    def _check_len(S0, max_new_tokens):
+        if S0 + max_new_tokens > max_len:
+            # past max_len the cache writes would corrupt generations
+            raise ValueError(
+                f"prompt {S0} + max_new_tokens {max_new_tokens} exceeds "
+                f"the factory's max_len {max_len}")
+
+    def generate(tokens, max_new_tokens: int, generator=None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, eos_token_id: int | None = None,
+                 pad_token_id: int = 0):
+        """``eos_token_id`` enables batched early stop: rows that have
+        emitted EOS produce ``pad_token_id`` from then on, and the loop
+        exits once every row has finished (polled every 8 steps)."""
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        B, S0 = tokens.shape
+        _check_len(S0, max_new_tokens)
+        kc = init_caches(B, embed.dtype)
+        vc = init_caches(B, embed.dtype)
+        logits, kc, vc = prefill(outer, layers, tokens, kc, vc)
+        out = [tokens]
+        pos = S0
+        finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+        for i in range(max_new_tokens):
+            nxt = sample(logits, generator, temperature, top_k, top_p)
+            if eos_token_id is not None:
+                nxt = torch.where(finished, pad_token_id, nxt)
+                finished = finished | (nxt == eos_token_id)
+            out.append(nxt[:, None])
+            if eos_token_id is not None \
+                    and (i % 8 == 7 or i + 1 == max_new_tokens) \
+                    and bool(finished.all()):
+                break  # every row has emitted EOS
+            if i + 1 < max_new_tokens:
+                logits, kc, vc = decode_step(outer, layers, nxt, pos, kc,
+                                             vc)
+                pos += 1
+        return torch.cat(out, 1)
+
+    def compiled_greedy(outer_, layers_, tokens, max_new):
+        """prefill + max_new greedy steps (the reference's one-program
+        scan, eagerly)."""
+        B, S0 = tokens.shape
+        kc = init_caches(B, embed.dtype)
+        vc = init_caches(B, embed.dtype)
+        logits, kc, vc = prefill(outer_, layers_, tokens, kc, vc)
+        gen = []
+        for i in range(max_new):
+            nxt = torch.argmax(logits, -1)
+            gen.append(nxt[:, None])
+            if i + 1 < max_new:
+                logits, kc, vc = decode_step(outer_, layers_, nxt, S0 + i,
+                                             kc, vc)
+        return torch.cat([tokens] + gen, 1)
+
+    def generate_compiled(tokens, max_new_tokens: int):
+        """Greedy-only variant of generate() (the same output as
+        temperature=0), as a numpy array."""
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        if max_new_tokens < 1:
+            return tokens.cpu().numpy()
+        _check_len(tokens.shape[1], max_new_tokens)
+        return compiled_greedy(outer, layers, tokens,
+                               max_new_tokens).cpu().numpy()
+
+    generate.compiled = generate_compiled
+    generate._parts = {"outer": outer, "layers": layers,
+                       "prefill": prefill, "decode_step": decode_step,
+                       "init_caches": init_caches,
+                       "compiled_greedy": compiled_greedy,
+                       "rolling": False}
+    return generate
+
+
+# --- host configs the serving engine reads ---------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LoRAConfig:
+    """Multi-adapter LoRA layout for the paged serving decode path: a
+    device bank of ``n_slots`` stacked low-rank delta sets over the q/v
+    projections, applied per batch row by slot index. Slot 0 is the
+    reserved identity. The port carries the host config; the bank is
+    not ported yet (ROADMAP item 11)."""
+
+    n_slots: int = 4
+    rank: int = 4
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if self.n_slots < 2:
+            raise ValueError("LoRAConfig needs n_slots >= 2 (slot 0 "
+                             "is the reserved identity)")
+        if self.rank < 1:
+            raise ValueError("LoRAConfig rank must be >= 1")
+
+
+def as_lora_config(lora) -> "LoRAConfig | None":
+    """None stays None, ``(n_slots, rank)`` becomes a LoRAConfig, a
+    LoRAConfig passes through."""
+    if lora is None or isinstance(lora, LoRAConfig):
+        return lora
+    if isinstance(lora, tuple) and len(lora) == 2:
+        return LoRAConfig(n_slots=int(lora[0]), rank=int(lora[1]))
+    raise ValueError(f"lora {lora!r}: pass None, (n_slots, rank), or "
+                     "a LoRAConfig")
+
+
+LORA_KEYS = ("q_A", "q_B", "v_A", "v_B")
+
+
+def synthesize_lora_deltas(cfg, rank: int, seed: int = 0,
+                           init_scale: float = 0.02) -> dict:
+    """One seeded host LoRA delta set for ``cfg``: ``q_A``/``v_A`` (L, H,
+    r) and ``q_B``/``v_B`` (L, r, out) numpy float32, both factors
+    nonzero. Deterministic in (cfg, rank, seed)."""
+    rng = np.random.default_rng(seed)
+    L = cfg.num_hidden_layers
+    H = cfg.hidden_size
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    hd = H // nh
+
+    def draw(*shape):
+        return (rng.standard_normal(shape) * init_scale).astype(
+            np.float32)
+
+    return {"q_A": draw(L, H, rank), "q_B": draw(L, rank, nh * hd),
+            "v_A": draw(L, H, rank), "v_B": draw(L, rank, nkv * hd)}
+
+
+@dataclasses.dataclass(frozen=True)
+class GrammarConfig:
+    """Constrained-decoding layout: a bank of ``n_slots * max_states``
+    packed allow-bitmask rows, indexed per row by ``slot * max_states +
+    state``; slot 0 is the all-allow identity. The port carries the host
+    config; the mask bank is not ported yet (ROADMAP item 11)."""
+
+    n_slots: int = 4
+    max_states: int = 64
+
+    def __post_init__(self):
+        if self.n_slots < 2:
+            raise ValueError("GrammarConfig needs n_slots >= 2 "
+                             "(slot 0 is the reserved all-allow "
+                             "identity)")
+        if self.max_states < 2:
+            raise ValueError("GrammarConfig max_states must be >= 2")
+
+
+def as_grammar_config(grammar) -> "GrammarConfig | None":
+    """None stays None, ``(n_slots, max_states)`` becomes a
+    GrammarConfig, a GrammarConfig passes through."""
+    if grammar is None or isinstance(grammar, GrammarConfig):
+        return grammar
+    if isinstance(grammar, tuple) and len(grammar) == 2:
+        return GrammarConfig(n_slots=int(grammar[0]),
+                             max_states=int(grammar[1]))
+    raise ValueError(f"grammar {grammar!r}: pass None, (n_slots, "
+                     "max_states), or a GrammarConfig")
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Adaptive speculative-decode policy for the serving engine: a
+    draft window of ``n_draft`` tokens verified in one target block,
+    eligibility by priority and deadline, an acceptance floor on an
+    EWMA, and an overload fallback. The port carries the host config;
+    the draft/verify programs are not ported yet (ROADMAP item 11)."""
+
+    n_draft: int = 4
+    accept_floor: float = 0.35
+    ewma_alpha: float = 0.25
+    min_rounds: int = 8
+    max_priority: int = 0
+    loose_deadline_ms: float = 8000.0
+    overload_fallback: bool = True
+
+    def __post_init__(self):
+        if self.n_draft < 1:
+            raise ValueError("SpecConfig n_draft must be >= 1")
+        if not 0.0 <= self.accept_floor <= 1.0:
+            raise ValueError("accept_floor is an acceptance fraction "
+                             "in [0, 1]")
+        if not 0.0 < self.ewma_alpha <= 1.0:
+            raise ValueError("ewma_alpha must be in (0, 1]")
+        if self.min_rounds < 1:
+            raise ValueError("min_rounds must be >= 1")
+        if self.loose_deadline_ms < 0:
+            raise ValueError("loose_deadline_ms must be >= 0")
+
+
+def as_spec_config(spec) -> "SpecConfig | None":
+    """None/False stays off, True is the stock SpecConfig (bool checked
+    first: True is an int), an int is the draft window, a SpecConfig
+    passes through."""
+    if isinstance(spec, bool):
+        return SpecConfig() if spec else None
+    if spec is None or isinstance(spec, SpecConfig):
+        return spec
+    if isinstance(spec, int):
+        return SpecConfig(n_draft=spec)
+    raise ValueError(f"spec {spec!r}: pass None, True, an int "
+                     "n_draft, or a SpecConfig")
+
+
+@dataclasses.dataclass(frozen=True)
+class TPConfig:
+    """Tensor-parallel layout for the serving decode path: a 1-D device
+    mesh, heads and MLP hidden dims split over ``axis``. The port
+    carries the host config only: sharded serving (and the reference's
+    ``build_mesh``) is not ported yet (ROADMAP item 11)."""
+
+    mesh_shape: tuple = (2,)
+    axis: str = "tp"
+    hbm_budget_bytes_per_device: int | None = None
+
+    def __post_init__(self):
+        shape = tuple(int(s) for s in self.mesh_shape)
+        object.__setattr__(self, "mesh_shape", shape)
+        if len(shape) != 1 or shape[0] < 1:
+            raise ValueError(f"TPConfig mesh_shape {shape}: tensor "
+                             "parallelism is a 1-D mesh (one named "
+                             "axis)")
+
+    @property
+    def size(self) -> int:
+        return self.mesh_shape[0]
+
+
+def as_tp_config(tp) -> TPConfig | None:
+    """None stays None, an int becomes a 1-D TPConfig of that many
+    devices, a TPConfig passes through."""
+    if tp is None or isinstance(tp, TPConfig):
+        return tp
+    if isinstance(tp, int):
+        return TPConfig(mesh_shape=(tp,))
+    raise ValueError(f"tp {tp!r}: pass None, an int degree, or a "
+                     "TPConfig")
+
+
+def _leaves(tree):
+    """The tensors and arrays of a nested tuple / list / dict."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves of a nested tuple / list / dict, keeping
+    its structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def repage_kv_data(data, page_size_from: int, page_size_to: int,
+                   n_tokens: int):
+    """Re-page an exported KV chain across page geometries: every leaf is
+    ``(L, Hkv, n_pages, page_size, *tail)``, tokens packed in chain
+    order; keep the ``n_tokens`` real positions, pad to the destination
+    chain's slot count (data with 0, per-slot scales with 1) and refold.
+    Host numpy, as the reference's."""
+    n_to = -(-n_tokens // page_size_to)
+
+    def one(a):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else \
+            np.asarray(a)
+        L, H, n, ps = a.shape[:4]
+        tail = a.shape[4:]
+        if n * ps < n_tokens:
+            raise ValueError(
+                f"repage: chain carries {n}x{ps} slots but claims "
+                f"{n_tokens} tokens")
+        flat = a.reshape(L, H, n * ps, *tail)[:, :, :n_tokens]
+        pad = n_to * page_size_to - n_tokens
+        if pad:
+            fill = np.ones if len(tail) == 0 else np.zeros
+            flat = np.concatenate(
+                [flat, fill((L, H, pad) + tail, a.dtype)], axis=2)
+        return flat.reshape(L, H, n_to, page_size_to, *tail)
+
+    return _tree_map(one, data)
+
+
+def transcode_kv_data(data, quant_from, quant_to):
+    """Transcode an exported full-precision chain ``(k, v)`` into the
+    int8 codec with the same ``_q8`` the destination's write path uses.
+    ``'pressure'`` destinations are not ported yet (ROADMAP item 11);
+    quantized sources do not transcode."""
+    if quant_from is not None:
+        raise ValueError(
+            f"transcode: source codec {quant_from!r} is not "
+            "transcodable (only full-precision chains re-encode)")
+    k, v = (torch.as_tensor(x) for x in data)
+    if quant_to == "int8":
+        return _q8(k), _q8(v)
+    if quant_to == "pressure":
+        raise _not_ported("transcoding to kv_quant='pressure'", 11)
+    raise ValueError(f"transcode: unknown destination codec "
+                     f"{quant_to!r}")
+
+
+def tree_device_bytes(tree) -> int:
+    """Resident bytes of ``tree``'s leaves on one device. Nothing is
+    sharded in the port, so each leaf counts whole."""
+    return sum(int(a.nbytes) if hasattr(a, "nbytes")
+               else np.asarray(a).nbytes for a in _leaves(tree))
+
+
+def kv_quant_page_bytes(cfg, page_size: int, dtype) -> tuple:
+    """(full precision, int8 + scale) bytes ONE page costs across all
+    layers, k + v: an int8 slot stores head_dim int8 bytes plus one f32
+    scale."""
+    L = cfg.num_hidden_layers
+    nkv = cfg.num_key_value_heads
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    slots = L * nkv * page_size
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return 2 * slots * hd * itemsize, 2 * slots * (hd + 4)
+
+
+# --- the router and the serving factory ------------------------------------
+
+def route_decode(lengths, capacity: int, shared_prefix: bool = False,
+                 expect_churn: bool = False, explain: bool = False):
+    """Serving router: pick the decode backend from batch statistics.
+    Returns "paged" or "dense" (``explain=True``: ``(backend, rule)``,
+    the clause that fired, which the serving engine logs).
+
+    - shared prompt prefixes -> paged (prefix pages are shared across
+      sequences; the dense cache replicates them per slot)
+    - admission/eviction churn -> paged (dense slots pin max_len memory
+      for the whole batch lifetime)
+    - ragged lengths -> paged (the dense cache walks max-length KV for
+      every row; pages walk only real lengths)
+    - severely under-full capacity -> paged (dense pays full-capacity
+      compute for empty slots)
+    - otherwise (uniform, near-full) -> dense
+
+    The reference's clauses and their wording, as the engine's decision
+    log records them. The reference derived them from TPU measurements;
+    none is re-derived for the card yet.
+    """
+    from ...obs import metrics as _obs_metrics
+
+    def _r(backend, rule):
+        # one obs counter per (clause, backend): the label is the rule
+        # text up to its parenthesized rationale
+        _obs_metrics.counter(
+            "route_decode_total", "routing-rule firings by clause",
+            rule=rule.split(" (")[0], backend=backend).inc()
+        return (backend, rule) if explain else backend
+
+    lens = np.asarray(lengths)
+    if shared_prefix:
+        return _r("paged", "shared-prefix (prefix pages shared across "
+                           "sequences; dense replicates per slot)")
+    if expect_churn:
+        return _r("paged", "churn (dense slots pin max_len memory for "
+                           "the batch lifetime)")
+    B = int(lens.size)
+    if B == 0:
+        return _r("dense", "empty wave")
+    spread = float(lens.max() - lens.min()) / max(1.0, float(lens.max()))
+    if spread > 0.25:
+        return _r("paged", f"ragged lengths (spread {spread:.2f} > 0.25; "
+                           "pages walk only real lengths)")
+    if B < capacity // 2:
+        return _r("paged", f"under-full (B={B} < capacity {capacity}//2; "
+                           "dense pays full-capacity compute)")
+    return _r("dense", "uniform near-full wave (dense compiled wins "
+                       "every uniform shape measured, PERF record 37)")
+
+
+class PagedOnlyDense:
+    """The dense-backend stub of a paged-only serving factory
+    (``serving.sim`` uses it): enough surface for
+    ``ServingEngine.__init__``'s dense introspection (the ``rolling``
+    check and the embed-tokens dtype read), with every dense call
+    raising ``reason``."""
+
+    def __init__(self, reason: str):
+        def _raise(*a, **k):
+            raise NotImplementedError(reason)
+        self._raise = _raise
+        self._parts = {
+            "rolling": False,
+            "outer": {"model.embed_tokens.weight":
+                      np.zeros((1, 1), np.float32)},
+            "init_caches": _raise,
+            "prefill": _raise,
+            "decode_step": _raise,
+        }
+
+    def __call__(self, *a, **k):
+        self._raise()
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP item "
+                               f"{item})")
+
+
+def llama_serving_decode_factory(model: LlamaForCausalLM,
+                                 max_len: int = 256,
+                                 page_size: int = 64,
+                                 n_pool_pages: int = 256,
+                                 kv_cache_dtype: str | None = None,
+                                 batch_capacity: int = 8,
+                                 chunked_prefill: int | None = None,
+                                 tp: "TPConfig | int | None" = None,
+                                 lora: "LoRAConfig | tuple | None"
+                                 = None,
+                                 draft: LlamaForCausalLM | None = None,
+                                 kv_quant: str | None = None,
+                                 grammar: "GrammarConfig | tuple | "
+                                 "None" = None,
+                                 device=None):
+    """Both decode backends behind one object and the router: build
+    once, then ``pick(lengths, ...)`` returns ("dense", gen) or
+    ("paged", (outer, layers, pools, prefill, decode_step, decode_n))
+    per batch. The model's parameters are split ONCE and both backends
+    hold the same ``outer`` / ``layers`` tensors; a caller that holds no
+    other reference to ``model`` may drop it.
+
+    ``batch_capacity`` is the batch size the dense backend is expected
+    to serve and ``pick``'s default ``capacity``. ``kv_cache_dtype``
+    (or ``kv_quant="int8"``) reaches both backends. The paged backend is
+    built as the reference builds it: ``chunked_prefill`` chunks
+    attending through the plain page gather (only decode reaches the
+    paged kernel). ``device``: ``cuda`` unless ``"cpu"`` is asked for.
+
+    Not ported yet, each refused by name (ROADMAP item 11): ``tp``,
+    ``lora``, ``draft`` (speculative serving), ``grammar`` and
+    ``kv_quant="pressure"``. ``scan_layers`` has no meaning here.
+    """
+    tp = as_tp_config(tp)
+    lora = as_lora_config(lora)
+    grammar = as_grammar_config(grammar)
+    if kv_quant not in (None, "int8", "pressure"):
+        raise ValueError(f"kv_quant {kv_quant!r}: use None, 'int8' or "
+                         "'pressure'")
+    for name, value in (("tp", tp), ("lora", lora),
+                        ("draft (speculative serving)", draft),
+                        ("grammar", grammar)):
+        if value is not None:
+            raise _not_ported(f"llama_serving_decode_factory({name}=...)",
+                              11)
+    if kv_quant == "pressure":
+        raise _not_ported("kv_quant='pressure' (the compacting page tier)",
+                          11)
+    if kv_quant == "int8":
+        if kv_cache_dtype not in (None, "int8"):
+            raise ValueError("kv_quant='int8' IS kv_cache_dtype="
+                             f"'int8' — {kv_cache_dtype!r} conflicts")
+        kv_cache_dtype = "int8"
+    dev = resolve_device(device)
+    cfg = model.config
+    _check_dense(cfg, max_len, kv_cache_dtype, None)
+    outer, layers = _split_for(model, dev, "llama_serving_decode_factory")
+    gen = _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype)
+    paged = _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
+                        chunked_prefill, kv_cache_dtype, "token", "gather",
+                        kv_quant)
+
+    class _Serving:
+        # staticmethod: a bare function class attribute would bind as a
+        # method and take the first positional argument as self
+        dense = staticmethod(gen)
+        paged_parts = paged
+        capacity = batch_capacity
+        # the build configuration ServingEngine(serving=...) reads
+        max_len_ = max_len
+        page_size_ = page_size
+        n_pool_pages_ = n_pool_pages
+        chunked_prefill_ = chunked_prefill
+        tp_ = None
+        lora_ = None
+        grammar_ = None
+        grammar_vocab_ = cfg.vocab_size
+        kv_quant_ = kv_quant
+        page_bytes_ = (kv_quant_page_bytes(
+            cfg, page_size, layers["self_attn.q_proj.weight"].dtype)
+            if kv_quant is not None else None)
+        spec_parts = None
+
+        def pick(self, lengths, capacity=None, shared_prefix=False,
+                 expect_churn=False):
+            # the live attribute, so a caller who adjusts capacity sees
+            # routing follow
+            cap = capacity if capacity is not None else self.capacity
+            backend = route_decode(lengths, cap, shared_prefix,
+                                   expect_churn)
+            return backend, (gen if backend == "dense" else paged)
+
+    return _Serving()

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..core.place import resolve_device
+from ..obs import ledger as obs_ledger
 from .kernels import _build
 
 NEG_INF = -1e30
@@ -372,13 +373,15 @@ def paged_attention_reference(q, k_pages, v_pages, page_tables, seq_lens,
 
 class PagedKVCache:
     """Host-side page-pool bookkeeping for serving loops: a free list of
-    pages, per-sequence tables and an exact-match prefix cache with LRU
-    retention (~ vLLM's BlockManager). ``write`` updates the pools in
-    place and returns them.
+    pages plus per-sequence tables (~ vLLM's BlockManager), an
+    exact-match prefix cache with LRU retention, the quantized-tier and
+    host-memory-tier overlays the serving engine arms, ``purge`` and
+    ``export_chain``. ``write`` updates the pools in place and returns
+    them (the reference returns new arrays).
 
-    The quantized tier, the host-memory spill tier, ``purge`` and
-    ``export_chain`` of the reference bookkeeper are not ported yet
-    (ROADMAP Queue 1, the serving engine)."""
+    The serving engine keeps one as pure bookkeeping (``kv_heads =
+    head_dim = 1`` on the CPU): its device pages live in the factory's
+    pools."""
 
     def __init__(self, n_pages: int, page_size: int, kv_heads: int,
                  head_dim: int, dtype=torch.bfloat16, device=None):
@@ -390,27 +393,377 @@ class PagedKVCache:
         self._free = list(range(n_pages - 1, 0, -1))  # page 0 = padding
         self.tables: dict = {}
         self.lengths: dict = {}
-        # prefix cache: key = (parent page or 0, page tokens) -> page id.
-        # A published page whose refcount reaches 0 parks in the
-        # evictable LRU with its key live; allocate() reclaims leaf-first
-        # only when the free list runs dry, so a parent never dies
-        # before its children.
+        # prefix cache (~ vLLM automatic prefix caching / SGLang
+        # RadixAttention, flattened to exact-match chain hashing): FULL
+        # pages of identical token prefixes are shared across sequences.
+        # Key = (parent_page_or_0, tuple of page tokens) -> page id;
+        # refcounts keep shared pages alive while anyone holds them.
+        # RETENTION: a published page whose refcount hits 0 does NOT
+        # return to the free list — it parks in the evictable LRU pool,
+        # key intact, so a later identical prefix revives it for free.
+        # allocate() reclaims from the LRU leaf-first only once the
+        # free list runs dry (a parent page never dies before its
+        # children — the chain invariant that keeps recycled page ids
+        # from ever matching stale child keys).
         self._prefix: dict = {}
         self._refs: dict = {}       # page id -> holders (resident set)
         self._page_key: dict = {}   # page id -> its prefix key
         self._children: dict = {}   # page id -> keys with it as parent
         self._evictable: dict = {}  # page id -> True; insertion = LRU
         self._stats = {"hit_tokens": 0, "lookup_tokens": 0,
-                       "evictions": 0}
+                       "evictions": 0, "compactions": 0}
+        # quantized-tier overlay (kv_quant serving): page ids whose
+        # device content is stored int8+scale. Strictly a subset of
+        # resident|evictable — the resident+evictable+free census is
+        # untouched; a page's tier dies with its id (eviction, an
+        # unpublished free, purge) so a recycled id never reads stale
+        # int8 data.
+        self._quant: set = set()
+        self._kv_quant: str | None = None
+        self._page_bytes: tuple | None = None  # (fp, int8+scale) /page
+        self._byte_budget: int | None = None
+        self._compact_cb = None
+        # host-DRAM offload tier (hostmem serving): pages the eviction
+        # scan would recycle spill their content to a byte-budgeted
+        # HostArena instead of dying, keyed by FULL token prefix
+        # (root..page) so a spilled chain's identity survives device
+        # page-id recycling. _spilled maps that key -> True for every
+        # page this bookkeeper parked in the arena; spill/page-in data
+        # movement is the engine's (the _spill_cb / page_in import_cb
+        # closures price it on the virtual clock — this bookkeeper
+        # never touches device arrays). None/empty when unarmed: the
+        # resident+evictable+free census and every stat dict stay
+        # byte-identical to the pre-hostmem engine.
+        self._arena = None
+        self._spill_cb = None
+        self._host_page_bytes: tuple | None = None  # (fp, q) /page
+        self._spilled: dict = {}
+        self._spill_stats = {"spills": 0, "pageins": 0,
+                             "spill_refusals": 0}
+        # pool generation: purge() bumps it. Content written under an
+        # earlier epoch is unreachable after a purge (every key dropped,
+        # every page back on the free list), so a restarted replica
+        # over this bookkeeper can never serve pre-crash pages; the
+        # tag makes "which generation is this pool" checkable.
+        self.epoch = 0
+        # per-device pool residency, NOTED by the serving engine when
+        # its factory pools are mesh-sharded (this bookkeeper's own
+        # arrays are 1-element stand-ins there); None = never noted,
+        # and cache_stats stays byte-identical to the unsharded shape
+        self._pool_bytes: tuple | None = None
 
     @property
     def n_pages(self) -> int:
         return int(self.k_pages.shape[1])
 
+    def note_pool_bytes(self, total_bytes: int,
+                        per_device_bytes: int | None = None):
+        """Record the REAL pool's byte footprint (the serving factory
+        owns the device arrays; this bookkeeper owns the accounting):
+        ``cache_stats()`` then reports ``bytes_per_device`` — the
+        number the tensor-parallel capacity claims are gated on. With
+        ``per_device_bytes`` omitted the pool is unsharded (one device
+        holds everything)."""
+        total = int(total_bytes)
+        self._pool_bytes = (total, int(per_device_bytes)
+                            if per_device_bytes is not None else total)
+
+    # --- quantized page tier (kv_quant serving) ------------------------
+
+    def note_kv_quant(self, mode: str, fp_bytes_per_page: int | None = None,
+                      q_bytes_per_page: int | None = None,
+                      byte_budget: int | None = None, compact_cb=None):
+        """Arm the quantized-tier accounting. ``mode`` is ``"int8"``
+        (every occupied page already stored int8+scale by the factory)
+        or ``"pressure"`` (full-precision hot pages; parked pages are
+        compacted to int8 under byte pressure). The per-page byte costs
+        let ``stored_bytes()`` price the pool as actually stored;
+        ``byte_budget`` (pressure only) makes ``allocate()`` reclaim
+        bytes by compacting the evictable LRU — oldest first, prefix
+        keys intact — BEFORE giving up with MemoryError.
+        ``compact_cb(page_ids)`` is the device-side compaction hook the
+        engine installs (this bookkeeper never touches device data)."""
+        if mode not in ("int8", "pressure"):
+            raise ValueError(f"note_kv_quant: unknown mode {mode!r}")
+        self._kv_quant = mode
+        if fp_bytes_per_page is not None:
+            self._page_bytes = (int(fp_bytes_per_page),
+                                int(q_bytes_per_page))
+        self._byte_budget = int(byte_budget) \
+            if byte_budget is not None else None
+        self._compact_cb = compact_cb
+
+    def quantized_pages(self) -> set:
+        return set(self._quant)
+
+    def mark_quantized(self, page_ids):
+        """Record that ``page_ids`` are now stored int8 (e.g. after a
+        disaggregated import of a mixed-tier chain). Pages must be
+        occupied — a free page has no content to have a tier."""
+        for p in page_ids:
+            if p not in self._refs and p not in self._evictable:
+                raise ValueError(
+                    f"mark_quantized: page {p} is not occupied")
+            self._quant.add(p)
+
+    def compact_candidates(self):
+        """Evictable pages not yet quantized, oldest-parked first —
+        the order compaction spends them (mirrors the eviction LRU,
+        except nothing is forgotten: keys and census stay intact)."""
+        return [p for p in self._evictable if p not in self._quant]
+
+    def compact_evictable(self, max_pages: int | None = None) -> list:
+        """Compact up to ``max_pages`` (default: all) evictable
+        full-precision pages to int8, oldest first: the device hook
+        runs first (so a failure there leaves the tier unmarked), then
+        the pages join the quantized tier. Returns the page ids
+        compacted. Census is untouched — the pages stay evictable,
+        keys live, revivable by the same prefixes."""
+        cands = self.compact_candidates()
+        if max_pages is not None:
+            cands = cands[:max_pages]
+        if cands:
+            if self._compact_cb is not None:
+                self._compact_cb(list(cands))
+            self._quant.update(cands)
+            self._stats["compactions"] += len(cands)
+        return cands
+
+    def stored_bytes(self) -> int | None:
+        """Bytes the OCCUPIED pages (resident + evictable) actually
+        cost as stored: quantized pages at int8+scale size, the rest
+        at full precision. None until note_kv_quant supplied per-page
+        costs. This is the dynamic pressure signal — admission grows
+        it, compaction shrinks it, eviction zeroes a page's share."""
+        if self._page_bytes is None:
+            return None
+        fp, q = self._page_bytes
+        occupied = len(self._refs) + len(self._evictable)
+        n_q = len(self._quant)
+        if self._kv_quant == "int8":
+            return occupied * q
+        return (occupied - n_q) * fp + n_q * q
+
+    # --- host-DRAM offload tier (hostmem serving) ----------------------
+
+    def note_hostmem(self, arena, spill_cb,
+                     fp_bytes_per_page: int,
+                     q_bytes_per_page: int | None = None):
+        """Arm the host-arena spill tier. ``arena`` is a
+        ``serving.hostmem.HostArena``; ``spill_cb(page_id, quant)``
+        is the engine's export closure — it copies the page's device
+        content host-side (priced as one ``kv_pageout`` on the
+        virtual clock) and returns the opaque data blob the arena
+        stores. Per-page byte prices charge the arena budget: a page
+        sitting in the int8 tier spills at ``q_bytes_per_page``
+        (the kv_quant_page_bytes arithmetic carried across the tier
+        boundary), everything else at ``fp_bytes_per_page``."""
+        self._arena = arena
+        self._spill_cb = spill_cb
+        q = int(q_bytes_per_page) if q_bytes_per_page is not None \
+            else int(fp_bytes_per_page)
+        self._host_page_bytes = (int(fp_bytes_per_page), q)
+
+    def _spill_key(self, p) -> tuple | None:
+        """Page ``p``'s FULL token prefix (root..p, a page multiple of
+        tokens), reconstructed by walking parent keys — the identity a
+        spilled page keeps after its device id recycles. None for an
+        unpublished page or a broken walk (nothing to spill under)."""
+        parts = []
+        while p != 0:
+            key = self._page_key.get(p)
+            if key is None:
+                return None
+            parts.append(key[1])
+            p = key[0]
+        toks: tuple = ()
+        for seg in reversed(parts):
+            toks += seg
+        return toks
+
+    def _try_spill(self, p):
+        """Park evicted page ``p``'s content in the host arena before
+        its device id recycles. Refusal (arena budget exhausted, or an
+        unpublished page with no prefix identity) is silent: the page
+        simply dies exactly as it did pre-hostmem. A key the arena
+        already holds is NOT re-copied — same token prefix, same K/V
+        content."""
+        key = self._spill_key(p)
+        if key is None:
+            return
+        if key in self._spilled:
+            if key in self._arena:
+                return  # identical content already parked host-side
+            del self._spilled[key]  # arena LRU reclaimed it since —
+            # fall through and re-spill the fresh copy
+        quant = p in self._quant
+        fp, q = self._host_page_bytes
+        try:
+            data = self._spill_cb(p, quant)
+            self._arena.put(key, data, q if quant else fp,
+                            quant=quant, epoch=self.epoch)
+        except MemoryError:
+            self._spill_stats["spill_refusals"] += 1
+            return
+        self._spilled[key] = True
+        self._spill_stats["spills"] += 1
+
+    def _prune_spilled(self):
+        """Drop bookkeeping for keys the arena's own LRU reclaimed
+        behind our back (the arena owes the bookkeeper no callback;
+        reconciliation is lazy, before any read of ``_spilled``)."""
+        gone = [k for k in self._spilled if k not in self._arena]
+        for k in gone:
+            del self._spilled[k]
+
+    def spilled_extension(self, tokens, start: int) -> list:
+        """The spilled keys that would EXTEND ``tokens``' resident
+        chain past ``start`` cached tokens (a page multiple), in chain
+        order — the admission probe for a priced page-in. Stops at the
+        first hole: a mid-chain gap means the earlier pages' K/V is
+        gone and everything past it would be wrong-context."""
+        out = []
+        n = int(start)
+        ps = self.page_size
+        while n + ps <= len(tokens):
+            key = tuple(int(t) for t in tokens[:n + ps])
+            if key not in self._spilled \
+                    or self._arena.peek(key) is None:
+                break
+            out.append(key)
+            n += ps
+        return out
+
+    def page_in(self, seq_id, tokens, start: int, import_cb) -> int:
+        """Restore the spilled extension of ``tokens[:start]`` into
+        ``seq_id``'s chain: per spilled page, take one device page
+        (free list first, eviction — which may itself spill — when
+        dry), hand it to ``import_cb(page_id, entry)`` (the engine's
+        scatter closure, priced as one ``kv_pagein``), then publish it
+        resident under ``seq_id`` exactly as if a prefill had written
+        and registered it. Stops — cleanly, partial restores are
+        valid prefixes — when the pool cannot yield a page. Returns
+        tokens paged in (``lengths[seq_id]`` advanced past them, so
+        the prefill resumes beyond the restored prefix). Call between
+        ``acquire_prefix`` and ``allocate``; ``rollback_acquire``
+        stays exact because restored tokens are counted as hits."""
+        table = self.tables.get(seq_id)
+        if table is None:
+            raise KeyError(f"page_in: unknown sequence {seq_id!r}")
+        ps = self.page_size
+        n = int(start)
+        restored = 0
+        for key in self.spilled_extension(tokens, n):
+            if not self._free and not self._evictable:
+                break
+            if not self._free:
+                self._evict_lru()  # may itself SPILL, which may evict
+                # arena LRU entries — re-probe the key below
+            if not self._free:
+                break
+            entry = self._arena.peek(key)
+            if entry is None or entry.epoch != self.epoch:
+                break  # evicted arena-side just now, or pre-purge
+                # content that must never serve
+            p = self._free.pop()
+            entry = self._arena.take(key)
+            self._spilled.pop(key, None)
+            import_cb(p, entry)
+            self._refs[p] = 1
+            table.append(p)
+            parent = table[-2] if len(table) >= 2 else 0
+            pkey = (parent, key[n:n + ps])
+            self._prefix[pkey] = p
+            self._page_key[p] = pkey
+            self._children.setdefault(parent, set()).add(pkey)
+            if entry.quant:
+                self._quant.add(p)
+            n += ps
+            restored += ps
+            self._spill_stats["pageins"] += 1
+        if restored:
+            self._stats["hit_tokens"] += restored
+            self.lengths[seq_id] = n
+        return restored
+
+    def spill_chain(self, seq_id, tokens, owner: str) -> list:
+        """Preemption-as-swap: park ``seq_id``'s live chain content in
+        the arena PINNED under ``owner`` (the rid — a preempted
+        request's only K/V copy must survive arbitrary spill traffic
+        until it pages back in). Spills every FULL page covered by
+        ``lengths[seq_id]`` positions of ``tokens`` (prompt + emitted
+        history; the trailing partial page re-prefills on resume).
+        ALL-OR-NOTHING: if the arena refuses any page, every put/pin
+        this call made is rolled back and [] returns — the caller
+        then declines to preempt. Returns the pinned keys on success.
+        Pages stay allocated; the caller frees the sequence after."""
+        table = self.tables.get(seq_id)
+        if table is None:
+            raise KeyError(f"spill_chain: unknown sequence "
+                           f"{seq_id!r}")
+        ps = self.page_size
+        n_full = min(int(self.lengths.get(seq_id, 0)) // ps,
+                     len(table))
+        fp, q = self._host_page_bytes
+        put_keys, pinned_keys = [], []
+        try:
+            for i in range(n_full):
+                key = tuple(int(t) for t in tokens[:(i + 1) * ps])
+                p = table[i]
+                quant = p in self._quant
+                if key in self._spilled:
+                    e = self._arena.peek(key)
+                    if e is not None and e.owner is None:
+                        self._arena.pin(key, owner)
+                        pinned_keys.append(key)
+                    continue  # already parked (or pinned elsewhere —
+                    # equally protected); content is identical
+                data = self._spill_cb(p, quant)
+                self._arena.put(key, data, q if quant else fp,
+                                quant=quant, epoch=self.epoch,
+                                pin=owner)
+                self._spilled[key] = True
+                self._spill_stats["spills"] += 1
+                put_keys.append(key)
+        except MemoryError:
+            self._spill_stats["spill_refusals"] += 1
+            for key in put_keys:
+                self._arena.drop(key)
+                self._spilled.pop(key, None)
+                self._spill_stats["spills"] -= 1
+            for key in pinned_keys:
+                self._arena.unpin(key)
+            return []
+        return put_keys + pinned_keys
+
+    def drop_spilled_owner(self, owner: str) -> int:
+        """A preempted request was shed while requeued: its pinned
+        chain will never page back in — release the arena bytes and
+        forget the keys. Returns entries dropped."""
+        dropped = [k for k in list(self._spilled)
+                   if (e := self._arena.peek(k)) is not None
+                   and e.owner == owner]
+        for k in dropped:
+            self._arena.drop(k)
+            del self._spilled[k]
+        return len(dropped)
+
+    def unpin_spilled_owner(self, owner: str):
+        """Demote ``owner``'s still-pinned keys to the arena LRU (a
+        restored request consumed the keys it needed; leftovers —
+        shared-prefix pages that matched resident instead — go back
+        to being ordinary spilled cache)."""
+        for k in list(self._spilled):
+            e = self._arena.peek(k)
+            if e is not None and e.owner == owner:
+                self._arena.unpin(k)
+
     def allocate(self, seq_id, n_tokens: int):
-        """Reserve pages so ``seq_id`` can hold n_tokens total. The free
-        list is spent first, then evictable pages leaf-first. MemoryError
-        when free + evictable cannot cover the need (nothing mutated)."""
+        """Reserve pages so ``seq_id`` can hold n_tokens total. The
+        free list is spent first; evictable LRU pages are reclaimed
+        leaf-first only when it dries. MemoryError fires only when
+        free + evictable together cannot cover the need (and mutates
+        nothing, so a caller can free()/requeue safely)."""
         table = self.tables.setdefault(seq_id, [])
         need = -(-n_tokens // self.page_size) - len(table)
         if need > len(self._free) + len(self._evictable):
@@ -418,6 +771,30 @@ class PagedKVCache:
                 f"paged cache exhausted: need {need} pages, "
                 f"{len(self._free)} free + {len(self._evictable)} "
                 f"evictable")
+        if need > 0 and self._byte_budget is not None \
+                and self._kv_quant == "pressure":
+            # byte-budget admission: new pages land full precision; if
+            # that would breach the budget, reclaim bytes by compacting
+            # parked LRU pages to int8 FIRST (compaction before
+            # shedding — nothing is forgotten). Feasibility is checked
+            # before any mutation so MemoryError still mutates nothing.
+            # (Conservative: page-count evictions the loop below may do
+            # would free more bytes, but refusing early is deterministic
+            # and never over-admits.)
+            fp, q = self._page_bytes
+            projected = self.stored_bytes() + need * fp
+            over = projected - self._byte_budget
+            if over > 0:
+                save = fp - q
+                n_compact = -(-over // save) if save > 0 else 0
+                cands = self.compact_candidates()
+                if save <= 0 or n_compact > len(cands):
+                    raise MemoryError(
+                        f"paged cache byte budget exhausted: "
+                        f"{projected} stored bytes projected > "
+                        f"{self._byte_budget} budget and only "
+                        f"{len(cands)} compactable pages")
+                self.compact_evictable(max_pages=n_compact)
         for _ in range(max(0, need)):
             if not self._free:
                 self._evict_lru()
@@ -427,23 +804,35 @@ class PagedKVCache:
         return table
 
     def _evict_lru(self):
-        """Reclaim ONE evictable page: the least recently parked page with
-        no live child key."""
+        """Reclaim ONE evictable page onto the free list: the least-
+        recently-parked page with no LIVE child key (leaf-first). The
+        chain invariant — an acquirer always holds a page's parents,
+        so refs(parent) >= refs(child) — means an evictable page's
+        children are evictable too: a leaf always exists and parents
+        are never reclaimed before their children."""
         for p in self._evictable:
             kids = self._children.get(p)
             if kids and any(k in self._prefix for k in kids):
                 continue  # still a parent of live keys: not a leaf
             del self._evictable[p]
+            if self._arena is not None:
+                self._try_spill(p)  # park content host-side BEFORE the
+                # prefix identity (and the device id) dies below
             self._drop_keys(p)
+            self._quant.discard(p)  # tier dies with the id: a recycled
+            # page must never read stale int8 content
             self._stats["evictions"] += 1
             self._free.append(p)
             return
-        raise MemoryError("no evictable leaf page")
+        raise MemoryError("no evictable leaf page")  # unreachable by
+        # the chain invariant (kept as a loud guard, not a code path)
 
     def _drop_keys(self, p):
         """Forget page ``p``'s prefix identity before its id recycles:
-        its key, its place in the parent's child set, and every key
-        chained through it."""
+        its own key, its membership in the parent's child set, and —
+        the wrong-context-KV hazard — every key chained THROUGH it
+        (a future sequence must never match stale children under the
+        recycled id and share unrelated K/V)."""
         key = self._page_key.pop(p, None)
         if key is not None:
             self._prefix.pop(key, None)
@@ -459,9 +848,14 @@ class PagedKVCache:
                 self._page_key.pop(page_c, None)
 
     def acquire_prefix(self, seq_id, tokens) -> int:
-        """Share the cached FULL pages matching ``tokens`` into seq_id's
-        table (refcounted) and return the cached token count. Call before
-        allocate(); after a failed allocate, call rollback_acquire."""
+        """Match ``tokens`` against cached FULL prompt pages; matched
+        pages are SHARED into seq_id's table (refcounted) and the
+        number of cached tokens (a page multiple) is returned — the
+        prefill can resume past them (for a BATCHED prefill, resume at
+        the MINIMUM cached count across the batch). Call BEFORE
+        allocate(); if allocate() then raises MemoryError, call
+        free(seq_id) before retrying or requeueing, or the shared
+        refcounts leak."""
         if seq_id in self.tables:
             raise ValueError(
                 f"acquire_prefix: {seq_id!r} already holds pages — "
@@ -477,12 +871,19 @@ class PagedKVCache:
         self._stats["hit_tokens"] += n
         self._stats["lookup_tokens"] += \
             (len(tokens) // self.page_size) * self.page_size
+        # write()/decode append after the cached prefix, never inside it
         self.lengths[seq_id] = n
         return n
 
     def rollback_acquire(self, seq_id, tokens):
-        """Undo acquire_prefix after a failed allocate: free ``seq_id``
-        and unwind the hit/lookup stats the acquire recorded."""
+        """Leak-proof admit rollback for acquire_prefix -> failed
+        allocate: free ``seq_id`` (shared refs released, revived pages
+        re-parked evictable) AND unwind the hit/lookup stats the
+        acquire recorded — a rolled-back admit was never served from
+        cache, and double counting would inflate hit_rate exactly
+        under the pool pressure blocked waves retry in. Valid only
+        while the table still holds ONLY acquired pages (allocate
+        failed without mutating)."""
         n_cached = len(self.tables.get(seq_id, ())) * self.page_size
         self.free(seq_id)
         self._stats["hit_tokens"] -= n_cached
@@ -491,7 +892,9 @@ class PagedKVCache:
 
     def _chain(self, tokens):
         """Walk the published chain for ``tokens`` from the root,
-        yielding each matched page."""
+        yielding each matched page — the ONE matcher under both
+        acquire_prefix and match_prefix, so acquisition and admission
+        pricing can never disagree on what the cache serves."""
         parent = 0
         n = 0
         ps = self.page_size
@@ -505,13 +908,15 @@ class PagedKVCache:
             n += ps
 
     def match_prefix(self, tokens) -> int:
-        """How many leading tokens the cache could serve now (a page
-        multiple), without acquiring anything."""
+        """Non-acquiring probe: how many leading tokens of ``tokens``
+        the cache could serve right now (a page multiple). No refcount,
+        LRU, or stats mutation — safe for a scheduler to call per
+        admission turn to price prefill work before committing."""
         return sum(self.page_size for _ in self._chain(tokens))
 
     def register_prefix(self, seq_id, tokens):
-        """Publish seq_id's FULL prompt pages for sharing, after its
-        prefill wrote them."""
+        """Publish seq_id's FULL prompt pages (now holding real K/V) for
+        sharing. Call after the prompt's prefill wrote its pages."""
         table = self.tables.get(seq_id, [])
         parent = 0
         ps = self.page_size
@@ -519,9 +924,15 @@ class PagedKVCache:
             key = (parent, tuple(int(t) for t in tokens[i * ps:(i + 1)
                                                         * ps]))
             page = table[i]
-            if self._prefix.get(key) is None:
+            existing = self._prefix.get(key)
+            if existing is None:
                 self._prefix[key] = page
                 self._page_key[page] = key
+                # root (parent == 0) keys are tracked too: _children is
+                # the leaf test's reverse index as well as the stale-key
+                # invalidator, so EVERY published key must sit under its
+                # parent (page 0 is never recycled, but its child set
+                # must shrink as root keys die or it leaks forever)
                 self._children.setdefault(parent, set()).add(key)
             parent = self._prefix[key]
 
@@ -539,7 +950,7 @@ class PagedKVCache:
             pos = start + written
             page = table[pos // ps]
             off = pos % ps
-            n = min(ps - off, T - written)  # a piece ends at a page edge
+            n = min(ps - off, T - written)  # chunk ends at a page edge
             self.k_pages[:, page, off:off + n] = \
                 k_new[:, written:written + n].to(self.k_pages)
             self.v_pages[:, page, off:off + n] = \
@@ -554,21 +965,83 @@ class PagedKVCache:
             if rc <= 0:
                 self._refs.pop(p, None)
                 if p in self._page_key:
-                    # retention: a published page outlives its last holder
+                    # retention: a PUBLISHED page outlives its last
+                    # holder — park it in the evictable LRU pool with
+                    # its key live, so a recurring prefix revives it
+                    # instead of re-prefilling; allocate() reclaims it
+                    # leaf-first only under free-list pressure
                     self._evictable[p] = True
                 else:
-                    self._drop_keys(p)
+                    self._drop_keys(p)  # stale-chain invalidation for
+                    # the recycled id (unpublished pages normally have
+                    # no keys; kept defensive)
+                    self._quant.discard(p)
                     self._free.append(p)
             else:
                 self._refs[p] = rc
         self.lengths.pop(seq_id, None)
 
+    def purge(self):
+        """Crash/abort teardown: the pool is GONE, not drained. Every
+        sequence's pages are released, every RETAINED (evictable) page
+        is reclaimed and every prefix key dropped — unlike ``free()``,
+        nothing survives into the retention LRU, because a crashed
+        replica's K/V content cannot be trusted — and the pool's
+        ``epoch`` is bumped so no later sequence can ever be served
+        pages written before the purge. Leaves the census balanced:
+        0 resident, 0 evictable, every usable page free. (No per-page
+        ``_drop_keys`` walk: the whole key space is wiped below.)"""
+        n_pages = self.n_pages
+        self.tables.clear()
+        self.lengths.clear()
+        self._refs.clear()
+        self._evictable.clear()
+        self._prefix.clear()
+        self._page_key.clear()
+        self._children.clear()
+        self._quant.clear()  # both tiers go: pre-purge int8 content is
+        # as untrusted as the full-precision pages
+        self._free = list(range(n_pages - 1, 0, -1))
+        if self._arena is not None:
+            # the host tier dies with the pool: pre-purge spilled
+            # content is exactly as untrusted as pre-purge device
+            # pages (the epoch guard below would refuse it anyway —
+            # dropping keeps the arena census honest about capacity)
+            for key in self._spilled:
+                self._arena.drop(key)
+            self._spilled.clear()
+        self.epoch += 1
+
+    def export_chain(self, seq_id, n_tokens: int):
+        """The page ids holding ``seq_id``'s first ``n_tokens``
+        tokens, in chain order — what a disaggregated serving handoff
+        exports (the pages beyond — decode slack the allocation
+        reserved — stay behind and are freed with the sequence).
+        Raises on an unknown sequence or a chain shorter than the
+        asked-for tokens: exporting a hole would hand the importer
+        unrelated K/V."""
+        table = self.tables.get(seq_id)
+        if table is None:
+            raise KeyError(f"export_chain: unknown sequence "
+                           f"{seq_id!r}")
+        need = -(-int(n_tokens) // self.page_size)
+        if need > len(table):
+            raise ValueError(
+                f"export_chain: {seq_id!r} holds {len(table)} pages, "
+                f"{need} needed for {n_tokens} tokens")
+        return list(table[:need])
+
     def populations(self) -> Tuple[int, int, int]:
-        """(resident, evictable, free) page counts."""
+        """The census populations (resident, evictable, free) — the
+        counts ``census_ok`` balances against capacity and the cost
+        ledger's occupancy sampler integrates per turn."""
         return len(self._refs), len(self._evictable), len(self._free)
 
     def page_holders(self) -> Dict[int, List[str]]:
-        """page -> sorted holder seq_ids, from the live tables."""
+        """page -> sorted holder seq_ids, from the live tables — the
+        attribution view of the resident tier (a shared prefix page
+        lists every sharer; refcounts mirror these memberships, which
+        the ledger's occupancy audit cross-checks)."""
         holders: Dict[int, List[str]] = {}
         for sid in sorted(self.tables):
             for p in self.tables[sid]:
@@ -576,16 +1049,38 @@ class PagedKVCache:
         return holders
 
     def census_ok(self) -> bool:
-        """Every usable page (page 0 is reserved) is exactly one of
-        resident / evictable / free."""
-        return sum(self.populations()) == self.n_pages - 1
+        """The accounting invariant in one place: every usable page
+        (page 0 is reserved padding) is exactly one of resident /
+        evictable / free. The serving engine samples this each turn;
+        the serving_prefix bench gate fails if it ever broke."""
+        balanced = obs_ledger.census_balanced(
+            self.n_pages - 1, *self.populations())
+        # the quantized tier is an overlay, never a fourth state: every
+        # quantized page must still be occupied
+        tier_ok = obs_ledger.overlay_contained(
+            self._quant, self._refs, self._evictable)
+        if self._arena is not None:
+            # the host tier extends the census: spilled is a distinct
+            # state (spill != leak, like retention != leak) — after
+            # reconciling arena-side LRU deaths, every spilled key
+            # must be live in the arena, and the arena's own
+            # pinned+evictable+free conservation must hold
+            self._prune_spilled()
+            if not self._arena.census_ok():
+                return False
+            if any(k not in self._arena for k in self._spilled):
+                return False
+        return balanced and tier_ok
 
     def cache_stats(self) -> dict:
-        """Cumulative hit/lookup tokens and evictions plus the live page
-        census (resident + evictable + free == n_pages - 1)."""
+        """Prefix-cache accounting: cumulative hit/lookup tokens and
+        evictions plus the live page census. The census satisfies
+        ``resident + evictable + free == n_pages - 1`` at all times
+        (page 0 is the reserved padding page) — the invariant the
+        serving bench gate checks."""
         hit = self._stats["hit_tokens"]
         lookup = self._stats["lookup_tokens"]
-        return {
+        out = {
             "n_pages": self.n_pages - 1,
             "resident_pages": len(self._refs),
             "evictable_pages": len(self._evictable),
@@ -595,6 +1090,33 @@ class PagedKVCache:
             "hit_rate": round(hit / lookup, 4) if lookup else 0.0,
             "evictions": self._stats["evictions"],
         }
+        if self._pool_bytes is not None:
+            # only when noted (a sharded serving pool): unsharded runs
+            # keep the pre-TP dict byte-for-byte
+            out["bytes_total"] = self._pool_bytes[0]
+            out["bytes_per_device"] = self._pool_bytes[1]
+        if self._kv_quant is not None:
+            # kv_quant census bucket — present only when the tier is
+            # armed (kv_quant=None keeps the dict byte-identical).
+            # always-int8 stores every occupied page quantized; pressure
+            # counts the compacted overlay.
+            occupied = len(self._refs) + len(self._evictable)
+            out["quantized_pages"] = (occupied
+                                      if self._kv_quant == "int8"
+                                      else len(self._quant))
+            out["compactions"] = self._stats["compactions"]
+            sb = self.stored_bytes()
+            if sb is not None:
+                out["stored_bytes"] = sb
+        if self._arena is not None:
+            # hostmem census bucket — present only when the tier is
+            # armed (hostmem=None keeps the dict byte-identical)
+            self._prune_spilled()
+            out["spilled_pages"] = len(self._spilled)
+            out["spills"] = self._spill_stats["spills"]
+            out["pageins"] = self._spill_stats["pageins"]
+            out["spill_refusals"] = self._spill_stats["spill_refusals"]
+        return out
 
     def batch_views(self, seq_ids):
         """(page_tables (B, max_pages), seq_lens (B,)) int32 tensors on

@@ -1209,3 +1209,64 @@ def test_chunked_ce_on_the_card_matches_the_cpu(card):
         print(f"{name}: largest err / tol "
               f"{float(((a - b).abs() / (1e-6 + 2 ** -7 * b.abs())).max()):.3g}")
         torch.testing.assert_close(a, b, atol=1e-6, rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_serving_engine_on_the_card_matches_the_cpu(card, kv_quant):
+    """ServingEngine on the fixed clock over a small f32 Llama's serving
+    factory (head_dim 64), on the card and on the CPU, under the routed,
+    dense and paged policies: the same outputs, slot logs and reports
+    (and the same outputs across policies with full-precision caches:
+    the int8 codec rounds another set of keys in the dense cache than in
+    the pages); on the card every paged decode step launches the split
+    instance once a layer (prefill chunks attend by the plain page
+    gather)."""
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_serving_decode_factory,
+                                             load_numpy_state_dict)
+    from paddle_tpu_torch.obs import Tracer
+    from paddle_tpu_torch.serving import (ServingEngine, merge_traces,
+                                          synthesize_trace)
+
+    cfg = LlamaConfig.tiny(vocab=97, hidden=256, layers=2, heads=4,
+                           kv_heads=2)
+    state = {k: v.numpy() for k, v in
+             LlamaForCausalLM(cfg, device="cpu", seed=15).state_dict()
+             .items()}
+    trace = merge_traces(
+        synthesize_trace(seed=3, n_requests=6, mean_interarrival=0.5,
+                         prompt_len=(4, 30), output_len=(3, 8),
+                         vocab_size=97, churn_frac=0.3, rid_prefix="r"),
+        synthesize_trace(seed=9, n_requests=4, arrival="bursty",
+                         burst_size=4, prompt_len=(8, 12),
+                         output_len=(3, 5), vocab_size=97, rid_prefix="b"))
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        model = load_numpy_state_dict(LlamaForCausalLM(cfg, device=dev),
+                                      state)
+        srv = llama_serving_decode_factory(
+            model, max_len=64, page_size=16, n_pool_pages=17,
+            batch_capacity=4, chunked_prefill=16, kv_quant=kv_quant,
+            device=dev)
+        for policy in ("routed", "dense", "paged"):
+            tracer = Tracer()
+            before = dict(tpa.paged_attention.instance_launches)
+            res = ServingEngine(serving=srv, slots=4, policy=policy,
+                                clock="fixed", trace=tracer).run(trace)
+            steps = sum(e["args"].get("n", 1) for e in tracer.events
+                        if e["ph"] == "X" and e["name"] == "decode")
+            launched = {k: n - before[k] for k, n in
+                        tpa.paged_attention.instance_launches.items()}
+            runs[dev.type, policy] = (res, steps, launched)
+    for policy in ("routed", "dense", "paged"):
+        (got, steps, launched), (want, _, none) = (
+            runs["cuda", policy], runs["cpu", policy])
+        assert got.outputs == want.outputs
+        if kv_quant is None:
+            assert got.outputs == runs["cpu", "paged"][0].outputs
+        assert got.slot_log == want.slot_log
+        assert got.report() == want.report()
+        assert launched == {"split": 2 * steps, "mma": 0, "rows": 0}
+        assert none == {"split": 0, "mma": 0, "rows": 0}
+    assert runs["cuda", "paged"][1] > 0 and runs["cuda", "dense"][1] == 0

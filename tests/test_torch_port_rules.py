@@ -3,6 +3,7 @@ package, its entry points run on CUDA unless the caller asks for the CPU,
 and ``chip_smoke.py`` refuses to run without a card or without the rest of
 the repository."""
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -50,7 +51,19 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.ops.manipulation",
              "paddle_tpu_torch.vision.datasets",
              "paddle_tpu_torch.vision.models.lenet",
-             "paddle_tpu_torch.vision.models.resnet"):
+             "paddle_tpu_torch.vision.models.resnet",
+             "paddle_tpu_torch.inference",
+             "paddle_tpu_torch.obs", "paddle_tpu_torch.obs.slo",
+             "paddle_tpu_torch.obs.trace", "paddle_tpu_torch.obs.metrics",
+             "paddle_tpu_torch.obs.ledger", "paddle_tpu_torch.obs.flight",
+             "paddle_tpu_torch.serving", "paddle_tpu_torch.serving.workload",
+             "paddle_tpu_torch.serving.metrics",
+             "paddle_tpu_torch.serving.scheduler",
+             "paddle_tpu_torch.serving.sim",
+             "paddle_tpu_torch.serving.adapters",
+             "paddle_tpu_torch.serving.grammar",
+             "paddle_tpu_torch.serving.hostmem",
+             "paddle_tpu_torch.serving.engine"):
     assert name in names, name
 """
 
@@ -66,6 +79,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 16          # every module of the slices was imported
+
+
+# a module looked up or imported by name: sys.modules[...] / .get(...),
+# importlib.import_module(...), __import__(...)
+_LOOKUP = re.compile(r"(sys\.modules(\.get)?[\[(]|import_module\(|"
+                     r"__import__\()\s*[\"']([\w.]+)")
+
+
+def test_port_names_no_jax_module_in_a_lookup():
+    """No module of the port, and not chip_smoke.py, reaches JAX or the
+    JAX package by name (which the import check above cannot see until
+    the line runs)."""
+    files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = []
+    for f in files:
+        for n, line in enumerate(f.read_text().splitlines(), 1):
+            for m in _LOOKUP.finditer(line):
+                if m.group(3).split(".")[0] in ("jax", "jaxlib",
+                                                "paddle_tpu"):
+                    bad.append(f"{f.relative_to(ROOT)}:{n}: {line.strip()}")
+    assert len(files) > 60 and not bad, bad
 
 
 def _needs_no_card():
@@ -115,6 +150,33 @@ def test_entry_points_refuse_a_missing_card():
     assert Linear(16, 8, device="cpu")(torch.randn(3, 16)).shape == (3, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_serving_entry_points_refuse_a_missing_card():
+    """The decode factories and the engine's model path: without CUDA a
+    default or "cuda" device raises; "cpu" runs."""
+    _needs_no_card()
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_decode_factory,
+                                             llama_serving_decode_factory)
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = LlamaConfig.tiny(vocab=32, hidden=16, layers=1, heads=2,
+                           kv_heads=1)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    for device in (None, "cuda"):
+        for make in (
+                lambda: llama_decode_factory(model, device=device),
+                lambda: llama_serving_decode_factory(
+                    model, chunked_prefill=64, device=device),
+                lambda: ServingEngine(model, device=device)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
+    eng = ServingEngine(model, slots=2, max_len=16, page_size=8,
+                        clock="fixed", device="cpu")
+    assert eng.device.type == "cpu"
+    assert llama_decode_factory(model, max_len=16, device="cpu")(
+        [[1, 2]], 2).device.type == "cpu"
 
 
 def test_vision_entry_points_refuse_a_missing_card():
