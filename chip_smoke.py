@@ -12,6 +12,7 @@ trains.
     python3 chip_smoke.py --phases build,reference,train_resnet50
     python3 chip_smoke.py --phases build,reference,train_full,train_long
     python3 chip_smoke.py --phases build,reference,serve_engine
+    python3 chip_smoke.py --phases build,reference,serve_features
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -128,6 +129,16 @@ Phases, each printing JSON lines:
    paged policy on the paged one, the paged kernel launched on the card;
    and the routed run once more with ``kv_quant="int8"`` (int8 pages and
    dense caches) through the constructor's model path, card against CPU.
+   Then the engine's options on the same model, paged, fixed clock, card
+   against CPU (identical outputs and slot logs): a LoRA engine
+   (``lora=(4, 4)``, 3 adapters, a Zipf-adapter trace), whose
+   adapter-free rows equal a plain engine's; a grammar engine (2 JSON
+   schemas, a schema trace), every constrained stream parsing under its
+   schema and the free rows equal to a plain engine's; a spec engine with
+   an independent seeded draft (hidden 128, head_dim 64), its streams
+   equal to the plain engine's, and with the target's own weights as a
+   perfect draft, acceptance at least 0.99; the ragged lane
+   (``prefill_chunk_budget=2``) equal to the per-chunk lane.
 4. ``serve``: Llama-3-8B at full width and 8 of its 32 layers (printed as
    ``cut``: ``serve_engine`` serves all 32), bf16, random weights
    from a seed, through ``examples/serve_paged_llama.serve``: 16 requests,
@@ -165,7 +176,39 @@ Phases, each printing JSON lines:
    ``report()``, the median decode turn, prefill chunk and dense step
    (from the run's trace spans), ``engine_host_frac``, the routing
    decisions by backend and rule, prefix-cache hits and peak memory.
-6. ``train``, ``train_mha``, ``train_window``: Llama-3-8B (GQA, B=2,
+6. ``serve_features``: Llama-3-8B at full width and depth, bf16, seeded
+   weights, through ``llama_serving_decode_factory`` (the serve_engine
+   phase's build) and ``ServingEngine(slots=8, policy="paged")``, two
+   engines in turn, each freed before the next. First multi-LoRA +
+   grammar + the ragged lane: ``lora=LoRAConfig(4, 16)`` (3 adapters from
+   ``synthesize_lora_deltas(cfg, 16, seed=i)``), ``grammar=GrammarConfig(3,
+   64)`` (2 JSON schemas, compiled on the host once before the measured
+   run, their host ms printed), ``ragged_prefill=True,
+   prefill_chunk_budget=256``, on 16 Zipf-adapter requests (prompts
+   128-512, 32-64 new tokens, a quarter base-model) merged with 8 schema
+   requests (prompts 64-256), arrivals spread over one second. Then
+   speculative decoding, ``SpecConfig(n_draft=3, accept_floor=0.0)``,
+   with a draft at Llama-3.2-1B's widths (16 layers, hidden 2048, 32 / 8
+   heads, head_dim 64, tied; one cut: plain rope) on 16 Poisson requests
+   (prompts 128-512, 32-96 new tokens, a fifth cancelled early). Each
+   engine replays its first 8 requests twice on the fixed clock
+   (identical outputs and slot logs), then serves its trace on the
+   measured clock between a reset and a read of the paged kernel's counts;
+   the spec trace then runs once more without spec on the same factory.
+   Checks: every stream has min(budget, cancel_after) tokens or stops at
+   its grammar's accept; every constrained stream parses under its
+   schema; the adapter, grammar and page censuses hold; paged launches
+   == 32 x the plain decode steps, all ``split`` (the spec round, the
+   ragged lane and prefill attend by the page gather); spec rounds > 0
+   with an acceptance rate in [0, 1]. Records, per engine: requests
+   completed and cancelled, tokens, tokens/s on the wall clock, TTFT
+   p50 / p95, TPOT p50, the median decode turn, ragged lane call, prefill
+   call and spec round, adapter and grammar cache stats, spec stats, the
+   launches by instance, peak memory; and the share of the spec engine's
+   streams equal to the plain run's, and where each first differs (bf16:
+   recorded, not held), then the same in f32 at 2 layers of target and
+   draft over the first 8 requests (``f32_control``: recorded).
+7. ``train``, ``train_mha``, ``train_window``: Llama-3-8B (GQA, B=2,
    S=4096), Llama-2-7B (multi-head, ``LlamaConfig()``, B=2, S=4096) and
    Mistral-7B-v0.1 (GQA with a sliding window of 4096, B=1, S=8192), each
    at full width with 8 of its 32 layers (the cut that lets params, grads
@@ -188,7 +231,7 @@ Phases, each printing JSON lines:
    weights and batch with the plain attention and CE versions, and both
    loss curves are printed (``plain_curves_<phase>``).
 
-7. ``train_full`` and 8. ``train_long``: Llama-3-8B at all 32 layers (the
+8. ``train_full`` and 9. ``train_long``: Llama-3-8B at all 32 layers (the
    host's memory permitting: else the deepest cut whose moments it can pin, printed as
    ``cut``), bf16, B=2, S=4096, ``remat=True`` and ``offload_moments``:
    AdamW's f32 moments (64.2 GB) in pinned host memory, streamed through
@@ -215,7 +258,7 @@ Phases, each printing JSON lines:
    the moments' bytes and where they live, the host's memory, and the
    losses (finite, the last below the first).
 
-9. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
+10. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
    ``incubate.nn`` at BERT-base's widths (768, 12 heads, FFN 3072, GELU,
    dropout 0.1), bf16, random weights from a seed, on hidden states
    (B=32, S=512) against an N(0, 1) target (MSE), trained 5 steps on one
@@ -226,7 +269,7 @@ Phases, each printing JSON lines:
    24 dropout-add-LN and 12 + 12 + 12 multi-head flash launches per step
    and none of any other kernel.
 
-10. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
+11. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
    vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072, GELU, dropout
    0.1), bf16, random weights from a seed, full depth, in training mode
    (dropout live, drawn from one generator), on seeded data (B=32, S=512:
@@ -244,7 +287,7 @@ Phases, each printing JSON lines:
    log-softmax, matrix products, the rest), idle share and kernels a
    step.
 
-11. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
+12. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
     width), bf16 parameters with f32 masters, f32 batch-norm buffers, on
     B=256 seeded class-template images of 3 x 224 x 224 (NCHW; one
     repeated batch), through ``resnet_train_step_factory`` (its defaults:
@@ -1841,6 +1884,158 @@ def _reference_engine(dev):
              "paged_launches_cpu": launches["cpu"], "ok": ok}, ok)
 
 
+# the reference phase's feature checks: the ENGINE_SMALL model, an
+# independent seeded draft at head_dim 64, two JSON schemas (one required
+# property each: an acyclic automaton, at most 12 tokens to its accept)
+FEATURE_DRAFT = dict(vocab=97, hidden=128, layers=1, heads=2, kv_heads=1)
+FEATURE_SCHEMAS = {
+    "s0": {"type": "object", "properties": {"k0": {"type": "boolean"}},
+           "required": ["k0"]},
+    "s1": {"type": "object",
+           "properties": {"k1": {"type": "integer", "maxDigits": 3}},
+           "required": ["k1"]}}
+
+
+def _feature_small_traces():
+    """One small trace a feature (vocab 97, footprints within max_len 64,
+    the spec slack of n_draft + 1 included)."""
+    from paddle_tpu_torch.serving import (synthesize_schema_trace,
+                                          synthesize_trace,
+                                          synthesize_zipf_adapter_trace)
+
+    spec = synthesize_trace(seed=0, n_requests=8, mean_interarrival=0.5,
+                            prompt_len=(4, 30), output_len=(4, 12),
+                            vocab_size=97, churn_frac=0.2, rid_prefix="q")
+    return {
+        "lora": synthesize_zipf_adapter_trace(
+            seed=1, n_requests=10, n_adapters=3, base_frac=0.3,
+            churn_frac=0.0, prompt_len=(5, 30), output_len=(3, 8),
+            vocab_size=97),
+        "grammar": synthesize_schema_trace(
+            seed=4, n_requests=8, n_schemas=2, prompt_len=(4, 20),
+            output_len=(16, 24), vocab_size=97),
+        "spec": spec, "spec_twin": spec,
+        "ragged": synthesize_trace(
+            seed=5, n_requests=8, mean_interarrival=2.0, prompt_len=(4, 40),
+            output_len=(3, 8), vocab_size=97, shared_prefix_frac=0.25)}
+
+
+def _reference_features(dev):
+    """The serving engine's options on the fixed clock over the
+    ENGINE_SMALL model's serving factory, on the card and on the CPU: a
+    LoRA engine (``lora=(4, 4)``, 3 adapters), a grammar engine (2
+    schemas), a spec engine with an independent draft and with the target's
+    own weights as a perfect draft, and the ragged lane
+    (``prefill_chunk_budget=2``). Card against CPU: identical outputs and
+    slot logs. Feature against no feature on the same device: the LoRA
+    engine's adapter-free rows, the spec engines' streams and the ragged
+    lane's equal the plain engine's (the lane's with
+    ``ragged_prefill=False``); every constrained stream parses under its
+    schema; the perfect draft accepts at least 99 % of its proposals.
+    Returns (its readings, ok)."""
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_serving_decode_factory,
+                                             load_numpy_state_dict)
+    from paddle_tpu_torch.serving import (AdapterStore, GrammarStore,
+                                          ServingEngine, SpecConfig,
+                                          TokenVocab, schema_accepts,
+                                          synthesize_lora_deltas)
+
+    e = ENGINE_SMALL
+    cfg = LlamaConfig.tiny(vocab=e["vocab"], hidden=e["hidden"],
+                           layers=e["layers"], heads=e["heads"],
+                           kv_heads=e["kv_heads"])
+    dcfg = LlamaConfig.tiny(**FEATURE_DRAFT)
+    state = {k: v.numpy() for k, v in
+             LlamaForCausalLM(cfg, device="cpu", seed=15).state_dict()
+             .items()}
+    dstate = {k: v.numpy() for k, v in
+              LlamaForCausalLM(dcfg, device="cpu", seed=16).state_dict()
+              .items()}
+    traces = _feature_small_traces()
+    adapters = AdapterStore({f"a{k}": synthesize_lora_deltas(
+        cfg, 4, seed=k + 1, init_scale=0.25) for k in range(3)})
+    n_pages = e["slots"] * (e["max_len"] // e["page_size"]) + 1
+    runs, plain = {}, {}
+    for d in (dev, torch.device("cpu")):
+        def load(c, s):
+            return load_numpy_state_dict(LlamaForCausalLM(c, device=d), s)
+
+        def factory(**kw):
+            return llama_serving_decode_factory(
+                load(cfg, state), max_len=e["max_len"],
+                page_size=e["page_size"], n_pool_pages=n_pages,
+                batch_capacity=e["slots"], chunked_prefill=e["page_size"],
+                device=d, **kw)
+
+        def serve(srv, trace, **kw):
+            return ServingEngine(serving=srv, slots=e["slots"],
+                                 policy="paged", clock="fixed",
+                                 **kw).run(trace)
+
+        base = factory()
+        lane = dict(prefill_chunk_budget=2)
+        for f, trace in traces.items():
+            if f in ("lora", "grammar"):
+                trace = [dataclasses.replace(r, adapter=None, schema=None)
+                         for r in trace]
+            plain[d.type, f] = serve(base, trace,
+                                     **(lane if f == "ragged" else {}))
+        runs[d.type, "lora"] = serve(factory(lora=(4, 4)), traces["lora"],
+                                     adapters=adapters)
+        runs[d.type, "grammar"] = serve(
+            factory(grammar=(3, 64)), traces["grammar"],
+            grammar=GrammarStore(FEATURE_SCHEMAS))
+        runs[d.type, "spec"] = serve(
+            factory(draft=load(dcfg, dstate)), traces["spec"],
+            spec=SpecConfig(n_draft=3, accept_floor=0.0))
+        runs[d.type, "spec_twin"] = serve(
+            factory(draft=load(cfg, state)), traces["spec_twin"],
+            spec=SpecConfig(n_draft=3))
+        runs[d.type, "ragged"] = serve(base, traces["ragged"],
+                                       ragged_prefill=True, **lane)
+    vocab = TokenVocab.ascii_default(e["vocab"])
+    out = {}
+    for f, trace in traces.items():
+        card, cpu = runs[dev.type, f], runs["cpu", f]
+        same = card.outputs == cpu.outputs and card.slot_log == cpu.slot_log
+        if f == "lora":
+            rows = [r.rid for r in trace if r.adapter is None]
+        elif f == "grammar":
+            rows = [r.rid for r in trace if r.schema is None]
+        else:
+            rows = [r.rid for r in trace]
+        as_plain = all(card.outputs[rid] == plain[dev.type, f].outputs[rid]
+                       and cpu.outputs[rid] == plain["cpu", f].outputs[rid]
+                       for rid in rows)
+        o = {"requests": len(trace), "card_equals_cpu": same,
+             "equals_plain": as_plain, "rows_compared": len(rows)}
+        ok = same and as_plain and len(card.outputs) == len(trace)
+        if f == "lora":
+            o["adapter_stats"] = card.adapter_stats
+            o["adapted_streams_differ"] = sum(
+                card.outputs[r.rid] != plain[dev.type, f].outputs[r.rid]
+                for r in trace if r.adapter is not None)
+            ok = ok and card.adapter_stats["invariant_ok"]
+        if f == "grammar":
+            parsed = [schema_accepts(FEATURE_SCHEMAS[r.schema],
+                                     vocab.decode(card.outputs[r.rid]))
+                      for r in trace if r.schema is not None]
+            o.update(constrained=len(parsed), parsed=sum(parsed),
+                     grammar_stats=card.grammar_stats)
+            ok = ok and all(parsed) and bool(parsed) \
+                and card.grammar_stats["invariant_ok"]
+        if f.startswith("spec"):
+            st = card.spec_stats
+            o.update(rounds=st["rounds"],
+                     acceptance_rate=st["acceptance_rate"])
+            ok = ok and st["rounds"] > 0 and (
+                f == "spec" or st["acceptance_rate"] >= 0.99)
+        o["ok"] = ok
+        out[f] = o
+    return out, all(o["ok"] for o in out.values())
+
+
 def phase_reference(dev):
     from paddle_tpu_torch.models.nlp import LlamaConfig
 
@@ -1857,14 +2052,16 @@ def phase_reference(dev):
         vocab=256, hidden=768, layers=2, heads=3, kv_heads=1))
     options, options_ok = _reference_llama_options(dev)
     engine, engine_ok = _reference_engine(dev)
+    features, features_ok = _reference_features(dev)
     enc = _reference_encoder(dev)
     bert = _reference_bert(dev)
     vision = _reference_vision(dev)
     out.update({"llama_d256_g3": {**wide, "ok": wide_ok},
-                "llama_options": options, "engine": engine, **enc, **bert,
+                "llama_options": options, "engine": engine,
+                "engine_features": features, **enc, **bert,
                 "vision": vision,
                 "ok": ok and wide_ok and options_ok and engine_ok
-                and enc["encoder_ok"] and bert["bert_ok"] and vision["ok"]})
+                and features_ok and enc["encoder_ok"] and bert["bert_ok"] and vision["ok"]})
     # the offloaded steps' pinned blocks go back to the host
     _release_pinned()
     emit(out)
@@ -2055,7 +2252,6 @@ def phase_serve_engine(dev):
     from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
                                              llama_serving_decode_factory)
     from paddle_tpu_torch.obs import Tracer
-    from paddle_tpu_torch.ops import paged_attention
     from paddle_tpu_torch.serving import ServingEngine
 
     e = SERVE_ENGINE
@@ -2089,17 +2285,13 @@ def phase_serve_engine(dev):
     del replays
 
     tracer = Tracer()
-    paged_attention.launches = 0
-    by_instance = paged_attention.instance_launches
-    for name in by_instance:
-        by_instance[name] = 0
+    _zero_paged_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = engine("measured", tracer).run(trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = paged_attention.launches
-    launched_by = dict(by_instance)
+    launches, launched_by = _paged_counts()
 
     events = tracer.events
     decode = _engine_spans(events, "decode")
@@ -2177,6 +2369,351 @@ def phase_serve_engine(dev):
     if not ok:
         raise AssertionError("serve_engine phase failed: "
                              + json.dumps(out, default=str))
+    return out
+
+
+# --- phase 6: the serving engine's options, Llama-3-8B -------------------
+
+# serve_features: the serve_engine phase's factory build, and each engine's
+# options. The LoRA engine: a bank of 4 slots (3 adapters + the identity)
+# at rank 16, a mask bank of 3 slots (2 schemas + the all-allow identity)
+# of 64 states, the ragged lane with a budget of 256 dispatches a turn.
+# The spec engine: a draft window of 3, no acceptance floor, its Poisson
+# arrivals 0.1 virtual s apart on average (about one spec round, as
+# serve_engine's are about one decode turn apart).
+SERVE_FEATURES = dict(max_len=2048, page_size=64, slots=8, chunked_prefill=64,
+                      lora=(4, 16), grammar=(3, 64), prefill_chunk_budget=256,
+                      n_draft=3, replay=8, spread_s=1.0,
+                      spec_interarrival=0.1)
+
+
+def _llama32_1b_draft():
+    """The spec engine's draft: Llama-3.2-1B's widths (hidden 2048, 16
+    layers, 32 / 8 heads, head_dim 64, FFN 8192, vocab 128256, tied
+    embeddings, rope theta 500000), unfused. One cut: plain rope (its
+    llama3 rope scaling is not in ``LlamaConfig``), as ``train_long``."""
+    from paddle_tpu_torch.models.nlp import LlamaConfig
+
+    return LlamaConfig(vocab_size=128256, hidden_size=2048,
+                       intermediate_size=8192, num_hidden_layers=16,
+                       num_attention_heads=32, num_key_value_heads=8,
+                       max_position_embeddings=131072, rope_theta=500000.0,
+                       tie_word_embeddings=True)
+
+
+def _spread(trace, seconds):
+    """``trace`` with its arrivals scaled to end at ``seconds``."""
+    last = max(r.arrival for r in trace) or 1.0
+    return [dataclasses.replace(r, arrival=r.arrival * seconds / last)
+            for r in trace]
+
+
+def _features_traces(vocab):
+    """The LoRA engine's trace: 16 Zipf-adapter requests (3 adapters, a
+    quarter base-model; prompts 128-512, 32-64 new tokens) merged with 8
+    schema requests (2 schemas, a quarter free; prompts 64-256; seed 1,
+    which draws both schemas: seed 0 draws one), each spread over
+    ``spread_s``. The spec engine's: 16 Poisson requests (prompts
+    128-512, 32-96 new tokens, a fifth cancelled early)."""
+    from paddle_tpu_torch.serving import (merge_traces, synthesize_schema_trace,
+                                          synthesize_trace,
+                                          synthesize_zipf_adapter_trace)
+
+    f = SERVE_FEATURES
+    lora = synthesize_zipf_adapter_trace(
+        seed=0, n_requests=16, n_adapters=3, base_frac=0.25,
+        prompt_len=(128, 512), output_len=(32, 64), vocab_size=vocab)
+    schema = synthesize_schema_trace(seed=1, n_requests=8, n_schemas=2,
+                                     prompt_len=(64, 256), vocab_size=vocab)
+    spec = synthesize_trace(seed=0, n_requests=16, arrival="poisson",
+                            mean_interarrival=f["spec_interarrival"],
+                            prompt_len=(128, 512), output_len=(32, 96),
+                            vocab_size=vocab, churn_frac=0.2)
+    return (merge_traces(_spread(lora, f["spread_s"]),
+                         _spread(schema, f["spread_s"])), spec)
+
+
+def _zero_paged_counts():
+    from paddle_tpu_torch.ops import paged_attention
+
+    paged_attention.launches = 0
+    for name in paged_attention.instance_launches:
+        paged_attention.instance_launches[name] = 0
+
+
+def _paged_counts():
+    from paddle_tpu_torch.ops import paged_attention
+
+    return paged_attention.launches, dict(paged_attention.instance_launches)
+
+
+def _median_ms(spans):
+    return 1e3 * statistics.median(s["dur"] for s in spans) if spans \
+        else None
+
+
+def _features_run(name, make, trace, L, n_pages):
+    """One engine of serve_features: a fixed-clock replay of the first
+    ``replay`` requests twice, then the measured run of ``trace`` with the
+    paged kernel's counts set to 0 just before and read just after.
+    ``make(clock, tracer)`` builds the engine. Returns (readings, checks,
+    the measured result)."""
+    from paddle_tpu_torch.obs import Tracer
+
+    f = SERVE_FEATURES
+    first = sorted(trace, key=lambda r: (r.arrival, r.rid))[:f["replay"]]
+    replays = [make("fixed", None).run(first) for _ in range(2)]
+    replay_ok = (replays[0].outputs == replays[1].outputs
+                 and replays[0].slot_log == replays[1].slot_log
+                 and len(replays[0].outputs) == len(first))
+    del replays
+    tracer = Tracer()
+    eng = make("measured", tracer)
+    compile_ms = {}
+    if eng._grammar_store is not None:
+        # each schema's automaton compiled on the host once before the
+        # run (the engine's memo): the run only uploads masks
+        for g in eng._grammar_store.names():
+            t0 = time.perf_counter()
+            eng._grammar_automaton(g)
+            compile_ms[g] = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_paged_counts()
+    t0 = time.perf_counter()
+    res = eng.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_instance = _paged_counts()
+    events = tracer.events
+    decode = _engine_spans(events, "decode")
+    steps = sum(s["args"].get("n", 1) for s in decode)
+    prefill = _engine_spans(events, "prefill")
+    ragged = [s for s in prefill if "ragged" in s["args"]]
+    spec = _engine_spans(events, "spec_decode")
+    rep = res.report()
+    got = {rid: len(out) for rid, out in res.outputs.items()}
+    generated = sum(got.values())
+    cs = res.cache_stats
+    out = {"engine": name, "requests": len(trace),
+           "completed": rep["completed"], "cancelled": rep["evicted"],
+           "generated_tokens": generated, "wall_s": wall,
+           "tokens_per_s_wall": generated / wall,
+           "ttft_p50_s": rep["ttft_p50"], "ttft_p95_s": rep["ttft_p95"],
+           "tpot_p50_s": rep["tpot_p50"],
+           "decode_turns": len(decode), "decode_steps": steps,
+           "decode_turn_ms_median": _median_ms(decode),
+           "ragged_prefill_calls": len(ragged),
+           "ragged_rows": sum(s["args"]["ragged"] for s in ragged),
+           "ragged_prefill_ms_median": _median_ms(ragged),
+           "prefill_calls": len(prefill) - len(ragged),
+           "prefill_call_ms_median": _median_ms(
+               [s for s in prefill if "ragged" not in s["args"]]),
+           "spec_rounds_turns": len(spec),
+           "spec_round_ms_median": _median_ms(spec),
+           "spec_prefill_ms_median": _median_ms(
+               _engine_spans(events, "spec_prefill")),
+           "adapter_stats": res.adapter_stats,
+           "grammar_stats": res.grammar_stats,
+           "grammar_compile_host_ms": compile_ms or None,
+           "spec_stats": res.spec_stats, "cache_stats": cs,
+           "overhead": res.overhead,
+           "launches": launches, "launches_by_instance": by_instance,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "replay": {"requests": len(first), "identical": replay_ok}}
+    checks = {
+        "replay_identical": replay_ok,
+        "page_census": (cs["resident_pages"] + cs["evictable_pages"]
+                        + cs["free_pages"] == cs["n_pages"] == n_pages - 1
+                        and cs["invariant_ok"]),
+        "launches_split_only": by_instance == {"split": L * steps,
+                                               "mma": 0, "rows": 0}
+        and launches == L * steps}
+    return out, checks, res
+
+
+def _spec_f32_control(dev, build, trace):
+    """The spec engine's streams against a plain run's on the same
+    factory, at full width in f32 (TF32 off) and 2 layers of target and
+    draft (a cut of depth), on the fixed clock, over the first
+    ``replay`` requests of the spec trace: the verify block's page gather
+    and the ``split`` kernel then differ by f32 rounding, where bf16's
+    flips near-tie argmaxes. Recorded, not held."""
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_serving_decode_factory)
+    from paddle_tpu_torch.serving import ServingEngine, SpecConfig
+
+    f = SERVE_FEATURES
+    layers = 2
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=layers, dtype=torch.float32)
+    dcfg = dataclasses.replace(_llama32_1b_draft(), num_hidden_layers=layers,
+                               dtype=torch.float32)
+    srv = llama_serving_decode_factory(
+        LlamaForCausalLM(cfg, device=dev, seed=0),
+        draft=LlamaForCausalLM(dcfg, device=dev, seed=1), **build)
+    first = sorted(trace, key=lambda r: (r.arrival, r.rid))[:f["replay"]]
+
+    def run(spec):
+        return ServingEngine(serving=srv, slots=f["slots"], policy="paged",
+                             clock="fixed", spec=spec).run(first)
+
+    spec = run(SpecConfig(n_draft=f["n_draft"], accept_floor=0.0))
+    plain = run(None)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    split = [next((i for i, (a, b) in enumerate(zip(
+        spec.outputs[r.rid], plain.outputs[r.rid])) if a != b),
+        len(spec.outputs[r.rid])) for r in first]
+    out = {"dtype": "float32", "layers": layers,
+           "cut": f"{layers} layers of target and draft",
+           "equal": sum(spec.outputs[r.rid] == plain.outputs[r.rid]
+                        for r in first), "of": len(first),
+           "first_difference_at": split,
+           "rounds": spec.spec_stats["rounds"],
+           "acceptance_rate": spec.spec_stats["acceptance_rate"]}
+    del srv, spec, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_features(dev):
+    """Llama-3-8B, full width and depth, bf16, seeded weights, through
+    ``llama_serving_decode_factory`` and ``ServingEngine(policy="paged")``
+    with the options of ROADMAP item 11 ported so far, two engines in
+    turn, each freed before the next: multi-LoRA + grammar + the ragged
+    lane, then speculative decoding with a Llama-3.2-1B-width draft. Each
+    replays its first 8 requests twice on the fixed clock (identical),
+    then serves its trace on the measured clock between a reset and a
+    read of the paged kernel's counts; then the spec trace once more
+    without spec, for the share of streams that agree, and the same
+    comparison in f32 at 2 layers (``_spec_f32_control``)."""
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_serving_decode_factory)
+    from paddle_tpu_torch.serving import (AdapterStore, GrammarConfig,
+                                          GrammarStore, LoRAConfig,
+                                          ServingEngine, SpecConfig,
+                                          TokenVocab, schema_accepts,
+                                          synthesize_lora_deltas)
+
+    f = SERVE_FEATURES
+    cfg = LlamaConfig.llama3_8b()
+    L = cfg.num_hidden_layers
+    n_pages = f["slots"] * (f["max_len"] // f["page_size"]) + 1
+    build = dict(max_len=f["max_len"], page_size=f["page_size"],
+                 n_pool_pages=n_pages, batch_capacity=f["slots"],
+                 chunked_prefill=f["chunked_prefill"], device=dev)
+    mixed, spec_trace = _features_traces(cfg.vocab_size)
+    vocab = TokenVocab.ascii_default(cfg.vocab_size)
+    out = {"phase": "serve_features", "model": "llama3_8b", "layers": L,
+           "dtype": "bfloat16", "policy": "paged", "clock": "measured"}
+
+    # 1. multi-LoRA + grammar + the ragged lane
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    srv = llama_serving_decode_factory(
+        model, lora=LoRAConfig(*f["lora"]),
+        grammar=GrammarConfig(*f["grammar"]), **build)
+    del model
+    adapters = AdapterStore({f"a{i}": synthesize_lora_deltas(
+        cfg, f["lora"][1], seed=i) for i in range(3)})
+    grammar = GrammarStore(FEATURE_SCHEMAS)
+    gc.collect()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def lora_engine(clock, tracer):
+        return ServingEngine(serving=srv, slots=f["slots"], policy="paged",
+                             clock=clock, trace=tracer, adapters=adapters,
+                             grammar=grammar, ragged_prefill=True,
+                             prefill_chunk_budget=f["prefill_chunk_budget"])
+
+    lo, lo_checks, res = _features_run("lora_grammar_ragged", lora_engine,
+                                       mixed, L, n_pages)
+    lo["setup_s"] = setup_s
+    streams, parsed = True, []
+    for r in mixed:
+        toks = res.outputs[r.rid]
+        if r.schema is not None:
+            parsed.append(schema_accepts(FEATURE_SCHEMAS[r.schema],
+                                         vocab.decode(toks)))
+            streams &= 1 <= len(toks) <= r.max_new_tokens
+        else:
+            streams &= len(toks) == min(r.max_new_tokens,
+                                        r.cancel_after or 10 ** 9)
+    lo.update(constrained_streams=len(parsed), parsed=sum(parsed))
+    lo_checks.update(
+        streams=streams, schemas_parse=bool(parsed) and all(parsed),
+        adapter_census=res.adapter_stats["invariant_ok"],
+        grammar_census=res.grammar_stats["invariant_ok"],
+        adapters_used=res.adapter_stats["uploads"] > 0,
+        ragged_lane_ran=lo["ragged_prefill_calls"] > 0)
+    del res, srv, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. speculative decoding
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    draft = LlamaForCausalLM(_llama32_1b_draft(), device=dev, seed=1)
+    srv = llama_serving_decode_factory(model, draft=draft, **build)
+    del model, draft
+    gc.collect()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def spec_engine(clock, tracer, spec=True):
+        return ServingEngine(
+            serving=srv, slots=f["slots"], policy="paged", clock=clock,
+            trace=tracer, spec=SpecConfig(n_draft=f["n_draft"],
+                                          accept_floor=0.0) if spec else None)
+
+    sp, sp_checks, res = _features_run("spec", spec_engine, spec_trace, L,
+                                       n_pages)
+    sp["setup_s"] = setup_s
+    sp["draft"] = {"config": "llama3_2_1b widths", "layers": 16,
+                   "cut": "plain rope (no llama3 rope scaling)"}
+    st = res.spec_stats
+    sp_checks.update(
+        streams=all(len(res.outputs[r.rid]) == min(
+            r.max_new_tokens, r.cancel_after or 10 ** 9)
+            for r in spec_trace),
+        spec_rounds=st["rounds"] > 0,
+        acceptance_in_range=0.0 <= st["acceptance_rate"] <= 1.0)
+    # the same trace plain, on the same factory, outside the counted runs
+    plain = spec_engine("fixed", None, spec=False).run(spec_trace)
+    agree = sum(res.outputs[r.rid] == plain.outputs[r.rid]
+                for r in spec_trace)
+    # where each stream first leaves the plain run's (its length where
+    # it never does): one flip of a near-tie argmax, then another history
+    split = [next((i for i, (a, b) in enumerate(zip(
+        res.outputs[r.rid], plain.outputs[r.rid])) if a != b),
+        len(res.outputs[r.rid])) for r in spec_trace]
+    sp["streams_equal_plain"] = {"equal": agree, "of": len(spec_trace),
+                                 "share": agree / len(spec_trace),
+                                 "first_difference_at": split}
+    del res, plain, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp["f32_control"] = _spec_f32_control(dev, build, spec_trace)
+
+    runs = (lo, sp)
+    out.update({"engines": {r["engine"]: r for r in runs},
+                "checks": {"lora_grammar_ragged": lo_checks,
+                           "spec": sp_checks},
+                "launches": sum(r["launches"] for r in runs),
+                "launches_by_instance": {
+                    k: sum(r["launches_by_instance"][k] for r in runs)
+                    for k in lo["launches_by_instance"]},
+                "decode_steps": sum(r["decode_steps"] for r in runs)})
+    ok = all(all(c.values()) for c in (lo_checks, sp_checks))
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError("serve_features phase failed: "
+                             + json.dumps(out["checks"]))
     return out
 
 
@@ -3343,8 +3880,8 @@ def phase_train_resnet50(dev, profile=False):
 
 # --- main -------------------------------------------------------------------
 
-PHASES = ("build", "kernel", "reference", "serve", "serve_engine", "train",
-          "train_mha",
+PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
+          "serve_features", "train", "train_mha",
           "train_window", "train_full", "train_long", "train_encoder",
           "train_bert", "train_resnet50")
 
@@ -3427,15 +3964,15 @@ def _norm_entry(name, replaces, launches, cases, kind, card, path):
                                          "library_ms")} for c in mine]}
 
 
-def _kernels_line(kern, serve, engine, trains, card):
+def _kernels_line(kern, serve, engine, features, trains, card):
     kernels = []
     cases = kern.get("paged", [])
     main_case = next((c for c in cases if c["case"] == "decode/bfloat16"),
                      None)
     if main_case is not None:
-        # the serve and serve_engine runs' launches, by the instance the
-        # kernel reported
-        runs = [r for r in (serve, engine) if r]
+        # the serve, serve_engine and serve_features runs' launches, by
+        # the instance the kernel reported
+        runs = [r for r in (serve, engine, features) if r]
         by_instance = {}
         for r in runs:
             for name, n in r["launches_by_instance"].items():
@@ -3547,7 +4084,7 @@ def main():
               "an NVIDIA card", file=sys.stderr)
         sys.exit(2)
     dev = torch.device("cuda")
-    kern, serve, engine, trains = {}, {}, {}, {}
+    kern, serve, engine, features, trains = {}, {}, {}, {}, {}
     if "build" in phases:
         phase_build()
     if "kernel" in phases:
@@ -3560,6 +4097,8 @@ def main():
         torch.cuda.empty_cache()
     if "serve_engine" in phases:
         engine = phase_serve_engine(dev)
+    if "serve_features" in phases:
+        features = phase_serve_features(dev)
     for phase in TRAIN_CELLS:
         if phase in phases:
             trains[phase] = phase_train(dev, phase, profile=args.profile,
@@ -3581,7 +4120,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card)
-    emit({"kernels": _kernels_line(kern, serve, engine, trains, card)})
+    emit({"kernels": _kernels_line(kern, serve, engine, features, trains,
+                                   card)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

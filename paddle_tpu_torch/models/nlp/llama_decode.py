@@ -1,21 +1,29 @@
 """Llama decode for the PyTorch port: the paged KV-cache factory (the
-continuous-batching serving path), the dense KV-cache factory, the
-router between them and the serving factory that holds both.
+continuous-batching serving path) with its multi-adapter LoRA bank,
+grammar mask bank, ragged prefill lane and speculative round, the dense
+KV-cache factory, the router between them and the serving factory that
+holds them.
 
 Counterpart of ``paddle_tpu/models/nlp/llama_decode.py`` (the helpers
-``_mm``, ``_proj_qkv``, ``_q8``, ``_cache_write``, ``_cache_read``,
-``_attend``, ``_layer_math``, ``_logits``; ``llama_paged_decode_factory``,
+``_mm``, ``_bgmv``, ``_proj_qkv``, ``_q8``, ``_cache_write``,
+``_cache_read``, ``_attend``, ``_layer_math``, ``_logits``,
+``_write_positions``; ``lora_bank_hooks``, ``grammar_bank_hooks``,
+``build_spec_step``, ``llama_paged_decode_factory``,
 ``llama_decode_factory``, ``route_decode``, ``PagedOnlyDense``,
 ``llama_serving_decode_factory`` and the host configs ``TPConfig``,
 ``LoRAConfig``, ``SpecConfig``, ``GrammarConfig``). The reference jits
 each program and scans over the stacked layers; PyTorch runs eagerly, so
-each program here is a Python loop over the layers. The attention over a
-paged pool is the paged-attention CUDA kernel (``ops/paged_attention.py``)
-on the card, or its plain version on the CPU; the dense cache attends in
-plain PyTorch, as the reference's does.
+each program here is a Python loop over the layers (and the draft's walk
+in a speculative round a Python loop over its steps). The attention of a
+paged decode step is the paged-attention CUDA kernel
+(``ops/paged_attention.py``) on the card, or its plain version on the
+CPU; prefill chunks (by default), the ragged lane and the speculative
+blocks attend through the plain page gather, and the dense cache in
+plain PyTorch, as the reference's do.
 
-Pools and dense caches are updated IN PLACE (the reference donates them
-to its jitted programs); every function returns the same tensors it was
+Pools, dense caches and the adapter and grammar banks are updated IN
+PLACE (the reference donates them to its jitted programs or rebinds a
+functional update); every function returns the same tensors it was
 given.
 """
 from __future__ import annotations
@@ -40,18 +48,40 @@ def _mm(x, w):
     return x @ w
 
 
-def _proj_qkv(cfg, p, h, pos):
+def _bgmv(h, A, B_, ids):
+    """Batched gather matvec (Punica's BGMV): each row's low-rank delta
+    ``(h @ A[row]) @ B[row]``. ``h`` (B, T, H); ``A`` (n_slots, H, r);
+    ``B_`` (n_slots, r, out); ``ids`` (B,) slot indices. Two batched
+    products over the gathered (B, H, r) and (B, r, out) factors: no
+    per-row full-rank weight is ever formed."""
+    ids = ids.long()
+    return torch.bmm(torch.bmm(h, A.index_select(0, ids)),
+                     B_.index_select(0, ids))
+
+
+def _proj_qkv(cfg, p, h, pos, lora=None):
     """h: (B, T, H); pos: absolute positions broadcastable to (B, T).
     Returns q, k, v with rotary applied — q (B, nh, T, hd), k/v
-    (B, nkv, T, hd)."""
+    (B, nkv, T, hd).
+
+    ``lora`` (multi-adapter serving): ``(bank_l, ids, scale)``, this
+    layer's adapter-bank views (``q_A`` / ``q_B`` / ``v_A`` / ``v_B``,
+    each (n_slots, ...)) and the per-row slot indices; the ``_bgmv``
+    delta lands on q and v before the head reshape and the rotary. Slot
+    0 holds zeros, so identity rows add an exact 0."""
     B, T, H = h.shape
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     hd = H // nh
-    q = _mm(h, p["self_attn.q_proj.weight"]).reshape(B, T, nh, hd)
+    q = _mm(h, p["self_attn.q_proj.weight"])
     k = _mm(h, p["self_attn.k_proj.weight"]).reshape(B, T, nkv, hd)
-    v = _mm(h, p["self_attn.v_proj.weight"]).reshape(B, T, nkv, hd)
-    q = apply_rotary(q, pos, cfg.rope_theta)
+    v = _mm(h, p["self_attn.v_proj.weight"])
+    if lora is not None:
+        bank_l, ids, scale = lora
+        q = q + _bgmv(h, bank_l["q_A"], bank_l["q_B"], ids) * scale
+        v = v + _bgmv(h, bank_l["v_A"], bank_l["v_B"], ids) * scale
+    q = apply_rotary(q.reshape(B, T, nh, hd), pos, cfg.rope_theta)
     k = apply_rotary(k, pos, cfg.rope_theta)
+    v = v.reshape(B, T, nkv, hd)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -78,13 +108,78 @@ def _attend(cfg, q, k_all, v_all, key_mask):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v_all)
 
 
-def _layer_math(cfg, lp, x, pos_vec, attend):
+def _gmask(logits, grammar):
+    """Constrained decoding: mask each row's logits with its grammar
+    state's packed allow-bitmask before the argmax. ``grammar`` is
+    ``(mask_table, state_ids)``: a ``(rows, ceil(V/32))`` int32 bank
+    holding the reference's uint32 words bit for bit, and a (B,) flat
+    row id per batch row. Bit ``t % 32`` of word ``t // 32`` allows
+    token ``t``; an arithmetic shift of a negative word (bit 31 set)
+    still leaves that bit in place for ``& 1``. Masked logits are -inf
+    in the logits' dtype. Flat id 0 is the all-allow row; ``None``
+    masks nothing."""
+    if grammar is None:
+        return logits
+    table, gids = grammar
+    V = logits.shape[-1]
+    rows = table.index_select(0, gids.long())            # (B, words)
+    tok = torch.arange(V, device=logits.device)
+    allow = (rows[:, tok // 32] >> (tok % 32).to(rows.dtype)) & 1
+    return logits.masked_fill(allow == 0, -math.inf)
+
+
+def _write_positions(pool_l, kv, page_tables, positions, page_size):
+    """kv (B, nkv, T, hd) written in place at PER-ROW absolute
+    ``positions`` (B, T) through the page tables: the speculative
+    draft / verify write, each (row, t) to its own (page, offset). A
+    row that is not live has an all-zero table row, so its positions
+    (-1 and 0 for the draft's two-token feed) resolve into the reserved
+    page 0; a negative column counts from the end, as the reference's
+    ``take_along_axis`` does."""
+    W = page_tables.shape[1]
+    cols = torch.remainder(torch.div(positions, page_size,
+                                     rounding_mode="floor"), W)
+    pages = page_tables.gather(1, cols)                   # (B, T)
+    offs = torch.remainder(positions, page_size)
+    if isinstance(pool_l, tuple):
+        data, sc = pool_l
+        qd, s = _q8(kv)
+        data[:, pages, offs] = qd.transpose(0, 1)
+        sc[:, pages, offs] = s.transpose(0, 1)
+    else:
+        pool_l[:, pages, offs] = kv.transpose(0, 1).to(pool_l.dtype)
+
+
+def _pool_layer(pools, l):
+    """Layer l's views of ``(k_pools, v_pools)`` (int8 pools are (data,
+    scales) pairs): writes through them land in the pools."""
+    k_pools, v_pools = pools
+    if isinstance(k_pools, tuple):
+        return ((k_pools[0][l], k_pools[1][l]),
+                (v_pools[0][l], v_pools[1][l]))
+    return k_pools[l], v_pools[l]
+
+
+def _gather_pages(pool_l, page_tables):
+    """(B, nkv, W * page_size, hd): one layer's pages of the batch's
+    tables gathered first, only that slice dequantized."""
+    if isinstance(pool_l, tuple):
+        data, sc = pool_l
+        g = data[:, page_tables].to(torch.float32) \
+            * sc[:, page_tables][..., None]
+    else:
+        g = pool_l[:, page_tables]
+    nkv, B, W, ps, hd = g.shape
+    return g.transpose(0, 1).reshape(B, nkv, W * ps, hd)
+
+
+def _layer_math(cfg, lp, x, pos_vec, attend, lora=None):
     """The shared decoder-layer body (rms -> qkv+rope -> attend -> o_proj
     residual -> mlp residual); ``attend(q, k, v) -> ctx`` owns the cache
-    strategy."""
+    strategy. ``lora``: the optional per-layer delta (``_proj_qkv``)."""
     B, T, H = x.shape
     h = _rms(x, lp["input_layernorm.weight"], cfg.rms_norm_eps)
-    q, k, v = _proj_qkv(cfg, lp, h, pos_vec)
+    q, k, v = _proj_qkv(cfg, lp, h, pos_vec, lora=lora)
     ctx = attend(q, k, v)
     x = x + _mm(ctx.transpose(1, 2).reshape(B, T, H),
                 lp["self_attn.o_proj.weight"])
@@ -162,6 +257,7 @@ def llama_paged_decode_factory(model: LlamaForCausalLM,
                                emit: str = "token",
                                prefill_attention: str = "gather",
                                kv_quant: str | None = None,
+                               lora: "LoRAConfig | tuple | None" = None,
                                device=None):
     """Decode over a PAGED KV pool — the continuous-batching serving path.
 
@@ -175,12 +271,15 @@ def llama_paged_decode_factory(model: LlamaForCausalLM,
       pools: (k_pools, v_pools) each (L, Hkv, P, page_size, hd); int8
           pools are ((k_data, k_scales), (v_data, v_scales)) with scales
           (L, Hkv, P, page_size) f32
-      prefill(outer, layers, tokens (B,T), page_tables, lengths, pools)
+      prefill(outer, layers, tokens (B,T), page_tables, lengths, pools,
+              lora=None, grammar=None)
           -> (next_token (B,), pools)   [prompt K/V written to pages]
-      decode_step(outer, layers, tok (B,), page_tables, lengths, pools)
+      decode_step(outer, layers, tok (B,), page_tables, lengths, pools,
+                  lora=None, grammar=None)
           -> (next_token (B,), pools)   [lengths + 1 is the caller's
                                          bookkeeping]
-      decode_n(outer, layers, tok, page_tables, lengths, pools, n)
+      decode_n(outer, layers, tok, page_tables, lengths, pools, n,
+               lora=None, grammar=None)
           -> (emits (n, B, ...), next_tok (B,), pools)
     Pools are updated in place and returned.
 
@@ -189,24 +288,39 @@ def llama_paged_decode_factory(model: LlamaForCausalLM,
     far; it takes ``resume_from`` (a chunk multiple) to skip chunks whose
     pages already hold K/V. ``prefill_attention="kernel"`` attends each
     chunk through ``paged_prefill_attention`` (the paged kernel) instead
-    of gathering the pages densely.
+    of gathering the pages densely. With the gather, the chunked prefill
+    also carries ``prefill._ragged``: ``prefill_ragged(outer, layers,
+    chunk (R, C), starts (R,), page_tables, lengths, pools, lora=None,
+    grammar=None)``, one C-token chunk per row at per-row offsets in one
+    call (the serving engine's fused lane); it is left off under kernel
+    attention so that one run never mixes the two numerics.
+
+    ``lora`` (``LoRAConfig`` / ``(n_slots, rank)``): multi-adapter
+    serving. Every callable takes a trailing ``lora=(adapter_bank,
+    adapter_ids)``: the bank (``lora_bank_hooks``) stacks per-slot
+    low-rank q / v deltas, the ids pick each row's slot (0: the zero
+    identity), applied per row by ``_bgmv`` at the config's ``scale``.
+    ``lora=None`` at the call runs no LoRA operation at all.
+    ``grammar=(mask_table, state_ids)`` (``grammar_bank_hooks``) masks
+    the logits of each row before its argmax (``_gmask``).
 
     ``kv_cache_dtype="int8"`` or ``kv_quant="int8"``: pages store the
     per-slot absmax int8 codec; the kernel dequantizes them.
     ``emit="logits"``: return last-position logits (B, V) f32 instead of
     greedy tokens.
 
-    Not ported yet (ROADMAP item 11): ``tp``, ``lora``, ``grammar``,
-    ``kv_quant="pressure"``, ``prefill_ragged``; ``scan_layers`` has no
-    meaning here (the layers are a Python loop). A model with fused
-    projection weights is refused: the decode programs read the unfused
-    keys, as the reference's do.
+    Not ported yet (ROADMAP item 11): ``tp`` and ``kv_quant="pressure"``;
+    ``scan_layers`` has no meaning here (the layers are a Python loop). A
+    model with fused projection weights is refused: the decode programs
+    read the unfused keys, as the reference's do.
     """
     dev = resolve_device(device)
+    lora = as_lora_config(lora)
     outer, layers = _split_for(model, dev, "llama_paged_decode_factory")
     return _paged_from(model.config, outer, layers, dev, page_size,
                        n_pool_pages, chunked_prefill, kv_cache_dtype, emit,
-                       prefill_attention, kv_quant)
+                       prefill_attention, kv_quant,
+                       lora.scale if lora is not None else 1.0)
 
 
 def _split_for(model, dev, who: str):
@@ -227,7 +341,7 @@ def _split_for(model, dev, who: str):
 
 def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
                 chunked_prefill, kv_cache_dtype, emit, prefill_attention,
-                kv_quant):
+                kv_quant, lora_scale=1.0):
     """The paged factory's programs over split parameters already on
     ``dev`` (the serving factory shares one copy with the dense
     backend)."""
@@ -255,10 +369,24 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
     def _idx(x):
         return torch.as_tensor(x, device=dev).long()
 
-    def _emit(logits):
+    def _emit(logits, grammar):
+        logits = _gmask(logits, _on_dev(grammar))
         if emit == "token":
             return torch.argmax(logits, -1).to(torch.int32)
         return logits.to(torch.float32)
+
+    def _on_dev(pair):
+        """A ``(bank, ids)`` call argument with its ids on ``dev``."""
+        return None if pair is None else (pair[0], _idx(pair[1]))
+
+    def _per_layer(layers_, lora, l):
+        """Layer l's weights and its LoRA triple for ``_layer_math``
+        (None without adapters)."""
+        lp = {k: v[l] for k, v in layers_.items()}
+        if lora is None:
+            return lp, None
+        bank, ids = lora
+        return lp, ({k: v[l] for k, v in bank.items()}, ids, lora_scale)
 
     def init_pools():
         shape = (L, nkv, n_pool_pages, page_size, hd)
@@ -271,27 +399,14 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
         return (torch.zeros(shape, dtype=dtype, device=dev),
                 torch.zeros(shape, dtype=dtype, device=dev))
 
-    def _layer_pools(pools, l):
-        """Layer l's views of the pools: writes land in the pools."""
-        k_pools, v_pools = pools
-        if quantized:
-            return ((k_pools[0][l], k_pools[1][l]),
-                    (v_pools[0][l], v_pools[1][l]))
-        return k_pools[l], v_pools[l]
-
-    def _write_chunk(pool_l, kv, page_tables, start, C):
-        """kv (B, nkv, C, hd) written at absolute positions start.. —
-        start and C are page multiples, so whole pages scatter."""
-        B = kv.shape[0]
-        npg = C // page_size
-        first = start // page_size
-        ids = page_tables[:, first:first + npg].reshape(-1)
-
+    def _scatter_pages(pool_l, kv, ids, R, npg):
+        """kv (R, nkv, npg * page_size, hd) written as whole pages at the
+        page ids ``ids`` (R * npg,), row-major."""
         def pageify(a, *trail):
-            a = a.reshape((B, nkv, npg, page_size) + tuple(trail))
+            a = a.reshape((R, nkv, npg, page_size) + tuple(trail))
             order = (1, 0, 2, 3) + tuple(range(4, a.dim()))
             return a.permute(order).reshape(
-                (nkv, B * npg, page_size) + tuple(trail))
+                (nkv, R * npg, page_size) + tuple(trail))
 
         if isinstance(pool_l, tuple):
             data, sc = pool_l
@@ -300,6 +415,26 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
             sc[:, ids] = pageify(s)
         else:
             pool_l[:, ids] = pageify(kv, hd).to(pool_l.dtype)
+
+    def _write_chunk(pool_l, kv, page_tables, start, C):
+        """kv (B, nkv, C, hd) written at absolute positions start.. —
+        start and C are page multiples, so whole pages scatter."""
+        npg = C // page_size
+        first = start // page_size
+        _scatter_pages(pool_l, kv,
+                       page_tables[:, first:first + npg].reshape(-1),
+                       kv.shape[0], npg)
+
+    def _write_chunk_ragged(pool_l, kv, page_tables, starts, C):
+        """kv (R, nkv, C, hd) written at PER-ROW absolute positions
+        starts[r].. (page multiples). Rows with nothing to run point at
+        the reserved page 0; duplicate ids there hold garbage, and cohort
+        rows rewriting a shared cached page carry identical content."""
+        npg = C // page_size
+        col = (starts // page_size)[:, None] + torch.arange(
+            npg, device=dev)[None, :]
+        _scatter_pages(pool_l, kv, page_tables.gather(1, col).reshape(-1),
+                       kv.shape[0], npg)
 
     def _write_token(pool_l, kv, page_tables, lengths):
         """kv (B, nkv, 1, hd) written at each sequence's current end."""
@@ -320,11 +455,15 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
         return kp, vp, {}
 
     @torch.no_grad()
-    def prefill(outer, layers_, tokens, page_tables, lengths, pools):
+    def prefill(outer, layers_, tokens, page_tables, lengths, pools,
+                lora=None, grammar=None):
         """Prompts padded to a page multiple; ``lengths`` are the REAL
         prompt lengths (padding K/V lands in allocated pages but is
-        masked by lengths everywhere downstream)."""
+        masked by lengths everywhere downstream). ``grammar`` masks the
+        first emitted token (each row's id its automaton's start
+        state)."""
         tokens, pt, lengths = _idx(tokens), _idx(page_tables), _idx(lengths)
+        lora = _on_dev(lora)
         B, T = tokens.shape
         if T % page_size:
             raise ValueError(f"prefill length {T} must be a multiple of "
@@ -336,45 +475,47 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
         key_ok = pos_vec[None, :] < lengths[:, None]
         mask = causal[None, None] & key_ok[:, None, None, :]
         for l in range(L):
-            kp_l, vp_l = _layer_pools(pools, l)
+            kp_l, vp_l = _pool_layer(pools, l)
 
             def attend(q, k, v):
                 _write_chunk(kp_l, k, pt, 0, T)
                 _write_chunk(vp_l, v, pt, 0, T)
                 return _attend(cfg, q, k, v, mask)
 
-            x = _layer_math(cfg, {k: v[l] for k, v in layers_.items()}, x,
-                            pos_vec, attend)
+            lp, lo = _per_layer(layers_, lora, l)
+            x = _layer_math(cfg, lp, x, pos_vec, attend, lora=lo)
         x = _rms(x, outer["model.norm.weight"], cfg.rms_norm_eps)
         x_last = x[torch.arange(B, device=dev), lengths - 1]
-        return _emit(_logits(cfg, outer, x_last)), pools
+        return _emit(_logits(cfg, outer, x_last), grammar), pools
 
     @torch.no_grad()
-    def decode_step(outer, layers_, tok, page_tables, lengths, pools):
+    def decode_step(outer, layers_, tok, page_tables, lengths, pools,
+                    lora=None, grammar=None):
         tok, pt, lengths = _idx(tok), _idx(page_tables), _idx(lengths)
+        lora = _on_dev(lora)
         x = outer["model.embed_tokens.weight"][tok][:, None]   # (B, 1, H)
         pos = lengths[:, None]                                 # per sequence
         # converted once per step, not once per layer
         pt32 = pt.to(torch.int32)
         seen = (lengths + 1).to(torch.int32)
         for l in range(L):
-            kp_l, vp_l = _layer_pools(pools, l)
+            kp_l, vp_l = _pool_layer(pools, l)
 
             def attend(q, k, v):
                 _write_token(kp_l, k, pt, lengths)
                 _write_token(vp_l, v, pt, lengths)
                 kd, vd, scales = _kernel_operands(kp_l, vp_l)
                 ctx = paged_attention(q[:, :, 0], kd, vd, pt32, seen,
-                                          **scales)
+                                      **scales)
                 return ctx.to(q.dtype)[:, :, None]
 
-            x = _layer_math(cfg, {k: v[l] for k, v in layers_.items()}, x,
-                            pos, attend)
+            lp, lo = _per_layer(layers_, lora, l)
+            x = _layer_math(cfg, lp, x, pos, attend, lora=lo)
         x = _rms(x, outer["model.norm.weight"], cfg.rms_norm_eps)
-        return _emit(_logits(cfg, outer, x[:, 0])), pools
+        return _emit(_logits(cfg, outer, x[:, 0]), grammar), pools
 
     def _prefill_chunk(outer, layers_, chunk, start, pt, lengths, pools,
-                       x_last):
+                       x_last, lora):
         """One C-token chunk at absolute positions start..start+C-1:
         writes its pages, attends to every pool position < start+C, and
         harvests the hidden state of each sequence's (length-1) row when
@@ -392,7 +533,7 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
                     & (kpos[None, None, :] < lengths[:, None, None]))
             mask = mask[:, None]                             # (B, 1, C, S)
         for l in range(L):
-            kp_l, vp_l = _layer_pools(pools, l)
+            kp_l, vp_l = _pool_layer(pools, l)
 
             def attend(q, k, v):
                 _write_chunk(kp_l, k, pt, start, C)
@@ -400,43 +541,34 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
                 if prefill_attention == "kernel":
                     kd, vd, scales = _kernel_operands(kp_l, vp_l)
                     ctx = paged_prefill_attention(q, kd, vd, pt32, len32,
-                                                      start, **scales)
+                                                  start, **scales)
                     return ctx.to(q.dtype)
+                return _attend(cfg, q, _gather_pages(kp_l, pt).to(q.dtype),
+                               _gather_pages(vp_l, pt).to(q.dtype), mask)
 
-                def gather(pool):
-                    """(B, nkv, S, hd): gather the batch's pages first,
-                    dequantize only that slice."""
-                    if isinstance(pool, tuple):
-                        data, sc = pool
-                        g = (data[:, pt].to(torch.float32)
-                             * sc[:, pt][..., None])
-                    else:
-                        g = pool[:, pt]
-                    return g.transpose(0, 1).reshape(B, nkv, S, hd)
-
-                return _attend(cfg, q, gather(kp_l).to(q.dtype),
-                               gather(vp_l).to(q.dtype), mask)
-
-            x = _layer_math(cfg, {k: v[l] for k, v in layers_.items()}, x,
-                            pos_vec, attend)
+            lp, lo = _per_layer(layers_, lora, l)
+            x = _layer_math(cfg, lp, x, pos_vec, attend, lora=lo)
         idx = torch.clamp(lengths - 1 - start, 0, C - 1)
         row = x[torch.arange(B, device=dev), idx]
         hit = ((lengths - 1 >= start) & (lengths - 1 < start + C))[:, None]
         return torch.where(hit, row, x_last)
 
-    def _finish_prefill(outer, x_last):
+    def _finish_prefill(outer, x_last, grammar):
         x = _rms(x_last, outer["model.norm.weight"], cfg.rms_norm_eps)
-        return _emit(_logits(cfg, outer, x))
+        return _emit(_logits(cfg, outer, x), grammar)
 
     @torch.no_grad()
     def prefill_chunked(outer, layers_, tokens, page_tables, lengths, pools,
-                        resume_from: int = 0):
+                        resume_from: int = 0, lora=None, grammar=None):
         """``resume_from`` (a chunk multiple): skip chunks whose pages
         already hold real K/V (the prefix-cache path; pass the MINIMUM
         cached count across the batch, rounded down to a chunk multiple).
-        The final chunk always runs so the last-position logits exist."""
+        The final chunk always runs so the last-position logits exist.
+        ``lora`` reaches every chunk; ``grammar`` masks the logits of the
+        last position."""
         C = chunked_prefill
         tokens, pt, lengths = _idx(tokens), _idx(page_tables), _idx(lengths)
+        lora = _on_dev(lora)
         B, T = tokens.shape
         if T % C:
             raise ValueError(
@@ -449,24 +581,67 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
         x_last = torch.zeros((B, cfg.hidden_size), dtype=dtype, device=dev)
         for s in range(resume, T, C):
             x_last = _prefill_chunk(outer, layers_, tokens[:, s:s + C], s,
-                                    pt, lengths, pools, x_last)
-        return _finish_prefill(outer, x_last), pools
+                                    pt, lengths, pools, x_last, lora)
+        return _finish_prefill(outer, x_last, grammar), pools
+
+    @torch.no_grad()
+    def prefill_ragged(outer, layers_, chunk, starts, page_tables, lengths,
+                       pools, lora=None, grammar=None):
+        """ONE call for a lane turn: row r runs the C tokens of
+        ``chunk[r]`` at absolute offset ``starts[r]`` (a chunk multiple)
+        against its own page table, attending causally through the page
+        gather. Returns per-row greedy tokens like ``prefill``; only rows
+        whose FINAL chunk this is (length-1 inside the window) carry a
+        meaningful value. Rows with nothing to run point their pages at
+        the reserved page 0."""
+        chunk, starts = _idx(chunk), _idx(starts)
+        pt, lengths = _idx(page_tables), _idx(lengths)
+        lora = _on_dev(lora)
+        R, C = chunk.shape
+        S = pt.shape[1] * page_size
+        x = outer["model.embed_tokens.weight"][chunk]
+        pos = starts[:, None] + torch.arange(C, device=dev)[None, :]
+        kpos = torch.arange(S, device=dev)
+        mask = ((kpos[None, None, :] <= pos[:, :, None])
+                & (kpos[None, None, :] < lengths[:, None, None]))[:, None]
+        for l in range(L):
+            kp_l, vp_l = _pool_layer(pools, l)
+
+            def attend(q, k, v):
+                _write_chunk_ragged(kp_l, k, pt, starts, C)
+                _write_chunk_ragged(vp_l, v, pt, starts, C)
+                return _attend(cfg, q, _gather_pages(kp_l, pt).to(q.dtype),
+                               _gather_pages(vp_l, pt).to(q.dtype), mask)
+
+            lp, lo = _per_layer(layers_, lora, l)
+            x = _layer_math(cfg, lp, x, pos, attend, lora=lo)
+        idx = torch.clamp(lengths - 1 - starts, 0, C - 1)
+        row = x[torch.arange(R, device=dev), idx]
+        hit = ((lengths - 1 >= starts) & (lengths - 1 < starts + C))[:, None]
+        x_last = torch.where(hit, row, torch.zeros_like(row))
+        return _finish_prefill(outer, x_last, grammar), pools
 
     if chunked_prefill is not None:
         prefill = prefill_chunked  # noqa: F811
+        if prefill_attention != "kernel":
+            prefill_chunked._ragged = prefill_ragged
 
     @torch.no_grad()
-    def decode_n(outer, layers_, tok, page_tables, lengths, pools, n):
+    def decode_n(outer, layers_, tok, page_tables, lengths, pools, n,
+                 lora=None, grammar=None):
         """n decode steps as a Python loop over decode_step. Returns
         (emits (n, B, ...), next_tok (B,), pools); the caller's length
         bookkeeping is lengths + n. With emit="logits" the fed-back token
-        is the greedy argmax."""
+        is the greedy argmax. ``grammar`` holds each row's dispatch-time
+        state for all n steps (the engine decodes constrained rows one
+        step a call)."""
         tok = _idx(tok).to(torch.int32)
         lens = _idx(lengths)
+        lora, grammar = _on_dev(lora), _on_dev(grammar)
         emits = []
         for _ in range(n):
             nxt, pools = decode_step(outer, layers_, tok, page_tables, lens,
-                                     pools)
+                                     pools, lora, grammar)
             tok = nxt if nxt.dim() == 1 else \
                 torch.argmax(nxt, -1).to(torch.int32)
             emits.append(nxt)
@@ -686,8 +861,7 @@ class LoRAConfig:
     """Multi-adapter LoRA layout for the paged serving decode path: a
     device bank of ``n_slots`` stacked low-rank delta sets over the q/v
     projections, applied per batch row by slot index. Slot 0 is the
-    reserved identity. The port carries the host config; the bank is
-    not ported yet (ROADMAP item 11)."""
+    reserved identity (``lora_bank_hooks`` builds the bank)."""
 
     n_slots: int = 4
     rank: int = 4
@@ -734,12 +908,59 @@ def synthesize_lora_deltas(cfg, rank: int, seed: int = 0,
             "v_A": draw(L, H, rank), "v_B": draw(L, rank, nkv * hd)}
 
 
+def lora_bank_hooks(cfg, lora: LoRAConfig, dtype, device=None):
+    """The adapter cache's device hooks: ``(init_adapter_bank,
+    upload_adapter)``.
+
+    ``init_adapter_bank()`` builds the all-zero bank on ``device``: per
+    LoRA key a ``(L, n_slots, ...)`` tensor, stacked layer-first like the
+    layer weights; slot 0 stays zero (the identity every
+    ``adapter=None`` row decodes through).
+
+    ``upload_adapter(bank, slot, deltas)`` writes one
+    ``synthesize_lora_deltas``-shaped host delta set (``q_A`` / ``v_A``
+    (L, H, r), ``q_B`` / ``v_B`` (L, r, out)) into ``slot`` IN PLACE and
+    returns the same bank (the reference returns a functional update;
+    the engine rebinds whatever comes back). Every key's shape is
+    checked before anything is written."""
+    L = cfg.num_hidden_layers
+    H = cfg.hidden_size
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    hd = H // nh
+    r, ns = lora.rank, lora.n_slots
+    dev = resolve_device(device)
+    shapes = {"q_A": (L, ns, H, r), "q_B": (L, ns, r, nh * hd),
+              "v_A": (L, ns, H, r), "v_B": (L, ns, r, nkv * hd)}
+
+    def init_adapter_bank():
+        return {k: torch.zeros(s, dtype=dtype, device=dev)
+                for k, s in shapes.items()}
+
+    def upload_adapter(bank, slot, deltas):
+        for k in LORA_KEYS:
+            if k not in deltas:
+                raise ValueError(f"adapter delta set missing {k!r} "
+                                 f"(needs {LORA_KEYS})")
+            want = shapes[k][:1] + shapes[k][2:]
+            got = tuple(np.asarray(deltas[k]).shape)
+            if got != want:
+                raise ValueError(f"adapter delta {k} has shape {got}, "
+                                 f"bank slot wants {want} (rank/model "
+                                 "mismatch?)")
+        for k in LORA_KEYS:
+            bank[k][:, slot].copy_(torch.as_tensor(
+                np.asarray(deltas[k], np.float32)).to(bank[k].dtype))
+        return bank
+
+    return init_adapter_bank, upload_adapter
+
+
 @dataclasses.dataclass(frozen=True)
 class GrammarConfig:
     """Constrained-decoding layout: a bank of ``n_slots * max_states``
     packed allow-bitmask rows, indexed per row by ``slot * max_states +
-    state``; slot 0 is the all-allow identity. The port carries the host
-    config; the mask bank is not ported yet (ROADMAP item 11)."""
+    state``; slot 0 is the all-allow identity (``grammar_bank_hooks``
+    builds the bank)."""
 
     n_slots: int = 4
     max_states: int = 64
@@ -765,13 +986,59 @@ def as_grammar_config(grammar) -> "GrammarConfig | None":
                      "max_states), or a GrammarConfig")
 
 
+def grammar_bank_hooks(vocab_size: int, grammar: GrammarConfig,
+                       device=None):
+    """The grammar cache's device hooks: ``(init_grammar_bank,
+    upload_grammar)``.
+
+    ``init_grammar_bank()`` builds the ``(n_slots * max_states,
+    ceil(vocab / 32))`` bank on ``device`` with slot 0's whole block all
+    ones (the all-allow identity every free row indexes at flat id 0).
+    The words are the reference's uint32 masks stored as int32 (the same
+    bits; PyTorch has no uint32 arithmetic on every device), which
+    ``_gmask`` unpacks by shift and ``& 1``.
+
+    ``upload_grammar(bank, slot, compiled)`` writes one compiled
+    automaton's packed per-state masks (``n_states``, ``masks``) into the
+    slot's block IN PLACE, zeroing the block's unused tail so a recycled
+    slot never leaks a larger predecessor's rows, and returns the same
+    bank."""
+    words = (int(vocab_size) + 31) // 32
+    ms, ns = grammar.max_states, grammar.n_slots
+    dev = resolve_device(device)
+
+    def init_grammar_bank():
+        bank = np.zeros((ns * ms, words), np.uint32)
+        bank[:ms] = np.uint32(0xFFFFFFFF)
+        return torch.from_numpy(bank.view(np.int32)).to(dev)
+
+    def upload_grammar(bank, slot, compiled):
+        n = int(compiled.n_states)
+        if n > ms:
+            raise ValueError(f"grammar compiles to {n} states > "
+                             f"max_states {ms}")
+        masks = np.asarray(compiled.masks, np.uint32)
+        if masks.shape != (n, words):
+            raise ValueError(f"grammar masks have shape {masks.shape},"
+                             f" bank rows want (*, {words}) (vocab "
+                             "mismatch?)")
+        block = np.zeros((ms, words), np.uint32)
+        block[:n] = masks
+        bank[slot * ms:(slot + 1) * ms] = torch.from_numpy(
+            block.view(np.int32)).to(bank.device)
+        return bank
+
+    return init_grammar_bank, upload_grammar
+
+
 @dataclasses.dataclass(frozen=True)
 class SpecConfig:
     """Adaptive speculative-decode policy for the serving engine: a
     draft window of ``n_draft`` tokens verified in one target block,
     eligibility by priority and deadline, an acceptance floor on an
-    EWMA, and an overload fallback. The port carries the host config;
-    the draft/verify programs are not ported yet (ROADMAP item 11)."""
+    EWMA, and an overload fallback. Greedy acceptance keeps every
+    emitted token the target's greedy token (``build_spec_step`` is the
+    round)."""
 
     n_draft: int = 4
     accept_floor: float = 0.35
@@ -807,6 +1074,103 @@ def as_spec_config(spec) -> "SpecConfig | None":
         return SpecConfig(n_draft=spec)
     raise ValueError(f"spec {spec!r}: pass None, True, an int "
                      "n_draft, or a SpecConfig")
+
+
+def build_spec_step(cfg_t, cfg_d, page_size: int):
+    """ONE speculative round over the paged pools, batched across decode
+    slots: the draft consumes ``[prev, tok]`` at (len-1, len) (two
+    positions: re-consuming len-1 rewrites identical K/V and leaves the
+    draft cache no hole after a fully accepted round), then walks
+    ``k-1`` more greedy steps, one block call each; the target verifies
+    ``[tok, d_0 .. d_{k-1}]`` in ONE (k+1)-position block through its
+    pool. Every block writes its K/V at per-row positions
+    (``_write_positions``) and attends the whole table through the page
+    gather. Rows that are not live ride along with all-zero tables and
+    length 0, writing into the reserved page 0.
+
+    Acceptance is the reference's branch-free arithmetic: ``n`` is the
+    length of the matching draft prefix (``cumprod`` of the matches),
+    ``cand`` holds the accepted drafts, then the target's correction or
+    bonus token; K/V written for rejected proposals lies beyond the
+    advanced length, where no key mask reaches, and later rounds
+    overwrite it.
+
+    Returns ``spec_step(outer_t, layers_t, outer_d, layers_d, prev_tok,
+    tok, page_tables, lengths, pools_t, pools_d, k) -> (accepted (B,),
+    cand (B, k+1), pools_t, pools_d)``, both int32, with ``k`` a Python
+    int and the pools updated in place."""
+
+    def make_block(cfg):
+        L = cfg.num_hidden_layers
+
+        def block(outer, layers, tokens, pos, page_tables, pools):
+            """tokens (B, T) at per-row absolute positions ``pos``
+            (B, T): write K/V at those slots, attend causally over the
+            whole table, return last-norm logits (B, T, V)."""
+            S = page_tables.shape[1] * page_size
+            x = outer["model.embed_tokens.weight"][tokens.long()]
+            key_ok = torch.arange(S, device=pos.device)[None, None, :] \
+                <= pos[:, :, None]
+            mask = key_ok[:, None]
+            for l in range(L):
+                kp_l, vp_l = _pool_layer(pools, l)
+
+                def attend(q, k, v):
+                    _write_positions(kp_l, k, page_tables, pos, page_size)
+                    _write_positions(vp_l, v, page_tables, pos, page_size)
+                    return _attend(cfg, q,
+                                   _gather_pages(kp_l, page_tables)
+                                   .to(q.dtype),
+                                   _gather_pages(vp_l, page_tables)
+                                   .to(q.dtype), mask)
+
+                x = _layer_math(cfg, {n: w[l] for n, w in layers.items()},
+                                x, pos, attend)
+            x = _rms(x, outer["model.norm.weight"], cfg.rms_norm_eps)
+            return _logits(cfg, outer, x)
+
+        return block
+
+    block_t = make_block(cfg_t)
+    block_d = make_block(cfg_d)
+
+    @torch.no_grad()
+    def spec_step(outer_t, layers_t, outer_d, layers_d, prev_tok, tok,
+                  page_tables, lengths, pools_t, pools_d, k):
+        dev = outer_t["model.embed_tokens.weight"].device
+        prev_tok = torch.as_tensor(prev_tok, device=dev).long()
+        tok = torch.as_tensor(tok, device=dev).long()
+        pt = torch.as_tensor(page_tables, device=dev).long()
+        lens = torch.as_tensor(lengths, device=dev).long()
+        B = tok.shape[0]
+        # draft: consume [prev, tok] at (len-1, len), emit d_0, then walk
+        # k-1 more steps
+        feed = torch.stack([prev_tok, tok], 1)
+        pos0 = lens[:, None] + torch.tensor([-1, 0], device=dev)[None, :]
+        cur = torch.argmax(block_d(outer_d, layers_d, feed, pos0, pt,
+                                   pools_d)[:, -1], -1)
+        drafts = [cur]
+        for i in range(k - 1):
+            cur = torch.argmax(block_d(outer_d, layers_d, cur[:, None],
+                                       lens[:, None] + 1 + i, pt,
+                                       pools_d)[:, -1], -1)
+            drafts.append(cur)
+        drafts = torch.stack(drafts, 1)                     # (B, k)
+        # target verifies [tok, d_0..d_{k-1}] in ONE (k+1)-position block
+        blk = torch.cat([tok[:, None], drafts], 1)
+        pos_t = lens[:, None] + torch.arange(k + 1, device=dev)[None, :]
+        t = torch.argmax(block_t(outer_t, layers_t, blk, pos_t, pt,
+                                 pools_t), -1)             # (B, k+1)
+        matches = (drafts == t[:, :k]).to(torch.int32)
+        n = torch.cumprod(matches, 1).sum(1)
+        idx = torch.arange(k + 1, device=dev)[None, :]
+        dpad = torch.cat([drafts, torch.zeros((B, 1), dtype=drafts.dtype,
+                                              device=dev)], 1)
+        cand = torch.where(idx < n[:, None], dpad, t)
+        return (n.to(torch.int32), cand.to(torch.int32), pools_t,
+                pools_d)
+
+    return spec_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1038,10 +1402,22 @@ def llama_serving_decode_factory(model: LlamaForCausalLM,
     (or ``kv_quant="int8"``) reaches both backends. The paged backend is
     built as the reference builds it: ``chunked_prefill`` chunks
     attending through the plain page gather (only decode reaches the
-    paged kernel). ``device``: ``cuda`` unless ``"cpu"`` is asked for.
+    paged kernel), which also gives the engine the fused ragged lane
+    (``prefill_ragged``). ``device``: ``cuda`` unless ``"cpu"`` is asked
+    for.
 
-    Not ported yet, each refused by name (ROADMAP item 11): ``tp``,
-    ``lora``, ``draft`` (speculative serving), ``grammar`` and
+    ``lora`` (``LoRAConfig`` / ``(n_slots, rank)``): the adapter bank's
+    hooks ``init_adapter_bank`` / ``upload_adapter`` (``lora_bank_hooks``,
+    in the weights' dtype). ``grammar`` (``GrammarConfig`` /
+    ``(n_slots, max_states)``): the mask bank's hooks
+    ``init_grammar_bank`` / ``upload_grammar``. ``draft`` (a smaller
+    model on the same vocabulary): speculative serving, ``spec_parts =
+    (draft outer, draft layers, draft pools, draft chunked prefill,
+    spec_step)``. The draft gets its own paged programs and pools over the
+    same page geometry, indexed by the target's page ids, its parameters
+    split once; it shares no tensor with the target.
+
+    Not ported yet, each refused by name (ROADMAP item 11): ``tp`` and
     ``kv_quant="pressure"``. ``scan_layers`` has no meaning here.
     """
     tp = as_tp_config(tp)
@@ -1050,28 +1426,60 @@ def llama_serving_decode_factory(model: LlamaForCausalLM,
     if kv_quant not in (None, "int8", "pressure"):
         raise ValueError(f"kv_quant {kv_quant!r}: use None, 'int8' or "
                          "'pressure'")
-    for name, value in (("tp", tp), ("lora", lora),
-                        ("draft (speculative serving)", draft),
-                        ("grammar", grammar)):
-        if value is not None:
-            raise _not_ported(f"llama_serving_decode_factory({name}=...)",
-                              11)
-    if kv_quant == "pressure":
-        raise _not_ported("kv_quant='pressure' (the compacting page tier)",
-                          11)
+    if tp is not None:
+        raise _not_ported("llama_serving_decode_factory(tp=...)", 11)
     if kv_quant == "int8":
         if kv_cache_dtype not in (None, "int8"):
             raise ValueError("kv_quant='int8' IS kv_cache_dtype="
                              f"'int8' — {kv_cache_dtype!r} conflicts")
         kv_cache_dtype = "int8"
+    if kv_quant == "pressure":
+        if kv_cache_dtype is not None:
+            raise ValueError("kv_quant='pressure' owns the pool codec "
+                             "— drop kv_cache_dtype")
+        if draft is not None:
+            raise ValueError(
+                "kv_quant='pressure' does not compose with draft= "
+                "yet: the draft pool rides the target's page ids but "
+                "has no tier mask, so a compacted target page would "
+                "desync draft K/V — use kv_quant='int8'")
+        raise _not_ported("kv_quant='pressure' (the compacting page tier)",
+                          11)
+    if draft is not None:
+        if lora is not None:
+            raise ValueError(
+                "speculative serving does not compose with lora= yet "
+                "— the draft has no adapter bank, so a per-row delta "
+                "would desync draft proposals from the verified "
+                "target (run spec engines single-model)")
+        if draft.config.vocab_size != model.config.vocab_size:
+            raise ValueError("target and draft must share a "
+                             "vocabulary")
     dev = resolve_device(device)
     cfg = model.config
     _check_dense(cfg, max_len, kv_cache_dtype, None)
     outer, layers = _split_for(model, dev, "llama_serving_decode_factory")
+    w_dtype = layers["self_attn.q_proj.weight"].dtype
     gen = _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype)
     paged = _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
                         chunked_prefill, kv_cache_dtype, "token", "gather",
-                        kv_quant)
+                        kv_quant, lora.scale if lora is not None else 1.0)
+    lora_hooks = (lora_bank_hooks(cfg, lora, w_dtype, dev)
+                  if lora is not None else None)
+    grammar_hooks = (grammar_bank_hooks(cfg.vocab_size, grammar, dev)
+                     if grammar is not None else None)
+    spec_built = None
+    if draft is not None:
+        # the draft's own paged programs over the SAME page geometry:
+        # its pool is indexed by the target's page ids, so one
+        # PagedKVCache chain per request covers both pools
+        d_outer, d_layers = _split_for(draft, dev,
+                                       "llama_serving_decode_factory")
+        d_outer, d_layers, d_pools, d_prefill, _, _ = _paged_from(
+            draft.config, d_outer, d_layers, dev, page_size, n_pool_pages,
+            chunked_prefill, None, "token", "gather", None)
+        spec_built = (d_outer, d_layers, d_pools, d_prefill,
+                      build_spec_step(cfg, draft.config, page_size))
 
     class _Serving:
         # staticmethod: a bare function class attribute would bind as a
@@ -1085,14 +1493,24 @@ def llama_serving_decode_factory(model: LlamaForCausalLM,
         n_pool_pages_ = n_pool_pages
         chunked_prefill_ = chunked_prefill
         tp_ = None
-        lora_ = None
-        grammar_ = None
+        lora_ = lora
+        grammar_ = grammar
         grammar_vocab_ = cfg.vocab_size
         kv_quant_ = kv_quant
-        page_bytes_ = (kv_quant_page_bytes(
-            cfg, page_size, layers["self_attn.q_proj.weight"].dtype)
-            if kv_quant is not None else None)
-        spec_parts = None
+        page_bytes_ = (kv_quant_page_bytes(cfg, page_size, w_dtype)
+                       if kv_quant is not None else None)
+        # a tuple, not a callable, so the attribute never binds
+        spec_parts = spec_built
+        if getattr(paged[3], "_ragged", None) is not None:
+            # the fused lane's one call a turn; absent when prefill
+            # attends through the kernel (no mixing of numerics)
+            prefill_ragged = staticmethod(paged[3]._ragged)
+        if lora_hooks is not None:
+            init_adapter_bank = staticmethod(lora_hooks[0])
+            upload_adapter = staticmethod(lora_hooks[1])
+        if grammar_hooks is not None:
+            init_grammar_bank = staticmethod(grammar_hooks[0])
+            upload_grammar = staticmethod(grammar_hooks[1])
 
         def pick(self, lengths, capacity=None, shared_prefix=False,
                  expect_churn=False):

@@ -7,10 +7,10 @@ a pluggable routing policy, a QoS scheduling front door
 (``scheduler.QoSScheduler``), a seeded replayable trace generator
 (``workload``), per-request TTFT/TPOT/SLO/goodput/fairness metrics
 (``metrics``), the host-only simulated factory (``sim.SimServing``), and
-the host halves of the adapter, grammar and host-memory layers
-(``adapters``, ``grammar``, ``hostmem``), whose engine options are
-refused until their device halves are ported (ROADMAP item 11). The
-multi-replica layer (``cluster``, ``autoscale``, ``faults``) is not
+the adapter and grammar caches (``adapters``, ``grammar``: their device
+banks come from the serving factory) and the host half of the
+host-memory tier (``hostmem``, whose engine option is refused until its
+device half is ported, ROADMAP item 11). The multi-replica layer (``cluster``, ``autoscale``, ``faults``) is not
 ported yet (ROADMAP item 9). The whole stack is watchable by
 ``paddle_tpu_torch.obs``.
 """

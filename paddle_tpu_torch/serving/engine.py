@@ -30,13 +30,16 @@ by fixed per-action costs (``clock="fixed"``, the deterministic test
 mode: same trace -> same completion order, timestamps, slot occupancy).
 
 The engine runs on its factory's device (``cuda`` unless the factory was
-built with ``device="cpu"``). Not ported yet, and refused by name in the
-constructor: ``tp``, ``adapters`` / ``lora``, ``spec`` / ``spec_draft``,
-``grammar`` / ``grammar_config`` / ``adapter_schemas``,
-``kv_quant="pressure"`` / ``kv_quant_budget``, ``hostmem``,
-``ragged_prefill`` and ``dispatch_ahead`` (ROADMAP item 11), and the
-handoff transforms ``reshard_kv_pages``, ``repage_kv_pages`` and
-``transcode_kv_pages``. Their branches stay in the code.
+built with ``device="cpu"``): multi-adapter LoRA (``adapters`` /
+``lora``), constrained decoding (``grammar`` / ``grammar_config`` /
+``adapter_schemas``), speculative decoding (``spec`` / ``spec_draft``)
+and the fused ragged prefill lane (``ragged_prefill``) run on the
+factory's banks and programs there. Not ported yet, and refused by name
+in the constructor: ``tp``, ``kv_quant="pressure"`` /
+``kv_quant_budget``, ``hostmem`` and ``dispatch_ahead`` (ROADMAP item
+11), and the handoff transforms ``reshard_kv_pages``,
+``repage_kv_pages`` and ``transcode_kv_pages``. Their branches stay in
+the code.
 """
 from __future__ import annotations
 
@@ -796,13 +799,8 @@ class ServingEngine:
                  adapter_schemas=None, ledger=None, device=None):
         # Not ported yet: refused by name before anything is built.
         for name, value in (
-                ("tp", tp), ("adapters", adapters), ("lora", lora),
-                ("spec", as_spec_config(spec)), ("spec_draft", spec_draft),
-                ("grammar", grammar), ("grammar_config", grammar_config),
-                ("adapter_schemas", adapter_schemas or None),
-                ("kv_quant_budget", kv_quant_budget),
+                ("tp", tp), ("kv_quant_budget", kv_quant_budget),
                 ("hostmem", as_hostmem_config(hostmem)),
-                ("ragged_prefill", ragged_prefill or None),
                 ("dispatch_ahead", dispatch_ahead or None)):
             if value is not None:
                 raise _not_ported(f"ServingEngine({name}=...)")

@@ -1270,3 +1270,107 @@ def test_serving_engine_on_the_card_matches_the_cpu(card, kv_quant):
         assert launched == {"split": 2 * steps, "mma": 0, "rows": 0}
         assert none == {"split": 0, "mma": 0, "rows": 0}
     assert runs["cuda", "paged"][1] > 0 and runs["cuda", "dense"][1] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", ["lora", "grammar", "spec", "ragged"])
+def test_serving_features_on_the_card_match_the_cpu(card, feature):
+    """The engine's options on the fixed clock over a small f32 Llama's
+    serving factory (head_dim 64), on the card and on the CPU: the same
+    outputs and slot logs, the same streams as the plain engine for the
+    rows the option leaves alone (adapter-free, grammar-free, every spec
+    row, the ragged lane against the per-chunk lane); on the card every
+    plain decode step launches the split instance once a layer, and the
+    spec round, the ragged lane and prefill launch nothing (the page
+    gather)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_serving_decode_factory,
+                                             load_numpy_state_dict)
+    from paddle_tpu_torch.obs import Tracer
+    from paddle_tpu_torch.serving import (AdapterStore, GrammarStore,
+                                          ServingEngine, SpecConfig,
+                                          synthesize_lora_deltas,
+                                          synthesize_schema_trace,
+                                          synthesize_trace,
+                                          synthesize_zipf_adapter_trace)
+
+    cfg = LlamaConfig.tiny(vocab=97, hidden=256, layers=2, heads=4,
+                           kv_heads=2)
+    dcfg = LlamaConfig.tiny(vocab=97, hidden=128, layers=1, heads=2,
+                            kv_heads=1)
+    states = [{k: v.numpy() for k, v in
+               LlamaForCausalLM(c, device="cpu", seed=s).state_dict()
+               .items()} for c, s in ((cfg, 15), (dcfg, 16))]
+    schemas = {"s0": {"type": "object", "properties": {
+        "k0": {"type": "boolean"}}, "required": ["k0"]}}
+    if feature == "lora":
+        trace = synthesize_zipf_adapter_trace(
+            seed=1, n_requests=8, n_adapters=2, base_frac=0.3,
+            churn_frac=0.0, prompt_len=(5, 30), output_len=(3, 8),
+            vocab_size=97)
+        opts = dict(adapters=AdapterStore({f"a{k}": synthesize_lora_deltas(
+            cfg, 4, seed=k + 1, init_scale=0.25) for k in range(2)}))
+        build = dict(lora=(3, 4))
+        free = [r.rid for r in trace if r.adapter is None]
+    elif feature == "grammar":
+        trace = synthesize_schema_trace(seed=4, n_requests=8, n_schemas=1,
+                                        prompt_len=(4, 20),
+                                        output_len=(16, 24), vocab_size=97)
+        opts = dict(grammar=GrammarStore(schemas))
+        build = dict(grammar=(2, 64))
+        free = [r.rid for r in trace if r.schema is None]
+    elif feature == "spec":
+        trace = synthesize_trace(seed=0, n_requests=6, prompt_len=(4, 30),
+                                 output_len=(4, 12), vocab_size=97,
+                                 mean_interarrival=0.5)
+        opts = dict(spec=SpecConfig(n_draft=3, accept_floor=0.0))
+        build = dict(draft="draft")
+        free = [r.rid for r in trace]
+    else:
+        trace = synthesize_trace(seed=5, n_requests=8, prompt_len=(4, 40),
+                                 output_len=(3, 8), vocab_size=97,
+                                 mean_interarrival=2.0)
+        opts = dict(ragged_prefill=True, prefill_chunk_budget=2)
+        build = {}
+        free = [r.rid for r in trace]
+    plain_trace = [dataclasses.replace(r, adapter=None, schema=None)
+                   for r in trace]
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        def factory(**kw):
+            if kw.get("draft"):
+                kw["draft"] = load_numpy_state_dict(
+                    LlamaForCausalLM(dcfg, device=dev), states[1])
+            return llama_serving_decode_factory(
+                load_numpy_state_dict(LlamaForCausalLM(cfg, device=dev),
+                                      states[0]),
+                max_len=64, page_size=16, n_pool_pages=17,
+                batch_capacity=4, chunked_prefill=16, device=dev, **kw)
+
+        tracer = Tracer()
+        before = dict(tpa.paged_attention.instance_launches)
+        res = ServingEngine(serving=factory(**build), slots=4,
+                            policy="paged", clock="fixed", trace=tracer,
+                            **opts).run(trace)
+        launched = {k: n - before[k] for k, n in
+                    tpa.paged_attention.instance_launches.items()}
+        steps = sum(e["args"].get("n", 1) for e in tracer.events
+                    if e["ph"] == "X" and e["name"] == "decode")
+        plain = ServingEngine(
+            serving=factory(), slots=4, policy="paged", clock="fixed",
+            **({"prefill_chunk_budget": 2} if feature == "ragged"
+               else {})).run(plain_trace)
+        runs[dev.type] = (res, launched, steps, plain)
+    (got, launched, steps, plain), (want, none, _, _) = (runs["cuda"],
+                                                          runs["cpu"])
+    assert got.outputs == want.outputs and got.slot_log == want.slot_log
+    assert free and all(got.outputs[rid] == plain.outputs[rid]
+                        for rid in free)
+    assert launched == {"split": 2 * steps, "mma": 0, "rows": 0}
+    assert none == {"split": 0, "mma": 0, "rows": 0}
+    if feature == "spec":
+        assert got.spec_stats["rounds"] > 0 and steps == 0
+    else:
+        assert steps > 0

@@ -11,9 +11,12 @@ JAX package's, on the CPU.
   ``LOGIT_TOL``; the engine's outputs, slot logs and reports under the
   routed, dense and paged policies equal the reference's, and the three
   policies' outputs equal each other.
-* Every option that is not ported yet raises an error that names its
+* The options of ROADMAP item 11 that are ported (adapters, grammar,
+  speculative decoding, the ragged lane) are built and serve a request;
+  every option that is not ported yet raises an error that names its
   ROADMAP item.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -376,19 +379,80 @@ def test_engine_kv_page_export_round_trips(tiny):
     assert torch.equal(v[:, :, [5, 6]], data[1])
 
 
-# --- refusals ----------------------------------------------------------------
+# --- the options of ROADMAP item 11 that are ported, and the refusals ------
+
+def _one_request(S, **kw):
+    return S.synthesize_trace(seed=4, n_requests=1, prompt_len=(5, 9),
+                              output_len=(8, 10), vocab_size=97, **kw)
+
+
+def _served(tiny):
+    """Each option refused until ROADMAP item 11's first four were
+    ported: the engine options (through a prebuilt factory or the
+    constructor's model path) and the serving factory's, each built and
+    serving one request."""
+    m, cfg = tiny["model"], tiny["cfg"]
+    deltas = {"a": T.synthesize_lora_deltas(cfg, 1, seed=1)}
+    schema = {"s": {"type": "boolean"}}
+    model_path = dict(max_len=48, page_size=8, device="cpu")
+
+    def fac(**kw):
+        return llama_serving_decode_factory(
+            m, device="cpu", max_len=48, page_size=8, n_pool_pages=25,
+            batch_capacity=4, chunked_prefill=8, **kw)
+
+    return {
+        "adapters": (dict(serving=fac(lora=(2, 1)), adapters=deltas),
+                     dict(adapter="a")),
+        "lora": (dict(model=m, lora=(2, 1), adapters=deltas, **model_path),
+                 dict(adapter="a")),
+        "spec": (dict(serving=fac(draft=m), spec=True), {}),
+        "spec_draft": (dict(model=m, spec=T.SpecConfig(n_draft=2),
+                            spec_draft=m, **model_path), {}),
+        "grammar": (dict(serving=fac(grammar=(2, 16)), grammar=schema),
+                    dict(schema="s")),
+        "grammar_config": (dict(model=m, grammar_config=(2, 16),
+                                grammar=schema, **model_path),
+                           dict(schema="s")),
+        "adapter_schemas": (dict(serving=fac(lora=(2, 1), grammar=(2, 16)),
+                                 adapters=deltas, grammar=schema,
+                                 adapter_schemas={"a": "s"}),
+                            dict(adapter="a")),
+        "ragged_prefill": (dict(serving=fac(), ragged_prefill=True,
+                                prefill_chunk_budget=1), {}),
+        "factory_lora": (dict(serving=fac(lora=(2, 1))), {}),
+        "factory_draft": (dict(serving=fac(draft=m)), {}),
+        "factory_grammar": (dict(serving=fac(grammar=(2, 16))), {}),
+    }
+
+
+SERVED = ("adapters", "lora", "spec", "spec_draft", "grammar",
+          "grammar_config", "adapter_schemas", "ragged_prefill",
+          "factory_lora", "factory_draft", "factory_grammar")
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_option_is_built_and_serves(tiny, name):
+    kw, req = _served(tiny)[name]
+    trace = [dataclasses.replace(r, **req) for r in _one_request(T)]
+    res = T.ServingEngine(slots=4, policy="paged", clock="fixed",
+                          **kw).run(trace)
+    (rid, out), = res.outputs.items()
+    assert rid == trace[0].rid and 1 <= len(out) <= trace[0].max_new_tokens
+    if name.startswith("factory_") or name in ("spec", "ragged_prefill"):
+        assert len(out) == trace[0].max_new_tokens
+    if "schema" in req or name == "adapter_schemas":
+        assert T.schema_accepts({"type": "boolean"}, T.TokenVocab
+                                .ascii_default(97).decode(out))
+    if name.startswith("spec"):
+        assert res.spec_stats["rounds"] > 0
+
 
 REFUSED = {
-    "tp": dict(tp=2), "adapters": dict(adapters={"a": {"salt": 1}}),
-    "lora": dict(lora=(2, 1)), "spec": dict(spec=True),
-    "spec_draft": dict(spec_draft=object()),
-    "grammar": dict(grammar={"s": {"type": "boolean"}}),
-    "grammar_config": dict(grammar_config=(2, 8)),
-    "adapter_schemas": dict(adapter_schemas={"a": "s"}),
+    "tp": dict(tp=2),
     "kv_quant='pressure'": dict(kv_quant="pressure"),
     "kv_quant_budget": dict(kv_quant_budget=1 << 20),
     "hostmem": dict(hostmem=1 << 20),
-    "ragged_prefill": dict(ragged_prefill=True, prefill_chunk_budget=1),
     "dispatch_ahead": dict(dispatch_ahead=True),
 }
 
@@ -411,12 +475,8 @@ def test_engine_refuses_unported_factories_and_transforms(tiny):
             call()
 
 
-@pytest.mark.parametrize("option", [
-    dict(tp=2), dict(lora=(2, 1)), dict(draft="model"),
-    dict(grammar=(2, 8)), dict(kv_quant="pressure")])
+@pytest.mark.parametrize("option", [dict(tp=2), dict(kv_quant="pressure")])
 def test_serving_factory_refuses_what_is_not_ported(tiny, option):
-    if option.get("draft") == "model":
-        option = dict(draft=tiny["model"])
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 11"):
         llama_serving_decode_factory(tiny["model"], device="cpu",
                                      chunked_prefill=64, **option)
