@@ -11,6 +11,7 @@ trains.
     python3 chip_smoke.py --phases build,reference,train_bert
     python3 chip_smoke.py --phases build,reference,train_resnet50
     python3 chip_smoke.py --phases build,reference,train_full,train_long
+    python3 chip_smoke.py --phases build,reference,train_moe
     python3 chip_smoke.py --phases build,reference,serve_engine
     python3 chip_smoke.py --phases build,reference,serve_features
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
@@ -29,9 +30,10 @@ Phases, each printing JSON lines:
 2. ``kernel``: each kernel through its wrapper at the shapes of the main
    paths, against its plain version on the same inputs, element by
    element within the stated tolerance; each call must launch its kernel
-   once, and the paged calls and the attention backward kernels (dq,
-   dk/dv) launched twice on the same inputs must give the same bits. Times are CUDA events (median
-   of ``REPS``, L2 flushed before each call) beside the bound (the least
+   once, and the paged calls and the attention kernels (forward, dq,
+   dk/dv) launched twice on the same inputs must give the same bits.
+   Times are CUDA events (median of ``REPS``, L2 flushed before each
+   call) beside the bound (the least
    time the card could take: the bytes that must move at 3.35 TB/s, the
    operations at the data sheet's peak for their type) and, where one
    PyTorch call computes the same function, that call's time (a
@@ -71,7 +73,8 @@ Phases, each printing JSON lines:
      forward, and its backward alone, with the backend that ran it;
    * grouped flash attention once more at the train_long phase's call:
      B=1, 24 query / 8 kv heads (G = 3), S=8192, head_dim 128, bf16,
-     causal;
+     causal; and at the train_moe phase's: B=1, 28 query / 4 kv heads
+     (G = 7), S=4096, head_dim 128, bf16, causal;
    * fused cross-entropy (``ce_fwd``, ``ce_bwd``) at N=8192 rows of
      V=128256 bf16 logits, int64 labels. Yardstick: ``F.cross_entropy(...,
      reduction="none")`` forward, and its backward alone.
@@ -138,7 +141,16 @@ Phases, each printing JSON lines:
    an independent seeded draft (hidden 128, head_dim 64), its streams
    equal to the plain engine's, and with the target's own weights as a
    perfect draft, acceptance at least 0.99; the ragged lane
-   (``prefill_chunk_budget=2``) equal to the per-chunk lane.
+   (``prefill_chunk_budget=2``) equal to the per-chunk lane. Last, a small
+   f32 MoE (``MOE_SMALL``: hidden 256, 4 / 2 heads, head_dim 64, 8 routed
+   experts and one shared expert, 2 layers, B=2, S=256: the grouped flash
+   kernels) card against CPU for each dispatch mode ("indexed",
+   "inverted", "einsum") and gate (top-1 in eval mode, top-1 in training
+   mode with its router noise, top-2, top-4 and expert choice): logits
+   and aux loss within ``REF_ATOL``, then 3 steps of
+   ``moe_train_step_factory`` under ``TRAIN_REF``. The top-1 noise is
+   drawn on the card from a seeded generator; the CPU run takes the same
+   draws (a generator of the card with that seed, copied over).
 4. ``serve``: Llama-3-8B at full width and 8 of its 32 layers (printed as
    ``cut``: ``serve_engine`` serves all 32), bf16, random weights
    from a seed, through ``examples/serve_paged_llama.serve``: 16 requests,
@@ -258,7 +270,36 @@ Phases, each printing JSON lines:
    the moments' bytes and where they live, the host's memory, and the
    losses (finite, the last below the first).
 
-10. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
+10. ``train_moe``: the Mixture-of-Experts model at Qwen2-57B-A14B's
+   widths (``MoEConfig.qwen2_57b_a14b()``: hidden 3584, 28 / 4 heads, 64
+   routed experts of 2560 top-8 at capacity factor 1.25, one 20480-wide
+   shared expert, vocabulary 151,936, tied head), bf16, seeded, through
+   ``examples/train_moe.train`` and ``moe_train_step_factory``: dispatch
+   "indexed", the chunked CE in chunks of 16384, no remat, AdamW lr 1e-4,
+   B=1 x S=4096 on one repeated batch. Depth is the one cut: the deepest
+   whose bf16 weights and gradients and f32 moments, plus the step's
+   peak above them and a margin for the allocator's fragments, fit the
+   card's free memory (``fitting_depth``; printed as ``cut``). First, at
+   full width and 2 layers, one forward and backward with the grouped
+   flash kernels (G = 7) and one with their plain versions on identical
+   weights and batch: |Δloss|, every parameter's relative gradient error
+   (by kind: router, experts (and each expert), shared expert, attention;
+   the routed ones, whose error follows the flips, held apart), and the
+   share of expert choices that differ between the two runs (a bf16
+   rounding in the attention can flip a near-tie in the bf16 router).
+   Then the launch counts are set to 0, a warm-up step and 5 steps run,
+   and the counts must be exactly layers grouped forward, layers dq and
+   layers dk/dv a step and 0 of every other counter; the losses finite,
+   the last below the first. Records step ms, tokens/s, ``fwd_bwd_ms``,
+   the update (the step less it), MFU with ``activated_params()`` as the
+   matmul parameters (the experts' capacity slack not counted), peak
+   memory allocated and reserved, the parameter and moment bytes, the aux loss and the share of
+   (token, choice) pairs dropped for capacity at the trained weights; with
+   ``--profile`` (``profile_train_moe``) the step's device time by family
+   (flash, matrix products, index / scatter / gather, elementwise,
+   reductions, the rest), idle share and kernels a step.
+
+11. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
    ``incubate.nn`` at BERT-base's widths (768, 12 heads, FFN 3072, GELU,
    dropout 0.1), bf16, random weights from a seed, on hidden states
    (B=32, S=512) against an N(0, 1) target (MSE), trained 5 steps on one
@@ -269,7 +310,7 @@ Phases, each printing JSON lines:
    24 dropout-add-LN and 12 + 12 + 12 multi-head flash launches per step
    and none of any other kernel.
 
-11. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
+12. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
    vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072, GELU, dropout
    0.1), bf16, random weights from a seed, full depth, in training mode
    (dropout live, drawn from one generator), on seeded data (B=32, S=512:
@@ -287,7 +328,7 @@ Phases, each printing JSON lines:
    log-softmax, matrix products, the rest), idle share and kernels a
    step.
 
-12. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
+13. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
     width), bf16 parameters with f32 masters, f32 batch-norm buffers, on
     B=256 seeded class-template images of 3 x 224 x 224 (NCHW; one
     repeated batch), through ``resnet_train_step_factory`` (its defaults:
@@ -858,10 +899,12 @@ def _attention_case(name, kind, B, Hkv, G, Sq, Sk, D, dtype, seed, dev,
         checks[n] = _check(a, b, *tol["grad"])
     launched = (n1 == (n0[0] + 1, n0[1], n0[2])
                 and n2 == (n1[0], n1[1] + 1, n1[2] + 1))
-    # dq and dk/dv once more on the same inputs: the same bits (no atomics)
-    again = (dq(q, k, v, do, want_lse, delta),
+    # the forward, dq and dk/dv once more on the same inputs: the same
+    # bits (no atomics)
+    again = (*fwd(q, k, v), dq(q, k, v, do, want_lse, delta),
              *dkv(q, k, v, do, want_lse, delta))
-    repeat = all(torch.equal(a, b) for a, b in zip(grads, again))
+    repeat = all(torch.equal(a, b) for a, b in zip((out, lse, *grads),
+                                                    again))
     checks["bitwise_repeat"] = (0.0, 0.0 if repeat else 2.0)
     del again
     ok = launched and all(r <= 1.0 for _, r in checks.values())
@@ -1252,7 +1295,12 @@ def phase_kernel(dev):
     gqa_long = [_attention_case("gqa_G3_B1_S8192_D128/bfloat16", "gqa", 1, 8,
                                 3, 8192, 8192, 128, "bfloat16", 80, dev,
                                 flush)]
-    for c in gqa + ce + gqa_long:
+    # and at train_moe's call: Qwen2-57B-A14B's 28 / 4 heads (G = 7) at
+    # S=4096
+    gqa_moe = [_attention_case("gqa_G7_B1_S4096_D128/bfloat16", "gqa", 1, 4,
+                               7, 4096, 4096, 128, "bfloat16", 81, dev,
+                               flush)]
+    for c in gqa + ce + gqa_long + gqa_moe:
         emit({"phase": "kernel", **c})
     mha = [_attention_case("mha_B2_S4096_D128/bfloat16", "mha", 2, 32, 1,
                            4096, 4096, 128, "bfloat16", 9, dev, flush),
@@ -1293,15 +1341,15 @@ def phase_kernel(dev):
                  for i, (N, H) in enumerate(((8192, 4096), (16384, 768)))]
     for c in ln_retime:
         emit({"phase": "kernel", **c})
-    bad = [c["case"] for c in cases + gqa + ce + gqa_long + mha + splash
-           + mha_enc + norm if not c["ok"]]
+    bad = [c["case"] for c in cases + gqa + ce + gqa_long + gqa_moe + mha
+           + splash + mha_enc + norm if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"or did not launch once: {bad}")
     del flush
     torch.cuda.empty_cache()
     return {"paged": cases, "gqa": gqa, "ce": ce, "gqa_long": gqa_long,
-            "mha": mha,
+            "gqa_moe": gqa_moe, "mha": mha,
             "splash": splash, "mha_encoder": mha_enc, "norm": norm,
             "ln_retime": ln_retime}
 
@@ -1786,6 +1834,126 @@ def _reference_llama_options(dev):
         "moments_pinned": card[3], **train, "ok": ok}, ok)
 
 
+# the reference phase's small f32 MoE: head_dim 64 and kv groups of 2 at
+# S = 256 (the grouped flash kernels on the card, their plain versions on
+# the CPU), 8 routed experts and one shared expert, 2 layers
+MOE_SMALL = dict(vocab_size=256, hidden_size=256, intermediate_size=128,
+                 num_hidden_layers=2, num_attention_heads=4,
+                 num_key_value_heads=2, num_experts=8, moe_every=1,
+                 num_shared_experts=1)
+# gate -> (top_k, gate class swapped in or None); "top1" runs in eval mode
+# (no router noise), the rest in training mode, as the factory runs them:
+# "top1_train" with N(0, 0.01^2) noise on the router logits
+MOE_GATES = {"top1": (1, None), "top1_train": (1, None), "top2": (2, None),
+             "top4": (4, None), "expert_choice": (2, "ExpertChoiceGate")}
+# the seed of the top-1 router noise's generator on the card
+MOE_NOISE_SEED = 17
+
+
+@contextlib.contextmanager
+def _noise_of_the_card(dev):
+    """The port's top-1 router noise, whatever the logits' device, drawn
+    from one generator of the card seeded with ``MOE_NOISE_SEED`` and
+    copied to the logits' device: a CPU run takes the draws a card run
+    takes, in the same order."""
+    from paddle_tpu_torch.incubate.distributed.models import moe
+
+    own = moe._noised
+    card = torch.Generator(device=dev).manual_seed(MOE_NOISE_SEED)
+
+    def noised(logits, generator, eps_std):
+        if generator is None or eps_std <= 0:
+            return logits
+        return own(logits.to(dev), card, eps_std).to(logits.device)
+
+    moe._noised = noised
+    try:
+        yield
+    finally:
+        moe._noised = own
+
+
+def _moe_model(dev, state, cfg, gate):
+    """The small MoE on ``dev`` from ``state``, with ``gate``'s routing:
+    the config's own gate or an ``ExpertChoiceGate`` holding the same
+    router weight; "top1" in eval mode; the router noise from a generator
+    seeded with ``MOE_NOISE_SEED``."""
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    from paddle_tpu_torch.models.nlp import (MoEForCausalLM,
+                                             load_numpy_state_dict)
+
+    noise = torch.Generator(device=dev)
+    model = MoEForCausalLM(cfg, device=dev, generator=noise)
+    cls = MOE_GATES[gate][1]
+    if cls is not None:
+        for layer in model.layers:
+            if layer.use_moe:
+                layer.mlp.gate = getattr(moe, cls)(cfg.hidden_size,
+                                                   cfg.num_experts,
+                                                   device=dev)
+    load_numpy_state_dict(model, state)
+    noise.manual_seed(MOE_NOISE_SEED)    # after the experts' init drew
+    return model.train(gate != "top1")
+
+
+def _moe_small(dev, state, cfg, gate, tokens, labels):
+    """The small MoE on ``dev``: its logits and aux loss, then the
+    factory's first gradients, 3 steps' losses and the parameters after
+    them (``_train_small``'s tuple), each on the CPU."""
+    from paddle_tpu_torch.models.nlp import moe_train_step_factory
+    from paddle_tpu_torch.models.nlp.moe import moe_loss
+
+    model = _moe_model(dev, state, cfg, gate)
+    tokens, labels = tokens.to(dev), labels.to(dev)
+    with torch.no_grad():
+        logits = model(tokens).cpu()
+        aux = float(model.aux_loss())
+    params, opt, step = moe_train_step_factory(
+        model, learning_rate=TRAIN_REF["lr"], device=dev)
+    loss = moe_loss(model, tokens, labels)
+    grads = {k: g.cpu() for k, g in
+             zip(params, torch.autograd.grad(loss, list(params.values())))}
+    losses = []
+    for _ in range(3):
+        params, opt, loss = step(params, opt, tokens, labels)
+        losses.append(float(loss))
+    return logits, aux, (losses, grads, {k: p.detach().cpu()
+                                         for k, p in params.items()}, False)
+
+
+def _reference_moe(dev):
+    """The small f32 MoE (``MOE_SMALL``) on the card and on the CPU from the
+    same weights, for each dispatch mode and gate: logits and aux within
+    ``REF_ATOL``, then 3 steps of ``moe_train_step_factory`` under
+    ``TRAIN_REF``. Returns (its readings, ok)."""
+    from paddle_tpu_torch.models.nlp import MoEConfig, MoEForCausalLM
+
+    rng = np.random.default_rng(15)
+    tokens, labels = (torch.from_numpy(rng.integers(0, 256, (2, 256)))
+                      for _ in range(2))
+    cases, ok = {}, True
+    for mode in ("indexed", "inverted", "einsum"):
+        for gate, (top_k, _) in MOE_GATES.items():
+            cfg = MoEConfig(**MOE_SMALL, top_k=top_k, dispatch_mode=mode)
+            state = {k: v.numpy() for k, v in MoEForCausalLM(
+                cfg, device="cpu", seed=16).state_dict().items()}
+            card = _moe_small(dev, state, cfg, gate, tokens, labels)
+            with _noise_of_the_card(dev):
+                cpu = _moe_small(torch.device("cpu"), state, cfg, gate,
+                                 tokens, labels)
+            diff = float((card[0] - cpu[0]).abs().max())
+            aux_diff = abs(card[1] - cpu[1])
+            train, train_ok = _train_agree(card[2], cpu[2])
+            case_ok = diff <= REF_ATOL and aux_diff <= REF_ATOL and train_ok
+            cases[f"{mode}/{gate}"] = {
+                "max_logit_diff": diff, "aux_card": card[1],
+                "aux_cpu": cpu[1], "aux_diff": aux_diff, **train,
+                "ok": case_ok}
+            ok = ok and case_ok
+    return ({"config": MOE_SMALL, "S": 256, "atol": REF_ATOL,
+             "cases": cases, "ok": ok}, ok)
+
+
 # the reference phase's engine check: a small f32 Llama at head_dim 64 (the
 # paged kernel's smallest) behind the serving factory, page 16, 4 slots
 ENGINE_SMALL = dict(vocab=97, hidden=256, layers=2, heads=4, kv_heads=2,
@@ -2056,12 +2224,14 @@ def phase_reference(dev):
     enc = _reference_encoder(dev)
     bert = _reference_bert(dev)
     vision = _reference_vision(dev)
+    moe, moe_ok = _reference_moe(dev)
     out.update({"llama_d256_g3": {**wide, "ok": wide_ok},
                 "llama_options": options, "engine": engine,
                 "engine_features": features, **enc, **bert,
-                "vision": vision,
+                "vision": vision, "moe": moe,
                 "ok": ok and wide_ok and options_ok and engine_ok
-                and features_ok and enc["encoder_ok"] and bert["bert_ok"] and vision["ok"]})
+                and features_ok and enc["encoder_ok"] and bert["bert_ok"]
+                and vision["ok"] and moe_ok})
     # the offloaded steps' pinned blocks go back to the host
     _release_pinned()
     emit(out)
@@ -3443,7 +3613,302 @@ def phase_train_depth(dev, phase):
     return out
 
 
-# --- phase 10: train the fused encoder (incubate.nn) at BERT-base width ---
+# --- phase 10: train Qwen2-57B-A14B's widths (the MoE model) ---------------
+
+# train_moe: MoEConfig.qwen2_57b_a14b() at full width, bf16, seeded, the
+# deepest cut of its 28 layers that fits the card (the example's
+# ``fitting_depth``), B=1 x S=4096, dispatch "indexed", the chunked CE in
+# chunks of 16384 (the reference's advice for V = 151,936), no remat,
+# AdamW lr 1e-4; one warm-up step, then 5 timed
+MOE_CELL = dict(B=1, S=4096, lr=1e-4, chunked=16384, steps=5, warmup=1)
+# 2-layer bf16 forward+backward at full width, grouped flash kernels vs
+# their plain versions, identical weights and batch: bf16 roundings in 2
+# layers (|Δloss| reading 6.3e-5 of 12.71 on one H100; limit about twice
+# it). The router reads bf16 logits, so an attention rounding flips
+# near-tie expert choices: 2.9 % of layer 0's (token, choice) pairs and
+# 5.4 % of layer 1's differ between the two runs. A flip moves a token's
+# share of the gradient from one expert (and router column) to another,
+# so the routed parameters' error follows the flips, not bf16's rounding:
+# reading 0.093 (layer 1's w_in), limit about twice it. Every other
+# parameter (attention, shared expert, norms, embedding) reads at most
+# 0.018 (median 0.011), limit about twice that.
+MOE_LOSS_ATOL = 1.5e-4
+MOE_GRAD_REL = {"routed": 0.2, "other": 0.04}
+ROUTED = ("gate.wg", ".mlp.w_")
+
+
+def _qwen2_57b():
+    from paddle_tpu_torch.models.nlp import MoEConfig
+
+    return MoEConfig.qwen2_57b_a14b()
+
+
+def _routing_hooks(model, record):
+    """Forward hooks on every MoE layer: each call appends the layer's
+    (expert ids, keep) of its (token, choice) pairs, recomputed from its
+    input by the layer's own router and ``topk_gating_idx``."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        topk_gating_idx
+
+    def hook(module, inputs, output):
+        x = inputs[0]
+        T = x.shape[0] * x.shape[1]
+        with torch.no_grad():
+            glt = module.gate.wg(x).reshape(T, -1).to(torch.float32)
+            eids, _, keep, _, _ = topk_gating_idx(glt, module.capacity(T),
+                                                  module.top_k)
+        record.append((eids, keep))
+
+    return [layer.mlp.register_forward_hook(hook) for layer in model.layers
+            if layer.use_moe]
+
+
+def _moe_batch(vocab, B, S, seed, dev):
+    """The batch the example's ``train`` makes from ``seed``."""
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, vocab, (B, S + 1)))
+    return tok[:, :-1].to(dev), tok[:, 1:].to(dev)
+
+
+def _moe_grads_with(swap, model, params, tokens, labels, chunked):
+    """Loss, gradients and each MoE layer's routing of one forward and
+    backward of ``moe_loss``; ``swap`` runs the plain attention versions
+    in place of the kernels."""
+    from paddle_tpu_torch.models.nlp.moe import moe_loss
+
+    record = []
+    hooks = _routing_hooks(model, record)
+    try:
+        with _plain_versions("gqa", swap):
+            loss = moe_loss(model, tokens, labels, chunked)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return float(loss.detach()), grads, record
+
+
+def _grad_groups(rel):
+    """The largest relative gradient error of each kind of parameter."""
+    kinds = (("router", "gate.wg"), ("experts", ".mlp.w_"),
+             ("shared", "shared_mlp"), ("attention", "self_attn"),
+             ("norms", "norm"), ("embedding", "embed_tokens"))
+    return {kind: max((v for k, v in rel.items() if key in k), default=None)
+            for kind, key in kinds}
+
+
+def _moe_checks(dev, full, B, S, chunked):
+    """At full width and ``CHECK_LAYERS`` layers: one forward+backward
+    with the grouped flash kernels and one with their plain versions on
+    identical weights and batch: |Δloss|, every parameter's relative
+    gradient error, and the share of expert choices that differ between
+    the two runs (near-ties in the bf16 router flipped by an attention
+    rounding)."""
+    from paddle_tpu_torch.models.nlp import MoEForCausalLM
+
+    cfg = dataclasses.replace(full, num_hidden_layers=CHECK_LAYERS)
+    model = MoEForCausalLM(cfg, device=dev, seed=0).to(torch.bfloat16)
+    params = {k: p.requires_grad_() for k, p in model.named_parameters()}
+    tokens, labels = _moe_batch(cfg.vocab_size, B, S, 0, dev)
+    loss_k, grads_k, route_k = _moe_grads_with(False, model, params, tokens,
+                                               labels, chunked)
+    loss_p, grads_p, route_p = _moe_grads_with(True, model, params, tokens,
+                                               labels, chunked)
+    rel = _rel_errs(params, grads_k, grads_p)
+    # each expert's own relative error in each routed weight, over the
+    # experts the plain run routed tokens to; an expert it left empty
+    # (capacity drops, a collapsed router) has a zero gradient there
+    by_expert = {}
+    for k, a, b in zip(params, grads_k, grads_p):
+        if ".mlp.w_" in k:
+            diff = (a.float() - b.float()).flatten(1).norm(dim=1)
+            norm = b.float().flatten(1).norm(dim=1)
+            live = norm > 0
+            e = diff[live] / norm[live]
+            by_expert[k] = {"median": float(e.median()),
+                            "max": float(e.max()),
+                            "empty_experts": int((~live).sum())}
+    del grads_k, grads_p
+    worst = max(rel, key=rel.get)
+    routed = {k: v for k, v in rel.items() if any(r in k for r in ROUTED)}
+    other = {k: v for k, v in rel.items() if k not in routed}
+    flips = [float((ek != ep).float().mean())
+             for (ek, _), (ep, _) in zip(route_k, route_p)]
+    dropped = [1 - float(keep.float().mean()) for _, keep in route_k]
+    out = {"layers": CHECK_LAYERS, "loss_kernel": loss_k,
+           "loss_plain": loss_p, "loss_diff": abs(loss_k - loss_p),
+           "loss_atol": MOE_LOSS_ATOL, "grad_rel_err_max": rel[worst],
+           "grad_rel_err_worst": worst,
+           "grad_rel_err_median": statistics.median(rel.values()),
+           "grad_rel_err_by_kind": _grad_groups(rel),
+           "grad_rel_err_by_expert": by_expert,
+           "grad_rel_err_routed_max": max(routed.values()),
+           "grad_rel_err_other_max": max(other.values()),
+           "grad_rel_limit": MOE_GRAD_REL,
+           "choice_flip_share_by_layer": flips,
+           "dropped_share_by_layer": dropped}
+    out["ok"] = (out["loss_diff"] <= MOE_LOSS_ATOL
+                 and max(routed.values()) <= MOE_GRAD_REL["routed"]
+                 and max(other.values()) <= MOE_GRAD_REL["other"])
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_time_parts(res, chunked):
+    """Two more steps on the trained model, host clock, each up to a
+    synchronise: a forward and backward alone (the gradients dropped),
+    then one whole step of the factory's ``train_step``. Returns
+    (fwd_bwd_ms, update_ms), the update being the step less the forward
+    and backward."""
+    from paddle_tpu_torch.models.nlp.moe import moe_loss
+
+    params = res["params"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = moe_loss(res["model"], res["tokens"], res["labels"], chunked)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    del loss, grads
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res["params"], res["opt_state"], _ = res["step"](
+        params, res["opt_state"], res["tokens"], res["labels"])
+    torch.cuda.synchronize()
+    fwd_bwd, step = t1 - t0, time.perf_counter() - t1
+    return 1e3 * fwd_bwd, 1e3 * (step - fwd_bwd)
+
+
+def _moe_routing(res, chunked):
+    """One more forward (no gradient) at the trained weights: the weighted
+    aux loss and each MoE layer's share of (token, choice) pairs dropped
+    for capacity."""
+    from paddle_tpu_torch.models.nlp.moe import moe_loss
+
+    model, record = res["model"], []
+    hooks = _routing_hooks(model, record)
+    try:
+        with torch.no_grad():
+            loss = float(moe_loss(model, res["tokens"], res["labels"],
+                                  chunked))
+            aux = float(model.aux_loss())
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"loss": loss, "aux_loss": aux,
+            "dropped_share_by_layer": [1 - float(keep.float().mean())
+                                       for _, keep in record]}
+
+
+def phase_train_moe(dev, profile=False):
+    from paddle_tpu_torch.examples.train_moe import (fitting_depth,
+                                                     param_count, train)
+
+    c = MOE_CELL
+    B, S, chunked = c["B"], c["S"], c["chunked"]
+    full = _qwen2_57b()
+    checks = _moe_checks(dev, full, B, S, chunked)
+
+    # the depth: the deepest cut whose weights, gradients and moments, the
+    # step's peak above them and the allocator's fragments fit the card
+    free, card_bytes = torch.cuda.mem_get_info(dev)
+    layers = fitting_depth(full, free)
+    n_params = param_count(full, layers)
+    cut = None if layers == full.num_hidden_layers else (
+        f"{layers} of {full.num_hidden_layers} layers, full width: the "
+        f"deepest that fitting_depth takes for {free / 2 ** 30:.2f} GiB "
+        f"free ({n_params / 1e9:.3f} B parameters x 12 bytes of bf16 "
+        f"weights and gradients and f32 AdamW moments, plus the step's "
+        f"peak above them and the allocator's fragments); {layers + 1} "
+        f"layers hold {12 * param_count(full, layers + 1) / 2 ** 30:.2f} "
+        f"GiB of state")
+    cfg = dataclasses.replace(full, num_hidden_layers=layers)
+
+    # the main path: launch counts from 0, a warm-up step and 5 timed ones
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    t0 = time.perf_counter()
+    res = train(cfg, B, S, c["steps"], lr=c["lr"], device=dev, seed=0,
+                dtype=torch.bfloat16, chunked_vocab_ce=chunked,
+                warmup=c["warmup"], log=None)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _train_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved_gib = torch.cuda.max_memory_reserved() / 2 ** 30
+    steps = c["steps"] + c["warmup"]
+    want = {k: 0 for k in counts}
+    want.update({"gqa_fwd": layers * steps, "gqa_dq": layers * steps,
+                 "gqa_dkv": layers * steps})
+    model, opt = res["model"], res["opt_state"]
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    moment_bytes = sum(t.numel() * t.element_size() for n in ("m", "v")
+                       for t in opt[n].values())
+    fwd_bwd_ms, update_ms = _moe_time_parts(res, chunked)
+    routing = _moe_routing(res, chunked)
+    losses = res["losses"]
+    step_s = statistics.median(res["step_s"])
+    activated = model.activated_params()
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    pairs = B * cfg.num_attention_heads * _live_pairs_per_head(S, None)
+    flops = 6 * activated * B * S + 12 * hd * pairs * layers
+    cap = model.layers[0].mlp.capacity(B * S)
+    out = {"phase": "train_moe", "model": "qwen2_57b_a14b", "layers": layers,
+           "layers_full": full.num_hidden_layers, "cut": cut,
+           "params": n_params, "activated_params": activated,
+           "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
+           "kv_heads": cfg.num_key_value_heads, "vocab": cfg.vocab_size,
+           "experts": cfg.num_experts, "top_k": cfg.top_k,
+           "shared_expert_intermediate": cfg.shared_intermediate(),
+           "capacity_per_expert": cap,
+           "dispatch_mode": cfg.dispatch_mode, "dtype": "bfloat16",
+           "B": B, "S": S, "steps": c["steps"], "warmup_steps": c["warmup"],
+           "lr": c["lr"], "remat": False, "chunked_vocab_ce": chunked,
+           "losses": losses, "warmup_losses": res["warmup_losses"],
+           "step_ms_median": 1e3 * step_s,
+           "step_ms": [1e3 * t for t in res["step_s"]],
+           "fwd_bwd_ms": fwd_bwd_ms, "update_ms": update_ms,
+           "main_path_s": run_s, "tokens_per_s": B * S / step_s,
+           "peak_mem_gib": peak_gib, "peak_reserved_gib": reserved_gib,
+           "free_before_gib": free / 2 ** 30,
+           "card_gib": card_bytes / 2 ** 30, "param_bytes": param_bytes,
+           "moment_bytes": moment_bytes, "step_flops": flops,
+           "mfu": flops / step_s / BF16_FLOP_PER_S,
+           "mfu_formula": "(6*activated_params*tokens + 12*head_dim*pairs*"
+                          "layers) / step_s / 989e12; the routed experts "
+                          "compute at capacity (E*C = "
+                          f"{cfg.num_experts}*{cap} slots for "
+                          f"{B * S}*{cfg.top_k} pairs, "
+                          f"{cfg.capacity_factor} x their top_k/E share): "
+                          "the extra is not counted",
+           "routing_after_training": routing,
+           "launches": counts, "launches_expected": want,
+           "launches_per_step": {"gqa_fwd": layers, "gqa_dq": layers,
+                                 "gqa_dkv": layers, "ce": 0},
+           "checks": checks}
+    ok = (counts == want and checks["ok"] and all(np.isfinite(losses))
+          and losses[-1] < losses[0])
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError("train_moe phase failed: " + json.dumps(out))
+    if profile:
+        emit({"phase": "profile_train_moe", **_profile(
+            lambda: float(res["step"](res["params"], res["opt_state"],
+                                      res["tokens"], res["labels"])[2]),
+            {"flash_attention": ("causalwalk",), "matmul": MATMUL_NAMES,
+             "index_scatter_gather": ("index", "scatter", "gather"),
+             "elementwise": ("elementwise",), "reduce": ("reduce",)},
+            n=3)})
+    del res, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- phase 11: train the fused encoder (incubate.nn) at BERT-base width ---
 
 def _encoder(dev, layers, d_model, nhead, dim_feedforward, dropout_rate,
              generator, dtype):
@@ -3610,7 +4075,7 @@ def phase_train_encoder(dev, profile=False):
     return out
 
 
-# --- phase 11: BERT-base pretraining (models/nlp/bert.py) ------------------
+# --- phase 12: BERT-base pretraining (models/nlp/bert.py) ------------------
 
 def _bert_batch(vocab, B, S, seed, dev):
     """Seeded pretraining data: ids uniform over the vocabulary, token
@@ -3740,7 +4205,7 @@ def phase_train_bert(dev, profile=False):
     return out
 
 
-# --- phase 12: ResNet-50 training (vision/models/resnet.py) ----------------
+# --- phase 13: ResNet-50 training (vision/models/resnet.py) ----------------
 
 def _conv_fc_macs(model, x):
     """Multiply-adds of one image through every ``Conv1D/2D/3D`` and
@@ -3882,8 +4347,8 @@ def phase_train_resnet50(dev, profile=False):
 
 PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "serve_features", "train", "train_mha",
-          "train_window", "train_full", "train_long", "train_encoder",
-          "train_bert", "train_resnet50")
+          "train_window", "train_full", "train_long", "train_moe",
+          "train_encoder", "train_bert", "train_resnet50")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -4015,6 +4480,12 @@ def _kernels_line(kern, serve, engine, features, trains, card):
                                       GQA_FWD_REPLACES, GQA_BWD_REPLACES,
                                       "gqa", kern["gqa_long"][0],
                                       long_launches, card, long_by_phase)
+    if kern.get("gqa_moe"):
+        moe_launches, moe_by_phase = _phase_launches(trains, ("train_moe",))
+        kernels += _attention_entries("gqa_flash_moe", GQA_SOURCE,
+                                      GQA_FWD_REPLACES, GQA_BWD_REPLACES,
+                                      "gqa", kern["gqa_moe"][0],
+                                      moe_launches, card, moe_by_phase)
     if kern.get("ce"):
         c = kern["ce"][0]
         for name, replaces, part, errs in (
@@ -4106,6 +4577,8 @@ def main():
     for phase in DEPTH_CELLS:
         if phase in phases:
             trains[phase] = phase_train_depth(dev, phase)
+    if "train_moe" in phases:
+        trains["train_moe"] = phase_train_moe(dev, profile=args.profile)
     if "train_encoder" in phases:
         trains["train_encoder"] = phase_train_encoder(dev,
                                                       profile=args.profile)

@@ -8,4 +8,6 @@ from .llama_decode import (PagedOnlyDense, llama_decode_factory,  # noqa: F401
                            llama_serving_decode_factory, route_decode)
 from .llama_functional import (LAYER_KEYS, param_views,  # noqa: F401
                                split_params, stack_layers)
+from .moe import (MoEConfig, MoEForCausalLM,  # noqa: F401
+                  moe_train_step_factory)
 from .train_utils import adamw_update, make_adamw_state  # noqa: F401

@@ -22,7 +22,6 @@ Queue 3).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import torch
@@ -193,31 +192,14 @@ def pretrain_loss(model: BertForPretraining, input_ids, type_ids,
 
 def _replay_dropout(model, device):
     """``context_fn`` for ``torch.utils.checkpoint``: the recomputation
-    draws the same dropout masks as the forward (the generators' states
-    at the forward's start are set again, and restored after), as
-    ``jax.checkpoint`` recomputes from the same keys."""
-    gens = list({id(g): g for g in (
+    draws the same dropout masks as the forward
+    (``train_utils.replay_generators`` over the dropout layers'
+    generators), as ``jax.checkpoint`` recomputes from the same keys."""
+    from .train_utils import replay_generators
+
+    return replay_generators(
         torch_generator(m.generator, device) for m in model.modules()
-        if isinstance(m, pnn.Dropout))}.values())
-    saved = []
-
-    @contextlib.contextmanager
-    def forward():
-        saved[:] = [g.get_state() for g in gens]
-        yield
-
-    @contextlib.contextmanager
-    def recompute():
-        now = [g.get_state() for g in gens]
-        for g, s in zip(gens, saved):
-            g.set_state(s)
-        try:
-            yield
-        finally:
-            for g, s in zip(gens, now):
-                g.set_state(s)
-
-    return forward(), recompute()
+        if isinstance(m, pnn.Dropout))
 
 
 def bert_pretrain_step_factory(model: BertForPretraining, mesh=None,

@@ -169,18 +169,25 @@ def _qkv(cfg, p, h):
             h @ p["self_attn.v_proj.weight"])
 
 
-def _gate_up(cfg, p, h):
+def _gate_up(cfg, p, h, prefix="mlp."):
     """gate and up projections of h: one fused product sliced gate, up, or
     two."""
     if cfg.fuse_ffn_gate_up:
-        gu = h @ p["mlp.gate_up_proj.weight"]
+        gu = h @ p[prefix + "gate_up_proj.weight"]
         return gu[..., :cfg.intermediate_size], gu[..., cfg.intermediate_size:]
-    return h @ p["mlp.gate_proj.weight"], h @ p["mlp.up_proj.weight"]
+    return h @ p[prefix + "gate_proj.weight"], h @ p[prefix + "up_proj.weight"]
 
 
-def layer_forward(cfg, p: Dict[str, torch.Tensor], x, positions=None):
-    """One decoder layer over its param dict; ``positions`` ((S,) or (B,
-    S)) feed the rotary, 0..S-1 by default."""
+def swiglu(cfg, p, h, prefix="mlp."):
+    """The SwiGLU MLP of h over the weights under ``prefix``:
+    ``(silu(h @ gate) * (h @ up)) @ down``."""
+    gate, up = _gate_up(cfg, p, h, prefix)
+    return (F.silu(gate) * up) @ p[prefix + "down_proj.weight"]
+
+
+def attention_residual(cfg, p: Dict[str, torch.Tensor], x, positions=None):
+    """The first half of a decoder layer: x + attention(RMSNorm(x)), with
+    the rotary at ``positions`` ((S,) or (B, S); 0..S-1 by default)."""
     B, S, H = x.shape
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     hd = H // nh
@@ -196,10 +203,15 @@ def layer_forward(cfg, p: Dict[str, torch.Tensor], x, positions=None):
                      v.transpose(1, 2))
     attn = ctx.transpose(1, 2).reshape(B, S, H) \
         @ p["self_attn.o_proj.weight"]
-    x = x + attn
+    return x + attn
+
+
+def layer_forward(cfg, p: Dict[str, torch.Tensor], x, positions=None):
+    """One decoder layer over its param dict; ``positions`` ((S,) or (B,
+    S)) feed the rotary, 0..S-1 by default."""
+    x = attention_residual(cfg, p, x, positions)
     h2 = _rms(x, p["post_attention_layernorm.weight"], cfg.rms_norm_eps)
-    gate, up = _gate_up(cfg, p, h2)
-    return x + (F.silu(gate) * up) @ p["mlp.down_proj.weight"]
+    return x + swiglu(cfg, p, h2)
 
 
 # remat="dots": the reference's dots_with_no_batch_dims_saveable. The

@@ -10,6 +10,7 @@ Queue 1).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -35,15 +36,31 @@ def adamw_update(p, g, m, v, t, lr, beta1, beta2, eps, weight_decay,
     return (p.to(accum_dtype) - lr * delta).to(p.dtype), m2, v2
 
 
+# elements of one slice of a tensor's update. The update is elementwise,
+# so slices give the same bits as the whole tensor, and its f32
+# temporaries (about 8 of them) stay at 256 MB each however large the
+# tensor: one routed-expert weight of Qwen2-57B-A14B holds 587 M elements.
+# A tensor within one slice is updated whole: slicing views cost the host
+# time, which a step of many small tensors (BERT's) pays
+UPDATE_SLICE = 1 << 26
+
+
 def _update_one(params, grads, i, k, m, v, t, hyper, accum_dtype):
     """``adamw_update`` of tensor ``k`` (``grads[i]``) against the moments
-    ``m`` and ``v``, all IN PLACE; the gradient is dropped once used."""
-    new_p, m2, v2 = adamw_update(params[k], grads[i], m, v, t, *hyper,
-                                 accum_dtype)
+    ``m`` and ``v``, all IN PLACE, ``UPDATE_SLICE`` elements at a time
+    past one slice; the gradient is dropped once used."""
+    parts = [(params[k], grads[i], m, v)]
+    if params[k].numel() > UPDATE_SLICE:
+        flat = (params[k].view(-1), grads[i].reshape(-1), m.view(-1),
+                v.view(-1))
+        parts = [tuple(x[s:s + UPDATE_SLICE] for x in flat)
+                 for s in range(0, params[k].numel(), UPDATE_SLICE)]
     grads[i] = None
-    params[k].copy_(new_p)
-    m.copy_(m2)
-    v.copy_(v2)
+    for p, g, m, v in parts:
+        new_p, m2, v2 = adamw_update(p, g, m, v, t, *hyper, accum_dtype)
+        p.copy_(new_p)
+        m.copy_(m2)
+        v.copy_(v2)
 
 
 @torch.no_grad()
@@ -190,3 +207,32 @@ def make_adamw_state(params: Dict[str, torch.Tensor],
             off += p.numel()
         state[name] = views
     return state
+
+
+def replay_generators(generators):
+    """``context_fn`` for ``torch.utils.checkpoint`` (non-reentrant): the
+    recomputation draws what the forward drew from ``generators``
+    (``torch.Generator``s; each one once). The forward's context saves
+    their states; the recomputation's sets them again and restores the
+    states it found afterwards, as ``jax.checkpoint`` recomputes from the
+    same keys."""
+    gens = list({id(g): g for g in generators}.values())
+    saved = []
+
+    @contextlib.contextmanager
+    def forward():
+        saved[:] = [g.get_state() for g in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in gens]
+        for g, s in zip(gens, saved):
+            g.set_state(s)
+        try:
+            yield
+        finally:
+            for g, s in zip(gens, now):
+                g.set_state(s)
+
+    return forward(), recompute()

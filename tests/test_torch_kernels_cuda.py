@@ -428,6 +428,44 @@ def test_gqa_kernels_match_plain(card, dt, D, G, S, causal):
 
 
 @pytest.mark.cuda
+def test_gqa_kernels_at_a_group_of_seven(card):
+    """train_moe's group (Qwen2-57B-A14B: 28 / 4 heads, G = 7: one query
+    head a tile) at B=2, 2 kv heads, S=1024, D=128, bf16, causal: out, lse
+    and dq element by element against the plain versions (GQA_TOL). dk
+    and dv sum each key's bf16-rounded products over the group's 7 heads
+    and its queries, so the kernel and the plain version are two roundings
+    of one f32 sum whose gap does not shrink where the sum cancels: each
+    is held against the f32 truth (the plain backward in f32 on the same
+    bf16 inputs), the kernel's relative error within 1.1 x the plain
+    version's, the bf16 train tests' rule. Readings printed with -s."""
+    q, k, v, do = _gqa_inputs(2, 2, 7, 1024, 128, torch.bfloat16, card,
+                              seed=1152)
+    tol = GQA_TOL[torch.bfloat16]
+    out, lse = fa.gqa_fwd(q, k, v, True)
+    want_out, want_lse = fa._gqa_fwd_plain(q, k, v, True)
+    _reading("out", out, want_out, *tol["out"])
+    _reading("lse", lse, want_lse, 1e-5, 1e-5)
+    delta = (do.float() * want_out.float()).sum(-1)
+    got = fa.gqa_bwd(q, k, v, do, want_lse, delta, True)
+    plain = fa._gqa_bwd_plain(q, k, v, do, want_lse, delta, True)
+    _reading("dq", got[0], plain[0], *tol["grad"])
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    out_f, lse_f = fa._gqa_fwd_plain(qf, kf, vf, True)
+    truth = fa._gqa_bwd_plain(qf, kf, vf, dof, lse_f,
+                              (dof * out_f).sum(-1), True)
+    torch.cuda.synchronize()
+    for name, g, p, t in zip(("dk", "dv"), got[1:], plain[1:], truth[1:]):
+        err = (g.float() - p.float()).abs() / (tol["grad"][0]
+                                               + tol["grad"][1]
+                                               * p.float().abs())
+        kernel, ref = _rel(g, t), _rel(p, t)
+        print(f"reading {name}: kernel {kernel:.4g}, plain {ref:.4g} from "
+              f"the f32 truth; against the plain version err/limit "
+              f"{float(err.max()):.3f}")
+        assert kernel <= 1.1 * ref
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("G", [1, 4, 3])
 @pytest.mark.parametrize("causal", [False, True])
@@ -1209,6 +1247,62 @@ def test_chunked_ce_on_the_card_matches_the_cpu(card):
         print(f"{name}: largest err / tol "
               f"{float(((a - b).abs() / (1e-6 + 2 ** -7 * b.abs())).max()):.3g}")
         torch.testing.assert_close(a, b, atol=1e-6, rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["indexed", "inverted", "einsum"])
+def test_moe_on_the_card_matches_the_cpu(card, mode):
+    """A small f32 MoE (hidden 256, 4 / 2 heads: head_dim 64 and kv groups
+    of 2 at S = 256, the grouped flash kernels on the card; 8 routed
+    experts top-2 and one shared expert, 2 layers) from the same weights
+    on the card and on the CPU: logits and aux 1e-4 (order of f32 sums
+    only; TF32 off), then 3 steps of ``moe_train_step_factory``: losses
+    1e-5, parameters at most 1e-4 of a tensor's elements (or one) beyond
+    1e-5 and none beyond lr. The grouped kernels launch once a layer a
+    step each way."""
+    from paddle_tpu_torch.models.nlp import (MoEConfig, MoEForCausalLM,
+                                             load_numpy_state_dict,
+                                             moe_train_step_factory)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MoEConfig(vocab_size=256, hidden_size=256, intermediate_size=128,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=2, num_experts=8, top_k=2,
+                    moe_every=1, num_shared_experts=1, dispatch_mode=mode)
+    state = {k: v.numpy() for k, v in MoEForCausalLM(
+        cfg, device="cpu", seed=1).state_dict().items()}
+    rng = np.random.default_rng(2)
+    tok = torch.from_numpy(rng.integers(0, 256, (2, 257)))
+    gfa = fa.grouped_flash_attention
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        model = load_numpy_state_dict(MoEForCausalLM(cfg, device=dev),
+                                      state)
+        with torch.no_grad():
+            logits = model(tok[:, :-1].to(dev)).cpu()
+            aux = float(model.aux_loss())
+        params, opt, step = moe_train_step_factory(
+            model, learning_rate=1e-3, device=dev)
+        before = (gfa.launches_fwd, gfa.launches_dq, gfa.launches_dkv)
+        losses = [float(step(params, opt, tok[:, :-1], tok[:, 1:])[2])
+                  for _ in range(3)]
+        launched = tuple(n - b for n, b in zip(
+            (gfa.launches_fwd, gfa.launches_dq, gfa.launches_dkv), before))
+        runs[dev.type] = (logits, aux, losses, launched,
+                          {k: p.detach().cpu() for k, p in params.items()})
+    (lg, aux, losses, launched, params), (lg_c, aux_c, losses_c, none,
+                                          params_c) = runs["cuda"], runs["cpu"]
+    print(f"{mode}: logits {float((lg - lg_c).abs().max()):.3g}, aux "
+          f"{abs(aux - aux_c):.3g}, losses "
+          f"{max(abs(a - b) for a, b in zip(losses, losses_c)):.3g}")
+    torch.testing.assert_close(lg, lg_c, atol=1e-4, rtol=0)
+    assert abs(aux - aux_c) <= 1e-4
+    np.testing.assert_allclose(losses, losses_c, atol=1e-5, rtol=0)
+    assert launched == (6, 6, 6) and none == (0, 0, 0)
+    for k, p in params.items():
+        diff = (p - params_c[k]).abs()
+        assert int((diff > 1e-5).sum()) <= max(1, 1e-4 * diff.numel()), k
+        assert float(diff.max()) <= 1e-3, k
 
 
 @pytest.mark.cuda

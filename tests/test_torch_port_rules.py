@@ -41,6 +41,9 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.nn.layer.transformer",
              "paddle_tpu_torch.nn.functional.loss",
              "paddle_tpu_torch.models.nlp.bert",
+             "paddle_tpu_torch.models.nlp.moe",
+             "paddle_tpu_torch.incubate.distributed.models.moe",
+             "paddle_tpu_torch.examples.train_moe",
              "paddle_tpu_torch.incubate.nn",
              "paddle_tpu_torch.nn.functional.conv",
              "paddle_tpu_torch.nn.functional.pooling",
@@ -113,11 +116,14 @@ def test_entry_points_refuse_a_missing_card():
     _needs_no_card()
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.examples.train_llama_compiled import train
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
     from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
     from paddle_tpu_torch.nn import LayerNorm, Linear
     from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             MoEConfig, MoEForCausalLM,
                                              llama_paged_decode_factory,
-                                             llama_train_step_factory)
+                                             llama_train_step_factory,
+                                             moe_train_step_factory)
     from paddle_tpu_torch.ops import PagedKVCache
 
     cfg = LlamaConfig.tiny(vocab=32, hidden=16, layers=1, heads=2,
@@ -132,9 +138,18 @@ def test_entry_points_refuse_a_missing_card():
         for make in (lambda: FusedTransformerEncoderLayer(16, 2, 32,
                                                           device=device),
                      lambda: LayerNorm(16, device=device),
-                     lambda: Linear(16, 8, device=device)):
+                     lambda: Linear(16, 8, device=device),
+                     lambda: MoEForCausalLM(MoEConfig.tiny(), device=device),
+                     lambda: MoELayer(16, 32, 4, device=device)):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 make()
+    moe = MoEForCausalLM(MoEConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        moe_train_step_factory(moe)
+    assert moe_train_step_factory(moe, device="cpu")[1]["step"].device.type \
+        == "cpu"
+    assert MoELayer(16, 32, 4, device="cpu")(torch.randn(2, 4, 16)).shape \
+        == (2, 4, 16)
     model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         llama_paged_decode_factory(model, page_size=4, n_pool_pages=4)

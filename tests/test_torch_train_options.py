@@ -370,3 +370,50 @@ def test_long_context_example_trains_on_the_cpu():
 
     losses = main(["--device", "cpu"])
     assert len(losses) == 3 and all(np.isfinite(losses))
+
+
+def test_update_slices_only_tensors_above_one_slice(monkeypatch):
+    """A tensor within ``UPDATE_SLICE`` elements goes to ``adamw_update``
+    whole, in its own shape; a larger one flat, in slices of
+    ``UPDATE_SLICE`` and the rest."""
+    seen = []
+    plain = train_utils.adamw_update
+
+    def update(p, *args):
+        seen.append(tuple(p.shape))
+        return plain(p, *args)
+
+    monkeypatch.setattr(train_utils, "adamw_update", update)
+    monkeypatch.setattr(train_utils, "UPDATE_SLICE", 100)
+    params = {"small": torch.ones(10, 10), "large": torch.ones(3, 70)}
+    opt = train_utils.make_adamw_state(params)
+    train_utils.apply_adamw(params, [torch.ones(10, 10), torch.ones(3, 70)],
+                            opt, LR, 0.9, 0.95, 1e-8, 0.01)
+    assert seen == [(10, 10), (100,), (100,), (10,)]
+
+
+def test_sliced_update_gives_the_same_bits(monkeypatch):
+    """The update runs ``UPDATE_SLICE`` elements at a time: being
+    elementwise, any slicing gives the bits of the whole-tensor update,
+    parameters and both moments, with moments on the device and
+    offloaded."""
+    _, tm, _ = _models()
+    base = {k: p.detach().clone() for k, p in tm.named_parameters()}
+    g = torch.Generator().manual_seed(4)
+    grads = {k: torch.randn(p.shape, generator=g) for k, p in base.items()}
+    runs = []
+    for slice_, offload in ((1 << 26, False), (4096, False), (1000, True)):
+        monkeypatch.setattr(train_utils, "UPDATE_SLICE", slice_)
+        params = {k: p.clone() for k, p in base.items()}
+        opt = train_utils.make_adamw_state(params, offload=offload)
+        for _ in range(2):
+            train_utils.apply_adamw(params, list(grads.values()), opt, LR,
+                                    0.9, 0.95, 1e-8, 0.01, offload=offload)
+        runs.append((params, opt))
+    (p0, o0), *rest = runs
+    assert max(p.numel() for p in p0.values()) > 4096
+    for params, opt in rest:
+        for k in p0:
+            assert torch.equal(params[k], p0[k]), k
+            assert torch.equal(opt["m"][k], o0["m"][k]), k
+            assert torch.equal(opt["v"][k], o0["v"][k]), k
