@@ -14,6 +14,8 @@ trains.
     python3 chip_smoke.py --phases build,reference,train_moe
     python3 chip_smoke.py --phases build,reference,serve_engine
     python3 chip_smoke.py --phases build,reference,serve_features
+    python3 chip_smoke.py --phases build,reference,train_gpt,transformer,\
+fused_decode
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -150,7 +152,18 @@ Phases, each printing JSON lines:
    and aux loss within ``REF_ATOL``, then 3 steps of
    ``moe_train_step_factory`` under ``TRAIN_REF``. The top-1 noise is
    drawn on the card from a seeded generator; the CPU run takes the same
-   draws (a generator of the card with that seed, copied over).
+   draws (a generator of the card with that seed, copied over). Then
+   this slice's three small f32 models, card against CPU from the same
+   weights: GPT ``tiny()`` (logits within ``REF_ATOL``, 8 greedy tokens
+   identical, 3 steps of ``gpt_pretrain_step_factory`` under
+   ``TRAIN_REF``); an ``nn.Transformer`` (``SEQ2SEQ_SMALL``: d 128, 2
+   heads, 2 + 2 layers, B=2, S=256 on both sides: the encoder's and the
+   cross-attention's multi-head flash kernels on the card) under its
+   causal target mask within ``REF_ATOL``; a ``FusedMultiTransformer``
+   (``FUSED_SMALL``) within ``REF_ATOL``; and on each device a decode
+   through the caches (the Transformer's ``Cache`` / ``StaticCache``
+   pairs over 32 positions, the fused stack's ``caches`` / ``time_step``
+   over 32 tokens) equal to the no-cache forward within ``DECODE_ATOL``.
 4. ``serve``: Llama-3-8B at full width and 8 of its 32 layers (printed as
    ``cut``: ``serve_engine`` serves all 32), bf16, random weights
    from a seed, through ``examples/serve_paged_llama.serve``: 16 requests,
@@ -346,6 +359,39 @@ Phases, each printing JSON lines:
     elementwise and reduction kernels, the rest), idle share and kernels
     a step.
 
+14. ``train_gpt``: ``GPTForCausalLM`` at ``GPTConfig()``'s GPT-2 small
+    (vocab 50304, hidden 768, all 12 layers, 12 heads, FFN 3072, 1024
+    positions), bf16, seeded, through ``gpt_pretrain_step_factory`` (its
+    defaults; the model in ``eval()`` inside the step, as the
+    reference's) on one seeded batch of ``GPT["B"]`` x 1024 next-token
+    pairs: a warm-up step, then the launch counts are set to 0, 5 steps
+    run, and every count must stay 0 (the additive causal mask keeps the
+    attention on the plain path, as in the reference); the losses finite
+    and falling. Then ``generate`` 16 greedy tokens from a 512-token
+    prompt at B=1 (recomputed each token; 0 launches). Records step ms,
+    tokens/s, MFU (the tied head once, causal live pairs), a forward and
+    backward alone, peak memory and ms a generated token.
+15. ``transformer``: ``nn.Transformer()`` at its defaults
+    (Transformer-base: d 512, 8 heads, 6 + 6 post-LN layers, FFN 2048,
+    ReLU, dropout 0.1 live), bf16, seeded, on embeddings of B=32 source
+    and target sequences of 512 positions against an N(0, 1) target
+    (MSE), the target under ``generate_square_subsequent_mask``. First one
+    forward and backward with the multi-head flash kernels and one with
+    their plain versions, identical weights, batch and dropout draws
+    (|Δloss|, every parameter's relative gradient error; the key biases
+    apart); then the launch counts are set to 0, 5 AdamW steps run, and
+    the counts must be exactly 12 forward + 12 dq + 12 dk/dv a step (6
+    encoder self-attentions and 6 cross-attentions: the decoder's
+    self-attention carries its mask to the plain path) and none of any
+    other kernel. Then a cached decode: ``TransformerDecoder.gen_cache``
+    of 8 sources' memory and 128 one-token steps (0 launches). Records
+    step ms, tokens/s, MFU, peak memory and ms a decode step.
+16. ``fused_decode``: ``FusedMultiTransformer`` at GPT-2 small's widths
+    (768, 12 heads, FFN 3072, 12 pre-LN layers, gelu), bf16, seeded,
+    B=8, a (12, 8, 2, 12, 1024, 64) cache cast to bf16: 256
+    token-by-token steps through ``caches`` / ``time_step`` (0
+    launches). Records ms a token and peak memory.
+
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result line. Without CUDA it exits at once.
@@ -502,6 +548,58 @@ RESNET = dict(B=256, hw=224, classes=1000, steps=5, warmup=1, seed=0)
 VISION_SMALL = dict(B=8, hw=64, classes=10, lenet_B=16, lr=0.01, seed=21)
 VISION_STATS_TOL = (1e-5, 1e-5)
 VISION_BUFFER_TOL = (1e-4, 1e-5)
+# train_gpt: GPTForCausalLM at GPTConfig()'s GPT-2 small (vocab 50304,
+# hidden 768, 12 layers, 12 heads, FFN 3072, 1024 positions), bf16,
+# seeded, all 12 layers, B x S = 8 x 1024 next-token pairs of one seeded
+# batch, through gpt_pretrain_step_factory (its defaults: lr 1e-4, weight
+# decay 0.01, betas (0.9, 0.95); the model in eval() inside the step);
+# one warm-up step, then 5 timed; then generate 16 tokens greedily from a
+# 512-token prompt at B = 1 (the recompute form)
+GPT = dict(B=32, S=1024, steps=5, warmup=1, seed=0, prompt=512,
+           new_tokens=16)
+# transformer: nn.Transformer() at its defaults, Transformer-base (d 512,
+# 8 heads, 6 + 6 layers, FFN 2048, ReLU, dropout 0.1 live), bf16, seeded,
+# on embeddings of B=32 source and target sequences of 512 positions
+# against an N(0, 1) target (MSE), the target side under
+# generate_square_subsequent_mask; 5 AdamW steps (lr 1e-4, betas (0.9,
+# 0.98), eps 1e-9, weight decay 0.01) on one batch. Then a cached decode:
+# the encoder's memory of the batch's first 8 sources,
+# TransformerDecoder.gen_cache(memory) (its empty float32 self-attention
+# caches cast to bfloat16, so the decode stays in bfloat16), and 128
+# one-token steps, each fed the step before's output
+SEQ2SEQ = dict(B=32, S_src=512, S_tgt=512, steps=5, lr=1e-4, seed=0,
+               decode_B=8, decode_steps=128)
+# One forward+backward with the multi-head flash kernels against one with
+# their plain versions, identical weights, batch and dropout draws: bf16
+# roundings apart in the 12 attentions the kernels run (the forward
+# rounds each probability against the running max, the plain version
+# against the final one). Readings: loss 3.83e-5 apart (of 1.9994);
+# gradients 0.0308 median, 0.129 worst (the last decoder layer's
+# cross-attention k projection); the key biases apart (NOISE_GRAD_PARAMS,
+# 1.47). Limits about twice them (PERF.md §2).
+SEQ2SEQ_LOSS_ATOL = 8e-5
+SEQ2SEQ_GRAD_REL = 0.26
+# fused_decode: FusedMultiTransformer at GPTConfig()'s widths (768, 12
+# heads, FFN 3072, 12 layers, pre-LN, gelu), bf16, seeded, B=8, its cache
+# (L, B, 2, H, 1024, 64) cast to bfloat16 (gen_cache makes float32, which
+# a bfloat16 step refuses, as the reference does); 256 token-by-token
+# steps through caches / time_step on seeded N(0, 1) inputs
+FUSED_DECODE = dict(B=8, max_len=1024, steps=256, seed=0)
+# the reference phase's small f32 models of this slice: GPT at tiny()
+# (its mask keeps it on the plain path); a Transformer at head_dim 64
+# with S = 256 on both sides (the encoder's and the cross-attention's
+# multi-head flash kernels on the card); a FusedMultiTransformer. Card vs
+# CPU within REF_ATOL (logits, outputs) and TRAIN_REF (GPT's 3 factory
+# steps; the key biases, whose gradient is noise, 2 x 3 x lr); each
+# decode through its caches against the no-cache forward on the same
+# device within DECODE_ATOL (f32: the order of the sums only, one token's
+# products against the whole sequence's: a few ulps of outputs up to ~12;
+# readings 1.4e-6 (Transformer) and 7.2e-6 (fused, card))
+SEQ2SEQ_SMALL = dict(d_model=128, nhead=2, num_encoder_layers=2,
+                     num_decoder_layers=2, dim_feedforward=256, dropout=0.0)
+FUSED_SMALL = dict(embed_dim=128, num_heads=4, dim_feedforward=256,
+                   num_layers=2)
+DECODE_ATOL = 1e-5
 
 SOURCE = "paddle_tpu_torch/ops/kernels/paged_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:46"
@@ -1328,7 +1426,12 @@ def phase_kernel(dev):
     mha_enc = [_attention_case("mha_encoder_B32_S512_D64_noncausal/bfloat16",
                                "mha", 32, 12, 1, 512, 512, 64, "bfloat16",
                                30, dev, flush, causal=False)]
-    emit({"phase": "kernel", **mha_enc[0]})
+    # and at the transformer phase's call: Transformer-base's 8 heads
+    mha_enc.append(_attention_case(
+        "mha_transformer_B32_S512_D64_noncausal/bfloat16", "mha", 32, 8, 1,
+        512, 512, 64, "bfloat16", 31, dev, flush, causal=False))
+    for c in mha_enc:
+        emit({"phase": "kernel", **c})
     norm = []
     for seed, (name, kind, N, H, dtype, kw) in enumerate(_norm_cases(),
                                                           start=40):
@@ -1566,6 +1669,26 @@ def _reference_encoder(dev):
             "encoder_unused_params": unused, "encoder_ok": ok}
 
 
+def _params_agree(card, host):
+    """(largest difference, largest share of a tensor's elements beyond
+    ``TRAIN_REF["param"]``, largest count of them over max(1,
+    ``TRAIN_REF["param_frac"]`` x its size), largest difference of the
+    key biases) of two {name: parameter} dicts; the key biases
+    (``NOISE_GRAD_PARAMS``), whose gradients are noise, apart."""
+    param_max, param_frac, count_ratio, noise_max = 0.0, 0.0, 0.0, 0.0
+    for k in host:
+        d = (card[k] - host[k]).abs()
+        if k.endswith(NOISE_GRAD_PARAMS):
+            noise_max = max(noise_max, float(d.max()))
+            continue
+        beyond = d > TRAIN_REF["param"]
+        param_max = max(param_max, float(d.max()))
+        param_frac = max(param_frac, float(beyond.float().mean()))
+        count_ratio = max(count_ratio, int(beyond.sum()) / max(
+            1.0, TRAIN_REF["param_frac"] * d.numel()))
+    return param_max, param_frac, count_ratio, noise_max
+
+
 def _bert_small(dev, state, batch, mask):
     """The small f32 BERT on ``dev`` from ``state`` at dropout 0: its MLM
     and NSP logits without and with ``mask``, the gradients of the first
@@ -1622,15 +1745,7 @@ def _reference_bert(dev):
     loss_diff = max(abs(a - b) for a, b in zip(card[1], host[1]))
     grad_diff = max(float((card[2][k] - g).abs().max())
                     for k, g in host[2].items())
-    param_max, param_frac, noise_max = 0.0, 0.0, 0.0
-    for k in host[3]:
-        d = (card[3][k] - host[3][k]).abs()
-        if k.endswith(NOISE_GRAD_PARAMS):
-            noise_max = max(noise_max, float(d.max()))
-            continue
-        param_max = max(param_max, float(d.max()))
-        param_frac = max(param_frac,
-                         float((d > TRAIN_REF["param"]).float().mean()))
+    param_max, param_frac, _, noise_max = _params_agree(card[3], host[3])
     ok = (max(out_diff) <= REF_ATOL and loss_diff <= TRAIN_REF["loss"]
           and grad_diff <= TRAIN_REF["grad"]
           and param_frac <= TRAIN_REF["param_frac"]
@@ -1646,6 +1761,153 @@ def _reference_bert(dev):
             "bert_param_max_diff": param_max,
             "bert_param_frac_over_atol": param_frac,
             "bert_noise_param_max_diff": noise_max, "bert_ok": ok}
+
+
+def _gpt_small(dev, state, ids, labels):
+    """GPT tiny() on ``dev`` from ``state``: its logits, 8 greedy tokens
+    from the first 16 ids, the losses of 3 factory steps and the
+    parameters after them (each on the CPU)."""
+    from paddle_tpu_torch.models.nlp import (GPTConfig, GPTForCausalLM,
+                                             gpt_pretrain_step_factory)
+    from paddle_tpu_torch.nn import load_numpy_state_dict
+
+    model = load_numpy_state_dict(GPTForCausalLM(GPTConfig.tiny(),
+                                                 device=dev), state)
+    ids, labels = ids.to(dev), labels.to(dev)
+    with torch.no_grad():
+        logits = model(ids).cpu()
+    tokens = model.generate(ids[:, :16], max_new_tokens=8).cpu()
+    params, opt, step = gpt_pretrain_step_factory(
+        model, learning_rate=TRAIN_REF["lr"], device=dev)
+    losses = [float(step(params, opt, ids, labels)[2]) for _ in range(3)]
+    return logits, tokens, losses, {k: p.detach().cpu()
+                                    for k, p in params.items()}
+
+
+def _reference_gpt(dev):
+    """GPT tiny() (hidden 64, 4 heads, 2 layers, B=2, S=64) card against
+    CPU from the same weights: logits within ``REF_ATOL``, greedy tokens
+    identical, 3 factory steps under ``TRAIN_REF`` with its share of a
+    tensor's elements read as max(1, 1e-4 x size) elements, as the MoE
+    card test reads it: tiny()'s tensors hold 4096-16384 elements, where
+    1e-4 of them is less than one, and AdamW steps an element whose
+    gradient is as small as its f32 noise by about lr either way (the
+    key biases, all noise, within 2 x 3 x lr)."""
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.models.nlp import GPTConfig, GPTForCausalLM
+
+    state = {k: v.numpy() for k, v in GPTForCausalLM(
+        GPTConfig.tiny(), device="cpu", generator=Generator(11))
+        .state_dict().items()}
+    ids = torch.from_numpy(np.random.default_rng(15).integers(0, 256,
+                                                              (2, 65)))
+    args = (state, ids[:, :-1], ids[:, 1:])
+    card = _gpt_small(dev, *args)
+    host = _gpt_small(torch.device("cpu"), *args)
+    logit_diff = float((card[0] - host[0]).abs().max())
+    loss_diff = max(abs(a - b) for a, b in zip(card[2], host[2]))
+    param_max, param_frac, count_ratio, noise_max = _params_agree(card[3],
+                                                                  host[3])
+    ok = (logit_diff <= REF_ATOL and torch.equal(card[1], host[1])
+          and loss_diff <= TRAIN_REF["loss"] and count_ratio <= 1
+          and param_max <= TRAIN_REF["lr"]
+          and noise_max <= 2 * 3 * TRAIN_REF["lr"]
+          and card[2][-1] < card[2][0])
+    return {"gpt_logits_max_diff": logit_diff,
+            "gpt_tokens_equal": torch.equal(card[1], host[1]),
+            "gpt_losses_card": card[2], "gpt_losses_cpu": host[2],
+            "gpt_loss_max_diff": loss_diff, "gpt_param_max_diff": param_max,
+            "gpt_param_frac_over_atol": param_frac,
+            "gpt_param_count_over_allowed": count_ratio,
+            "gpt_noise_param_max_diff": noise_max, "gpt_ok": ok}
+
+
+def _seq2seq_small(dev, state, src, tgt, n_decode):
+    """The small f32 Transformer on ``dev`` from ``state``: its output
+    under the causal target mask, and the largest difference between that
+    output and a decode of the first ``n_decode`` positions one token at
+    a time through ``TransformerDecoder``'s caches (``Cache`` for the
+    self-attention, ``StaticCache`` for the memory)."""
+    from paddle_tpu_torch.nn import Transformer, load_numpy_state_dict
+
+    model = load_numpy_state_dict(
+        Transformer(**SEQ2SEQ_SMALL, device=dev), state).eval()
+    src, tgt = src.to(dev), tgt.to(dev)
+    mask = Transformer.generate_square_subsequent_mask(tgt.shape[1],
+                                                       device=dev)
+    with torch.no_grad():
+        out = model(src, tgt, tgt_mask=mask)
+        memory = model.encoder(src)
+        cache = model.decoder.gen_cache(memory)
+        steps = []
+        for t in range(n_decode):
+            step, cache = model.decoder(tgt[:, t:t + 1], memory,
+                                        cache=cache)
+            steps.append(step)
+        diff = float((torch.cat(steps, 1) - out[:, :n_decode]).abs().max())
+    return out.cpu(), diff
+
+
+def _fused_small(dev, state, x):
+    """The small f32 FusedMultiTransformer on ``dev`` from ``state``: its
+    no-cache forward, and the largest difference between it and a
+    token-by-token decode through ``caches`` / ``time_step``."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.nn import load_numpy_state_dict
+
+    model = load_numpy_state_dict(
+        FusedMultiTransformer(**FUSED_SMALL, device=dev), state)
+    x = x.to(dev)
+    with torch.no_grad():
+        out = model(x)
+        cache = model.gen_cache(x.shape[0], x.shape[1])
+        steps = []
+        for t in range(x.shape[1]):
+            step, cache = model(x[:, t:t + 1], caches=cache, time_step=t)
+            steps.append(step)
+        diff = float((torch.cat(steps, 1) - out).abs().max())
+    return out.cpu(), diff
+
+
+def _reference_decoders(dev):
+    """A small f32 ``nn.Transformer`` (``SEQ2SEQ_SMALL``: d 128, 2 heads,
+    head_dim 64, 2 + 2 layers, B=2, S=256 both sides: the encoder's and
+    the cross-attention's flash kernels on the card) and a small f32
+    ``FusedMultiTransformer`` (``FUSED_SMALL``, B=2, T=32), card against
+    CPU from the same weights: outputs within ``REF_ATOL``; and on each
+    device a decode through the caches (the Transformer's first 32
+    positions, the fused stack's 32) equal to the no-cache forward within
+    ``DECODE_ATOL``."""
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.nn import Transformer
+
+    rng = np.random.default_rng(16)
+    src, tgt = (torch.from_numpy(rng.standard_normal((2, 256, 128))
+                                 .astype(np.float32)) for _ in range(2))
+    state = {k: v.numpy() for k, v in Transformer(
+        **SEQ2SEQ_SMALL, device="cpu", generator=Generator(12))
+        .state_dict().items()}
+    card = _seq2seq_small(dev, state, src, tgt, 32)
+    host = _seq2seq_small(torch.device("cpu"), state, src, tgt, 32)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 128))
+                         .astype(np.float32))
+    f_state = {k: v.numpy() for k, v in FusedMultiTransformer(
+        **FUSED_SMALL, device="cpu", generator=Generator(13))
+        .state_dict().items()}
+    f_card = _fused_small(dev, f_state, x)
+    f_host = _fused_small(torch.device("cpu"), f_state, x)
+    out = {"seq2seq_out_max_diff": float((card[0] - host[0]).abs().max()),
+           "seq2seq_decode_vs_forward_card": card[1],
+           "seq2seq_decode_vs_forward_cpu": host[1],
+           "fused_out_max_diff": float((f_card[0] - f_host[0]).abs().max()),
+           "fused_decode_vs_forward_card": f_card[1],
+           "fused_decode_vs_forward_cpu": f_host[1]}
+    out["decoders_ok"] = (
+        out["seq2seq_out_max_diff"] <= REF_ATOL
+        and out["fused_out_max_diff"] <= REF_ATOL
+        and max(card[1], host[1], f_card[1], f_host[1]) <= DECODE_ATOL)
+    return out
 
 
 def _vision_small(dev, state, make, x, y):
@@ -2225,13 +2487,16 @@ def phase_reference(dev):
     bert = _reference_bert(dev)
     vision = _reference_vision(dev)
     moe, moe_ok = _reference_moe(dev)
+    gpt = _reference_gpt(dev)
+    decoders = _reference_decoders(dev)
     out.update({"llama_d256_g3": {**wide, "ok": wide_ok},
                 "llama_options": options, "engine": engine,
                 "engine_features": features, **enc, **bert,
-                "vision": vision, "moe": moe,
+                "vision": vision, "moe": moe, **gpt, **decoders,
                 "ok": ok and wide_ok and options_ok and engine_ok
                 and features_ok and enc["encoder_ok"] and bert["bert_ok"]
-                and vision["ok"] and moe_ok})
+                and vision["ok"] and moe_ok and gpt["gpt_ok"]
+                and decoders["decoders_ok"]})
     # the offloaded steps' pinned blocks go back to the host
     _release_pinned()
     emit(out)
@@ -4343,12 +4608,312 @@ def phase_train_resnet50(dev, profile=False):
     return out
 
 
+# --- phase 14: GPT-2 small pretraining (models/nlp/gpt.py) ----------------
+
+def phase_train_gpt(dev):
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.models.nlp import (GPTConfig, GPTForCausalLM,
+                                             gpt_pretrain_step_factory)
+    from paddle_tpu_torch.models.nlp.gpt import lm_loss
+
+    g = GPT
+    B, S, steps, seed = g["B"], g["S"], g["steps"], g["seed"]
+    cfg = GPTConfig()
+    L, d, heads = (cfg.num_hidden_layers, cfg.hidden_size,
+                   cfg.num_attention_heads)
+    model = GPTForCausalLM(cfg, device=dev, generator=Generator(seed)) \
+        .to(torch.bfloat16)
+    model.train()
+    tg = torch.Generator(device=dev).manual_seed(seed + 1)
+    ids = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=tg,
+                        device=dev)
+    tokens, labels = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    params, opt, step = gpt_pretrain_step_factory(model, device=dev)
+
+    # the main path: a warm-up step, then launch counts from 0 and the
+    # timed steps, each up to its loss on the host
+    warmup = [float(step(params, opt, tokens, labels)[2])
+              for _ in range(g["warmup"])]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, opt, tokens, labels)[2]))
+        step_s.append(time.perf_counter() - t0)
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    # a forward and backward alone, in eval() as inside the step
+    model.eval()
+    t0 = time.perf_counter()
+    torch.autograd.grad(lm_loss(model, tokens, labels),
+                        list(params.values()))
+    torch.cuda.synchronize()
+    fwd_bwd_s = time.perf_counter() - t0
+    # greedy generation by recomputation at B = 1
+    _zero_train_counts()
+    prompt = tokens[:1, :g["prompt"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generated = model.generate(prompt, max_new_tokens=g["new_tokens"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = _train_counts()
+    model.train()
+
+    want = {k: 0 for k in counts}
+    step_med = statistics.median(step_s)
+    F, V = cfg.intermediate_size, cfg.vocab_size
+    matmul_params = L * (4 * d * d + 2 * d * F) + d * V
+    pairs = B * heads * S * (S + 1) // 2                    # causal
+    flops = 6 * matmul_params * B * S + 12 * (d // heads) * pairs * L
+    out = {"phase": "train_gpt", "model": "gpt2_small",
+           "config": dataclasses.asdict(cfg), "layers": L,
+           "dtype": "bfloat16", "B": B, "S": S, "tokens_per_step": B * S,
+           "steps": steps, "warmup_steps": g["warmup"],
+           "warmup_losses": warmup,
+           "optimizer": "AdamW lr 1e-4, weight decay 0.01, betas (0.9, "
+                        "0.95), eps 1e-8, f32 moments",
+           "losses": losses, "step_ms_median": 1e3 * step_med,
+           "step_ms": [1e3 * t for t in step_s],
+           "fwd_bwd_ms": 1e3 * fwd_bwd_s, "tokens_per_s": B * S / step_med,
+           "peak_mem_gb": peak_gb, "step_flops": flops,
+           "matmul_params": matmul_params,
+           "mfu": flops / step_med / BF16_FLOP_PER_S,
+           "mfu_formula": "(6*matmul_params*tokens + 12*head_dim*pairs*"
+                          "layers) / step_s / 989e12; matmul_params = "
+                          "L*(4d^2 + 2dF) + dV (the tied head once); pairs "
+                          "= B*heads*S*(S+1)/2 (causal live pairs)",
+           "launches": counts, "launches_expected": want,
+           "generate": {"B": 1, "prompt": g["prompt"],
+                        "new_tokens": g["new_tokens"],
+                        "ms_per_token": 1e3 * gen_s / g["new_tokens"],
+                        "launches": gen_counts,
+                        "shape": list(generated.shape)}}
+    ok = (counts == want and gen_counts == want and all(np.isfinite(losses))
+          and losses[-1] < losses[0]
+          and tuple(generated.shape) == (1, g["prompt"] + g["new_tokens"])
+          and torch.equal(generated[:, :g["prompt"]], prompt)
+          and int(generated.max()) < V and int(generated.min()) >= 0)
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError("train_gpt phase failed: " + json.dumps(out))
+    del model, params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- phase 15: Transformer-base training and cached decode (nn) -------------
+
+def _seq2seq_loss(model, src, tgt, mask, target):
+    out = model(src, tgt, tgt_mask=mask)
+    return torch.square(out.float() - target.float()).mean()
+
+
+def _seq2seq_grads(swap, model, batch, gen, seed):
+    """Loss and gradients of one forward and backward, the generator
+    reseeded first so both calls draw the same dropout; ``swap`` runs the
+    multi-head flash kernels' plain versions."""
+    with _swapped(_mha_swaps(), swap):
+        gen.manual_seed(seed)
+        loss = _seq2seq_loss(model, *batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def phase_transformer(dev):
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.models.nlp import make_adamw_state
+    from paddle_tpu_torch.models.nlp.train_utils import apply_adamw
+    from paddle_tpu_torch.nn import MultiHeadAttention, Transformer
+
+    c = SEQ2SEQ
+    B, Ss, St, steps, lr, seed = (c["B"], c["S_src"], c["S_tgt"], c["steps"],
+                                  c["lr"], c["seed"])
+    gen = Generator(seed)               # weights, then every dropout draw
+    model = Transformer(device=dev, generator=gen).to(torch.bfloat16)
+    model.train()
+    d, heads = model.d_model, model.nhead
+    Le, Ld = len(model.encoder.layers), len(model.decoder.layers)
+    F = model.encoder.layers[0].linear1.out_features
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    src, tgt, target = (torch.randn((B, S, d), generator=g, device=dev)
+                        .to(torch.bfloat16) for S in (Ss, St, St))
+    mask = Transformer.generate_square_subsequent_mask(St, device=dev)
+    batch = (src, tgt, mask, target)
+
+    # kernels against plain versions: one forward+backward each, identical
+    # weights, batch and dropout draws
+    loss_k, grads_k = _seq2seq_grads(False, model, batch, gen, seed + 2)
+    loss_p, grads_p = _seq2seq_grads(True, model, batch, gen, seed + 2)
+    rel, noise = {}, {}
+    for (k, _), a, b in zip(model.named_parameters(), grads_k, grads_p):
+        (noise if k.endswith(NOISE_GRAD_PARAMS) else rel)[k] = float(
+            (a.float() - b.float()).norm() / b.float().norm())
+    del grads_k, grads_p
+    worst = max(rel, key=rel.get)
+
+    # the main path: launch counts from 0, the training steps
+    params = dict(model.named_parameters())
+    opt = make_adamw_state(params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = _seq2seq_loss(model, *batch)
+        grads = list(torch.autograd.grad(loss, list(params.values())))
+        apply_adamw(params, grads, opt, lr, 0.9, 0.98, 1e-9, 0.01)
+        losses.append(float(loss.detach()))
+        step_s.append(time.perf_counter() - t0)
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: 0 for k in counts}
+    want.update({"mha_fwd": (Le + Ld) * steps, "mha_dq": (Le + Ld) * steps,
+                 "mha_dkv": (Le + Ld) * steps})
+    del opt, grads
+
+    # the cached decode: gen_cache(memory), then one-token steps
+    model.eval()
+    Bd, n = c["decode_B"], c["decode_steps"]
+    with torch.no_grad():
+        memory = model.encoder(src[:Bd])
+        cache = [(MultiHeadAttention.Cache(*(t.to(torch.bfloat16)
+                                             for t in incr)), static)
+                 for incr, static in model.decoder.gen_cache(memory)]
+        x = tgt[:Bd, :1]
+        torch.cuda.synchronize()
+        _zero_train_counts()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x, cache = model.decoder(x, memory, cache=cache)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    decode_counts = _train_counts()
+    model.train()
+
+    step_med = statistics.median(step_s)
+    hd = d // heads
+    enc_params = Le * (4 * d * d + 2 * d * F)
+    dec_params = Ld * (8 * d * d + 2 * d * F)
+    enc_pairs = B * heads * Ss * Ss                 # non-causal
+    cross_pairs = B * heads * St * Ss               # non-causal
+    self_pairs = B * heads * St * (St + 1) // 2     # causal live pairs
+    flops = 6 * (enc_params * B * Ss + dec_params * B * St) \
+        + 12 * hd * (enc_pairs * Le + (cross_pairs + self_pairs) * Ld)
+    out = {"phase": "transformer", "model": "transformer_base",
+           "config": {"d_model": d, "nhead": heads, "num_encoder_layers": Le,
+                      "num_decoder_layers": Ld, "dim_feedforward": F,
+                      "dropout": 0.1, "activation": "relu",
+                      "normalize_before": False},
+           "dtype": "bfloat16", "B": B, "S_src": Ss, "S_tgt": St,
+           "steps": steps, "lr": lr,
+           "optimizer": "AdamW lr 1e-4, betas (0.9, 0.98), eps 1e-9, "
+                        "weight decay 0.01, f32 moments",
+           "loss": "MSE against N(0, 1), causal tgt_mask",
+           "losses": losses, "step_ms_median": 1e3 * step_med,
+           "step_ms": [1e3 * t for t in step_s],
+           "tokens_per_s": B * (Ss + St) / step_med,
+           "peak_mem_gb": peak_gb, "step_flops": flops,
+           "mfu": flops / step_med / BF16_FLOP_PER_S,
+           "mfu_formula": "(6*(enc_params*B*S_src + dec_params*B*S_tgt) + "
+                          "12*head_dim*(enc_pairs*Le + (cross_pairs + "
+                          "causal_self_pairs)*Ld)) / step_s / 989e12; "
+                          "enc_params = Le*(4d^2 + 2dF), dec_params = "
+                          "Ld*(8d^2 + 2dF)",
+           "launches": counts, "launches_expected": want,
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_diff": abs(loss_k - loss_p),
+           "loss_atol": SEQ2SEQ_LOSS_ATOL,
+           "grad_rel_err_max": rel[worst], "grad_rel_err_worst": worst,
+           "grad_rel_err_median": statistics.median(rel.values()),
+           "grad_rel_limit": SEQ2SEQ_GRAD_REL,
+           "noise_grad_rel_err_max": max(noise.values()),
+           "decode": {"B": Bd, "memory": Ss, "steps": n,
+                      "cache_dtype": str(cache[0][0].k.dtype),
+                      "out_dtype": str(x.dtype),
+                      "ms_per_step": 1e3 * decode_s / n,
+                      "launches": decode_counts,
+                      "cache_len": int(cache[0][0].k.shape[1])}}
+    ok = (counts == want and decode_counts == {k: 0 for k in counts}
+          and all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and out["loss_diff"] <= SEQ2SEQ_LOSS_ATOL
+          and rel[worst] <= SEQ2SEQ_GRAD_REL
+          and bool(torch.isfinite(x).all()) and x.dtype == torch.bfloat16
+          and out["decode"]["cache_len"] == n)
+    out["ok"] = ok
+    emit({**out, "grad_rel_err": rel})
+    if not ok:
+        raise AssertionError("transformer phase failed: " + json.dumps(out))
+    del model, params, cache, memory
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- phase 16: FusedMultiTransformer decode at GPT-2 small's widths ---------
+
+def phase_fused_decode(dev):
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.models.nlp import GPTConfig
+
+    f = FUSED_DECODE
+    B, max_len, n, seed = f["B"], f["max_len"], f["steps"], f["seed"]
+    cfg = GPTConfig()
+    model = FusedMultiTransformer(
+        cfg.hidden_size, cfg.num_attention_heads, cfg.intermediate_size,
+        activation="gelu", normalize_before=True,
+        num_layers=cfg.num_hidden_layers, device=dev,
+        generator=Generator(seed)).to(torch.bfloat16).eval()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    xs = torch.randn((n, B, 1, cfg.hidden_size), generator=g,
+                     device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        cache = model.gen_cache(B, max_len).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_train_counts()
+        t0 = time.perf_counter()
+        for t in range(n):
+            out, cache = model(xs[t], caches=cache, time_step=t)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    counts = _train_counts()
+    res = {"phase": "fused_decode", "model": "gpt2_small_width_fused",
+           "layer": "FusedMultiTransformer(768, 12, 3072, activation="
+                    "'gelu', normalize_before=True, num_layers=12)",
+           "dtype": "bfloat16", "B": B, "max_len": max_len, "steps": n,
+           "cache_shape": list(cache.shape), "cache_dtype": str(cache.dtype),
+           "ms_per_token": 1e3 * decode_s / n,
+           "tokens_per_s": B * n / decode_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": counts, "launches_expected": {k: 0 for k in counts}}
+    ok = (counts == res["launches_expected"]
+          and bool(torch.isfinite(out).all())
+          and out.dtype == torch.bfloat16
+          and bool(cache[:, :, :, :, n - 1].abs().sum() > 0)
+          and not cache[:, :, :, :, n:].any())
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        raise AssertionError("fused_decode phase failed: " + json.dumps(res))
+    del model, cache, xs
+    torch.cuda.empty_cache()
+    return res
+
+
 # --- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "serve_features", "train", "train_mha",
           "train_window", "train_full", "train_long", "train_moe",
-          "train_encoder", "train_bert", "train_resnet50")
+          "train_encoder", "train_bert", "train_resnet50", "train_gpt",
+          "transformer", "fused_decode")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -4519,6 +5084,12 @@ def _kernels_line(kern, serve, engine, features, trains, card):
             "flash_mha_bert", GQA_SOURCE, MHA_FWD_REPLACES,
             MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0],
             trains.get("train_bert", {}).get("launches", {}), card)
+        # and at the transformer phase's: encoder self-attention and
+        # cross-attention of Transformer-base
+        kernels += _attention_entries(
+            "flash_mha_transformer", GQA_SOURCE, MHA_FWD_REPLACES,
+            MHA_BWD_REPLACES, "mha", kern["mha_encoder"][1],
+            trains.get("transformer", {}).get("launches", {}), card)
     norm = kern.get("norm", [])
     if norm:
         kernels += [
@@ -4587,6 +5158,12 @@ def main():
     if "train_resnet50" in phases:
         trains["train_resnet50"] = phase_train_resnet50(
             dev, profile=args.profile)
+    if "train_gpt" in phases:
+        trains["train_gpt"] = phase_train_gpt(dev)
+    if "transformer" in phases:
+        trains["transformer"] = phase_transformer(dev)
+    if "fused_decode" in phases:
+        trains["fused_decode"] = phase_fused_decode(dev)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,6 +1,8 @@
 from .bert import (BertConfig, BertForPretraining,  # noqa: F401
                    BertForSequenceClassification, BertModel,
                    bert_pretrain_step_factory)
+from .gpt import (GPTConfig, GPTForCausalLM,  # noqa: F401
+                  gpt_pretrain_step_factory)
 from .llama import (LlamaConfig, LlamaForCausalLM, apply_rotary,  # noqa: F401
                     llama_train_step_factory, load_numpy_state_dict)
 from .llama_decode import (PagedOnlyDense, llama_decode_factory,  # noqa: F401

@@ -8,7 +8,9 @@ flash kernels run is decided up front by the reference's own gate
 call runs the port's multi-head ``flash_attention`` (the CUDA kernels on
 the card, which take every head_dim the gate admits, and float32,
 bfloat16 and float16); any other call takes the reference's plain
-softmax path, with the f32 softmax cast back to q's dtype (``:61-78``).
+softmax path, with the f32 softmax cast back to q's dtype (``:61-78``);
+its products promote mixed dtypes as ``jnp.einsum`` does (a bfloat16 q
+against a float32 cache gives float32 scores and output).
 The reference's ``use_pallas`` switch is not ported: as with the flash
 gate of the Llama path, an eligible shape always takes the kernels.
 """
@@ -19,6 +21,7 @@ import math
 import torch
 
 from ...ops.flash_attention import flash_attention
+from ...ops.linalg import matmul
 
 
 def _flash_gate(q, k, mask):
@@ -41,7 +44,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return out.transpose(1, 2)
     scale = 1.0 / math.sqrt(query.shape[-1])
     qt, kt, vt = (t.transpose(1, 2) for t in (query, key, value))
-    scores = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+    scores = matmul(qt, kt, transpose_y=True) * scale
     lowest = torch.finfo(scores.dtype).min
     if is_causal:
         sq, sk = scores.shape[-2], scores.shape[-1]
@@ -54,4 +57,4 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         else:
             scores = scores + attn_mask
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(query.dtype)
-    return torch.matmul(probs, vt).transpose(1, 2)
+    return matmul(probs, vt).transpose(1, 2)

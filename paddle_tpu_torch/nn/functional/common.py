@@ -1,27 +1,29 @@
 """``linear``, ``embedding`` and ``dropout`` of the PyTorch port.
 
 Counterpart of ``paddle_tpu/nn/functional/common.py`` (``linear``,
-``:17``; ``embedding``, ``:30``; ``dropout``, ``:54``). The weight of ``linear`` is stored
-(in, out), as in the reference and the port's Llama, and applied as
-``x @ w``; a plain product is left to ``torch.matmul``, as the reference
-leaves it to XLA. ``embedding`` is the reference's formula: take the
-rows, then multiply the output by ``ids != padding_idx`` (so a padding
-row that is not zero still reads as zero, and gets no gradient);
-``sparse=True`` is refused. ``dropout`` takes the reference's arguments
-in the reference's order (``p``, ``axis``, ``training``, ``mode``) and
-draws its mask from a ``torch.Generator`` on x's device
-(``core.generator``), given by keyword.
+``:17``; ``embedding``, ``:30``; ``dropout``, ``:54``). The weight of
+``linear`` is stored (in, out), as in the reference and the port's Llama,
+and applied as ``x @ w``; a plain product is left to ``torch.matmul``, as
+the reference leaves it to XLA, through ``ops.linalg.matmul``, which
+promotes mixed dtypes as ``jnp.matmul`` does. ``embedding`` is the
+reference's formula: take the rows, then multiply the output by ``ids !=
+padding_idx`` (so a padding row that is not zero still reads as zero, and
+gets no gradient); ``sparse=True`` is refused. ``dropout`` takes the
+reference's arguments in the reference's order (``p``, ``axis``,
+``training``, ``mode``) and draws its mask from a ``torch.Generator`` on
+x's device (``core.generator``), given by keyword.
 """
 from __future__ import annotations
 
 import torch
 
 from ...core.generator import torch_generator
+from ...ops.linalg import matmul
 
 
 def linear(x, weight, bias=None):
     """x (..., in) @ weight (in, out) (+ bias (out,))."""
-    out = torch.matmul(x, weight)
+    out = matmul(x, weight)
     return out + bias if bias is not None else out
 
 

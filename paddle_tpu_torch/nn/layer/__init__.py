@@ -9,5 +9,6 @@ from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
                       AdaptiveAvgPool3D, AvgPool1D, AvgPool2D, AvgPool3D,
                       MaxPool1D, MaxPool2D, MaxPool3D)
-from .transformer import (MultiHeadAttention,  # noqa: F401
+from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
+                          TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)

@@ -9,7 +9,8 @@ the same numpy inputs, float32 on both sides:
   8 (plain attention on both sides) and at S = 256 with head_dim 64 (the
   JAX Pallas flash kernel in interpret mode against the port's plain
   flash), with and without an additive mask; ``nn.TransformerEncoder``
-  with its layers' identical initial weights;
+  with its layers' identical initial weights, without and with the
+  caches of its ``gen_cache``;
 * ``BertForPretraining`` (mlm and nsp logits, ``loss`` and the gradient
   of every parameter, the tied word embedding among them) at ``tiny()``
   and at a flash-width config (hidden 128, 2 heads, S = 256), with and
@@ -244,8 +245,19 @@ def test_encoder_stack_starts_from_one_layer_and_matches_jax():
     (t_out ** 2).mean().backward()
     np.testing.assert_allclose(t_out.detach().numpy(), r_out.numpy(), **TOL)
     _grads_match(ref, port)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port(torch.from_numpy(x), cache=[None, None])
+    # with the caches of ``gen_cache``: the output and each layer's new
+    # cache equal the reference's
+    t_out, t_caches = port(torch.from_numpy(x),
+                           cache=port.gen_cache(torch.from_numpy(x)))
+    r_out, r_caches = ref(paddle.to_tensor(x),
+                          cache=ref.gen_cache(paddle.to_tensor(x)))
+    np.testing.assert_allclose(t_out.detach().numpy(), r_out.numpy(), **TOL)
+    assert len(t_caches) == len(r_caches) == 2
+    for t_c, r_c in zip(t_caches, r_caches):
+        assert type(t_c).__name__ == type(r_c).__name__ == "Cache"
+        for t_kv, r_kv in zip(t_c, r_c):
+            np.testing.assert_allclose(t_kv.detach().numpy(), r_kv.numpy(),
+                                       **TOL)
 
 
 # --- BERT ------------------------------------------------------------------

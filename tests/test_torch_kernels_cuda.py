@@ -1468,3 +1468,146 @@ def test_serving_features_on_the_card_match_the_cpu(card, feature):
         assert got.spec_stats["rounds"] > 0 and steps == 0
     else:
         assert steps > 0
+
+
+# --- GPT, the seq2seq Transformer and FusedMultiTransformer ----------------
+
+def _decode_close(decoded, full):
+    """Decode through caches against the no-cache forward, f32: the order
+    of the sums only (one token's products against the sequence's), 1e-5
+    absolute."""
+    torch.testing.assert_close(decoded, full, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_gpt_on_the_card_matches_the_cpu(card):
+    """GPT ``tiny()`` (hidden 64, 4 heads, 2 layers; the additive causal
+    mask keeps it on the plain attention) from the same weights on the
+    card and on the CPU: logits 1e-4, greedy tokens equal, 3 factory steps
+    with losses 1e-5 and parameters at most 1e-4 of a tensor's elements
+    (or one) beyond 1e-5 and none beyond lr; the key biases (noise
+    gradients) within 2·3·lr. No kernel launches."""
+    from paddle_tpu_torch.models.nlp import (GPTConfig, GPTForCausalLM,
+                                             gpt_pretrain_step_factory,
+                                             load_numpy_state_dict)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = {k: v.numpy() for k, v in GPTForCausalLM(
+        GPTConfig.tiny(), device="cpu").state_dict().items()}
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, 256,
+                                                             (2, 49)))
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        model = load_numpy_state_dict(GPTForCausalLM(GPTConfig.tiny(),
+                                                     device=dev), state)
+        before = fm.flash_attention.launches_fwd
+        with torch.no_grad():
+            logits = model(ids[:, :-1].to(dev)).cpu()
+        tokens = model.generate(ids[:, :16].to(dev), 8).cpu()
+        params, opt, step = gpt_pretrain_step_factory(
+            model, learning_rate=1e-3, device=dev)
+        losses = [float(step(params, opt, ids[:, :-1], ids[:, 1:])[2])
+                  for _ in range(3)]
+        assert fm.flash_attention.launches_fwd == before
+        runs[dev.type] = (logits, tokens, losses,
+                          {k: p.detach().cpu() for k, p in params.items()})
+    (lg, tok, losses, params), (lg_c, tok_c, losses_c, params_c) = (
+        runs["cuda"], runs["cpu"])
+    torch.testing.assert_close(lg, lg_c, atol=1e-4, rtol=0)
+    assert torch.equal(tok, tok_c)
+    np.testing.assert_allclose(losses, losses_c, atol=1e-5, rtol=0)
+    for k, p in params.items():
+        diff = (p - params_c[k]).abs()
+        if k.endswith("attn.k_proj.bias"):
+            assert float(diff.max()) <= 6e-3, k
+            continue
+        assert int((diff > 1e-5).sum()) <= max(1, 1e-4 * diff.numel()), k
+        assert float(diff.max()) <= 1e-3, k
+
+
+@pytest.mark.cuda
+def test_transformer_on_the_card_matches_the_cpu_and_decodes(card):
+    """A small f32 ``nn.Transformer`` (d 128, 2 heads: head_dim 64 at
+    S = 256 on both sides, 2 + 2 layers) from the same weights: the
+    output under the causal target mask on the card (the encoder's and
+    the cross-attention's multi-head flash kernels: one forward launch
+    each a layer, and one dq and one dk/dv in the backward) within 1e-4
+    of the CPU's (TF32 off); then a decode of 16 positions through
+    ``TransformerDecoder``'s caches equal to that forward, on the card,
+    without a kernel launch."""
+    from paddle_tpu_torch.nn import Transformer, load_numpy_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(d_model=128, nhead=2, num_encoder_layers=2,
+              num_decoder_layers=2, dim_feedforward=256, dropout=0.0)
+    state = {k: v.numpy() for k, v in Transformer(
+        **kw, device="cpu").state_dict().items()}
+    rng = np.random.default_rng(4)
+    src, tgt = (torch.from_numpy(rng.standard_normal((2, 256, 128))
+                                 .astype(np.float32)) for _ in range(2))
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        model = load_numpy_state_dict(Transformer(**kw, device=dev), state)
+        mask = Transformer.generate_square_subsequent_mask(256, device=dev)
+        counts = (fm.flash_attention.launches_fwd,
+                  fm.flash_attention.launches_dq,
+                  fm.flash_attention.launches_dkv)
+        out = model(src.to(dev), tgt.to(dev), tgt_mask=mask)
+        out.square().mean().backward()
+        launched = tuple(n - b for n, b in zip(
+            (fm.flash_attention.launches_fwd, fm.flash_attention.launches_dq,
+             fm.flash_attention.launches_dkv), counts))
+        assert launched == ((4, 4, 4) if dev.type == "cuda" else (0, 0, 0))
+        outs[dev.type] = (model, out.detach())
+    torch.testing.assert_close(outs["cuda"][1].cpu(), outs["cpu"][1],
+                               atol=1e-4, rtol=0)
+    model, full = outs["cuda"]
+    before = fm.flash_attention.launches_fwd
+    with torch.no_grad():
+        memory = model.encoder(src.to(card))
+        cache = model.decoder.gen_cache(memory)
+        steps = []
+        for t in range(16):
+            step, cache = model.decoder(tgt[:, t:t + 1].to(card), memory,
+                                        cache=cache)
+            steps.append(step)
+    assert fm.flash_attention.launches_fwd == before + 2   # the encoder
+    _decode_close(torch.cat(steps, 1), full[:, :16])
+
+
+@pytest.mark.cuda
+def test_fused_multi_transformer_on_the_card_matches_the_cpu(card):
+    """A small f32 ``FusedMultiTransformer`` (d 128, 4 heads, FFN 256, 2
+    layers) from the same weights: the no-cache forward on the card
+    within 1e-4 of the CPU's, and a token-by-token decode through the
+    cache on the card equal to the card's forward; then in bf16 with the
+    cache cast, finite and bf16."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.nn import load_numpy_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(embed_dim=128, num_heads=4, dim_feedforward=256, num_layers=2)
+    state = {k: v.numpy() for k, v in FusedMultiTransformer(
+        **kw, device="cpu").state_dict().items()}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 24, 128)).astype(np.float32))
+    with torch.no_grad():
+        want = load_numpy_state_dict(FusedMultiTransformer(
+            **kw, device="cpu"), state)(x)
+        model = load_numpy_state_dict(FusedMultiTransformer(
+            **kw, device=card), state)
+        full = model(x.to(card))
+        torch.testing.assert_close(full.cpu(), want, atol=1e-4, rtol=0)
+        cache = model.gen_cache(2, 32)
+        steps = []
+        for t in range(24):
+            step, cache = model(x[:, t:t + 1].to(card), caches=cache,
+                                time_step=t)
+            steps.append(step)
+        _decode_close(torch.cat(steps, 1), full)
+        model.to(torch.bfloat16)
+        cache = model.gen_cache(2, 32).to(torch.bfloat16)
+        for t in range(4):
+            step, cache = model(x[:, t:t + 1].to(card, torch.bfloat16),
+                                caches=cache, time_step=t)
+        assert step.dtype == torch.bfloat16 and bool(step.isfinite().all())

@@ -41,6 +41,8 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.nn.layer.transformer",
              "paddle_tpu_torch.nn.functional.loss",
              "paddle_tpu_torch.models.nlp.bert",
+             "paddle_tpu_torch.models.nlp.gpt",
+             "paddle_tpu_torch.ops.linalg",
              "paddle_tpu_torch.models.nlp.moe",
              "paddle_tpu_torch.incubate.distributed.models.moe",
              "paddle_tpu_torch.examples.train_moe",
