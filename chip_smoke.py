@@ -14,6 +14,7 @@ trains.
     python3 chip_smoke.py --phases build,reference,train_moe
     python3 chip_smoke.py --phases build,reference,serve_engine
     python3 chip_smoke.py --phases build,reference,serve_features
+    python3 chip_smoke.py --phases build,serve_cluster
     python3 chip_smoke.py --phases build,reference,train_gpt,transformer,\
 fused_decode
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
@@ -46,7 +47,8 @@ Phases, each printing JSON lines:
      row of length 0, and a 256-token prefill chunk at starts 0 and 512;
      q in bf16, pools in bf16 and in int8 with per-slot scales; decode of
      one 16,384-token sequence, at B=32 with ragged lengths up to 2048, at
-     G = 1 over 32 kv heads (Llama-2-7B's) and at G = 8; the 256-token
+     G = 1 over 32 kv heads (Llama-2-7B's), at G = 8, and over int8
+     pools of 32-token pages (serve_cluster's int8 replica); the 256-token
      chunk at start 512 at G = 1 over 32 kv heads, at G = 8, at head_dim
      64 and 256, over pages of 16, for four sequences of ragged lengths,
      and in float32. Each case records the instance that the kernel's
@@ -233,7 +235,38 @@ Phases, each printing JSON lines:
    streams equal to the plain run's, and where each first differs (bf16:
    recorded, not held), then the same in f32 at 2 layers of target and
    draft over the first 8 requests (``f32_control``: recorded).
-7. ``train``, ``train_mha``, ``train_window``: Llama-3-8B (GQA, B=2,
+7. ``serve_cluster``: the multi-replica serving layer. First the small
+   f32 Llama of the reference phase as a 2-replica ``ClusterRouter`` on
+   the fixed clock, on the card and on the CPU: ``least_loaded`` over two
+   factories (its outputs equal a lone engine's) and ``disaggregated``
+   with an int8 decode replica of 8-token pages (every handoff re-paged
+   and transcoded); outputs, slot logs and censuses card against CPU.
+   Then three factories of one seeded Llama-3-8B (32 layers, bf16): A and
+   B over bf16 pools of 64-token pages, C over int8 pools of 32-token
+   pages holding the same 16,384 tokens; each replica a
+   ``ServingEngine(slots=8, policy="paged")`` on one of them, all on
+   ``serve_engine``'s trace (the fixed-clock parts with its arrivals from
+   0 in units of ``ENGINE_INTERARRIVAL``). Placement: the first 12 requests
+   through ``least_loaded`` over A + B twice (identical outputs, slot
+   logs, census) and through a lone engine on A (every stream equal, in
+   bf16 too); ``least_loaded`` and ``prefix_aware`` on the measured clock.
+   Drain and join: ``r1`` drained and ``r2`` on C joined at the median
+   arrival (zero resident pages at removal). Disaggregated: ``r0``
+   prefills on A, ``r1`` decodes on B (a twin, no transform), then on C
+   (``resharded == {"page": 32, "codec": 32}``). Chaos: a fault-free
+   run, then ``synthesize_fault_plan(seed=0)`` over the arrivals' span
+   under ``FailoverConfig()`` (no request lost, duplicated or failed, at
+   least one retried; the streams that match the fault-free run,
+   recorded). Every replay: the
+   census conserved, every stream min(budget, cancel_after) tokens,
+   paged launches == 32 x the decode steps summed over the replicas, all
+   ``split``, and those over int8 pages == 32 x the int8 replica's steps.
+   Records wall s and tokens/s, the router's virtual rollup (one card a
+   replica: not a speed of this card), TTFT / TPOT p50 / p95, placements
+   and prefix hits a replica, handoffs and the transforms' ms (the spans'
+   host wall, and CUDA events on a 500-token chain), retries, resumed
+   tokens, incidents, peak memory.
+8. ``train``, ``train_mha``, ``train_window``: Llama-3-8B (GQA, B=2,
    S=4096), Llama-2-7B (multi-head, ``LlamaConfig()``, B=2, S=4096) and
    Mistral-7B-v0.1 (GQA with a sliding window of 4096, B=1, S=8192), each
    at full width with 8 of its 32 layers (the cut that lets params, grads
@@ -256,7 +289,7 @@ Phases, each printing JSON lines:
    weights and batch with the plain attention and CE versions, and both
    loss curves are printed (``plain_curves_<phase>``).
 
-8. ``train_full`` and 9. ``train_long``: Llama-3-8B at all 32 layers (the
+9. ``train_full`` and 10. ``train_long``: Llama-3-8B at all 32 layers (the
    host's memory permitting: else the deepest cut whose moments it can pin, printed as
    ``cut``), bf16, B=2, S=4096, ``remat=True`` and ``offload_moments``:
    AdamW's f32 moments (64.2 GB) in pinned host memory, streamed through
@@ -283,7 +316,7 @@ Phases, each printing JSON lines:
    the moments' bytes and where they live, the host's memory, and the
    losses (finite, the last below the first).
 
-10. ``train_moe``: the Mixture-of-Experts model at Qwen2-57B-A14B's
+11. ``train_moe``: the Mixture-of-Experts model at Qwen2-57B-A14B's
    widths (``MoEConfig.qwen2_57b_a14b()``: hidden 3584, 28 / 4 heads, 64
    routed experts of 2560 top-8 at capacity factor 1.25, one 20480-wide
    shared expert, vocabulary 151,936, tied head), bf16, seeded, through
@@ -312,7 +345,7 @@ Phases, each printing JSON lines:
    (flash, matrix products, index / scatter / gather, elementwise,
    reductions, the rest), idle share and kernels a step.
 
-11. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
+12. ``train_encoder``: 12 post-LN ``FusedTransformerEncoderLayer``s of
    ``incubate.nn`` at BERT-base's widths (768, 12 heads, FFN 3072, GELU,
    dropout 0.1), bf16, random weights from a seed, on hidden states
    (B=32, S=512) against an N(0, 1) target (MSE), trained 5 steps on one
@@ -323,7 +356,7 @@ Phases, each printing JSON lines:
    24 dropout-add-LN and 12 + 12 + 12 multi-head flash launches per step
    and none of any other kernel.
 
-12. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
+13. ``train_bert``: ``BertForPretraining`` at BERT-base (``BertConfig()``:
    vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072, GELU, dropout
    0.1), bf16, random weights from a seed, full depth, in training mode
    (dropout live, drawn from one generator), on seeded data (B=32, S=512:
@@ -341,7 +374,7 @@ Phases, each printing JSON lines:
    log-softmax, matrix products, the rest), idle share and kernels a
    step.
 
-13. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
+14. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
     width), bf16 parameters with f32 masters, f32 batch-norm buffers, on
     B=256 seeded class-template images of 3 x 224 x 224 (NCHW; one
     repeated batch), through ``resnet_train_step_factory`` (its defaults:
@@ -359,7 +392,7 @@ Phases, each printing JSON lines:
     elementwise and reduction kernels, the rest), idle share and kernels
     a step.
 
-14. ``train_gpt``: ``GPTForCausalLM`` at ``GPTConfig()``'s GPT-2 small
+15. ``train_gpt``: ``GPTForCausalLM`` at ``GPTConfig()``'s GPT-2 small
     (vocab 50304, hidden 768, all 12 layers, 12 heads, FFN 3072, 1024
     positions), bf16, seeded, through ``gpt_pretrain_step_factory`` (its
     defaults; the model in ``eval()`` inside the step, as the
@@ -371,7 +404,7 @@ Phases, each printing JSON lines:
     prompt at B=1 (recomputed each token; 0 launches). Records step ms,
     tokens/s, MFU (the tied head once, causal live pairs), a forward and
     backward alone, peak memory and ms a generated token.
-15. ``transformer``: ``nn.Transformer()`` at its defaults
+16. ``transformer``: ``nn.Transformer()`` at its defaults
     (Transformer-base: d 512, 8 heads, 6 + 6 post-LN layers, FFN 2048,
     ReLU, dropout 0.1 live), bf16, seeded, on embeddings of B=32 source
     and target sequences of 512 positions against an N(0, 1) target
@@ -386,7 +419,7 @@ Phases, each printing JSON lines:
     other kernel. Then a cached decode: ``TransformerDecoder.gen_cache``
     of 8 sources' memory and 128 one-token steps (0 launches). Records
     step ms, tokens/s, MFU, peak memory and ms a decode step.
-16. ``fused_decode``: ``FusedMultiTransformer`` at GPT-2 small's widths
+17. ``fused_decode``: ``FusedMultiTransformer`` at GPT-2 small's widths
     (768, 12 heads, FFN 3072, 12 pre-LN layers, gelu), bf16, seeded,
     B=8, a (12, 8, 2, 12, 1024, 64) cache cast to bf16: 256
     token-by-token steps through ``caches`` / ``time_step`` (0
@@ -1348,6 +1381,11 @@ def phase_kernel(dev):
                               flush))
     cases.append(_kernel_case("decode_G8/bfloat16", 8, 4, 8, D, ps, W, P,
                               dec_lens, None, 1, "bfloat16", 7, dev, flush))
+    # serve_cluster's int8 replica: int8 pools of 32-token pages (a page
+    # shorter than the kernel's key tile), 64 pages a sequence
+    cases.append(_kernel_case("decode_ps32/int8", 8, Hkv, G, D, 32, 64,
+                              8 * 64 + 1, dec_lens, None, 1, "int8", 8, dev,
+                              flush))
     # a 256-token chunk at start 512 (712 keys) at other shapes: Llama-2-7B's
     # 32 kv heads of one query head each, G = 8 over 4 kv heads, head_dim 64
     # and 256, pages of 16, and four sequences of ragged lengths (a pad row,
@@ -2872,6 +2910,7 @@ def _zero_paged_counts():
     from paddle_tpu_torch.ops import paged_attention
 
     paged_attention.launches = 0
+    paged_attention.int8_launches = 0
     for name in paged_attention.instance_launches:
         paged_attention.instance_launches[name] = 0
 
@@ -3152,6 +3191,424 @@ def phase_serve_features(dev):
     return out
 
 
+# --- phase 7: the multi-replica serving layer, Llama-3-8B replicas --------
+
+# serve_cluster: three factories of one seeded Llama-3-8B (32 layers, bf16)
+# with serve_engine's geometry: A and B over bf16 pools of 64-token pages,
+# C over int8 pools of 32-token pages holding the same 16,384 tokens. The
+# fixed-clock parts start the trace at 0 and divide its arrivals by
+# ENGINE_INTERARRIVAL, so one mean interarrival is one fixed-cost action
+# (about one decode turn, as it is on the measured clock); the
+# disaggregated parts price a handoff at kv_transfer_unit a page.
+SERVE_CLUSTER = dict(SERVE_ENGINE, int8_page_size=32, kv_transfer_unit=0.05)
+# the f32 case: ENGINE_SMALL's model and factories, the int8 decode
+# replica over pages of 8
+CLUSTER_SMALL_INT8_PAGE = 8
+
+
+def _fixed_arrivals(trace):
+    """``trace`` in the fixed clock's units (see SERVE_CLUSTER), its first
+    arrival at 0 (where a fault plan's clock starts)."""
+    t0 = min(r.arrival for r in trace)
+    return [dataclasses.replace(
+        r, arrival=(r.arrival - t0) / ENGINE_INTERARRIVAL) for r in trace]
+
+
+def _want_lengths(trace):
+    return {r.rid: min(r.max_new_tokens, r.cancel_after or 10 ** 9)
+            for r in trace}
+
+
+def _cluster_replay(dev, factories, names, clock, trace, L, slots,
+                    events=(), **router_kw):
+    """One ``ClusterRouter`` replay of two replicas (more may join),
+    ``names`` mapping each replica name the router may spawn onto a
+    factory of ``factories``, between a reset and a read of the paged
+    kernel's counts. Returns (result, readings):
+    the wall time, the decode steps by replica (from the trace's
+    ``decode`` spans, whose tracks the router prefixes with the replica's
+    name), the launches by instance and over int8 pages, and the peak
+    memory."""
+    from paddle_tpu_torch.obs import Tracer
+    from paddle_tpu_torch.ops import paged_attention
+    from paddle_tpu_torch.serving import ClusterRouter, ServingEngine
+
+    def spawn(name):
+        return ServingEngine(serving=factories[names[name]], slots=slots,
+                             policy="paged", clock=clock)
+
+    tracer = Tracer()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _zero_paged_counts()
+    t0 = time.perf_counter()
+    res = ClusterRouter(spawn, 2, trace=tracer, **router_kw).run(
+        trace, events=events)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_instance = _paged_counts()
+    tracks = {e["tid"]: e["args"]["name"]
+              for e in tracer.to_chrome()["traceEvents"]
+              if e["name"] == "thread_name"}
+    steps = {}
+    for s in _engine_spans(tracer.events, "decode"):
+        rep = tracks[s["tid"]].split("/")[0]
+        steps[rep] = steps.get(rep, 0) + s["args"].get("n", 1)
+    transforms = {k: [1e3 * s["args"]["wall_s"] for s in
+                      _engine_spans(tracer.events, k)]
+                  for k in ("kv_repage", "kv_transcode")}
+    return res, {"wall_s": wall, "decode_steps": steps,
+                 "launches": launches, "launches_by_instance": by_instance,
+                 "int8_launches": paged_attention.int8_launches,
+                 "launches_expected": L * sum(steps.values()),
+                 "transform_host_ms": transforms,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30
+                 if cuda else None}
+
+
+def _cluster_readings(res, run, trace, L, int8_replicas=(), card=True):
+    """The readings and checks of one cluster replay: census conserved
+    (every request counted once), every stream at min(budget,
+    cancel_after) tokens, and (on the card) paged launches == L x the
+    decode steps summed over all replicas, all ``split``, the int8 ones
+    those of ``int8_replicas``."""
+    outs = res.outputs()
+    got = {rid: len(o) for rid, o in outs.items()}
+    cen = res.census()
+    rep = res.report()
+    generated = sum(got.values())
+    placed = {}
+    for led in res.ledger.values():
+        placed[led["path"][0]] = placed.get(led["path"][0], 0) + 1
+    steps = run["decode_steps"]
+    checks = {"conserved": cen["conserved"] and not cen["lost"]
+              and not cen["duplicated"],
+              "streams_full": got == _want_lengths(trace)}
+    if card:
+        checks["launches"] = (
+            sum(steps.values()) > 0
+            and run["launches"] == run["launches_expected"]
+            and run["launches_by_instance"] == {
+                "split": run["launches_expected"], "mma": 0, "rows": 0}
+            and run["int8_launches"] == L * sum(
+                steps.get(n, 0) for n in int8_replicas))
+    out = {**run, "requests": len(trace), "generated_tokens": generated,
+           "tokens_per_s_wall": generated / run["wall_s"],
+           "virtual": {k: rep[k] for k in (
+               "makespan", "tokens_per_sec", "goodput_tokens_per_sec",
+               "ttft_p50", "ttft_p95", "tpot_p50", "tpot_p95")},
+           "placed_first_on": placed,
+           "prefix_hit_tokens": {n: r["prefix_hit_tokens"]
+                                 for n, r in rep["per_replica"].items()},
+           "census": cen, "checks": checks}
+    return out
+
+
+def _streams_matching(a, b):
+    """How many of ``a``'s streams equal ``b``'s, and the first position
+    where any two differ (None where none does)."""
+    same = sum(a[rid] == b.get(rid) for rid in a)
+    first = [next((i for i, (x, y) in enumerate(zip(a[rid], b[rid]))
+                   if x != y), None) for rid in a if rid in b]
+    first = [i for i in first if i is not None]
+    return {"equal": same, "of": len(a),
+            "first_difference_at": min(first) if first else None}
+
+
+def _cluster_small(dev, placements=("least_loaded", "disaggregated")):
+    """The f32 case: ENGINE_SMALL's model on the card and on the CPU as a
+    2-replica cluster on the fixed clock, under ``least_loaded`` (over two
+    f32 factories) and ``disaggregated`` (an f32 prefill
+    replica, an int8 decode replica over pages of 8), or the one of them
+    that ``placements`` names. On the card the ``least_loaded`` cluster's
+    outputs equal a lone engine's, and both clusters' outputs, slot logs
+    and censuses equal the CPU's (the int8 transcode is lossy, so the
+    disaggregated run is held card against CPU only). Returns (its
+    readings, ok). The card test
+    ``test_serving_cluster_on_the_card_matches_the_cpu`` runs it too."""
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_serving_decode_factory,
+                                             load_numpy_state_dict)
+    from paddle_tpu_torch.serving import ServingEngine
+
+    e = ENGINE_SMALL
+    cfg = LlamaConfig.tiny(vocab=e["vocab"], hidden=e["hidden"],
+                           layers=e["layers"], heads=e["heads"],
+                           kv_heads=e["kv_heads"])
+    L = cfg.num_hidden_layers
+    state = {k: v.numpy() for k, v in
+             LlamaForCausalLM(cfg, device="cpu", seed=15).state_dict()
+             .items()}
+    trace = _engine_small_trace()
+    setups = {"least_loaded": ({"r0": "a", "r1": "b"},
+                               dict(placement="least_loaded"), ()),
+              "disaggregated": ({"r0": "a", "r1": "c"},
+                                dict(placement="disaggregated",
+                                     roles={"r0": "prefill",
+                                            "r1": "decode"},
+                                     kv_transfer_unit=0.1), ("r1",))}
+    runs, lone = {}, {}
+    for d in (dev, torch.device("cpu")):
+        model = load_numpy_state_dict(LlamaForCausalLM(cfg, device=d), state)
+
+        def factory(ps, kv_quant=None):
+            return llama_serving_decode_factory(
+                model, max_len=e["max_len"], page_size=ps,
+                n_pool_pages=e["slots"] * (e["max_len"] // ps) + 1,
+                batch_capacity=e["slots"], chunked_prefill=ps,
+                kv_quant=kv_quant, device=d)
+        facs = {"a": factory(e["page_size"]), "b": factory(e["page_size"]),
+                "c": factory(CLUSTER_SMALL_INT8_PAGE, "int8")}
+        card = d.type != "cpu"
+        for name in placements:
+            names, kw, int8 = setups[name]
+            res, run = _cluster_replay(d, facs, names, "fixed", trace, L,
+                                       e["slots"], **kw)
+            r = _cluster_readings(res, run, trace, L, int8, card=card)
+            r["slot_logs"] = {n: x.slot_log for n, x in res.results.items()}
+            r["outputs"] = res.outputs()
+            runs[d.type, name] = r
+        lone[d.type] = ServingEngine(serving=facs["a"], slots=e["slots"],
+                                     policy="paged", clock="fixed").run(
+                                         trace).outputs
+    n = len(trace)
+    card, cpu = dev.type, "cpu"
+    checks = {
+        "lone_engine_card_equals_cpu": lone[card] == lone[cpu],
+        "card_equals_cpu": all(
+            runs[card, k][f] == runs[cpu, k][f] for k in placements
+            for f in ("outputs", "slot_logs", "census")),
+        "cpu_launches_zero": all(runs[cpu, k]["launches"] == 0
+                                 for k in placements),
+    }
+    if "least_loaded" in placements:
+        checks["least_loaded_equals_lone_engine"] = (
+            runs[card, "least_loaded"]["outputs"] == lone[card])
+    if "disaggregated" in placements:
+        ho = runs[card, "disaggregated"]["census"]["handoffs"]
+        checks["handoffs"] = (
+            ho["balanced"] and ho["imported"] == n and ho["failed"] == 0
+            and ho.get("resharded") == {"page": n, "codec": n})
+    for k in placements:
+        for c, v in runs[card, k]["checks"].items():
+            checks[f"{k}_{c}"] = v
+        for c, v in runs[cpu, k]["checks"].items():
+            checks[f"{k}_cpu_{c}"] = v
+    ok = all(checks.values())
+    keep = ("decode_steps", "launches", "int8_launches", "launches_expected",
+            "census")
+    return ({"config": {k: e[k] for k in ("hidden", "heads", "kv_heads",
+                                          "layers", "page_size", "slots")},
+             "int8_page_size": CLUSTER_SMALL_INT8_PAGE, "requests": n,
+             "runs": {k: {f: runs[card, k][f] for f in keep}
+                      for k in placements},
+             "checks": checks, "ok": ok}, ok)
+
+
+def _cluster_factories(dev):
+    """A, B and C from one seeded Llama-3-8B, then the model is dropped
+    (each factory holds its own stacked layers; the embedding and head
+    are shared)."""
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             llama_serving_decode_factory)
+
+    e = SERVE_CLUSTER
+    cfg = LlamaConfig.llama3_8b()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+
+    def factory(ps, kv_quant=None):
+        return llama_serving_decode_factory(
+            model, max_len=e["max_len"], page_size=ps,
+            n_pool_pages=e["slots"] * (e["max_len"] // ps) + 1,
+            batch_capacity=e["slots"], chunked_prefill=e["chunked_prefill"],
+            kv_quant=kv_quant)
+    facs = {"A": factory(e["page_size"]), "B": factory(e["page_size"]),
+            "C": factory(e["int8_page_size"], "int8")}
+    del model
+    gc.collect()
+    return cfg, facs
+
+
+def _pool_gib(srv):
+    from paddle_tpu_torch.models.nlp.llama_decode import tree_device_bytes
+
+    return tree_device_bytes(srv.paged_parts[2]) / 2 ** 30
+
+
+def _transform_ms(facs, e):
+    """CUDA-event ms of the two handoff transforms on a 500-token chain
+    of A's pool (8 pages of 64): ``repage_kv_data`` to 16 pages of 32 (the
+    last 12 slots padded), then ``transcode_kv_data`` to int8 (median of
+    REPS)."""
+    from paddle_tpu_torch.models.nlp.llama_decode import (repage_kv_data,
+                                                          transcode_kv_data)
+
+    n_tok, ps, ps_to = 500, e["page_size"], e["int8_page_size"]
+    pools = facs["A"].paged_parts[2]
+    ids = torch.arange(1, -(-n_tok // ps) + 1, device=pools[0].device)
+    chain = tuple(p[:, :, ids] for p in pools)
+    paged = repage_kv_data(chain, ps, ps_to, n_tok)
+    return {"tokens": n_tok,
+            "repage_ms": gpu_ms(lambda: repage_kv_data(chain, ps, ps_to,
+                                                       n_tok)),
+            "transcode_ms": gpu_ms(lambda: transcode_kv_data(
+                paged, None, "int8"))}
+
+
+def phase_serve_cluster(dev):
+    """The multi-replica serving layer: ``ClusterRouter`` over replicas of
+    Llama-3-8B (32 layers, bf16, seeded) on factories A, B (bf16 pools,
+    pages of 64) and C (int8 pools, pages of 32), each replica a
+    ``ServingEngine(slots=8, policy="paged")``, on ``_serve_engine_trace``:
+    placement (a fixed-clock replay of 12 requests through
+    ``least_loaded`` twice, identical, and once through a lone engine on
+    A; then ``least_loaded`` and ``prefix_aware`` on the measured clock),
+    drain and join (``r1`` drained and a replica on C joined mid-trace),
+    disaggregated prefill/decode (the decode replica on B, a twin, then on
+    C, where every handoff is re-paged and transcoded to int8) and chaos
+    (``synthesize_fault_plan(seed=0)`` under ``FailoverConfig()``, beside
+    the fault-free run). Each replay between a reset and a read of the
+    paged kernel's counts; first the f32 case card against CPU
+    (``_cluster_small``)."""
+    from paddle_tpu_torch.serving import (FailoverConfig, ServingEngine,
+                                          synthesize_fault_plan)
+
+    e = SERVE_CLUSTER
+    small, small_ok = _cluster_small(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, facs = _cluster_factories(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L, slots = cfg.num_hidden_layers, e["slots"]
+    trace = _serve_engine_trace(cfg.vocab_size)
+    fixed = _fixed_arrivals(trace)
+    n = len(trace)
+    out = {"phase": "serve_cluster", "model": "llama3_8b", "layers": L,
+           "dtype": "bfloat16", "requests": n, "setup_s": setup_s,
+           "memory": {"build_peak_gb": build_peak,
+                      "after_build_gb": torch.cuda.memory_allocated()
+                      / 2 ** 30,
+                      "pool_gb": {k: _pool_gib(s) for k, s in facs.items()},
+                      "build": "one model, three factories"},
+           "small_f32": small}
+    checks = {"small_f32": small_ok}
+    parts = {}
+
+    def replay(name, names, clock, tr, int8=(), events=(), **kw):
+        res, run = _cluster_replay(dev, facs, names, clock, tr, L, slots,
+                                   events=events, **kw)
+        r = _cluster_readings(res, run, tr, L, int8)
+        for c, v in r["checks"].items():
+            checks[f"{name}_{c}"] = v
+        parts[name] = r
+        return res, r
+
+    # 1. placement: a fixed-clock replay of the first requests, twice,
+    # and through a lone engine on A; then the measured clock
+    first = sorted(fixed, key=lambda r: (r.arrival, r.rid))[:e["replay"]]
+    ab = {"r0": "A", "r1": "B"}
+    reps = []
+    for i in range(2):
+        res, _ = replay(f"replay_{i}", ab, "fixed", first,
+                        placement="least_loaded")
+        reps.append((res.outputs(), {k: r.slot_log
+                                     for k, r in res.results.items()},
+                     res.census()))
+    checks["replay_identical"] = reps[0] == reps[1]
+    lone = ServingEngine(serving=facs["A"], slots=slots, policy="paged",
+                         clock="fixed").run(first).outputs
+    out["replay_vs_lone_engine"] = m = _streams_matching(reps[0][0], lone)
+    # held in bf16 too: the replicas' batches changed no stream on an
+    # H100 (PERF.md §6)
+    checks["replay_equals_lone_engine"] = m["equal"] == m["of"]
+    measured = {}
+    for pl in ("least_loaded", "prefix_aware"):
+        res, _ = replay(pl, ab, "measured", trace, placement=pl)
+        measured[pl] = res.outputs()
+    out["least_loaded_vs_prefix_aware"] = _streams_matching(
+        measured["least_loaded"], measured["prefix_aware"])
+    del measured, reps, lone
+
+    # 2. drain r1 and join r2 on C, mid-trace on the fixed clock
+    t_mid = statistics.median(r.arrival for r in fixed)
+    res, r = replay("drain_join", {"r0": "A", "r1": "B", "r2": "C"}, "fixed",
+                    fixed, int8=("r2",), placement="least_loaded",
+                    events=[(t_mid, "join", "r2"), (t_mid, "drain", "r1")])
+    removed = [x for x in res.events if x["event"] == "remove"]
+    r["drain_at"] = t_mid
+    r["removed"] = removed
+    checks["drain_join_removal"] = (
+        [x["replica"] for x in removed] == ["r1"]
+        and removed[0]["resident_pages"] == 0 and removed[0]["census_ok"]
+        and r["census"]["removal_census_ok"])
+    checks["drain_join_joined_served"] = len(res.results["r2"].outputs) > 0
+
+    # 3. disaggregated: decode on B (a twin), then on C
+    roles = {"r0": "prefill", "r1": "decode"}
+    disagg = {}
+    for name, dec, int8 in (("disagg_twin", "B", ()),
+                            ("disagg_int8", "C", ("r1",))):
+        res, r = replay(name, {"r0": "A", "r1": dec}, "fixed", fixed,
+                        int8=int8, placement="disaggregated", roles=roles,
+                        kv_transfer_unit=e["kv_transfer_unit"])
+        ho = r["census"]["handoffs"]
+        want = {"page": n, "codec": n} if dec == "C" else None
+        checks[f"{name}_handoffs"] = (
+            ho["balanced"] and ho["exported"] == ho["imported"] == n
+            and ho["failed"] == 0 and ho.get("resharded") == want)
+        disagg[dec] = res.outputs()
+    out["disagg_int8_vs_twin"] = _streams_matching(disagg["C"], disagg["B"])
+    out["transforms"] = _transform_ms(facs, e)
+    del disagg
+
+    # 4. chaos on A + B, beside the fault-free run of the same clock
+    res, _ = replay("fault_free", ab, "fixed", fixed,
+                    placement="least_loaded")
+    free = res.outputs()
+    span = max(r.arrival for r in fixed) - min(r.arrival for r in fixed)
+    plan = synthesize_fault_plan(seed=0, replicas=["r0", "r1"], span=span)
+    res, r = replay("chaos", ab, "fixed", fixed, placement="least_loaded",
+                    faults=plan, failover=FailoverConfig(), slo=[])
+    r["plan"] = [ev.to_json() for ev in plan]
+    r["retried"] = r["census"].get("retried")
+    r["failed"] = r["census"].get("failed")
+    r["resumed_prefix_tokens"] = sum(len(v) for v in res.salvaged.values())
+    r["incidents"] = len(res.incidents)
+    r["vs_fault_free"] = _streams_matching(res.outputs(), free)
+    checks["chaos_no_failed"] = r["failed"] == 0
+    checks["chaos_failed_over"] = r["retried"] > 0
+    checks["chaos_crashed"] = any(x["event"] == "crash" for x in res.events)
+    del res, free
+
+    out["parts"] = parts
+    out["launches"] = sum(p["launches"] for p in parts.values())
+    out["int8_launches"] = sum(p["int8_launches"] for p in parts.values())
+    out["launches_by_instance"] = {
+        k: sum(p["launches_by_instance"][k] for p in parts.values())
+        for k in ("split", "mma", "rows")}
+    out["decode_steps"] = sum(sum(p["decode_steps"].values())
+                              for p in parts.values())
+    out["peak_mem_gb"] = max([build_peak] + [p["peak_mem_gb"]
+                                             for p in parts.values()])
+    out["checks"] = checks
+    ok = all(checks.values())
+    out["ok"] = ok
+    del facs
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    if not ok:
+        raise AssertionError("serve_cluster phase failed: "
+                             + json.dumps(checks))
+    return out
+
 MATMUL_NAMES = ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitk")
 
 
@@ -3202,7 +3659,7 @@ def _profile(step, families, n=5):
             "other_top_ms_per_step": {k: v / n / 1e3 for k, v in top}}
 
 
-# --- phases 5-7: train Llama-3-8B, Llama-2-7B and Mistral-7B (8 layers) -----
+# --- phase 8: train Llama-3-8B, Llama-2-7B and Mistral-7B (8 layers) -------
 
 def _mistral_7b():
     """Mistral-7B-v0.1 (its published config.json): Llama's layers with 8
@@ -3473,7 +3930,7 @@ def phase_train(dev, phase="train", profile=False, plain_curves=False):
     return out
 
 
-# --- phases 8-9: Llama-3-8B at full depth with its moments in pinned host
+# --- phases 9-10: Llama-3-8B at full depth with its moments in pinned host
 # memory (train_full); a tied Llama-3.2-3B at S=8192 (train_long) ----------
 
 def _llama32_3b_long():
@@ -3878,7 +4335,7 @@ def phase_train_depth(dev, phase):
     return out
 
 
-# --- phase 10: train Qwen2-57B-A14B's widths (the MoE model) ---------------
+# --- phase 11: train Qwen2-57B-A14B's widths (the MoE model) ---------------
 
 # train_moe: MoEConfig.qwen2_57b_a14b() at full width, bf16, seeded, the
 # deepest cut of its 28 layers that fits the card (the example's
@@ -4173,7 +4630,7 @@ def phase_train_moe(dev, profile=False):
     return out
 
 
-# --- phase 11: train the fused encoder (incubate.nn) at BERT-base width ---
+# --- phase 12: train the fused encoder (incubate.nn) at BERT-base width ---
 
 def _encoder(dev, layers, d_model, nhead, dim_feedforward, dropout_rate,
              generator, dtype):
@@ -4340,7 +4797,7 @@ def phase_train_encoder(dev, profile=False):
     return out
 
 
-# --- phase 12: BERT-base pretraining (models/nlp/bert.py) ------------------
+# --- phase 13: BERT-base pretraining (models/nlp/bert.py) ------------------
 
 def _bert_batch(vocab, B, S, seed, dev):
     """Seeded pretraining data: ids uniform over the vocabulary, token
@@ -4470,7 +4927,7 @@ def phase_train_bert(dev, profile=False):
     return out
 
 
-# --- phase 13: ResNet-50 training (vision/models/resnet.py) ----------------
+# --- phase 14: ResNet-50 training (vision/models/resnet.py) ----------------
 
 def _conv_fc_macs(model, x):
     """Multiply-adds of one image through every ``Conv1D/2D/3D`` and
@@ -4608,7 +5065,7 @@ def phase_train_resnet50(dev, profile=False):
     return out
 
 
-# --- phase 14: GPT-2 small pretraining (models/nlp/gpt.py) ----------------
+# --- phase 15: GPT-2 small pretraining (models/nlp/gpt.py) ----------------
 
 def phase_train_gpt(dev):
     from paddle_tpu_torch.core import Generator
@@ -4706,7 +5163,7 @@ def phase_train_gpt(dev):
     return out
 
 
-# --- phase 15: Transformer-base training and cached decode (nn) -------------
+# --- phase 16: Transformer-base training and cached decode (nn) -------------
 
 def _seq2seq_loss(model, src, tgt, mask, target):
     out = model(src, tgt, tgt_mask=mask)
@@ -4855,7 +5312,7 @@ def phase_transformer(dev):
     return out
 
 
-# --- phase 16: FusedMultiTransformer decode at GPT-2 small's widths ---------
+# --- phase 17: FusedMultiTransformer decode at GPT-2 small's widths ---------
 
 def phase_fused_decode(dev):
     from paddle_tpu_torch.core import Generator
@@ -4910,7 +5367,7 @@ def phase_fused_decode(dev):
 # --- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
-          "serve_features", "train", "train_mha",
+          "serve_features", "serve_cluster", "train", "train_mha",
           "train_window", "train_full", "train_long", "train_moe",
           "train_encoder", "train_bert", "train_resnet50", "train_gpt",
           "transformer", "fused_decode")
@@ -4994,15 +5451,15 @@ def _norm_entry(name, replaces, launches, cases, kind, card, path):
                                          "library_ms")} for c in mine]}
 
 
-def _kernels_line(kern, serve, engine, features, trains, card):
+def _kernels_line(kern, serve, engine, features, cluster, trains, card):
     kernels = []
     cases = kern.get("paged", [])
     main_case = next((c for c in cases if c["case"] == "decode/bfloat16"),
                      None)
     if main_case is not None:
-        # the serve, serve_engine and serve_features runs' launches, by
-        # the instance the kernel reported
-        runs = [r for r in (serve, engine, features) if r]
+        # the serve, serve_engine, serve_features and serve_cluster runs'
+        # launches, by the instance the kernel reported
+        runs = [r for r in (serve, engine, features, cluster) if r]
         by_instance = {}
         for r in runs:
             for name, n in r["launches_by_instance"].items():
@@ -5012,6 +5469,8 @@ def _kernels_line(kern, serve, engine, features, trains, card):
             "replaces": REPLACES,
             "launches": sum(r["launches"] for r in runs) if runs else None,
             "launches_by_phase": {r["phase"]: r["launches"] for r in runs},
+            "int8_launches_by_phase": {r["phase"]: r["int8_launches"]
+                                       for r in runs if "int8_launches" in r},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_err_over_tol": max(c["max_err_over_tol"] for c in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -5126,7 +5585,7 @@ def main():
               "an NVIDIA card", file=sys.stderr)
         sys.exit(2)
     dev = torch.device("cuda")
-    kern, serve, engine, features, trains = {}, {}, {}, {}, {}
+    kern, serve, engine, features, cluster, trains = {}, {}, {}, {}, {}, {}
     if "build" in phases:
         phase_build()
     if "kernel" in phases:
@@ -5141,6 +5600,8 @@ def main():
         engine = phase_serve_engine(dev)
     if "serve_features" in phases:
         features = phase_serve_features(dev)
+    if "serve_cluster" in phases:
+        cluster = phase_serve_cluster(dev)
     for phase in TRAIN_CELLS:
         if phase in phases:
             trains[phase] = phase_train(dev, phase, profile=args.profile,
@@ -5170,8 +5631,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card)
-    emit({"kernels": _kernels_line(kern, serve, engine, features, trains,
-                                   card)})
+    emit({"kernels": _kernels_line(kern, serve, engine, features, cluster,
+                                   trains, card)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

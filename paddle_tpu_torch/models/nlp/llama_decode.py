@@ -1233,14 +1233,13 @@ def repage_kv_data(data, page_size_from: int, page_size_to: int,
     ``(L, Hkv, n_pages, page_size, *tail)``, tokens packed in chain
     order; keep the ``n_tokens`` real positions, pad to the destination
     chain's slot count (data with 0, per-slot scales with 1) and refold.
-    Host numpy, as the reference's."""
+    Runs on the chain's own device (a bf16 chain has no numpy dtype)."""
     n_to = -(-n_tokens // page_size_to)
 
     def one(a):
-        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else \
-            np.asarray(a)
+        a = torch.as_tensor(a)
         L, H, n, ps = a.shape[:4]
-        tail = a.shape[4:]
+        tail = tuple(a.shape[4:])
         if n * ps < n_tokens:
             raise ValueError(
                 f"repage: chain carries {n}x{ps} slots but claims "
@@ -1248,9 +1247,10 @@ def repage_kv_data(data, page_size_from: int, page_size_to: int,
         flat = a.reshape(L, H, n * ps, *tail)[:, :, :n_tokens]
         pad = n_to * page_size_to - n_tokens
         if pad:
-            fill = np.ones if len(tail) == 0 else np.zeros
-            flat = np.concatenate(
-                [flat, fill((L, H, pad) + tail, a.dtype)], axis=2)
+            fill = torch.ones if len(tail) == 0 else torch.zeros
+            flat = torch.cat(
+                [flat, fill((L, H, pad) + tail, dtype=a.dtype,
+                            device=a.device)], dim=2)
         return flat.reshape(L, H, n_to, page_size_to, *tail)
 
     return _tree_map(one, data)

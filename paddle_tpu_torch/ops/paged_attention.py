@@ -31,7 +31,8 @@ three instances, chosen on shapes alone by the kernel's own route
 
 Every call runs one CUDA kernel and counts one launch, also in
 ``paged_attention.instance_launches`` under the instance that the kernel's
-entry reports it launched. No call reads a length on the host, so none
+entry reports it launched, and in ``paged_attention.int8_launches`` when
+its pools are int8. No call reads a length on the host, so none
 synchronises.
 
 API (the reference's layouts):
@@ -266,6 +267,8 @@ def _launch_kernel(q4, k_pages, v_pages, page_tables, seq_lens, starts,
         _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype])
     paged_attention.launches += 1
     paged_attention.instance_launches[_INSTANCES[instance.value]] += 1
+    if k_pages.dtype == torch.int8:
+        paged_attention.int8_launches += 1
     return out
 
 
@@ -315,6 +318,8 @@ def paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
 paged_attention.launches = 0
 paged_attention.instance_launches = {name: 0 for name in
                                      _INSTANCES.values()}
+# the launches of those over int8 pages
+paged_attention.int8_launches = 0
 
 
 def paged_prefill_attention(q, k_pages, v_pages, page_tables, seq_lens,

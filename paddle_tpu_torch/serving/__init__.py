@@ -10,11 +10,23 @@ a pluggable routing policy, a QoS scheduling front door
 the adapter and grammar caches (``adapters``, ``grammar``: their device
 banks come from the serving factory) and the host half of the
 host-memory tier (``hostmem``, whose engine option is refused until its
-device half is ported, ROADMAP item 11). The multi-replica layer (``cluster``, ``autoscale``, ``faults``) is not
-ported yet (ROADMAP item 9). The whole stack is watchable by
-``paddle_tpu_torch.obs``.
+device half is ported, ROADMAP item 11), and the multi-replica layer:
+the cluster router (``cluster.ClusterRouter``: round_robin /
+least_loaded / prefix_aware / disaggregated placement over N
+``EngineSession`` replicas on one shared virtual timeline, drain/join,
+KV handoffs across page sizes and into int8 pools), seeded fault plans
+with failover (``faults``) and the autoscaler (``autoscale``). Still
+refused by name, ROADMAP item 11: ``tp`` (and so a ``kv_reshard``
+handoff), ``kv_quant="pressure"``, ``hostmem`` and ``dispatch_ahead``.
+The whole stack is watchable by ``paddle_tpu_torch.obs``.
 """
 from .adapters import AdapterCache, AdapterStore  # noqa: F401
+from .autoscale import (AutoscaleConfig, Autoscaler,  # noqa: F401
+                        count_oscillations)
+from .cluster import (ClusterResult, ClusterRouter,  # noqa: F401
+                      DisaggregatedPlacement, LeastLoadedPlacement,
+                      PlacementPolicy, PrefixAwarePlacement,
+                      RoundRobinPlacement, make_placement)
 from ..models.nlp.llama_decode import (GrammarConfig,  # noqa: F401
                                        LoRAConfig, SpecConfig,
                                        TPConfig,
@@ -27,6 +39,8 @@ from .engine import (DecodeError, EngineClock,  # noqa: F401
                      RoutedPolicy, ServeResult, ServingEngine,
                      UnstampedHandoffError, load_engine_log,
                      make_policy)
+from .faults import (FailoverConfig, FaultEvent,  # noqa: F401
+                     FaultPlan, synthesize_fault_plan)
 from .hostmem import (HostArena, HostMemConfig,  # noqa: F401
                       as_hostmem_config)
 from .metrics import (MetricsCollector, goodput_tokens,  # noqa: F401

@@ -34,12 +34,12 @@ built with ``device="cpu"``): multi-adapter LoRA (``adapters`` /
 ``lora``), constrained decoding (``grammar`` / ``grammar_config`` /
 ``adapter_schemas``), speculative decoding (``spec`` / ``spec_draft``)
 and the fused ragged prefill lane (``ragged_prefill``) run on the
-factory's banks and programs there. Not ported yet, and refused by name
-in the constructor: ``tp``, ``kv_quant="pressure"`` /
-``kv_quant_budget``, ``hostmem`` and ``dispatch_ahead`` (ROADMAP item
-11), and the handoff transforms ``reshard_kv_pages``,
-``repage_kv_pages`` and ``transcode_kv_pages``. Their branches stay in
-the code.
+factory's banks and programs there, and so do the handoff transforms
+``repage_kv_pages`` and ``transcode_kv_pages`` (to int8). Not ported
+yet, and refused by name in the constructor: ``tp``,
+``kv_quant="pressure"`` / ``kv_quant_budget``, ``hostmem`` and
+``dispatch_ahead`` (ROADMAP item 11); with them ``reshard_kv_pages``,
+which only a ``tp`` fleet reaches. Their branches stay in the code.
 """
 from __future__ import annotations
 
@@ -3578,7 +3578,11 @@ class ServingEngine:
         the import scatter re-splits it under THIS engine's own pool
         sharding (GSPMD does the distribution — the destination mesh
         width never appears in the data plane)."""
-        raise _not_ported("reshard_kv_pages (a heterogeneous KV handoff)")
+        # no engine of the port stamps tp other than 1 while the
+        # constructor refuses tp, so kv_reshard cannot arise
+        raise NotImplementedError(
+            "reshard_kv_pages (a kv_reshard handoff between tp degrees) "
+            "is not ported yet (ROADMAP item 11, option 6)")
         fn = getattr(self.serving, "reshard_kv_pages", None)
         if fn is not None:
             return fn(data)
@@ -3591,7 +3595,6 @@ class ServingEngine:
         ``repage_kv_pages(data, ps_from, ps_to, n_tokens)`` when
         provided (the sim's token rows), the llama head-major
         arithmetic otherwise."""
-        raise _not_ported("repage_kv_pages (a heterogeneous KV handoff)")
         fn = getattr(self.serving, "repage_kv_pages", None)
         if fn is not None:
             return fn(data, page_size_from, self.page_size, n_tokens)
@@ -3606,7 +3609,6 @@ class ServingEngine:
         sim's lossless identity), the llama ``_q8`` codec otherwise —
         the same codec the destination's own write path runs, so a
         transcoded page is bit-identical to one written in place."""
-        raise _not_ported("transcode_kv_pages (a heterogeneous KV handoff)")
         fn = getattr(self.serving, "transcode_kv_pages", None)
         if fn is not None:
             return fn(data, quant_from, self.kv_quant)

@@ -6,6 +6,8 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 import importlib
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1364,6 +1366,25 @@ def test_serving_engine_on_the_card_matches_the_cpu(card, kv_quant):
         assert launched == {"split": 2 * steps, "mma": 0, "rows": 0}
         assert none == {"split": 0, "mma": 0, "rows": 0}
     assert runs["cuda", "paged"][1] > 0 and runs["cuda", "dense"][1] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["least_loaded", "disaggregated"])
+def test_serving_cluster_on_the_card_matches_the_cpu(card, placement):
+    """Two replicas of a small f32 Llama (head_dim 64, pages of 16) behind
+    ``ClusterRouter`` on the fixed clock, on the card and on the CPU, as
+    chip_smoke.py's f32 cluster case runs them: under ``least_loaded``
+    over two factories, and ``disaggregated`` with an int8 decode replica
+    of 8-token pages (every handoff re-paged and transcoded). The same
+    outputs, slot logs and censuses; on the card the least_loaded cluster
+    equals a lone engine, and every decode step launches the split
+    instance once a layer, over int8 pages on the int8 replica."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    readings, ok = smoke._cluster_small(card, (placement,))
+    assert ok, readings["checks"]
 
 
 @pytest.mark.cuda

@@ -68,7 +68,10 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.serving.adapters",
              "paddle_tpu_torch.serving.grammar",
              "paddle_tpu_torch.serving.hostmem",
-             "paddle_tpu_torch.serving.engine"):
+             "paddle_tpu_torch.serving.engine",
+             "paddle_tpu_torch.serving.cluster",
+             "paddle_tpu_torch.serving.autoscale",
+             "paddle_tpu_torch.serving.faults"):
     assert name in names, name
 """
 

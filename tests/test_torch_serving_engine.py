@@ -464,15 +464,42 @@ def test_engine_refuses_what_is_not_ported(tiny, name):
 
 
 def test_engine_refuses_unported_factories_and_transforms(tiny):
+    """``tp`` and ``"pressure"`` factories and the ``kv_reshard`` data
+    plane refuse, naming ROADMAP item 11. The ``kv_repage`` and
+    ``kv_transcode`` data planes of an int8 engine of 16-token pages give
+    the reference engine's bytes on a chain of the tiny factory's pool
+    (3 pages of 8, 19 tokens): re-paged to 2 pages of 16, then to int8."""
+    from paddle_tpu_torch.models.nlp.llama_decode import transcode_kv_data
+
     for srv in (T.SimServing(tp=2), T.SimServing(kv_quant="pressure")):
         with pytest.raises(NotImplementedError, match=r"ROADMAP item 11"):
             T.ServingEngine(serving=srv, slots=4, policy="paged")
-    eng = T.ServingEngine(serving=tiny["srv"], slots=4)
-    for call in (lambda: eng.reshard_kv_pages(None),
-                 lambda: eng.repage_kv_pages(None, 8, 16),
-                 lambda: eng.transcode_kv_pages(None, None)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 11"):
-            call()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 11"):
+        T.ServingEngine(serving=tiny["srv"], slots=4).reshard_kv_pages(None)
+    src = T.ServingEngine(serving=tiny["srv"], slots=4, policy="paged",
+                          clock="fixed")
+    src.run([T.Request(rid="a", arrival=0.0, prompt=tuple(range(1, 20)),
+                       max_new_tokens=4)])
+    chain = src.export_kv_pages([1, 2, 3])
+    build = dict(max_len=48, page_size=16, n_pool_pages=13, batch_capacity=4,
+                 chunked_prefill=16, kv_quant="int8")
+    got_eng = T.ServingEngine(serving=llama_serving_decode_factory(
+        tiny["model"], device="cpu", **build), slots=4, policy="paged")
+    ref_eng = J.ServingEngine(serving=jax_serving_factory(
+        tiny["jax_model"], **build), slots=4, policy="paged")
+    got = got_eng.repage_kv_pages(chain, 8, 19)
+    ref = ref_eng.repage_kv_pages(tuple(c.numpy() for c in chain), 8, 19)
+    assert [tuple(g.shape) for g in got] == [(2, 2, 2, 16, 8)] * 2
+    for g, r in zip(got, ref):
+        assert g.numpy().tobytes() == np.asarray(r).tobytes()
+    got, ref = (got_eng.transcode_kv_pages(got, None),
+                ref_eng.transcode_kv_pages(ref, None))
+    for g, r in zip(got, ref):          # (int8 data, f32 scales) of k, v
+        assert g[0].dtype == torch.int8
+        for gl, rl in zip(g, r):
+            assert gl.numpy().tobytes() == np.asarray(rl).tobytes()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 11"):
+        transcode_kv_data(chain, None, "pressure")
 
 
 @pytest.mark.parametrize("option", [dict(tp=2), dict(kv_quant="pressure")])
