@@ -1,25 +1,28 @@
 """Llama decode for the PyTorch port: the paged KV-cache factory (the
 continuous-batching serving path) with its multi-adapter LoRA bank,
-grammar mask bank, ragged prefill lane and speculative round, the dense
-KV-cache factory, the router between them and the serving factory that
-holds them.
+grammar mask bank, ragged prefill lane, speculative round and two-tier
+("pressure") pool, the dense KV-cache factory with int8 weights and the
+rolling cache of a sliding window, the speculative decode factory, the
+router between the backends and the serving factory that holds them.
 
 Counterpart of ``paddle_tpu/models/nlp/llama_decode.py`` (the helpers
-``_mm``, ``_bgmv``, ``_proj_qkv``, ``_q8``, ``_cache_write``,
-``_cache_read``, ``_attend``, ``_layer_math``, ``_logits``,
-``_write_positions``; ``lora_bank_hooks``, ``grammar_bank_hooks``,
-``build_spec_step``, ``llama_paged_decode_factory``,
-``llama_decode_factory``, ``route_decode``, ``PagedOnlyDense``,
-``llama_serving_decode_factory`` and the host configs ``TPConfig``,
-``LoRAConfig``, ``SpecConfig``, ``GrammarConfig``). The reference jits
-each program and scans over the stacked layers; PyTorch runs eagerly, so
-each program here is a Python loop over the layers (and the draft's walk
-in a speculative round a Python loop over its steps). The attention of a
-paged decode step is the paged-attention CUDA kernel
-(``ops/paged_attention.py``) on the card, or its plain version on the
-CPU; prefill chunks (by default), the ragged lane and the speculative
-blocks attend through the plain page gather, and the dense cache in
-plain PyTorch, as the reference's do.
+``_mm``, ``_quantize_weights``, ``_bgmv``, ``_proj_qkv``, ``_q8``,
+``_cache_write``, ``_cache_read``, ``_attend``, ``_layer_math``,
+``_logits``, ``_layer_step_rolling_prefill``, ``_write_positions``;
+``compact_kv_pages``, ``export_quant_pages``, ``import_quant_pages``,
+``lora_bank_hooks``, ``grammar_bank_hooks``, ``build_spec_step``,
+``llama_paged_decode_factory``, ``llama_decode_factory``,
+``llama_speculative_decode_factory``, ``route_decode``,
+``PagedOnlyDense``, ``llama_serving_decode_factory`` and the host configs
+``TPConfig``, ``LoRAConfig``, ``SpecConfig``, ``GrammarConfig``). The
+reference jits each program and scans over the stacked layers; PyTorch
+runs eagerly, so each program here is a Python loop over the layers (and
+a draft's walk a Python loop over its steps). The attention of a paged
+decode step is the paged-attention CUDA kernel (``ops/paged_attention.py``)
+on the card, or its plain version on the CPU; prefill chunks (by
+default), the ragged lane and the speculative blocks attend through the
+plain page gather, and the dense caches in plain PyTorch, as the
+reference's do.
 
 Pools, dense caches and the adapter and grammar banks are updated IN
 PLACE (the reference donates them to its jitted programs or rebinds a
@@ -37,15 +40,53 @@ import torch.nn.functional as F
 
 from ...core.place import resolve_device
 from ...ops.paged_attention import paged_attention, paged_prefill_attention
+from ...quantization.int8 import int8_matmul, quantize_stacked
 from .llama import LlamaForCausalLM, apply_rotary
 from .llama_functional import _rms, split_params
 
 
 def _mm(x, w):
-    """x @ w for a plain (in, out) weight. The reference's int8 weight
-    tuples (``weight_dtype="int8"``) are not ported yet (ROADMAP item
-    10)."""
-    return x @ w
+    """x @ w for a plain (in, out) weight; a tuple ``(w_q int8 (in, out),
+    scale f32 (out,))`` (``weight_dtype="int8"``) goes through the int8
+    product (``quantization.int8.int8_matmul``)."""
+    if not isinstance(w, tuple):
+        return x @ w
+    return int8_matmul(x, w[0], w[1])
+
+
+def _quantize_weights(tree, keys):
+    """Per-output-channel int8 for the named (..., in, out) weights:
+    value -> (int8 data, f32 scale over the 'in' axis). A layer-stacked
+    weight is quantized one layer at a time (the same bits as the whole
+    stack at once), so its f32 temporary is one layer's."""
+    out = dict(tree)
+    for k in keys:
+        w = tree.get(k)
+        if w is None:
+            continue
+        if w.dim() < 3:
+            out[k] = quantize_stacked(w)
+            continue
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s = torch.empty(w.shape[:-2] + w.shape[-1:], dtype=torch.float32,
+                        device=w.device)
+        for l in range(w.shape[0]):
+            q[l], s[l] = quantize_stacked(w[l])
+        out[k] = (q, s)
+    return out
+
+
+_PROJ_KEYS = ("self_attn.q_proj.weight", "self_attn.k_proj.weight",
+              "self_attn.v_proj.weight", "self_attn.o_proj.weight",
+              "mlp.gate_proj.weight", "mlp.up_proj.weight",
+              "mlp.down_proj.weight")
+
+
+def _at(tree, l):
+    """Layer l of stacked weights (an int8 weight is a (data, scale)
+    pair, both stacked)."""
+    return {k: (v[0][l], v[1][l]) if isinstance(v, tuple) else v[l]
+            for k, v in tree.items()}
 
 
 def _bgmv(h, A, B_, ids):
@@ -85,11 +126,19 @@ def _proj_qkv(cfg, p, h, pos, lora=None):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _q8(x):
+_INV127 = np.float32(1.0 / 127.0)
+
+
+def _q8(x, folded: bool = False):
     """Per-(batch, head, slot) absmax int8 quantization over head_dim —
-    the KV-cache codec. Returns (int8 data, f32 scales)."""
+    the KV-cache codec. Returns (int8 data, f32 scales). ``folded``:
+    the scale as the reference's jitted programs compute it (XLA folds
+    the division by the constant 127 into a product with its f32
+    reciprocal, which differs in the last bit for some values);
+    otherwise as its eager code divides."""
     xf = x.to(torch.float32)
-    scale = torch.clamp_min(xf.abs().amax(-1), 1e-8) / 127.0
+    amax = torch.clamp_min(xf.abs().amax(-1), 1e-8)
+    scale = amax * _INV127 if folded else amax / 127.0
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -160,10 +209,33 @@ def _pool_layer(pools, l):
     return k_pools[l], v_pools[l]
 
 
+def _tier_merge(fp, qd, sc, t):
+    """The two-tier read: where the page's tier bit ``t`` is set, the
+    int8 arena dequantized in f32 and cast to the fp arena's dtype, else
+    the fp arena (the reference's ``_tier_enter`` merge, elementwise)."""
+    return torch.where(t, (qd.to(torch.float32) * sc[..., None]).to(
+        fp.dtype), fp)
+
+
+def _tier_view(pool_l):
+    """One layer's whole merged full-precision pool (nkv, P, ps, hd) of a
+    pressure read view ``(fp, int8, scales, tier)``: what the paged
+    kernels read."""
+    fp, qd, sc, tier = pool_l
+    return _tier_merge(fp, qd, sc, tier[None, :, None, None])
+
+
 def _gather_pages(pool_l, page_tables):
     """(B, nkv, W * page_size, hd): one layer's pages of the batch's
-    tables gathered first, only that slice dequantized."""
-    if isinstance(pool_l, tuple):
+    tables gathered first, only that slice dequantized (a pressure read
+    view ``(fp, int8, scales, tier)`` merged by its gathered tier
+    bits)."""
+    if isinstance(pool_l, tuple) and len(pool_l) == 4:
+        fp, qd, sc, tier = pool_l
+        g = _tier_merge(fp[:, page_tables], qd[:, page_tables],
+                        sc[:, page_tables],
+                        tier[page_tables][None, :, :, None, None])
+    elif isinstance(pool_l, tuple):
         data, sc = pool_l
         g = data[:, page_tables].to(torch.float32) \
             * sc[:, page_tables][..., None]
@@ -193,6 +265,8 @@ def _layer_math(cfg, lp, x, pos_vec, attend, lora=None):
 def _logits(cfg, outer, x_last):
     head = outer.get("lm_head.weight")
     if head is None:
+        # tied embeddings stay unquantized (the same tensor feeds the
+        # token lookup, where int8 would distort every embedding)
         return x_last @ outer["model.embed_tokens.weight"].T
     return _mm(x_last, head)
 
@@ -224,27 +298,53 @@ def _cache_read(cache, dtype, n: int):
 
 
 def _layer_step(cfg, lp, x, k_cache, v_cache, pos_vec, key_mask,
-                write_at: int):
+                write_at: int, n: int | None = None):
     """One decoder layer over T positions with a dense cache read and
     write. x (B, T, H); caches (B, nkv, C, hd) for this layer; the block
-    lands at slot ``write_at`` and attends to slots < write_at + T under
-    ``key_mask`` (T, write_at + T). The reference attends all C slots
-    with the slots beyond masked, whose probabilities are exactly 0; the
-    slice does the same work without them."""
+    lands at slot ``write_at`` and attends to the first ``n`` slots
+    (default write_at + T; a rolling cache passes its live slots) under
+    ``key_mask`` (T, n). The reference attends all C slots with the
+    slots beyond masked, whose probabilities are exactly 0; the slice
+    does the same work without them."""
     def attend(q, k, v):
         T = k.shape[2]
-        n = write_at + T
+        n_read = write_at + T if n is None else n
         kc = _cache_write(k_cache, k, write_at)
         vc = _cache_write(v_cache, v, write_at)
-        k_all = _cache_read(kc, q.dtype, n)
-        v_all = _cache_read(vc, q.dtype, n)
+        k_all = _cache_read(kc, q.dtype, n_read)
+        v_all = _cache_read(vc, q.dtype, n_read)
         if isinstance(kc, tuple):
             # the EXACT current block over the dequantized cache: this
             # step's own keys are not round-tripped (quantization error
             # applies only to the stored past)
-            k_all[:, :, write_at:n] = k.to(k_all.dtype)
-            v_all[:, :, write_at:n] = v.to(v_all.dtype)
+            k_all[:, :, write_at:write_at + T] = k.to(k_all.dtype)
+            v_all[:, :, write_at:write_at + T] = v.to(v_all.dtype)
         return _attend(cfg, q, k_all, v_all, key_mask)
+
+    return _layer_math(cfg, lp, x, pos_vec, attend)
+
+
+def _layer_step_rolling_prefill(cfg, lp, x, pos_vec, key_mask, W,
+                                k_cache, v_cache):
+    """Prefill layer for a ROLLING (sliding-window) cache: attention runs
+    banded over this block's own K/V, then only the last W positions land
+    in the cache (B, nkv, W, hd) of this layer, each at slot p % W (a
+    cyclic shift of the last W positions); a prompt shorter than W fills
+    slots 0.. and zeros the rest. A quantized cache stores the whole
+    window through ``_q8``, zero slots included, as the reference's
+    does."""
+    def attend(q, k, v):
+        ctx = _attend(cfg, q, k, v, key_mask)
+        B, nkv, S0, hd = k.shape
+        for cache, kv in ((k_cache, k), (v_cache, v)):
+            if S0 >= W:
+                win = torch.roll(kv[:, :, S0 - W:], S0 % W, dims=2)
+            else:
+                win = torch.zeros((B, nkv, W, hd), dtype=kv.dtype,
+                                  device=kv.device)
+                win[:, :, :S0] = kv
+            _cache_write(cache, win, 0)
+        return ctx
 
     return _layer_math(cfg, lp, x, pos_vec, attend)
 
@@ -306,13 +406,21 @@ def llama_paged_decode_factory(model: LlamaForCausalLM,
 
     ``kv_cache_dtype="int8"`` or ``kv_quant="int8"``: pages store the
     per-slot absmax int8 codec; the kernel dequantizes them.
+    ``kv_quant="pressure"``: pools are ``((k_fp, k_int8, k_scales), (v_fp,
+    v_int8, v_scales), tier)``: hot pages stay full precision, and
+    ``compact_kv_pages`` quantizes parked pages into the int8 arena and
+    sets their bits in the (P,) bool ``tier``; every read merges the two
+    arenas by the tier bits, layer by layer (``_tier_view``, or the
+    gathered pages' bits), and every write lands in the fp arena after
+    clearing the written pages' bits, so pages that were never compacted
+    read exactly what an untiered pool holds.
     ``emit="logits"``: return last-position logits (B, V) f32 instead of
     greedy tokens.
 
-    Not ported yet (ROADMAP item 11): ``tp`` and ``kv_quant="pressure"``;
-    ``scan_layers`` has no meaning here (the layers are a Python loop). A
-    model with fused projection weights is refused: the decode programs
-    read the unfused keys, as the reference's do.
+    Not ported yet: ``tp`` (ROADMAP item 11, option 6); ``scan_layers``
+    has no meaning here (the layers are a Python loop). A model with
+    fused projection weights is refused: the decode programs read the
+    unfused keys, as the reference's do.
     """
     dev = resolve_device(device)
     lora = as_lora_config(lora)
@@ -353,10 +461,16 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
     if kv_cache_dtype not in (None, "int8"):
         raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: use None "
                          "(model dtype) or 'int8'")
-    if kv_quant not in (None, "int8"):
-        raise ValueError(f"kv_quant {kv_quant!r}: use None or 'int8' "
-                         "('pressure' is not ported yet, ROADMAP item 11)")
+    if kv_quant not in (None, "int8", "pressure"):
+        raise ValueError(f"kv_quant {kv_quant!r}: use None, 'int8' "
+                         "(every page stored int8+scale) or 'pressure' "
+                         "(parked pages compacted to int8 under byte "
+                         "pressure)")
     quantized = kv_cache_dtype == "int8" or kv_quant == "int8"
+    pressure = kv_quant == "pressure"
+    if pressure and kv_cache_dtype is not None:
+        raise ValueError("kv_quant='pressure' owns the pool codec "
+                         "— drop kv_cache_dtype")
     if emit not in ("token", "logits"):
         raise ValueError(f"emit {emit!r}: use 'token' or 'logits'")
     if prefill_attention not in ("gather", "kernel"):
@@ -382,7 +496,7 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
     def _per_layer(layers_, lora, l):
         """Layer l's weights and its LoRA triple for ``_layer_math``
         (None without adapters)."""
-        lp = {k: v[l] for k, v in layers_.items()}
+        lp = _at(layers_, l)
         if lora is None:
             return lp, None
         bank, ids = lora
@@ -390,6 +504,16 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
 
     def init_pools():
         shape = (L, nkv, n_pool_pages, page_size, hd)
+        if pressure:
+            # two tiers: full-precision pages, an int8 + scale shadow and
+            # a (P,) tier mask saying which arena each page reads from
+            def one():
+                return (torch.zeros(shape, dtype=dtype, device=dev),
+                        torch.zeros(shape, dtype=torch.int8, device=dev),
+                        torch.ones(shape[:-1], dtype=torch.float32,
+                                   device=dev))
+            return one(), one(), torch.zeros((n_pool_pages,),
+                                             dtype=torch.bool, device=dev)
         if quantized:
             def one():
                 return (torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -450,9 +574,33 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
                 kv[:, :, 0].transpose(0, 1).to(pool_l.dtype)
 
     def _kernel_operands(kp, vp):
+        if isinstance(kp, tuple) and len(kp) == 4:
+            return _tier_view(kp), _tier_view(vp), {}
         if isinstance(kp, tuple):
             return kp[0], vp[0], {"k_scales": kp[1], "v_scales": vp[1]}
         return kp, vp, {}
+
+    def _layer_pools(pools, l):
+        """Layer l's (write views, read views) of the pools. A pressure
+        pool writes into its fp arena and reads ``(fp, int8, scales,
+        tier)``, merged by the tier bits where it is read (the reference
+        merges whole pools on entry, writes into the merged view and
+        folds it back; with the written pages' bits cleared first, both
+        leave the writes in the fp arena and read the same values).
+        Other pools read what they write."""
+        if not pressure:
+            kv = _pool_layer(pools, l)
+            return kv, kv
+        (kf, kq, ks), (vf, vq, vs), tier = pools
+        return ((kf[l], vf[l]),
+                ((kf[l], kq[l], ks[l], tier), (vf[l], vq[l], vs[l], tier)))
+
+    def _tier_clear(pools, written):
+        """PRESSURE: the pages a program is about to write get fresh
+        full-precision content, so their tier bits clear first: a
+        recycled page id never reads stale int8 data."""
+        if pressure:
+            pools[2][written.reshape(-1)] = False
 
     @torch.no_grad()
     def prefill(outer, layers_, tokens, page_tables, lengths, pools,
@@ -468,6 +616,7 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
         if T % page_size:
             raise ValueError(f"prefill length {T} must be a multiple of "
                              f"page_size {page_size} (pad the prompt)")
+        _tier_clear(pools, pt[:, :T // page_size])
         x = outer["model.embed_tokens.weight"][tokens]
         pos_vec = torch.arange(T, device=dev)
         causal = torch.tril(torch.ones((T, T), dtype=torch.bool,
@@ -475,7 +624,7 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
         key_ok = pos_vec[None, :] < lengths[:, None]
         mask = causal[None, None] & key_ok[:, None, None, :]
         for l in range(L):
-            kp_l, vp_l = _pool_layer(pools, l)
+            (kp_l, vp_l), _ = _layer_pools(pools, l)
 
             def attend(q, k, v):
                 _write_chunk(kp_l, k, pt, 0, T)
@@ -493,18 +642,19 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
                     lora=None, grammar=None):
         tok, pt, lengths = _idx(tok), _idx(page_tables), _idx(lengths)
         lora = _on_dev(lora)
+        _tier_clear(pools, pt.gather(1, (lengths // page_size)[:, None]))
         x = outer["model.embed_tokens.weight"][tok][:, None]   # (B, 1, H)
         pos = lengths[:, None]                                 # per sequence
         # converted once per step, not once per layer
         pt32 = pt.to(torch.int32)
         seen = (lengths + 1).to(torch.int32)
         for l in range(L):
-            kp_l, vp_l = _pool_layer(pools, l)
+            (kp_l, vp_l), (kr_l, vr_l) = _layer_pools(pools, l)
 
             def attend(q, k, v):
                 _write_token(kp_l, k, pt, lengths)
                 _write_token(vp_l, v, pt, lengths)
-                kd, vd, scales = _kernel_operands(kp_l, vp_l)
+                kd, vd, scales = _kernel_operands(kr_l, vr_l)
                 ctx = paged_attention(q[:, :, 0], kd, vd, pt32, seen,
                                       **scales)
                 return ctx.to(q.dtype)[:, :, None]
@@ -522,6 +672,8 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
         it falls inside this chunk."""
         B, C = chunk.shape
         S = pt.shape[1] * page_size
+        _tier_clear(pools, pt[:, start // page_size:
+                                 (start + C) // page_size])
         x = outer["model.embed_tokens.weight"][chunk]
         pos_vec = start + torch.arange(C, device=dev)
         if prefill_attention == "kernel":
@@ -533,18 +685,18 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
                     & (kpos[None, None, :] < lengths[:, None, None]))
             mask = mask[:, None]                             # (B, 1, C, S)
         for l in range(L):
-            kp_l, vp_l = _pool_layer(pools, l)
+            (kp_l, vp_l), (kr_l, vr_l) = _layer_pools(pools, l)
 
             def attend(q, k, v):
                 _write_chunk(kp_l, k, pt, start, C)
                 _write_chunk(vp_l, v, pt, start, C)
                 if prefill_attention == "kernel":
-                    kd, vd, scales = _kernel_operands(kp_l, vp_l)
+                    kd, vd, scales = _kernel_operands(kr_l, vr_l)
                     ctx = paged_prefill_attention(q, kd, vd, pt32, len32,
                                                   start, **scales)
                     return ctx.to(q.dtype)
-                return _attend(cfg, q, _gather_pages(kp_l, pt).to(q.dtype),
-                               _gather_pages(vp_l, pt).to(q.dtype), mask)
+                return _attend(cfg, q, _gather_pages(kr_l, pt).to(q.dtype),
+                               _gather_pages(vr_l, pt).to(q.dtype), mask)
 
             lp, lo = _per_layer(layers_, lora, l)
             x = _layer_math(cfg, lp, x, pos_vec, attend, lora=lo)
@@ -599,19 +751,22 @@ def _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
         lora = _on_dev(lora)
         R, C = chunk.shape
         S = pt.shape[1] * page_size
+        col = (starts // page_size)[:, None] + torch.arange(
+            C // page_size, device=dev)[None, :]
+        _tier_clear(pools, pt.gather(1, col))
         x = outer["model.embed_tokens.weight"][chunk]
         pos = starts[:, None] + torch.arange(C, device=dev)[None, :]
         kpos = torch.arange(S, device=dev)
         mask = ((kpos[None, None, :] <= pos[:, :, None])
                 & (kpos[None, None, :] < lengths[:, None, None]))[:, None]
         for l in range(L):
-            kp_l, vp_l = _pool_layer(pools, l)
+            (kp_l, vp_l), (kr_l, vr_l) = _layer_pools(pools, l)
 
             def attend(q, k, v):
                 _write_chunk_ragged(kp_l, k, pt, starts, C)
                 _write_chunk_ragged(vp_l, v, pt, starts, C)
-                return _attend(cfg, q, _gather_pages(kp_l, pt).to(q.dtype),
-                               _gather_pages(vp_l, pt).to(q.dtype), mask)
+                return _attend(cfg, q, _gather_pages(kr_l, pt).to(q.dtype),
+                               _gather_pages(vr_l, pt).to(q.dtype), mask)
 
             lp, lo = _per_layer(layers_, lora, l)
             x = _layer_math(cfg, lp, x, pos, attend, lora=lo)
@@ -657,13 +812,24 @@ def llama_decode_factory(model: LlamaForCausalLM, max_len: int = 256,
     """Returns ``generate(tokens, max_new_tokens, generator=None,
     temperature=0.0, top_k=0, top_p=1.0, eos_token_id=None,
     pad_token_id=0) -> (B, S0 + max_new) token tensor``: a prefill and
-    per-token decode steps over DENSE KV caches (L, B, nkv, max_len, hd),
+    per-token decode steps over DENSE KV caches (L, B, nkv, C, hd),
     updated in place. ``device`` (``cuda`` unless ``"cpu"`` is asked
     for) holds the weights and caches.
+
+    With ``config.sliding_window`` < max_len the cache is a ROLLING
+    buffer of C = window slots (position p writes slot p % window): the
+    prefill attends banded over the prompt's own K/V and keeps its last
+    window positions, memory stays O(window) and the generation length is
+    not bounded by the cache. Otherwise C = max_len.
 
     ``kv_cache_dtype="int8"`` stores the cache quantized (per-slot absmax
     over head_dim, ``_q8``); each step's own keys attend exactly, the
     stored past dequantized.
+
+    ``weight_dtype="int8"`` quantizes the projection weights and the
+    untied lm head per output channel (``quantization.int8``): the
+    matmuls quantize their activations per tensor and run int8 x int8 ->
+    int32. Tied embeddings stay in the model's dtype.
 
     ``generate.compiled(tokens, max_new_tokens)`` is the reference's
     one-program greedy variant; eagerly it is the same loop at
@@ -672,36 +838,28 @@ def llama_decode_factory(model: LlamaForCausalLM, max_len: int = 256,
     tokens cannot match the reference's JAX keys; greedy tokens do.
     ``generate._parts`` holds what the serving engine reads: ``outer``,
     ``layers``, ``prefill``, ``decode_step``, ``init_caches``,
-    ``compiled_greedy``, ``rolling``.
+    ``compiled_greedy``, ``rolling`` (a rolling ``prefill`` takes no
+    caches and returns new ones, as the reference's does).
 
-    Not ported yet (ROADMAP item 10): ``weight_dtype="int8"`` and the
-    rolling cache of a ``sliding_window`` shorter than ``max_len``.
     ``scan_layers`` has no meaning here (the layers are a Python loop).
     """
     dev = resolve_device(device)
     cfg = model.config
-    _check_dense(cfg, max_len, kv_cache_dtype, weight_dtype)
+    _check_dense(kv_cache_dtype, weight_dtype)
     outer, layers = _split_for(model, dev, "llama_decode_factory")
+    if weight_dtype == "int8":
+        layers = _quantize_weights(layers, _PROJ_KEYS)
+        outer = _quantize_weights(outer, ("lm_head.weight",))
     return _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype)
 
 
-def _check_dense(cfg, max_len, kv_cache_dtype, weight_dtype):
+def _check_dense(kv_cache_dtype, weight_dtype):
     if weight_dtype not in (None, "int8"):
         raise ValueError(f"weight_dtype {weight_dtype!r}: use None or "
                          "'int8'")
-    if weight_dtype == "int8":
-        raise NotImplementedError(
-            "weight_dtype='int8' (the int8 weight tuples through _mm) is "
-            "not ported yet (ROADMAP item 10)")
     if kv_cache_dtype not in (None, "int8"):
         raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: use None "
                          "(model dtype) or 'int8'")
-    window = getattr(cfg, "sliding_window", None)
-    if window is not None and window < max_len:
-        raise NotImplementedError(
-            f"sliding_window {window} < max_len {max_len}: the rolling "
-            "dense cache (_layer_step_rolling_prefill) is not ported yet "
-            "(ROADMAP item 10)")
 
 
 def _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype):
@@ -713,9 +871,12 @@ def _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype):
     hd = cfg.hidden_size // cfg.num_attention_heads
     quantized = kv_cache_dtype == "int8"
     embed = outer["model.embed_tokens.weight"]
+    window = getattr(cfg, "sliding_window", None)
+    rolling = window is not None and window < max_len
+    C = window if rolling else max_len          # cache slots
 
     def init_caches(B, dtype):
-        shape = (L, B, nkv, max_len, hd)
+        shape = (L, B, nkv, C, hd)
         if quantized:
             return (torch.zeros(shape, dtype=torch.int8, device=dev),
                     torch.ones(shape[:-1], dtype=torch.float32,
@@ -727,37 +888,76 @@ def _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype):
             return caches[0][l], caches[1][l]
         return caches[l]
 
-    def _run(outer, layers_, x, pos_vec, key_mask, write_at, kc, vc):
+    def _run(outer, layers_, x, pos_vec, key_mask, write_at, kc, vc,
+             n=None):
         for l in range(L):
-            x = _layer_step(cfg, {k: v[l] for k, v in layers_.items()}, x,
+            x = _layer_step(cfg, _at(layers_, l), x,
                             _layer_cache(kc, l), _layer_cache(vc, l),
-                            pos_vec, key_mask, write_at)
+                            pos_vec, key_mask, write_at, n)
         return _rms(x, outer["model.norm.weight"], cfg.rms_norm_eps)
 
-    @torch.no_grad()
-    def prefill(outer, layers_, tokens, k_caches, v_caches):
-        """tokens (B, S0) -> (last-position logits (B, V), caches)."""
-        tokens = torch.as_tensor(tokens, device=dev).long()
-        S0 = tokens.shape[1]
+    def _band(S0):
         causal = torch.tril(torch.ones((S0, S0), dtype=torch.bool,
                                        device=dev))
-        x = _run(outer, layers_, outer["model.embed_tokens.weight"][tokens],
-                 torch.arange(S0, device=dev), causal, 0, k_caches,
-                 v_caches)
-        return _logits(cfg, outer, x[:, -1]), k_caches, v_caches
+        if window is not None:
+            i = torch.arange(S0, device=dev)
+            causal &= (i[:, None] - i[None, :]) < window
+        return causal
+
+    if rolling:
+        @torch.no_grad()
+        def prefill(outer, layers_, tokens):
+            """tokens (B, S0) -> (last-position logits (B, V), caches):
+            the rolling prefill produces the caches."""
+            tokens = torch.as_tensor(tokens, device=dev).long()
+            B, S0 = tokens.shape
+            kc = init_caches(B, embed.dtype)
+            vc = init_caches(B, embed.dtype)
+            x = outer["model.embed_tokens.weight"][tokens]
+            pos_vec = torch.arange(S0, device=dev)
+            band = _band(S0)
+            for l in range(L):
+                x = _layer_step_rolling_prefill(
+                    cfg, _at(layers_, l), x, pos_vec, band, C,
+                    _layer_cache(kc, l), _layer_cache(vc, l))
+            x = _rms(x, outer["model.norm.weight"], cfg.rms_norm_eps)
+            return _logits(cfg, outer, x[:, -1]), kc, vc
+    else:
+        @torch.no_grad()
+        def prefill(outer, layers_, tokens, k_caches, v_caches):
+            """tokens (B, S0) -> (last-position logits (B, V), caches)."""
+            tokens = torch.as_tensor(tokens, device=dev).long()
+            S0 = tokens.shape[1]
+            x = _run(outer, layers_,
+                     outer["model.embed_tokens.weight"][tokens],
+                     torch.arange(S0, device=dev), _band(S0), 0, k_caches,
+                     v_caches)
+            return _logits(cfg, outer, x[:, -1]), k_caches, v_caches
 
     @torch.no_grad()
     def decode_step(outer, layers_, token, pos, k_caches, v_caches):
         """token (B,); ``pos``: the absolute position of ``token``, a
-        Python int (a slice bound on the host: no read from the
-        card)."""
+        Python int (a slice bound on the host: no read from the card).
+        A rolling cache writes slot pos % C and attends its live slots
+        (every one once pos >= C: the buffer holds only the last C
+        keys)."""
         pos = int(pos)
         token = torch.as_tensor(token, device=dev).long()
         x = outer["model.embed_tokens.weight"][token][:, None]
-        key_mask = torch.ones((1, pos + 1), dtype=torch.bool, device=dev)
+        n = min(pos + 1, C) if rolling else pos + 1
+        key_mask = torch.ones((1, n), dtype=torch.bool, device=dev)
         x = _run(outer, layers_, x, torch.full((1,), pos, device=dev),
-                 key_mask, pos, k_caches, v_caches)
+                 key_mask, pos % C if rolling else pos, k_caches,
+                 v_caches, n)
         return _logits(cfg, outer, x[:, 0]), k_caches, v_caches
+
+    def _start(outer_, layers_, tokens):
+        """The prefill with its caches: (logits, k caches, v caches)."""
+        if rolling:
+            return prefill(outer_, layers_, tokens)
+        B = tokens.shape[0]
+        return prefill(outer_, layers_, tokens, init_caches(B, embed.dtype),
+                       init_caches(B, embed.dtype))
 
     def sample(logits, generator, temperature, top_k, top_p):
         if temperature <= 0.0:
@@ -781,8 +981,9 @@ def _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype):
         return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
     def _check_len(S0, max_new_tokens):
-        if S0 + max_new_tokens > max_len:
+        if not rolling and S0 + max_new_tokens > max_len:
             # past max_len the cache writes would corrupt generations
+            # (the rolling cache wraps by design)
             raise ValueError(
                 f"prompt {S0} + max_new_tokens {max_new_tokens} exceeds "
                 f"the factory's max_len {max_len}")
@@ -797,9 +998,7 @@ def _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype):
         tokens = torch.as_tensor(tokens, device=dev).long()
         B, S0 = tokens.shape
         _check_len(S0, max_new_tokens)
-        kc = init_caches(B, embed.dtype)
-        vc = init_caches(B, embed.dtype)
-        logits, kc, vc = prefill(outer, layers, tokens, kc, vc)
+        logits, kc, vc = _start(outer, layers, tokens)
         out = [tokens]
         pos = S0
         finished = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -822,10 +1021,8 @@ def _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype):
     def compiled_greedy(outer_, layers_, tokens, max_new):
         """prefill + max_new greedy steps (the reference's one-program
         scan, eagerly)."""
-        B, S0 = tokens.shape
-        kc = init_caches(B, embed.dtype)
-        vc = init_caches(B, embed.dtype)
-        logits, kc, vc = prefill(outer_, layers_, tokens, kc, vc)
+        S0 = tokens.shape[1]
+        logits, kc, vc = _start(outer_, layers_, tokens)
         gen = []
         for i in range(max_new):
             nxt = torch.argmax(logits, -1)
@@ -850,7 +1047,187 @@ def _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype):
                        "prefill": prefill, "decode_step": decode_step,
                        "init_caches": init_caches,
                        "compiled_greedy": compiled_greedy,
-                       "rolling": False}
+                       "rolling": rolling}
+    return generate
+
+
+def llama_speculative_decode_factory(target: LlamaForCausalLM,
+                                     draft: LlamaForCausalLM,
+                                     max_len: int = 256, n_draft: int = 4,
+                                     device=None):
+    """Greedy speculative decoding over DENSE caches: the draft model
+    proposes ``n_draft`` tokens (its walk a loop of one-token blocks that
+    feed each argmax back on the card), the target verifies them in ONE
+    (k+1)-position block; the matching prefix and the target's
+    correction (or bonus) token advance the sequence, and K/V written
+    for rejected proposals lies beyond the advanced position, where no
+    key mask reaches, until later blocks overwrite it. On a fully
+    accepted round the draft has not consumed its last proposal; the
+    next round feeds it. Greedy acceptance makes the output EXACTLY the
+    target's greedy generation.
+
+    Both models must share a vocabulary; batch 1 a call; no
+    ``sliding_window`` (rolling slots break the overwrite rollback).
+    ``device``: ``cuda`` unless ``"cpu"`` is asked for.
+
+    ``generate(tokens (1, S0), max_new_tokens)`` is the reference's host
+    loop (``last_stats``: ``rounds``, ``tokens``, ``target_steps``);
+    ``generate.compiled`` is its one-program variant (every round drafts
+    ``n_draft``, the draft consuming a two-token feed), eagerly: the
+    round's accepted count and candidates are read from the card once a
+    round, and nothing else is (``last_stats`` adds ``accept_rate``).
+    Both return a numpy array and the target's greedy tokens.
+    ``scan_layers`` has no meaning here (the layers are Python loops)."""
+    if target.config.vocab_size != draft.config.vocab_size:
+        raise ValueError("target and draft must share a vocabulary")
+    if n_draft < 1:
+        raise ValueError("n_draft must be >= 1 (0 would still emit one "
+                         "unverified draft per round and desync the draft "
+                         "cache)")
+    if getattr(target.config, "sliding_window", None) or \
+            getattr(draft.config, "sliding_window", None):
+        raise ValueError("speculative decoding with sliding_window is "
+                         "not supported (rolling slots break the "
+                         "overwrite-rollback invariant)")
+    dev = resolve_device(device)
+
+    def build(model):
+        cfg = model.config
+        outer, layers = _split_for(model, dev,
+                                   "llama_speculative_decode_factory")
+        L = cfg.num_hidden_layers
+        nkv = cfg.num_key_value_heads
+        hd = cfg.hidden_size // cfg.num_attention_heads
+        dtype = outer["model.embed_tokens.weight"].dtype
+
+        def init(B):
+            shape = (L, B, nkv, max_len, hd)
+            return (torch.zeros(shape, dtype=dtype, device=dev),
+                    torch.zeros(shape, dtype=dtype, device=dev))
+
+        @torch.no_grad()
+        def block(tokens, caches, pos0: int):
+            """tokens (B, T) at absolute positions pos0..pos0+T-1 (a
+            host int): writes their K/V at the same slots, returns the
+            logits of EVERY position (B, T, V)."""
+            kc, vc = caches
+            T = tokens.shape[1]
+            x = outer["model.embed_tokens.weight"][tokens]
+            pos_vec = pos0 + torch.arange(T, device=dev)
+            key_mask = torch.arange(pos0 + T, device=dev)[None, :] \
+                <= pos_vec[:, None]
+            for l in range(L):
+                x = _layer_step(cfg, _at(layers, l), x, kc[l], vc[l],
+                                pos_vec, key_mask, pos0)
+            x = _rms(x, outer["model.norm.weight"], cfg.rms_norm_eps)
+            return _logits(cfg, outer, x)
+
+        return outer, layers, init, block
+
+    outerT, layersT, initT, blockT = build(target)
+    outerD, layersD, initD, blockD = build(draft)
+
+    def _ids(rows):
+        return torch.as_tensor(rows, dtype=torch.long, device=dev)
+
+    def draft_round(feed, cachesD, k, pos0):
+        """Consume ``feed`` (1, T0) at pos0.., then draft ``k`` greedy
+        tokens, each fed back on the card: (1, k) drafts, not read."""
+        cur = torch.argmax(blockD(feed, cachesD, pos0)[:, -1], -1)
+        drafts = [cur]
+        for i in range(k - 1):
+            cur = torch.argmax(blockD(cur[:, None], cachesD,
+                                      pos0 + feed.shape[1] + i)[:, -1], -1)
+            drafts.append(cur)
+        return torch.stack(drafts, 1)
+
+    def _prompt(tokens, max_new_tokens, window):
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        B, S0 = tokens.shape
+        if B != 1:
+            raise ValueError("speculative generate supports batch 1")
+        if S0 + max_new_tokens + window > max_len:
+            raise ValueError(
+                f"prompt {S0} + max_new {max_new_tokens} + draft window "
+                f"{window} exceeds max_len {max_len}")
+        return tokens, S0
+
+    def generate(tokens, max_new_tokens: int):
+        tokens, S0 = _prompt(tokens, max_new_tokens, n_draft + 1)
+        cT, cD = initT(1), initD(1)
+        logitsT = blockT(tokens, cT, 0)
+        seq = tokens[0].tolist()
+        last = int(torch.argmax(logitsT[0, -1], -1))
+        seq.append(last)
+        produced = 1
+        pos = S0          # ``last`` occupies sequence position pos
+        pending = seq[S0:]  # tokens the draft has not consumed yet
+        draft_round(tokens, cD, 1, 0)  # the prompt; 1 throwaway draft
+        rounds = 0
+        while produced < max_new_tokens:
+            k = min(n_draft, max_new_tokens - produced)
+            drafts = draft_round(_ids([pending]), cD, k,
+                                 pos - len(pending) + 1)
+            # ONE target block verifies [last, d0..d_{k-1}]
+            blk = torch.cat([_ids([[last]]), drafts], 1)
+            t = torch.argmax(blockT(blk, cT, pos)[0], -1)
+            both = torch.cat([drafts[0], t]).tolist()
+            drafts, t = both[:k], both[k:]
+            n = 0
+            while n < k and drafts[n] == t[n]:
+                n += 1
+            seq.extend(drafts[:n] + [t[n]])  # accepted + correction
+            produced += n + 1
+            pos += n + 1
+            last = t[n]
+            # the draft consumed [pending, d0..d_{k-2}]: feed it what of
+            # the accepted sequence it has not seen, plus the new last
+            pending = ([drafts[k - 1]] if n == k else []) + [last]
+            rounds += 1
+        generate.last_stats = {"rounds": rounds,
+                               "tokens": min(produced, max_new_tokens),
+                               "target_steps": 1 + rounds}
+        return np.asarray(seq[:S0 + max_new_tokens], np.int32)[None, :]
+
+    def generate_compiled(tokens, max_new_tokens: int):
+        """The one-program variant: the same greedy-exact output."""
+        k = n_draft
+        tokens, S0 = _prompt(tokens, max_new_tokens, 2 * (k + 1))
+        cT, cD = initT(1), initD(1)
+        last = torch.argmax(blockT(tokens, cT, 0)[:, -1], -1)   # (1,)
+        blockD(tokens, cD, 0)
+        seq = tokens[0].tolist() + [0] * (max_len - S0)
+        seq[S0] = int(last)
+        produced, rounds, pos = 1, 0, S0
+        idx = torch.arange(k + 1, device=dev)
+        while produced < max_new_tokens:
+            drafts = draft_round(_ids([seq[pos - 1:pos + 1]]), cD, k,
+                                 pos - 1)[0]                   # (k,)
+            blk = torch.cat([_ids([seq[pos]]), drafts])[None]
+            t = torch.argmax(blockT(blk, cT, pos)[0], -1)      # (k+1,)
+            n = torch.cumprod((drafts == t[:k]).long(), 0).sum()
+            dpad = torch.cat([drafts, drafts.new_zeros(1)])
+            cand = torch.where(idx < n, dpad, t)
+            # the round's one read from the card
+            got = torch.cat([n[None], cand]).tolist()
+            n, cand = got[0], got[1:]
+            seq[pos + 1:pos + 2 + k] = cand
+            produced += n + 1
+            rounds += 1
+            pos += n + 1
+        generate_compiled.last_stats = {
+            "rounds": rounds,
+            "tokens": min(produced, max_new_tokens),
+            "target_steps": 1 + rounds,
+            "accept_rate": round(
+                (produced - 1 - rounds) / max(1, rounds * n_draft), 4)}
+        return np.asarray(seq[:S0 + max_new_tokens], np.int32)[None, :]
+
+    generate.last_stats = {}
+    generate_compiled.last_stats = {}
+    generate.compiled = generate_compiled
+    generate._parts = {"target": (outerT, layersT),
+                       "draft": (outerD, layersD)}
     return generate
 
 
@@ -1124,8 +1501,7 @@ def build_spec_step(cfg_t, cfg_d, page_size: int):
                                    _gather_pages(vp_l, page_tables)
                                    .to(q.dtype), mask)
 
-                x = _layer_math(cfg, {n: w[l] for n, w in layers.items()},
-                                x, pos, attend)
+                x = _layer_math(cfg, _at(layers, l), x, pos, attend)
             x = _rms(x, outer["model.norm.weight"], cfg.rms_norm_eps)
             return _logits(cfg, outer, x)
 
@@ -1256,11 +1632,72 @@ def repage_kv_data(data, page_size_from: int, page_size_to: int,
     return _tree_map(one, data)
 
 
+@torch.no_grad()
+def compact_kv_pages(pools, mask):
+    """Quantize the masked pages of a PRESSURE pool IN PLACE: per-slot
+    absmax int8 (``_q8``, as the reference's jitted program computes it)
+    written into the int8 arena, tier bits set; returns the same pools.
+    Only the masked pages are quantized, one layer at a time (the
+    reference quantizes the whole pool and keeps the masked pages: the
+    same bits, without a whole-pool f32 temporary).
+    The fp slots of a compacted page stay in place but dead: reads go
+    through the tier bits, and a write clears its page's bit first."""
+    (kf, kq, ks), (vf, vq, vs), tier = pools
+    mask = torch.as_tensor(mask, device=tier.device).bool()
+    ids = mask.nonzero()[:, 0]
+    if ids.numel():
+        for fp, qd, sc in ((kf, kq, ks), (vf, vq, vs)):
+            for l in range(fp.shape[0]):
+                q, s = _q8(fp[l].index_select(1, ids), folded=True)
+                qd[l].index_copy_(1, ids, q)
+                sc[l].index_copy_(1, ids, s)
+    tier |= mask
+    return pools
+
+
+def _page_ids(page_ids, device):
+    return torch.as_tensor(list(page_ids), dtype=torch.long, device=device)
+
+
+def export_quant_pages(pools, page_ids):
+    """Slice a PRESSURE pool's pages for a handoff: both arenas AND the
+    per-page tier bits travel, so a mixed-tier chain lands exactly on
+    import (the engine's default page-axis export cannot carry the 1-D
+    tier leaf; this is the factory hook it looks for)."""
+    (kf, kq, ks), (vf, vq, vs), tier = pools
+    idx = _page_ids(page_ids, tier.device)
+
+    def sl(a):
+        return a.index_select(2, idx)
+
+    return ((sl(kf), sl(kq), sl(ks)), (sl(vf), sl(vq), sl(vs)),
+            tier.index_select(0, idx))
+
+
+@torch.no_grad()
+def import_quant_pages(pools, page_ids, data):
+    """Scatter an exported mixed-tier chain into a PRESSURE pool at
+    ``page_ids`` (the importer's freshly allocated pages), IN PLACE;
+    returns the same pools. ``data`` may lie on another device (a host
+    arena's pinned copy)."""
+    (kf, kq, ks), (vf, vq, vs), tier = pools
+    (kfd, kqd, ksd), (vfd, vqd, vsd), td = data
+    idx = _page_ids(page_ids, tier.device)
+    for a, d in ((kf, kfd), (kq, kqd), (ks, ksd), (vf, vfd), (vq, vqd),
+                 (vs, vsd)):
+        a.index_copy_(2, idx, torch.as_tensor(d).to(a.device, a.dtype))
+    tier.index_copy_(0, idx, torch.as_tensor(td).to(tier.device,
+                                                     torch.bool))
+    return pools
+
+
 def transcode_kv_data(data, quant_from, quant_to):
     """Transcode an exported full-precision chain ``(k, v)`` into the
-    int8 codec with the same ``_q8`` the destination's write path uses.
-    ``'pressure'`` destinations are not ported yet (ROADMAP item 11);
-    quantized sources do not transcode."""
+    destination codec with the same ``_q8`` the destination's write path
+    uses: ``'int8'`` gives ``((k_int8, k_scale), (v_int8, v_scale))``;
+    ``'pressure'`` gives both arenas and an all-set tier mask (the chain
+    lands parked in the int8 tier, the fp arena keeping the exact source
+    values). Quantized sources do not transcode."""
     if quant_from is not None:
         raise ValueError(
             f"transcode: source codec {quant_from!r} is not "
@@ -1269,7 +1706,10 @@ def transcode_kv_data(data, quant_from, quant_to):
     if quant_to == "int8":
         return _q8(k), _q8(v)
     if quant_to == "pressure":
-        raise _not_ported("transcoding to kv_quant='pressure'", 11)
+        kq, ks = _q8(k)
+        vq, vs = _q8(v)
+        tier = torch.ones((k.shape[2],), dtype=torch.bool, device=k.device)
+        return (k, kq, ks), (v, vq, vs), tier
     raise ValueError(f"transcode: unknown destination codec "
                      f"{quant_to!r}")
 
@@ -1375,6 +1815,13 @@ def _not_ported(what: str, item: int):
                                f"{item})")
 
 
+_PRESSURE_DENSE_REASON = (
+    "a kv_quant='pressure' serving factory is paged-only: the "
+    "degradation tier compacts PAGES parked in the pool's evictable "
+    "LRU, and the dense wave cache has neither pages nor an LRU — "
+    "route with policy='paged'")
+
+
 def llama_serving_decode_factory(model: LlamaForCausalLM,
                                  max_len: int = 256,
                                  page_size: int = 64,
@@ -1417,8 +1864,15 @@ def llama_serving_decode_factory(model: LlamaForCausalLM,
     same page geometry, indexed by the target's page ids, its parameters
     split once; it shares no tensor with the target.
 
-    Not ported yet, each refused by name (ROADMAP item 11): ``tp`` and
-    ``kv_quant="pressure"``. ``scan_layers`` has no meaning here.
+    ``kv_quant="pressure"``: the paged backend's two-tier pool; the
+    factory is paged-only (``dense`` is a ``PagedOnlyDense`` stub and
+    ``pick`` always returns the paged backend) and carries the hooks
+    ``compact_pages`` / ``export_kv_pages`` / ``import_kv_pages`` the
+    engine drives (``compact_kv_pages``, ``export_quant_pages``,
+    ``import_quant_pages``).
+
+    Not ported yet, refused by name: ``tp`` (ROADMAP item 11, option 6).
+    ``scan_layers`` has no meaning here.
     """
     tp = as_tp_config(tp)
     lora = as_lora_config(lora)
@@ -1443,8 +1897,6 @@ def llama_serving_decode_factory(model: LlamaForCausalLM,
                 "yet: the draft pool rides the target's page ids but "
                 "has no tier mask, so a compacted target page would "
                 "desync draft K/V — use kv_quant='int8'")
-        raise _not_ported("kv_quant='pressure' (the compacting page tier)",
-                          11)
     if draft is not None:
         if lora is not None:
             raise ValueError(
@@ -1457,10 +1909,14 @@ def llama_serving_decode_factory(model: LlamaForCausalLM,
                              "vocabulary")
     dev = resolve_device(device)
     cfg = model.config
-    _check_dense(cfg, max_len, kv_cache_dtype, None)
+    _check_dense(kv_cache_dtype, None)
     outer, layers = _split_for(model, dev, "llama_serving_decode_factory")
     w_dtype = layers["self_attn.q_proj.weight"].dtype
-    gen = _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype)
+    if kv_quant == "pressure":
+        # paged-only: the dense wave cache has no pages to tier
+        gen = PagedOnlyDense(_PRESSURE_DENSE_REASON)
+    else:
+        gen = _dense_from(cfg, outer, layers, dev, max_len, kv_cache_dtype)
     paged = _paged_from(cfg, outer, layers, dev, page_size, n_pool_pages,
                         chunked_prefill, kv_cache_dtype, "token", "gather",
                         kv_quant, lora.scale if lora is not None else 1.0)
@@ -1499,6 +1955,10 @@ def llama_serving_decode_factory(model: LlamaForCausalLM,
         kv_quant_ = kv_quant
         page_bytes_ = (kv_quant_page_bytes(cfg, page_size, w_dtype)
                        if kv_quant is not None else None)
+        if kv_quant == "pressure":
+            compact_pages = staticmethod(compact_kv_pages)
+            export_kv_pages = staticmethod(export_quant_pages)
+            import_kv_pages = staticmethod(import_quant_pages)
         # a tuple, not a callable, so the attribute never binds
         spec_parts = spec_built
         if getattr(paged[3], "_ragged", None) is not None:
@@ -1514,6 +1974,8 @@ def llama_serving_decode_factory(model: LlamaForCausalLM,
 
         def pick(self, lengths, capacity=None, shared_prefix=False,
                  expect_churn=False):
+            if self.kv_quant_ == "pressure":
+                return "paged", paged   # no dense backend exists
             # the live attribute, so a caller who adjusts capacity sees
             # routing follow
             cap = capacity if capacity is not None else self.capacity

@@ -8,16 +8,18 @@ a pluggable routing policy, a QoS scheduling front door
 (``workload``), per-request TTFT/TPOT/SLO/goodput/fairness metrics
 (``metrics``), the host-only simulated factory (``sim.SimServing``), and
 the adapter and grammar caches (``adapters``, ``grammar``: their device
-banks come from the serving factory) and the host half of the
-host-memory tier (``hostmem``, whose engine option is refused until its
-device half is ported, ROADMAP item 11), and the multi-replica layer:
-the cluster router (``cluster.ClusterRouter``: round_robin /
-least_loaded / prefix_aware / disaggregated placement over N
-``EngineSession`` replicas on one shared virtual timeline, drain/join,
-KV handoffs across page sizes and into int8 pools), seeded fault plans
-with failover (``faults``) and the autoscaler (``autoscale``). Still
-refused by name, ROADMAP item 11: ``tp`` (and so a ``kv_reshard``
-handoff), ``kv_quant="pressure"``, ``hostmem`` and ``dispatch_ahead``.
+banks come from the serving factory), the memory tiers (the pressure
+page tier, ``kv_quant="pressure"`` / ``kv_quant_budget``, compacting
+parked pages into the pool's int8 arena; and the host-memory tier,
+``hostmem``, whose ``HostArena`` keeps spilled and preempted pages as
+pinned host copies), dispatch-ahead decode turns (``dispatch_ahead``),
+and the multi-replica layer: the cluster router
+(``cluster.ClusterRouter``: round_robin / least_loaded / prefix_aware /
+disaggregated placement over N ``EngineSession`` replicas on one shared
+virtual timeline, drain/join, KV handoffs across page sizes and into
+int8 or pressure pools), seeded fault plans with failover (``faults``)
+and the autoscaler (``autoscale``). Still refused by name: ``tp`` (ROADMAP
+item 11, option 6), and so a ``kv_reshard`` handoff.
 The whole stack is watchable by ``paddle_tpu_torch.obs``.
 """
 from .adapters import AdapterCache, AdapterStore  # noqa: F401

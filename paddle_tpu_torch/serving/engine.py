@@ -32,14 +32,19 @@ mode: same trace -> same completion order, timestamps, slot occupancy).
 The engine runs on its factory's device (``cuda`` unless the factory was
 built with ``device="cpu"``): multi-adapter LoRA (``adapters`` /
 ``lora``), constrained decoding (``grammar`` / ``grammar_config`` /
-``adapter_schemas``), speculative decoding (``spec`` / ``spec_draft``)
-and the fused ragged prefill lane (``ragged_prefill``) run on the
-factory's banks and programs there, and so do the handoff transforms
-``repage_kv_pages`` and ``transcode_kv_pages`` (to int8). Not ported
-yet, and refused by name in the constructor: ``tp``,
-``kv_quant="pressure"`` / ``kv_quant_budget``, ``hostmem`` and
-``dispatch_ahead`` (ROADMAP item 11); with them ``reshard_kv_pages``,
-which only a ``tp`` fleet reaches. Their branches stay in the code.
+``adapter_schemas``), speculative decoding (``spec`` / ``spec_draft``),
+the fused ragged prefill lane (``ragged_prefill``), the pressure page
+tier (``kv_quant="pressure"`` / ``kv_quant_budget``) and dispatch-ahead
+turns (``dispatch_ahead``: the next turn's decode is queued on the
+card's stream before the host's bookkeeping, and its first read back is
+its synchronisation) run on the factory's banks, pools and programs
+there, and so do the handoff transforms ``repage_kv_pages`` and
+``transcode_kv_pages``. The host-memory tier (``hostmem``) keeps its
+spilled pages as pinned host copies: a spill copies a page out of the
+device pool, a page-in copies it back. Not ported yet, and refused by
+name in the constructor: ``tp`` (ROADMAP item 11, option 6), and with it
+``reshard_kv_pages``, which only a ``tp`` fleet reaches; its branches
+stay in the code.
 """
 from __future__ import annotations
 
@@ -499,7 +504,20 @@ def load_engine_log(path: str) -> dict:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP item "
-                               "11)")
+                               "11, option 6)")
+
+
+def _to_host(data):
+    """An exported page's tensors as host copies, pinned when they come
+    from the card (the host arena then holds no device memory, and a
+    page-in copies them straight back); host data passes through."""
+    def one(a):
+        if isinstance(a, torch.Tensor) and a.is_cuda:
+            h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            h.copy_(a)
+            return h
+        return a
+    return _tree_map(one, data)
 
 
 def _jit_cache_size(fn) -> Optional[int]:
@@ -798,14 +816,8 @@ class ServingEngine:
                  grammar=None, grammar_config=None,
                  adapter_schemas=None, ledger=None, device=None):
         # Not ported yet: refused by name before anything is built.
-        for name, value in (
-                ("tp", tp), ("kv_quant_budget", kv_quant_budget),
-                ("hostmem", as_hostmem_config(hostmem)),
-                ("dispatch_ahead", dispatch_ahead or None)):
-            if value is not None:
-                raise _not_ported(f"ServingEngine({name}=...)")
-        if kv_quant == "pressure":
-            raise _not_ported("ServingEngine(kv_quant='pressure')")
+        if tp is not None:
+            raise _not_ported("ServingEngine(tp=...)")
         # ``device`` (model path only): where the factory puts the
         # weights and pools — ``cuda`` unless ``"cpu"`` is asked for. A
         # prebuilt factory's own device is authoritative.
@@ -947,9 +959,6 @@ class ServingEngine:
             kv_quant = fac_q
             if tp is not None:
                 raise _not_ported(f"serving a factory with tp_={tp}")
-            if kv_quant == "pressure":
-                raise _not_ported("serving a factory with "
-                                  "kv_quant_='pressure'")
             fac_g = getattr(serving, "grammar_", None)
             if grammar_config is not None and fac_g != grammar_config:
                 raise ValueError(
@@ -1675,7 +1684,7 @@ class ServingEngine:
         def spill_cb(p, quant):
             data = self._timed(
                 tr, clock, "kv_pageout",
-                lambda: self.export_kv_pages([p]),
+                lambda: _to_host(self.export_kv_pages([p])),
                 cost=self._hm_cost("kv_pageout", quant, hst),
                 page=p)
             m.on_pageout(clock.now(), 1)

@@ -1632,3 +1632,58 @@ def test_fused_multi_transformer_on_the_card_matches_the_cpu(card):
             step, cache = model(x[:, t:t + 1].to(card, torch.bfloat16),
                                 caches=cache, time_step=t)
         assert step.dtype == torch.bfloat16 and bool(step.isfinite().all())
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["pressure", "hostmem", "ahead"])
+def test_serving_tiers_on_the_card_match_the_cpu(card, part):
+    """The pressure, host-memory and dispatch-ahead engines on the fixed
+    clock over a small f32 Llama's serving factory (head_dim 64), as
+    chip_smoke.py's reference phase runs them: the same outputs, slot
+    logs, censuses and tier stats on the card and on the CPU; pages
+    compacted, spilled, paged in and preempted; the host arena holds only
+    pinned host tensors; dispatch-ahead equals the flag-off engine and
+    serves turns from its stash."""
+    readings, ok = _smoke()._reference_tiers(card, (part,))
+    assert ok, readings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 17, 32])
+def test_int8_matmul_on_the_card_is_exact(card, rows):
+    """``int8_matmul`` on the card (``torch._int_mm``, its operands padded
+    to the sizes it takes) gives the bits of the CPU's exact int32
+    product, at a decode step's 8 rows, at 17 and at 32, over inner and
+    outer sizes that are not multiples of 8 too."""
+    from paddle_tpu_torch.quantization import int8_matmul, quantize_stacked
+
+    rng = np.random.default_rng(rows)
+    for K, N in ((4096, 1024), (100, 36)):
+        x = torch.from_numpy(rng.standard_normal((rows, K))
+                             .astype(np.float32)).to(torch.bfloat16)
+        q, s = quantize_stacked(torch.from_numpy(
+            rng.standard_normal((K, N)).astype(np.float32)))
+        want = int8_matmul(x, q, s)
+        got = int8_matmul(x.to(card), q.to(card), s.to(card))
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["int8", "rolling", "spec"])
+def test_decode_options_on_the_card_match_the_cpu(card, part):
+    """int8 weights with the int8 cache, the rolling cache and the
+    speculative factory on small f32 Llamas, card against CPU from the
+    same weights, as chip_smoke.py's reference phase runs them: the same
+    greedy tokens, teacher-forced logits within 1e-4, and speculative
+    tokens and stats equal, and equal to plain greedy."""
+    readings, ok = _smoke()._reference_decode_options(card, (part,))
+    assert ok, readings

@@ -208,8 +208,6 @@ def test_state_dict_keys_match_reference():
 
 def test_factory_refuses_unported_options():
     _, tm = _models()
-    with pytest.raises(ValueError, match="pressure"):
-        llama_paged_decode_factory(tm, kv_quant="pressure", device="cpu")
     with pytest.raises(TypeError):
         llama_paged_decode_factory(tm, tp=2, device="cpu")
     # a model with fused projection weights: the decode programs read the

@@ -71,7 +71,9 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.serving.engine",
              "paddle_tpu_torch.serving.cluster",
              "paddle_tpu_torch.serving.autoscale",
-             "paddle_tpu_torch.serving.faults"):
+             "paddle_tpu_torch.serving.faults",
+             "paddle_tpu_torch.quantization",
+             "paddle_tpu_torch.quantization.int8"):
     assert name in names, name
 """
 

@@ -9,7 +9,9 @@ against the JAX package's, on the CPU.
   and action logs and the chrome trace (less its ``wall_s`` arguments,
   host wall time), for every placement, for drain and join, for an
   autoscaled flash crowd and for the heterogeneous fleets whose handoffs
-  are re-paged and transcoded to int8. A ``tp`` fleet is refused by name
+  are re-paged and transcoded to int8 or to the pressure tier, and for
+  fleets of pressure replicas (a twin adopts the chain with its tier
+  bits; another page geometry cannot). A ``tp`` fleet is refused by name
   in the port (ROADMAP item 11).
 * The reference tests' tiny f32 Llama, carried across with
   ``load_numpy_state_dict``, serves through both packages' serving
@@ -178,7 +180,11 @@ def test_sim_disaggregated_is_byte_identical(tmp_path):
 
 HETERO = {"page": (16, None, None), "codec": (8, "int8", None),
           "page+codec": (16, "int8", None), "tp": (8, None, 2),
-          "tp+page+codec": (16, "int8", 2)}
+          "tp+page+codec": (16, "int8", 2),
+          "pressure": (8, "pressure", None),
+          "page+pressure": (16, "pressure", None)}
+# the census names a transcode to either codec "codec"
+AXIS = {"pressure": "codec"}
 
 
 def _hetero_fleet(S, tracer, page, quant, tp):
@@ -213,8 +219,39 @@ def test_sim_hetero_fleet(axes, tmp_path):
                                                        quant, tp), tmp_path)
     assert_identical(ref, got)
     ho = json.loads(got["census"])["handoffs"]
-    assert ho["resharded"] == {a: 4 for a in axes.split("+")}
+    assert ho["resharded"] == {AXIS.get(a, a): 4 for a in axes.split("+")}
     assert ho["imported"] == 4 and ho["failed"] == 0
+
+
+@pytest.mark.parametrize("decode_page", [8, 16])
+def test_sim_pressure_fleet(decode_page, tmp_path):
+    """A pressure prefill replica hands its chains (tier bits with them)
+    to a pressure decode replica: a twin adopts every one; across page
+    geometries none can be re-paged, and each fails as untransformable,
+    as in the reference."""
+    def run(S, O, tracer):
+        trace = [S.Request(rid=f"q{i}", arrival=float(i),
+                           prompt=tuple(range(1, 11 + i)), max_new_tokens=4)
+                 for i in range(4)]
+
+        def spawn(name):
+            return _sim_engine(S, slots=8, max_len=96, extra=16,
+                               costs=HETERO_COSTS, decode_chunk=4,
+                               kv_quant="pressure",
+                               page_size=8 if name == "r0" else decode_page)
+        return S.ClusterRouter(spawn, 2, placement="disaggregated",
+                               roles={"r0": "prefill", "r1": "decode"},
+                               kv_transfer_unit=0.05, trace=tracer,
+                               cost_ledger=True).run(trace)
+    ref, got = both(run, tmp_path)
+    assert_identical(ref, got)
+    ho = json.loads(got["census"])["handoffs"]
+    if decode_page == 8:
+        assert ho["imported"] == 4 and ho["failed"] == 0
+        assert "resharded" not in ho
+    else:
+        assert ho["failed"] == 4
+        assert all("untransformable" in m for m in got["failed"].values())
 
 
 # --- the autoscaler ------------------------------------------------------------

@@ -12,9 +12,10 @@ JAX package's, on the CPU.
   routed, dense and paged policies equal the reference's, and the three
   policies' outputs equal each other.
 * The options of ROADMAP item 11 that are ported (adapters, grammar,
-  speculative decoding, the ragged lane) are built and serve a request;
-  every option that is not ported yet raises an error that names its
-  ROADMAP item.
+  speculative decoding, the ragged lane) are built and serve a request
+  (the memory tiers and dispatch-ahead are held in
+  ``test_torch_serving_tiers.py``); ``tp``, which is not ported yet,
+  raises an error that names its ROADMAP item.
 """
 import dataclasses
 import json
@@ -448,13 +449,7 @@ def test_option_is_built_and_serves(tiny, name):
         assert res.spec_stats["rounds"] > 0
 
 
-REFUSED = {
-    "tp": dict(tp=2),
-    "kv_quant='pressure'": dict(kv_quant="pressure"),
-    "kv_quant_budget": dict(kv_quant_budget=1 << 20),
-    "hostmem": dict(hostmem=1 << 20),
-    "dispatch_ahead": dict(dispatch_ahead=True),
-}
+REFUSED = {"tp": dict(tp=2)}
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
@@ -464,16 +459,18 @@ def test_engine_refuses_what_is_not_ported(tiny, name):
 
 
 def test_engine_refuses_unported_factories_and_transforms(tiny):
-    """``tp`` and ``"pressure"`` factories and the ``kv_reshard`` data
-    plane refuse, naming ROADMAP item 11. The ``kv_repage`` and
-    ``kv_transcode`` data planes of an int8 engine of 16-token pages give
-    the reference engine's bytes on a chain of the tiny factory's pool
-    (3 pages of 8, 19 tokens): re-paged to 2 pages of 16, then to int8."""
+    """A ``tp`` factory and the ``kv_reshard`` data plane refuse, naming
+    ROADMAP item 11. The ``kv_repage`` and ``kv_transcode`` data planes
+    of an int8 engine of 16-token pages give the reference engine's bytes
+    on a chain of the tiny factory's pool (3 pages of 8, 19 tokens):
+    re-paged to 2 pages of 16, then to int8; and the chain transcoded to
+    the pressure tier gives the reference's bits."""
+    from paddle_tpu.models.nlp.llama_decode import (
+        transcode_kv_data as jax_transcode)
     from paddle_tpu_torch.models.nlp.llama_decode import transcode_kv_data
 
-    for srv in (T.SimServing(tp=2), T.SimServing(kv_quant="pressure")):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 11"):
-            T.ServingEngine(serving=srv, slots=4, policy="paged")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 11"):
+        T.ServingEngine(serving=T.SimServing(tp=2), slots=4, policy="paged")
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 11"):
         T.ServingEngine(serving=tiny["srv"], slots=4).reshard_kv_pages(None)
     src = T.ServingEngine(serving=tiny["srv"], slots=4, policy="paged",
@@ -498,29 +495,16 @@ def test_engine_refuses_unported_factories_and_transforms(tiny):
         assert g[0].dtype == torch.int8
         for gl, rl in zip(g, r):
             assert gl.numpy().tobytes() == np.asarray(rl).tobytes()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 11"):
-        transcode_kv_data(chain, None, "pressure")
+    got = transcode_kv_data(chain, None, "pressure")
+    want = jax_transcode(tuple(c.numpy() for c in chain), None, "pressure")
+    for g, r in zip(got[0] + got[1] + (got[2],),
+                    want[0] + want[1] + (want[2],)):
+        assert g.numpy().tobytes() == np.asarray(r).tobytes()
 
 
-@pytest.mark.parametrize("option", [dict(tp=2), dict(kv_quant="pressure")])
+@pytest.mark.parametrize("option", [dict(tp=2)])
 def test_serving_factory_refuses_what_is_not_ported(tiny, option):
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 11"):
         llama_serving_decode_factory(tiny["model"], device="cpu",
                                      chunked_prefill=64, **option)
 
-
-def test_dense_factory_refuses_what_is_not_ported(tiny):
-    import dataclasses
-
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 10"):
-        llama_decode_factory(tiny["model"], weight_dtype="int8",
-                             device="cpu")
-    cfg = dataclasses.replace(tiny["cfg"], sliding_window=16)
-    windowed = load_numpy_state_dict(
-        LlamaForCausalLM(cfg, device="cpu"),
-        {k: v.numpy() for k, v in tiny["model"].state_dict().items()})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 10"):
-        llama_decode_factory(windowed, max_len=48, device="cpu")
-    # a window no shorter than max_len is no rolling cache: it serves
-    gen = llama_decode_factory(windowed, max_len=16, device="cpu")
-    assert gen(np.ones((1, 4), np.int64), 3).shape == (1, 7)
