@@ -9,6 +9,7 @@ trains.
     python3 chip_smoke.py --phases build,kernel,train_mha,train_window
     python3 chip_smoke.py --phases build,kernel,train_encoder
     python3 chip_smoke.py --phases build,reference,train_bert
+    python3 chip_smoke.py --phases kernel,reference,train_eager
     python3 chip_smoke.py --phases build,reference,train_resnet50
     python3 chip_smoke.py --phases build,reference,train_full,train_long
     python3 chip_smoke.py --phases build,reference,train_moe
@@ -71,7 +72,12 @@ Phases, each printing JSON lines:
      128, bf16, the band of window 4096 as the model builds it), then G = 1
      banded, a random mask with an empty block row (out exactly 0, lse
      exactly NEG_INF), a shifted query frame, mask blocks of 16 (smaller
-     than the kernels' tiles) and f32;
+     than the kernels' tiles) and f32; then at ``F.block_sparse_attention``'s
+     call (``block_sparse``: B=4, 12 heads, S=4096, head_dim 64, bf16, a
+     BigBird pattern of 128 x 128 blocks: 3 sliding, 2 global, 3 random a
+     row from a seed), the wrappers as above, then the entry point forward
+     and backward through the kernels (one launch of each, counted from 0)
+     against the same call with their plain versions;
      the yardstick of the three attention kinds is
      ``F.scaled_dot_product_attention`` (causal, or the live pairs as a
      boolean mask; K/V repeated where a backend refuses ``enable_gqa``)
@@ -427,6 +433,33 @@ Phases, each printing JSON lines:
    log-softmax, matrix products, the rest), idle share and kernels a
    step.
 
+13b. ``train_eager``: the everyday Paddle loop on BERT-base (``BertConfig()``,
+   f32 parameters, dropout live, B=32, S=512, ``train_bert``'s batch)
+   through the port's eager training API: ``optimizer.AdamW`` over
+   ``optimizer.lr.LinearWarmup(PolynomialDecay(1e-4, 1000, 0.0), 2, 0.0,
+   1e-4)``, weight decay 0.01, ``nn.ClipGradByGlobalNorm(1.0)``,
+   ``amp.GradScaler(init_loss_scaling=2**15)``; each step ``auto_cast``,
+   the model and its ``loss`` (``F.cross_entropy``), ``scaler.scale(loss)
+   .backward()``, ``scaler.minimize`` (which updates the scale itself),
+   ``clear_grad``, ``scheduler.step()``. First one O1 forward and
+   backward of a 2-layer BERT at full width with the multi-head flash
+   kernels and one with their plain versions (identical weights, batch
+   and dropout draws: |Δloss| and every parameter's relative gradient
+   error). Then two parts from the same initial weights, each with a
+   fresh optimizer, scheduler and scaler: O1 (``auto_cast(level="O1",
+   dtype="bfloat16")``) and O2 (``amp.decorate``: bf16 parameters, f32
+   masters). Each: a warm-up step under the op census
+   (``ops.dispatch.census``: dtypes in and out by op name), the launch
+   counts set to 0, 5 timed steps (host clock up to the loss on the
+   host), then a forward and backward alone and one more whole step (the
+   optimizer's share). Checks: losses finite and falling; exactly 12 + 12
+   + 12 multi-head flash launches a step and no other kernel; the flash
+   inputs bf16; under O1 every parameter f32, the layer norms' outputs
+   and the CE's input f32; under O2 every parameter equal to its f32
+   master rounded to bf16 after each step. Records step ms, tokens/s, MFU
+   (``train_bert``'s count), peak memory, the optimizer's ms and share,
+   the census.
+
 14. ``train_resnet50``: ``resnet50()`` (1000 classes, full depth and
     width), bf16 parameters with f32 masters, f32 batch-norm buffers, on
     B=256 seeded class-template images of 3 x 224 x 224 (NCHW; one
@@ -607,6 +640,27 @@ ENCODER = dict(layers=12, d_model=768, nhead=12, dim_feedforward=3072,
 BERT = dict(B=32, S=512, steps=5, warmup=1, seed=0, mlm_share=0.15)
 BERT_LOSS_ATOL = 0.025
 BERT_GRAD_REL = 0.04
+# train_eager: BertForPretraining at BertConfig()'s BERT-base, f32
+# parameters, B=32, S=512, dropout live, trained by the everyday loop
+# (auto_cast, GradScaler at 2**15, AdamW over LinearWarmup(PolynomialDecay),
+# ClipGradByGlobalNorm(1.0), scheduler.step() after each step): O1, then O2
+# (decorate: bf16 parameters, f32 masters) from the same initial weights;
+# one warm-up step and 5 timed steps each. Kernels against plain versions:
+# one O1 forward+backward of a 2-layer BERT at full width, identical
+# weights, batch and dropout draws: bf16 roundings apart in the attention
+# of each layer, carried into f32 gradients (O1 keeps f32 parameters, so
+# no bf16 rounding of the gradients hides them). Readings: loss 0.00324
+# apart (of 115.87); gradients 0.0179 median, 0.0360 worst (the position
+# embedding, a sum over the batch of each position's gradient); the key
+# biases apart (NOISE_GRAD_PARAMS: 0.57, 0.96). Limits about twice them
+# (PERF.md §2).
+EAGER = dict(B=32, S=512, steps=5, warmup=1, seed=0, lr=1e-4,
+             check_layers=2)
+EAGER_LOSS_ATOL = 0.0065
+# the kernel phase's block_sparse case: F.block_sparse_attention at a
+# long-document encoder's call, BigBird's pattern of 128 x 128 blocks
+BLOCK_SPARSE = dict(B=4, S=4096, block=128, seed=0)
+EAGER_GRAD_REL = 0.072
 # the small f32 BERT of the reference phase: head_dim 64 at S = 256, the
 # flash gate's shape (card: the kernels; CPU: their plain versions)
 BERT_SMALL = dict(vocab_size=1024, hidden_size=128, num_hidden_layers=2,
@@ -1400,6 +1454,68 @@ def _ln_against_library(N, H, seed, dev, flush):
             "library_slower_beyond_noise": lib["q1"] > k["q3"]}
 
 
+def _bigbird_mask(n, seed, sliding=3, n_global=2, n_random=3):
+    """BigBird's block pattern over n x n blocks: each block row sees its
+    ``sliding`` nearest blocks (itself and its neighbours), the first
+    ``n_global`` blocks (which see every block) and ``n_random`` blocks
+    drawn from ``seed``."""
+    bm = np.zeros((n, n), bool)
+    half = sliding // 2
+    for i in range(n):
+        bm[i, max(0, i - half):i + half + 1] = True
+    bm[:, :n_global] = True
+    bm[:n_global, :] = True
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        bm[i, rng.choice(n, n_random, replace=False)] = True
+    return bm
+
+
+def _block_sparse_call(bm, dev, seed):
+    """``F.block_sparse_attention`` forward and backward at a long-document
+    encoder's call (B=4, S=4096, 12 heads, head_dim 64, bf16, (B, S, H, D)
+    layout, 128 x 128 blocks), its launches counted from 0, against the
+    same call with the splash kernels' plain versions on the same
+    inputs."""
+    from paddle_tpu_torch.nn import functional as F
+
+    sa = importlib.import_module("paddle_tpu_torch.ops.splash_attention")
+    B, S, H, D = BLOCK_SPARSE["B"], BLOCK_SPARSE["S"], 12, 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    plain = [(sa, "splash_fwd", sa._splash_fwd_plain),
+             (sa, "splash_bwd", sa._splash_bwd_plain)]
+
+    def run(swap):
+        with _swapped(plain, swap):
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.block_sparse_attention(qs, ks, vs, bm, False,
+                                           BLOCK_SPARSE["block"],
+                                           BLOCK_SPARSE["block"])
+            grads = torch.autograd.grad(out, (qs, ks, vs), do)
+            torch.cuda.synchronize()
+        return out.detach(), grads
+
+    owner = sa.splash_attention
+    owner.launches_fwd = owner.launches_dq = owner.launches_dkv = 0
+    out, grads = run(False)
+    launches = {"splash_fwd": owner.launches_fwd,
+                "splash_dq": owner.launches_dq,
+                "splash_dkv": owner.launches_dkv}
+    want_out, want_grads = run(True)
+    tol = GQA_TOL["bfloat16"]
+    checks = {"out": _check(out, want_out, *tol["out"])}
+    for n, a, b in zip(("dq", "dk", "dv"), grads, want_grads):
+        checks[n] = _check(a, b, *tol["grad"])
+    ok = (launches == {k: 1 for k in launches}
+          and all(r <= 1.0 for _, r in checks.values()))
+    return {"entry": "F.block_sparse_attention", "entry_ok": ok,
+            "entry_launches": launches,
+            "entry_checks": {n: {"max_abs_err": e, "max_err_over_tol": r}
+                             for n, (e, r) in checks.items()}}
+
+
 def phase_kernel(dev):
     Hkv, G, D, ps, W, P = 8, 4, 128, 64, 32, 8 * 32 + 1
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -1512,6 +1628,21 @@ def phase_kernel(dev):
               enumerate(_splash_cases(), start=12)]
     for c in splash:
         emit({"phase": "kernel", **c})
+    # the splash kernels at F.block_sparse_attention's call: a BigBird
+    # pattern of 128 x 128 blocks at S=4096 (kernel wrappers, then the
+    # entry point forward and backward against its plain versions)
+    bs = BLOCK_SPARSE
+    bs_mask = _bigbird_mask(bs["S"] // bs["block"], bs["seed"])
+    block_sparse = [_attention_case(
+        "block_sparse_bigbird_B4_S4096_D64_noncausal/bfloat16", "splash",
+        bs["B"], 12, 1, bs["S"], bs["S"], 64, "bfloat16", 32, dev, flush,
+        causal=False, mask=(bs_mask, bs["block"], bs["block"], None, 0))]
+    block_sparse[0].update(_block_sparse_call(bs_mask, dev, 33))
+    block_sparse[0]["ok"] = block_sparse[0]["ok"] and \
+        block_sparse[0]["entry_ok"]
+    block_sparse[0]["mask_live_blocks"] = int(bs_mask.sum())
+    for c in block_sparse:
+        emit({"phase": "kernel", **c})
     # the multi-head kernels at the train_encoder phase's call: BERT-base
     # width, non-causal
     mha_enc = [_attention_case("mha_encoder_B32_S512_D64_noncausal/bfloat16",
@@ -1536,7 +1667,7 @@ def phase_kernel(dev):
     for c in ln_retime:
         emit({"phase": "kernel", **c})
     bad = [c["case"] for c in cases + gqa + ce + gqa_long + gqa_moe + mha
-           + splash + mha_enc + norm if not c["ok"]]
+           + splash + block_sparse + mha_enc + norm if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"or did not launch once: {bad}")
@@ -1544,7 +1675,8 @@ def phase_kernel(dev):
     torch.cuda.empty_cache()
     return {"paged": cases, "gqa": gqa, "ce": ce, "gqa_long": gqa_long,
             "gqa_moe": gqa_moe, "mha": mha,
-            "splash": splash, "mha_encoder": mha_enc, "norm": norm,
+            "splash": splash, "block_sparse": block_sparse,
+            "mha_encoder": mha_enc, "norm": norm,
             "ln_retime": ln_retime}
 
 
@@ -5816,6 +5948,266 @@ def phase_train_bert(dev, profile=False):
     return out
 
 
+# --- phase 13b: the eager training API on BERT-base (optimizer, amp) -------
+
+def _eager_loss(model, batch):
+    """The everyday loop's loss: the model, then its ``loss``
+    (``F.cross_entropy`` of the MLM and NSP heads)."""
+    ids, types, mlm, nsp = batch
+    return model.loss(*model(ids, types), mlm, nsp)
+
+
+def _eager_opt(model):
+    """The phase's optimizer and scheduler: AdamW over a linear warm-up
+    into a polynomial decay, weight decay 0.01, the global-norm clip."""
+    from paddle_tpu_torch import nn as pnn, optimizer
+
+    sched = optimizer.lr.LinearWarmup(
+        optimizer.lr.PolynomialDecay(EAGER["lr"], 1000, 0.0), 2, 0.0,
+        EAGER["lr"])
+    opt = optimizer.AdamW(learning_rate=sched,
+                          parameters=model.parameters(),
+                          weight_decay=0.01,
+                          grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+    return opt, sched
+
+
+def _eager_step(model, opt, sched, scaler, batch, level):
+    """One step of the everyday loop under ``auto_cast(level)``; returns
+    the loss read on the host."""
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast(level=level, dtype="bfloat16"):
+        loss = _eager_loss(model, batch)
+    scaled = scaler.scale(loss)
+    scaled.backward()
+    scaler.minimize(opt, scaled)      # calls update() itself
+    opt.clear_grad()
+    sched.step()
+    return float(loss.detach())
+
+
+def _eager_fwd_bwd(model, batch, level):
+    """The forward and backward alone (the gradients dropped), up to a
+    synchronise: host seconds."""
+    from paddle_tpu_torch import amp
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with amp.auto_cast(level=level, dtype="bfloat16"):
+        loss = _eager_loss(model, batch)
+    torch.autograd.grad(loss, [p for p in model.parameters()
+                               if p.requires_grad])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _census_summary(census):
+    """{op name: {"in -> out": calls}} of a dispatch census."""
+    out = {}
+    for name, calls in census.items():
+        kinds = out.setdefault(name, {})
+        for ins, outs in calls:
+            key = f"{','.join(ins)} -> {','.join(outs)}"
+            kinds[key] = kinds.get(key, 0) + 1
+    return out
+
+
+def _eager_checks(dev, cfg, batch):
+    """Kernels against plain versions under O1: one forward and backward
+    of a 2-layer BERT at full width (f32 parameters), identical weights,
+    batch and dropout draws. Returns (loss diff, {param: rel grad err},
+    {noise param: rel grad err})."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.models.nlp import BertForPretraining
+
+    seed = EAGER["seed"]
+    gen = Generator(seed)
+    small = BertForPretraining(dataclasses.replace(
+        cfg, num_hidden_layers=EAGER["check_layers"]), device=dev,
+        generator=gen)
+    small.train()
+    names = [k for k, _ in small.named_parameters()]
+
+    def run(swap):
+        with _swapped(_mha_swaps(), swap):
+            gen.manual_seed(seed + 2)
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = _eager_loss(small, batch)
+            grads = torch.autograd.grad(loss, list(small.parameters()))
+            torch.cuda.synchronize()
+        return float(loss.detach()), grads
+
+    loss_k, grads_k = run(False)
+    loss_p, grads_p = run(True)
+    rel, noise = {}, {}
+    for k, a, b in zip(names, grads_k, grads_p):
+        (noise if k.endswith(NOISE_GRAD_PARAMS) else rel)[k] = float(
+            (a.float() - b.float()).norm() / b.float().norm())
+    del small, grads_k, grads_p
+    return loss_k, loss_p, rel, noise
+
+
+def _eager_part(model, batch, level, init, flash_dtypes):
+    """One part of train_eager: the model reset to ``init``, a fresh
+    optimizer, scheduler and GradScaler (``decorate`` at O2), a warm-up
+    step (with the op census), then launch counts from 0 and the timed
+    steps, then a forward and backward alone and one more whole step (the
+    optimizer's share)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import dispatch
+
+    e = EAGER
+    model.float()
+    model.load_state_dict(init)
+    opt, sched = _eager_opt(model)
+    if level == "O2":
+        model, opt = amp.decorate(model, opt, level="O2")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    flash_dtypes.clear()
+    with dispatch.census() as census:
+        warmup = [_eager_step(model, opt, sched, scaler, batch, level)
+                  for _ in range(e["warmup"])]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    losses, step_s, masters_ok = [], [], True
+    for _ in range(e["steps"]):
+        t0 = time.perf_counter()
+        losses.append(_eager_step(model, opt, sched, scaler, batch, level))
+        step_s.append(time.perf_counter() - t0)
+        if level == "O2":
+            masters_ok = masters_ok and all(
+                torch.equal(p, opt._accumulators[id(p)]["_master"]
+                            .to(p.dtype)) for p in model.parameters())
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd_bwd = _eager_fwd_bwd(model, batch, level)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _eager_step(model, opt, sched, scaler, batch, level)
+    whole = time.perf_counter() - t0
+    summary = _census_summary(census)
+    param_dtypes = sorted({str(p.dtype).removeprefix("torch.")
+                           for p in model.parameters()})
+    ins = {name: sorted({i for i, _ in census.get(name, [])})
+           for name in ("layer_norm", "cross_entropy")}
+    outs = {name: sorted({o for _, o in census.get(name, [])})
+            for name in ("layer_norm", "cross_entropy")}
+    out = {"level": level, "warmup_losses": warmup, "losses": losses,
+           "step_ms": [1e3 * t for t in step_s],
+           "step_ms_median": 1e3 * statistics.median(step_s),
+           "fwd_bwd_ms": 1e3 * fwd_bwd, "whole_step_ms": 1e3 * whole,
+           "optimizer_ms": 1e3 * (whole - fwd_bwd),
+           "optimizer_share": (whole - fwd_bwd) / whole,
+           "peak_mem_gb": peak_gb, "launches": counts,
+           "param_dtypes": param_dtypes,
+           "flash_input_dtypes": sorted(flash_dtypes),
+           "census": summary, "loss_scale": scaler._scale,
+           "lr_last": opt.get_lr()}
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and flash_dtypes == {("bfloat16",) * 3})
+    if level == "O1":
+        ok = (ok and param_dtypes == ["float32"]
+              and ins["cross_entropy"] == [("float32", "int64")]
+              and all(o == ("float32",) for o in outs["layer_norm"]))
+    else:
+        out["masters_equal_params"] = masters_ok
+        ok = ok and masters_ok and "bfloat16" in param_dtypes
+    out["ok"] = ok
+    del opt, sched, scaler
+    return out
+
+
+def phase_train_eager(dev):
+    """BERT-base trained by the everyday Paddle loop (``loss.backward();
+    opt.step(); opt.clear_grad()`` under ``amp.auto_cast``) through the
+    port's ``optimizer``, ``optimizer.lr``, ``nn.ClipGradByGlobalNorm``
+    and ``amp``: O1 then O2 (``amp.decorate``), each from the same initial
+    weights."""
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.models.nlp import BertConfig, BertForPretraining
+
+    fm = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    e = EAGER
+    B, S, seed = e["B"], e["S"], e["seed"]
+    cfg = BertConfig()
+    L, d, heads = (cfg.num_hidden_layers, cfg.hidden_size,
+                   cfg.num_attention_heads)
+    batch = _bert_batch(cfg.vocab_size, B, S, seed + 1, dev)
+    loss_k, loss_p, rel, noise = _eager_checks(dev, cfg, batch)
+    worst = max(rel, key=rel.get)
+    gen = Generator(seed)               # weights, then every dropout draw
+    model = BertForPretraining(cfg, device=dev, generator=gen)
+    model.train()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    flash_dtypes = set()
+    real_fwd = fm.mha_fwd
+
+    def spy(q, k, v, *a, **kw):
+        flash_dtypes.add(tuple(str(t.dtype).removeprefix("torch.")
+                               for t in (q, k, v)))
+        return real_fwd(q, k, v, *a, **kw)
+
+    parts = {}
+    with _swapped([(fm, "mha_fwd", spy)]):
+        for level in ("O1", "O2"):
+            parts[level] = _eager_part(model, batch, level, init,
+                                       flash_dtypes)
+    want = {k: 0 for k in parts["O1"]["launches"]}
+    want.update({"mha_fwd": L * e["steps"], "mha_dq": L * e["steps"],
+                 "mha_dkv": L * e["steps"]})
+    F_, V = cfg.intermediate_size, cfg.vocab_size
+    matmul_params = L * (4 * d * d + 2 * d * F_) + d * d + d * V
+    pairs = B * heads * S * S                    # non-causal
+    flops = 6 * matmul_params * B * S + 12 * (d // heads) * pairs * L
+    for part in parts.values():
+        step = part["step_ms_median"] / 1e3
+        part.update({"tokens_per_s": B * S / step,
+                     "mfu": flops / step / BF16_FLOP_PER_S,
+                     "launches_expected": want,
+                     "ok": part["ok"] and part["launches"] == want})
+    total = {}
+    for part in parts.values():
+        for k, n in part["launches"].items():
+            total[k] = total.get(k, 0) + n
+    out = {"phase": "train_eager", "model": "bert_base",
+           "config": dataclasses.asdict(cfg), "layers": L,
+           "param_dtype": "float32 (O1); bfloat16 + float32 masters (O2)",
+           "B": B, "S": S, "tokens_per_step": B * S,
+           "steps": e["steps"], "warmup_steps": e["warmup"],
+           "optimizer": "AdamW(LinearWarmup(PolynomialDecay(1e-4, 1000, "
+                        "0.0), 2, 0.0, 1e-4), weight_decay=0.01, "
+                        "grad_clip=ClipGradByGlobalNorm(1.0)); "
+                        "GradScaler(init_loss_scaling=2**15)",
+           "step_flops": flops, "matmul_params": matmul_params,
+           "mfu_formula": "as train_bert: (6*matmul_params*tokens + "
+                          "12*head_dim*pairs*layers) / step_s / 989e12",
+           "O1": parts["O1"], "O2": parts["O2"], "launches": total,
+           "check_layers": e["check_layers"],
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_diff": abs(loss_k - loss_p),
+           "loss_atol": EAGER_LOSS_ATOL,
+           "grad_rel_err_max": rel[worst], "grad_rel_err_worst": worst,
+           "grad_rel_err_median": statistics.median(rel.values()),
+           "grad_rel_limit": EAGER_GRAD_REL, "grad_rel_err": rel,
+           "noise_grad_rel_err": noise}
+    ok = (parts["O1"]["ok"] and parts["O2"]["ok"]
+          and out["loss_diff"] <= EAGER_LOSS_ATOL
+          and rel[worst] <= EAGER_GRAD_REL)
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError("train_eager phase failed: " + json.dumps(
+            {k: v for k, v in out.items()
+             if k not in ("grad_rel_err", "config")}))
+    del model, init
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- phase 14: ResNet-50 training (vision/models/resnet.py) ----------------
 
 def _conv_fc_macs(model, x):
@@ -6259,7 +6651,8 @@ PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "serve_features", "serve_cluster", "serve_tiers",
           "decode_options", "train", "train_mha",
           "train_window", "train_full", "train_long", "train_moe",
-          "train_encoder", "train_bert", "train_resnet50", "train_gpt",
+          "train_encoder", "train_bert", "train_eager", "train_resnet50",
+          "train_gpt",
           "transformer", "fused_decode")
 
 
@@ -6432,6 +6825,12 @@ def _kernels_line(kern, serve, engine, features, cluster, tiers, trains,
             fwd["launches"] = (fwd["launches"] or 0) \
                 + rolled["launches_fwd"]
         kernels += splash
+    if kern.get("block_sparse"):
+        # F.block_sparse_attention's own call in the kernel phase
+        c = kern["block_sparse"][0]
+        kernels += _attention_entries(
+            "splash_block_sparse", SPLASH_SOURCE, SPLASH_FWD_REPLACES,
+            SPLASH_BWD_REPLACES, "splash", c, c["entry_launches"], card)
     enc_launches = trains.get("train_encoder", {}).get("launches", {})
     if kern.get("mha_encoder"):
         # the multi-head kernels again, at the train_encoder phase's call
@@ -6445,6 +6844,12 @@ def _kernels_line(kern, serve, engine, features, cluster, tiers, trains,
             "flash_mha_bert", GQA_SOURCE, MHA_FWD_REPLACES,
             MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0],
             trains.get("train_bert", {}).get("launches", {}), card)
+        # and at the train_eager phase's (O1 and O2 together): the same
+        # shapes again
+        kernels += _attention_entries(
+            "flash_mha_eager", GQA_SOURCE, MHA_FWD_REPLACES,
+            MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0],
+            trains.get("train_eager", {}).get("launches", {}), card)
         # and at the transformer phase's: encoder self-attention and
         # cross-attention of Transformer-base
         kernels += _attention_entries(
@@ -6537,6 +6942,8 @@ def main():
     if "train_bert" in phases:
         trains["train_bert"] = run("train_bert", phase_train_bert, dev,
                                    profile=args.profile)
+    if "train_eager" in phases:
+        trains["train_eager"] = run("train_eager", phase_train_eager, dev)
     if "train_resnet50" in phases:
         trains["train_resnet50"] = run("train_resnet50",
                                        phase_train_resnet50, dev,

@@ -31,6 +31,8 @@ from ... import nn as pnn
 from ...core.generator import torch_generator
 from ...core.place import resolve_device
 from ...nn import functional as F
+from ...ops.dispatch import apply_op
+from ...ops.linalg import matmul
 
 
 @dataclasses.dataclass
@@ -84,7 +86,13 @@ class BertEmbeddings(nn.Module):
 
 def additive_mask(attention_mask):
     """(B, S) 1 = attend / 0 = padding -> the reference's additive float32
-    mask (B, 1, 1, S): 0 where attended, float32's lowest elsewhere."""
+    mask (B, 1, 1, S): 0 where attended, float32's lowest elsewhere; the
+    op ``bert_mask`` of the dispatch, without gradient."""
+    return apply_op("bert_mask", _additive_mask, attention_mask,
+                    nondiff=True)
+
+
+def _additive_mask(attention_mask):
     m = attention_mask.to(torch.float32)
     return ((1.0 - m) * torch.finfo(torch.float32).min)[:, None, None, :]
 
@@ -141,8 +149,8 @@ class BertForPretraining(nn.Module):
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
         h = self.mlm_norm(self.act(self.mlm_transform(seq)))
-        mlm_logits = torch.matmul(
-            h, self.bert.embeddings.word_embeddings.weight.t())
+        mlm_logits = matmul(h, self.bert.embeddings.word_embeddings.weight,
+                            transpose_y=True)
         return mlm_logits, self.nsp_head(pooled)
 
     def loss(self, mlm_logits, nsp_logits, mlm_labels, nsp_labels,

@@ -8,36 +8,52 @@ the reference leaves it to XLA, through ``ops.linalg.matmul``, which
 promotes mixed dtypes as ``jnp.matmul`` does. ``embedding`` is the
 reference's formula: take the rows, then multiply the output by ``ids !=
 padding_idx`` (so a padding row that is not zero still reads as zero, and
-gets no gradient); ``sparse=True`` is refused. ``dropout`` takes the
+gets no gradient); with ``sparse=True`` the weight's gradient is a
+sparse COO tensor holding the looked-up rows (torch's sparse embedding
+gradient, the reference's ``SelectedRows``), without the padding ids'
+rows, as the reference drops them (``_internal_sparse_embed.py:38-48``),
+and the lookup is not a dispatched op, as there. ``dropout`` takes the
 reference's arguments in the reference's order (``p``, ``axis``,
 ``training``, ``mode``) and draws its mask from a ``torch.Generator`` on
-x's device (``core.generator``), given by keyword.
+x's device (``core.generator``), given by keyword. Each goes through
+the op dispatch (``ops.dispatch``) under the reference's op name.
 """
 from __future__ import annotations
 
 import torch
 
 from ...core.generator import torch_generator
+from ...ops.dispatch import apply_op
 from ...ops.linalg import matmul
+
+
+def _linear(x, weight, bias):
+    out = matmul(x, weight)
+    return out + bias if bias is not None else out
 
 
 def linear(x, weight, bias=None):
     """x (..., in) @ weight (in, out) (+ bias (out,))."""
-    out = matmul(x, weight)
-    return out + bias if bias is not None else out
+    return apply_op("linear", _linear, x, weight, bias)
+
+
+def _embedding(x, weight, padding_idx, sparse=False):
+    pad = padding_idx if sparse and padding_idx is not None and \
+        0 <= padding_idx < weight.shape[0] else None
+    out = torch.nn.functional.embedding(x, weight, padding_idx=pad,
+                                        sparse=sparse)
+    if padding_idx is not None:
+        out = out * (x != padding_idx)[..., None].to(out.dtype)
+    return out
 
 
 def embedding(x, weight, padding_idx=None, sparse=False):
     """Rows of ``weight`` (num, dim) at the integer ids ``x`` -> (*x.shape,
     dim); rows at ``padding_idx`` are zeroed in the output."""
     if sparse:
-        raise NotImplementedError(
-            "embedding(sparse=True) (the SelectedRows gradient) is not "
-            "ported yet: ROADMAP Queue 1 item 12")
-    out = torch.nn.functional.embedding(x, weight)
-    if padding_idx is not None:
-        out = out * (x != padding_idx)[..., None].to(out.dtype)
-    return out
+        return _embedding(x, weight, padding_idx, sparse=True)
+    return apply_op("embedding", _embedding, x, weight,
+                    padding_idx=padding_idx)
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
@@ -61,6 +77,11 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if not training:
         return x if mode == "upscale_in_train" else (x * (1.0 - p)).to(
             x.dtype)
+    return apply_op("dropout", _dropout, x, p=p, axis=axis, mode=mode,
+                    generator=generator)
+
+
+def _dropout(x, p, axis, mode, generator):
     shape = list(x.shape)
     if axis is not None:
         axes = [axis] if isinstance(axis, int) else list(axis)

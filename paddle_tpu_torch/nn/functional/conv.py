@@ -16,7 +16,8 @@ take (asymmetric ones) are applied with ``F.pad`` first. Channel-last
 layouts (``NLC``, ``NHWC``, ``NDHWC``) are moved to channel-first around
 the convolution. The bias is added after the convolution, as in the
 reference. Transposed convolutions are not ported yet (ROADMAP Queue 1
-item 16).
+item 16). Each goes through the op dispatch (``ops.dispatch``) as
+``conv1d`` / ``conv2d`` / ``conv3d``.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ import numbers
 
 import torch
 import torch.nn.functional as F
+
+from ...ops.dispatch import apply_op
 
 CHANNEL_LAST = ("NLC", "NHWC", "NDHWC")
 
@@ -100,20 +103,27 @@ def _conv_nd(x, weight, bias, stride, padding, dilation, groups, n,
     return torch.movedim(out, 1, -1) if channel_last else out
 
 
+def _conv(name, x, weight, bias, stride, padding, dilation, groups, n,
+          data_format):
+    return apply_op(name, _conv_nd, x, weight, bias, stride=stride,
+                    padding=padding, dilation=dilation, groups=groups, n=n,
+                    data_format=data_format)
+
+
 def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCL"):
     fmt = "NLC" if data_format == "NLC" else "NCL"
-    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
-                    fmt)
+    return _conv("conv1d", x, weight, bias, stride, padding, dilation,
+                 groups, 1, fmt)
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
-    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
-                    data_format)
+    return _conv("conv2d", x, weight, bias, stride, padding, dilation,
+                 groups, 2, data_format)
 
 
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCDHW"):
-    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,
-                    data_format)
+    return _conv("conv3d", x, weight, bias, stride, padding, dilation,
+                 groups, 3, data_format)

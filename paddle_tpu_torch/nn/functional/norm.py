@@ -16,10 +16,16 @@ reference's own formula, in x's dtype, over the trailing
 then the weight and the bias. It does not call the fused LayerNorm
 kernel (``ops.layer_norm.fused_layer_norm``): the reference does not, and
 the two round differently in bfloat16 (the kernel normalises in f32).
+
+Both go through the op dispatch (``ops.dispatch``) as the reference's do:
+``layer_norm``, and in training the batch statistics ``bn_mean`` and
+``bn_var``, then ``batch_norm`` over (x, mean, var, weight, bias).
 """
 from __future__ import annotations
 
 import torch
+
+from ...ops.dispatch import apply_op
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
@@ -37,11 +43,9 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     shape[channel_axis] = x.shape[channel_axis]
     use_stats = (not training) if use_global_stats is None \
         else use_global_stats
-    xf = x.to(torch.float32)
     if training and not use_stats:
-        mean = xf.mean(axes)
-        centred = xf - mean.reshape(shape)
-        var = torch.square(centred).mean(axes)
+        mean = apply_op("bn_mean", _bn_mean, x, axes=axes)
+        var = apply_op("bn_var", _bn_var, x, axes=axes)
         if running_mean is not None:
             with torch.no_grad():
                 running_mean.copy_((momentum * running_mean
@@ -51,11 +55,24 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                                    + (1 - momentum) * var)
                                   .to(running_var.dtype))
     else:
-        var = running_var
-        centred = xf - running_mean.to(torch.float32).reshape(shape)
+        mean, var = running_mean, running_var
+    return apply_op("batch_norm", _batch_norm, x, mean, var, weight, bias,
+                    shape=shape, epsilon=epsilon)
+
+
+def _bn_mean(x, axes):
+    return x.to(torch.float32).mean(axes)
+
+
+def _bn_var(x, axes):
+    xf = x.to(torch.float32)
+    return torch.square(xf - xf.mean(axes, keepdim=True)).mean(axes)
+
+
+def _batch_norm(x, mean, var, weight, bias, shape, epsilon):
     inv = torch.reciprocal(torch.sqrt(var.to(torch.float32).reshape(shape)
                                       + epsilon))
-    out = centred * inv
+    out = (x.to(torch.float32) - mean.to(torch.float32).reshape(shape)) * inv
     if weight is not None:
         out = out * weight.to(torch.float32).reshape(shape)
     if bias is not None:
@@ -66,7 +83,12 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
-    axes = tuple(range(x.dim() - len(normalized_shape), x.dim()))
+    return apply_op("layer_norm", _layer_norm, x, weight, bias,
+                    n=len(normalized_shape), epsilon=epsilon)
+
+
+def _layer_norm(x, weight, bias, n, epsilon):
+    axes = tuple(range(x.dim() - n, x.dim()))
     mu = x.mean(axes, keepdim=True)
     var = torch.square(x - mu).mean(axes, keepdim=True)
     out = (x - mu) * torch.reciprocal(torch.sqrt(var + epsilon))

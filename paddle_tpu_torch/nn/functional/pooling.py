@@ -16,9 +16,16 @@ for an output of 1, a reshaped mean where the output divides the input,
 else the reference's bins (start floor(i * in / out), end ceil((i + 1) *
 in / out)).
 
+``return_mask=True`` makes a max pool return (out, mask) as the
+reference's (``pooling.py:63``, ``:112-134``): per window, the int32 flat
+index into the input's spatial map (row-major) of the window's first
+largest element, found over the input padded with the dtype's lowest
+value and every real element raised to at least half of it, so a pad
+never wins, even in a window of -inf. Each function goes through the op
+dispatch (``ops.dispatch``) under its reference name.
+
 Refused: ``ceil_mode=True`` (the reference accepts it and ignores it:
-ROADMAP Queue 3) and ``return_mask=True`` (the reference's functional form
-returns the argmax indices: not ported yet, ROADMAP Queue 1 item 12).
+ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -28,26 +35,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...ops.dispatch import apply_op
 from .conv import CHANNEL_LAST, _tuplize, pad_spatial, same_pads
 
 
-def _refuse(ceil_mode, return_mask=False):
+def _refuse(ceil_mode):
     if ceil_mode:
         raise NotImplementedError(
             "ceil_mode=True: the reference accepts it and computes the "
             "floor-mode output (ROADMAP Queue 3, faults of the reference); "
             "the port refuses it rather than compute either function")
-    if return_mask:
-        raise NotImplementedError(
-            "return_mask=True (the argmax indices) is not ported yet: "
-            "ROADMAP Queue 1 item 12")
 
 
-def _pool_nd(x, kind, kernel_size, stride, padding, n, data_format,
-             exclusive=True):
-    channel_last = data_format in CHANNEL_LAST
-    if channel_last:
-        x = torch.movedim(x, -1, 1)
+def _pads(x, kernel_size, stride, padding, n):
+    """(kernel, strides, (low, high) pads, "SAME" / "VALID" / None) of a
+    channel-first ``x``."""
     ks = _tuplize(kernel_size, n)
     st = _tuplize(stride if stride is not None else kernel_size, n)
     if isinstance(padding, str):
@@ -61,6 +63,15 @@ def _pool_nd(x, kind, kernel_size, stride, padding, n, data_format,
         pads = [(p, p) for p in _tuplize(padding, n)]
         if len(pads) != n:
             raise ValueError(f"bad padding {padding}")
+    return ks, st, pads, mode
+
+
+def _pool_nd(x, kind, kernel_size, stride, padding, n, data_format,
+             exclusive=True):
+    channel_last = data_format in CHANNEL_LAST
+    if channel_last:
+        x = torch.movedim(x, -1, 1)
+    ks, st, pads, mode = _pads(x, kernel_size, stride, padding, n)
     native = all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, ks))
     sym = [lo for lo, _ in pads] if native else [0] * n
     if kind == "max":
@@ -96,45 +107,97 @@ def _avg(x, ks, st, pads, count_pads=True, divisor=None):
                 divisor_override=divisor)
 
 
+def _max_pool_indices(x, ks, st, pads):
+    """The reference's mask of a channel-first ``x``: per window, the
+    int32 flat index into x's spatial map of its first largest element."""
+    n = len(ks)
+    info = (torch.finfo if x.is_floating_point() else torch.iinfo)(x.dtype)
+    low = info.min
+    xv = torch.clamp_min(x, low / 2 if x.is_floating_point() else low + 1)
+    win = pad_spatial(xv, pads, value=low)
+    for d in range(n):
+        win = win.unfold(2 + d, ks[d], st[d])
+    out_spatial = win.shape[2:2 + n]
+    rem = win.reshape(*win.shape[:2 + n], -1).argmax(-1)
+    offs = [None] * n
+    for d in range(n - 1, -1, -1):
+        offs[d] = rem % ks[d]
+        rem = rem // ks[d]
+    spatial = x.shape[2:]
+    lin = None
+    for d in range(n):
+        shape = [1] * (2 + n)
+        shape[2 + d] = out_spatial[d]
+        start = (torch.arange(out_spatial[d], device=x.device) * st[d]
+                 - pads[d][0]).reshape(shape)
+        coord = torch.clamp(start + offs[d], 0, spatial[d] - 1)
+        lin = coord if lin is None else lin * spatial[d] + coord
+    return lin.to(torch.int32)
+
+
+def _max_pool(x, kernel_size, stride, padding, n, data_format, return_mask):
+    out = _pool_nd(x, "max", kernel_size, stride, padding, n, data_format)
+    if not return_mask:
+        return out
+    channel_last = data_format in CHANNEL_LAST
+    v = torch.movedim(x, -1, 1) if channel_last else x
+    ks, st, pads, _ = _pads(v, kernel_size, stride, padding, n)
+    idx = _max_pool_indices(v, ks, st, pads)
+    return out, torch.movedim(idx, 1, -1) if channel_last else idx
+
+
+def _max_op(name, x, kernel_size, stride, padding, n, data_format,
+            ceil_mode, return_mask):
+    _refuse(ceil_mode)
+    return apply_op(name, _max_pool, x, kernel_size=kernel_size,
+                    stride=stride, padding=padding, n=n,
+                    data_format=data_format, return_mask=return_mask)
+
+
+def _avg_op(name, x, kernel_size, stride, padding, n, data_format,
+            exclusive, ceil_mode):
+    _refuse(ceil_mode)
+    return apply_op(name, _pool_nd, x, kind="avg", kernel_size=kernel_size,
+                    stride=stride, padding=padding, n=n,
+                    data_format=data_format, exclusive=exclusive)
+
+
 def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCL"):
-    _refuse(ceil_mode, return_mask)
-    return _pool_nd(x, "max", kernel_size, stride, padding, 1, data_format)
+    return _max_op("max_pool1d", x, kernel_size, stride, padding, 1,
+                data_format, ceil_mode, return_mask)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCHW"):
-    _refuse(ceil_mode, return_mask)
-    return _pool_nd(x, "max", kernel_size, stride, padding, 2, data_format)
+    return _max_op("max_pool2d", x, kernel_size, stride, padding, 2,
+                data_format, ceil_mode, return_mask)
 
 
 def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCDHW"):
-    _refuse(ceil_mode, return_mask)
-    return _pool_nd(x, "max", kernel_size, stride, padding, 3, data_format)
+    return _max_op("max_pool3d", x, kernel_size, stride, padding, 3,
+                data_format, ceil_mode, return_mask)
 
 
 def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
                ceil_mode=False, data_format="NCL"):
-    _refuse(ceil_mode)
-    return _pool_nd(x, "avg", kernel_size, stride, padding, 1, data_format,
-                    exclusive)
+    return _avg_op("avg_pool1d", x, kernel_size, stride, padding, 1,
+                data_format, exclusive, ceil_mode)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, exclusive=True,
                ceil_mode=False, divisor_override=None, data_format="NCHW"):
-    _refuse(ceil_mode)
     _refuse_divisor(divisor_override)
-    return _pool_nd(x, "avg", kernel_size, stride, padding, 2, data_format,
-                    exclusive)
+    return _avg_op("avg_pool2d", x, kernel_size, stride, padding, 2,
+                data_format, exclusive, ceil_mode)
 
 
 def avg_pool3d(x, kernel_size, stride=None, padding=0, exclusive=True,
                ceil_mode=False, divisor_override=None, data_format="NCDHW"):
-    _refuse(ceil_mode)
     _refuse_divisor(divisor_override)
-    return _pool_nd(x, "avg", kernel_size, stride, padding, 3, data_format,
-                    exclusive)
+    return _avg_op("avg_pool3d", x, kernel_size, stride, padding, 3,
+                data_format, exclusive, ceil_mode)
 
 
 def _refuse_divisor(divisor_override):
@@ -167,12 +230,15 @@ def _adaptive_avg(x, output_size, n, data_format):
 
 
 def adaptive_avg_pool1d(x, output_size, data_format="NCL"):
-    return _adaptive_avg(x, output_size, 1, data_format)
+    return apply_op("adaptive_avg_pool1d", _adaptive_avg, x,
+                    output_size=output_size, n=1, data_format=data_format)
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
-    return _adaptive_avg(x, output_size, 2, data_format)
+    return apply_op("adaptive_avg_pool2d", _adaptive_avg, x,
+                    output_size=output_size, n=2, data_format=data_format)
 
 
 def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
-    return _adaptive_avg(x, output_size, 3, data_format)
+    return apply_op("adaptive_avg_pool3d", _adaptive_avg, x,
+                    output_size=output_size, n=3, data_format=data_format)

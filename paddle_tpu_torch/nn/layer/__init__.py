@@ -3,7 +3,13 @@ each a ``torch.nn.Module`` made on an explicit device."""
 from .activation import ReLU  # noqa: F401
 from .common import Dropout, Embedding, Flatten, Linear  # noqa: F401
 from .conv import Conv1D, Conv2D, Conv3D  # noqa: F401
-from .layers import Sequential, load_numpy_state_dict  # noqa: F401
+from .layers import (Sequential, create_parameter,  # noqa: F401
+                     load_numpy_state_dict)
+from .loss import (BCELoss, BCEWithLogitsLoss,  # noqa: F401
+                   CosineEmbeddingLoss, CrossEntropyLoss, CTCLoss,
+                   HingeEmbeddingLoss, HSigmoidLoss, HuberLoss, KLDivLoss,
+                   L1Loss, MarginRankingLoss, MSELoss, NLLLoss,
+                   SmoothL1Loss, TripletMarginLoss)
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
                    BatchNorm3D, LayerNorm, RMSNorm)
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401

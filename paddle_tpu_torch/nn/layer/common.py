@@ -3,44 +3,42 @@ port.
 
 Counterpart of ``paddle_tpu/nn/layer/common.py`` (``Linear``, ``:23-43``;
 ``Embedding``, ``:46-69``; ``Dropout``, ``:72``; ``Flatten``, ``:118``).
-``Linear`` keeps its weight (in, out), drawn XavierNormal (N(0, 2 / (in
-+ out))) and its bias zero, as the reference's
-``create_parameter`` defaults (``nn/layer/layers.py:123-139``), in f32 on
-``device`` (``cuda`` unless ``"cpu"`` is asked for) from ``generator``
-(the default generator when None); cast a module with ``.to(dtype)``.
-``weight_attr`` / ``name`` are not ported; ``bias_attr=False`` drops the
-bias, as in the reference. ``Embedding`` keeps its weight (num, dim)
-drawn N(0, 1) in f32 from ``generator``, its ``padding_idx`` row zeroed,
-and looks rows up through ``F.embedding``; ``sparse=True`` is refused
-there.
+Parameters are made by ``create_parameter`` with the reference's
+``weight_attr`` / ``bias_attr`` (``ParamAttr``s, or ``bias_attr=False``
+for no bias) in the reference's positions, in f32 on ``device`` (``cuda``
+unless ``"cpu"`` is asked for) from ``generator`` (the default generator
+when None); ``device`` and ``generator`` are keyword-only. ``Linear``
+keeps its weight (in, out), XavierNormal by default (N(0, 2 / (in +
+out))), its bias zero. ``Embedding`` keeps its weight (num, dim), N(0, 1)
+when no ``weight_attr`` is given and, as in the reference, XavierNormal
+when one without an initializer is; its ``padding_idx`` row is zeroed,
+and it looks rows up through ``F.embedding`` (``sparse=True``: a sparse
+gradient). ``name`` is accepted and unused. Cast a module with
+``.to(dtype)``.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 from torch import nn
 
-from ...core.generator import torch_generator
-from ...core.place import resolve_device
 from ...ops.manipulation import flatten
 from .. import functional as F
+from .. import initializer as init
+from .layers import create_parameter
 
 
 class Linear(nn.Module):
     """y = x @ weight (+ bias); weight (in_features, out_features)."""
 
-    def __init__(self, in_features, out_features, *, bias_attr=None,
-                 device=None, generator=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, generator=None):
         super().__init__()
-        dev = resolve_device(device)
+        kw = {"device": device, "generator": generator}
         self.in_features, self.out_features = in_features, out_features
-        std = math.sqrt(2.0 / (in_features + out_features))
-        weight = torch.empty((in_features, out_features), device=dev)
-        weight.normal_(0.0, std, generator=torch_generator(generator, dev))
-        self.weight = nn.Parameter(weight)
-        self.bias = None if bias_attr is False else nn.Parameter(
-            torch.zeros(out_features, device=dev))
+        self.weight = create_parameter((in_features, out_features),
+                                       weight_attr, **kw)
+        self.bias = None if bias_attr is False else create_parameter(
+            (out_features,), bias_attr, is_bias=True, **kw)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -54,17 +52,20 @@ class Embedding(nn.Module):
     ids."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
-                 sparse=False, *, device=None, generator=None):
+                 sparse=False, weight_attr=None, name=None, *, device=None,
+                 generator=None):
         super().__init__()
-        dev = resolve_device(device)
         self.num_embeddings, self.embedding_dim = (num_embeddings,
                                                    embedding_dim)
         self.padding_idx, self.sparse = padding_idx, sparse
-        weight = torch.empty((num_embeddings, embedding_dim), device=dev)
-        weight.normal_(0.0, 1.0, generator=torch_generator(generator, dev))
+        self.weight = create_parameter(
+            (num_embeddings, embedding_dim), weight_attr,
+            default_initializer=init.Normal(0.0, 1.0)
+            if weight_attr is None else None, device=device,
+            generator=generator)
         if padding_idx is not None:
-            weight[padding_idx] = 0.0
-        self.weight = nn.Parameter(weight)
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
     def forward(self, x):
         return F.embedding(x, self.weight, self.padding_idx, self.sparse)

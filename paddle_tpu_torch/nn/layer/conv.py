@@ -6,9 +6,9 @@ on ``device`` (``cuda`` unless ``"cpu"`` is asked for) from ``generator``
 (the default generator when None) by the reference's initialisers:
 ``KaimingUniform`` (uniform within ±sqrt(2) * sqrt(3 / fan_in),
 ``nn/initializer:118-128``) for the weight and uniform within ±1 /
-sqrt(fan_in) for the bias, fan_in = in / groups * prod(kernel).
-``bias_attr=False`` leaves no bias; ``weight_attr`` and other
-``ParamAttr``s are not ported. ``padding_mode`` other than ``"zeros"`` is
+sqrt(fan_in) for the bias, fan_in = in / groups * prod(kernel), unless
+``weight_attr`` / ``bias_attr`` (``ParamAttr``s, in the reference's
+positions) say otherwise; ``bias_attr=False`` leaves no bias. ``padding_mode`` other than ``"zeros"`` is
 refused: the reference accepts it and pads with zeros all the same
 (ROADMAP Queue 3). Transposed convolutions are not ported yet (ROADMAP
 Queue 1 item 16).
@@ -17,19 +17,18 @@ from __future__ import annotations
 
 import math
 
-import torch
 from torch import nn
 
-from ...core.generator import torch_generator
-from ...core.place import resolve_device
 from .. import functional as F
+from .. import initializer as init
 from ..functional.conv import _tuplize
+from .layers import create_parameter
 
 
 class _ConvNd(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, n, stride,
-                 padding, dilation, groups, padding_mode, bias_attr,
-                 data_format, device, generator):
+                 padding, dilation, groups, padding_mode, weight_attr,
+                 bias_attr, data_format, device, generator):
         super().__init__()
         if padding_mode != "zeros":
             raise NotImplementedError(
@@ -37,25 +36,24 @@ class _ConvNd(nn.Module):
                 "and pads with zeros all the same (ROADMAP Queue 3, faults "
                 "of the reference); the port refuses it rather than compute "
                 "either function")
-        dev = resolve_device(device)
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size = _tuplize(kernel_size, n)
         self.stride, self.padding = stride, padding
         self.dilation, self.groups = dilation, groups
         self.data_format = data_format
-        g = torch_generator(generator, dev)
+        kw = {"device": device, "generator": generator}
         fan_in = (in_channels // groups) * math.prod(self.kernel_size)
-        limit = math.sqrt(2.0) * math.sqrt(3.0 / fan_in)
-        weight = torch.empty((out_channels, in_channels // groups)
-                             + self.kernel_size, device=dev)
-        self.weight = nn.Parameter(weight.uniform_(-limit, limit,
-                                                   generator=g))
+        self.weight = create_parameter(
+            (out_channels, in_channels // groups) + self.kernel_size,
+            weight_attr, default_initializer=init.KaimingUniform(
+                fan_in=fan_in), **kw)
         if bias_attr is False:
             self.bias = None
         else:
             bound = 1.0 / math.sqrt(fan_in)
-            self.bias = nn.Parameter(torch.empty(out_channels, device=dev)
-                                     .uniform_(-bound, bound, generator=g))
+            self.bias = create_parameter(
+                (out_channels,), bias_attr, is_bias=True,
+                default_initializer=init.Uniform(-bound, bound), **kw)
 
     def extra_repr(self):
         return (f"{self.in_channels}, {self.out_channels}, "
@@ -64,12 +62,13 @@ class _ConvNd(nn.Module):
 
 class Conv1D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, dilation=1, groups=1, padding_mode="zeros", *,
-                 bias_attr=None, data_format="NCL", device=None,
-                 generator=None):
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCL", *,
+                 device=None, generator=None):
         super().__init__(in_channels, out_channels, kernel_size, 1, stride,
-                         padding, dilation, groups, padding_mode, bias_attr,
-                         data_format, device, generator)
+                         padding, dilation, groups, padding_mode,
+                         weight_attr, bias_attr, data_format, device,
+                         generator)
 
     def forward(self, x):
         return F.conv1d(x, self.weight, self.bias, self.stride, self.padding,
@@ -78,12 +77,13 @@ class Conv1D(_ConvNd):
 
 class Conv2D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, dilation=1, groups=1, padding_mode="zeros", *,
-                 bias_attr=None, data_format="NCHW", device=None,
-                 generator=None):
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCHW", *,
+                 device=None, generator=None):
         super().__init__(in_channels, out_channels, kernel_size, 2, stride,
-                         padding, dilation, groups, padding_mode, bias_attr,
-                         data_format, device, generator)
+                         padding, dilation, groups, padding_mode,
+                         weight_attr, bias_attr, data_format, device,
+                         generator)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
@@ -92,12 +92,13 @@ class Conv2D(_ConvNd):
 
 class Conv3D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, dilation=1, groups=1, padding_mode="zeros", *,
-                 bias_attr=None, data_format="NCDHW", device=None,
-                 generator=None):
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCDHW", *,
+                 device=None, generator=None):
         super().__init__(in_channels, out_channels, kernel_size, 3, stride,
-                         padding, dilation, groups, padding_mode, bias_attr,
-                         data_format, device, generator)
+                         padding, dilation, groups, padding_mode,
+                         weight_attr, bias_attr, data_format, device,
+                         generator)
 
     def forward(self, x):
         return F.conv3d(x, self.weight, self.bias, self.stride, self.padding,

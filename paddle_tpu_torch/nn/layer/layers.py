@@ -8,6 +8,9 @@ module whose names are the reference's. ``Sequential`` is the
 counterpart of ``paddle_tpu/nn/layer/layers.py:371``: its children are
 named ``"0"``, ``"1"``, ... in order, or by the keys of one
 ``OrderedDict``, or by the names of ``(name, layer)`` pairs.
+``create_parameter`` is the counterpart of ``Layer.create_parameter``
+(``paddle_tpu/nn/layer/layers.py:123-139``), which the port's layers
+make their parameters with.
 """
 from __future__ import annotations
 
@@ -16,6 +19,31 @@ import collections
 import torch
 
 from ...core.dtype import numpy_to_torch
+
+
+def create_parameter(shape, attr=None, is_bias=False,
+                     default_initializer=None, *, device=None,
+                     generator=None) -> torch.nn.Parameter:
+    """A float32 parameter of ``shape`` made by ``attr.initializer`` when
+    a ``ParamAttr`` gives one, else by ``default_initializer``, else by
+    ``Constant(0)`` for a bias and ``XavierNormal`` otherwise, on
+    ``device``, random draws from ``generator``. ``attr.trainable=False`` leaves it without gradient;
+    ``attr.learning_rate`` is kept as ``p.optimize_attr`` (which no
+    optimizer reads, as in the reference)."""
+    from .. import initializer as init
+    if default_initializer is None:
+        default_initializer = (init.Constant(0.0) if is_bias
+                               else init.XavierNormal())
+    if attr is not None and getattr(attr, "initializer", None) is not None:
+        default_initializer = attr.initializer
+    p = torch.nn.Parameter(default_initializer(shape, device=device,
+                                               generator=generator))
+    if attr is not None:
+        if getattr(attr, "learning_rate", None) is not None:
+            p.optimize_attr = {"learning_rate": attr.learning_rate}
+        if getattr(attr, "trainable", True) is False:
+            p.requires_grad_(False)
+    return p
 
 
 def load_numpy_state_dict(module: torch.nn.Module, state: dict):

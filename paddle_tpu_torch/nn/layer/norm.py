@@ -9,8 +9,10 @@ unless ``"cpu"`` is asked for). A batch norm keeps its running statistics
 in the buffers ``_mean`` (zeros) and ``_variance`` (ones), f32, as the
 reference names them, with no ``num_batches_tracked``; it normalises with
 the batch's statistics in training mode and blends them into the buffers
-(``F.batch_norm``). ``weight_attr`` / ``bias_attr`` take None or False
-(no weight, no bias); other ``ParamAttr``s are not ported.
+(``F.batch_norm``). Parameters are made by ``create_parameter`` with the
+reference's ``weight_attr`` / ``bias_attr`` in the reference's positions
+(a ``ParamAttr``, or False for none); ``device`` is keyword-only and
+``name`` unused.
 """
 from __future__ import annotations
 
@@ -18,21 +20,27 @@ import torch
 from torch import nn
 
 from ...core.place import resolve_device
+from ...ops.dispatch import apply_op
 from .. import functional as F
+from .. import initializer as init
+from .layers import create_parameter
+
+_ONE = init.Constant(1.0)
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, normalized_shape, epsilon=1e-5, *, device=None):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
-        dev = resolve_device(device)
         self.normalized_shape = list(normalized_shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
-                                              device=dev))
-        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
-                                             device=dev))
+        self.weight = None if weight_attr is False else create_parameter(
+            self.normalized_shape, weight_attr, default_initializer=_ONE,
+            device=device)
+        self.bias = None if bias_attr is False else create_parameter(
+            self.normalized_shape, bias_attr, is_bias=True, device=device)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
@@ -47,43 +55,44 @@ class RMSNorm(nn.Module):
     then times the weight (the reference rounds before the weight
     multiply; the fused kernel after it)."""
 
-    def __init__(self, normalized_shape, epsilon=1e-6, *, device=None):
+    def __init__(self, normalized_shape, epsilon=1e-6, weight_attr=None,
+                 name=None, *, device=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
-        dev = resolve_device(device)
         self.normalized_shape = list(normalized_shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
-                                              device=dev))
+        self.weight = create_parameter(self.normalized_shape, weight_attr,
+                                       default_initializer=_ONE,
+                                       device=device)
 
     def forward(self, x):
-        xf = x.to(torch.float32)
-        var = torch.square(xf).mean(-1, keepdim=True)
-        out = xf * torch.reciprocal(torch.sqrt(var + self.epsilon))
-        return out.to(x.dtype) * self.weight
+        return apply_op("rms_norm", _rms_norm, x, self.weight,
+                        epsilon=self.epsilon)
+
+
+def _rms_norm(x, weight, epsilon):
+    xf = x.to(torch.float32)
+    var = torch.square(xf).mean(-1, keepdim=True)
+    out = xf * torch.reciprocal(torch.sqrt(var + epsilon))
+    return out.to(x.dtype) * weight
 
 
 class _BatchNormBase(nn.Module):
-    def __init__(self, num_features, momentum=0.9, epsilon=1e-5, *,
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 use_global_stats=None, device=None):
+                 use_global_stats=None, name=None, *, device=None):
         super().__init__()
-        for name, attr in (("weight_attr", weight_attr),
-                           ("bias_attr", bias_attr)):
-            if attr not in (None, False):
-                raise NotImplementedError(
-                    f"{name}={attr!r}: ParamAttr is not ported yet "
-                    "(ROADMAP Queue 1 item 12); pass None or False")
         dev = resolve_device(device)
         self.num_features = num_features
         self.momentum, self.epsilon = momentum, epsilon
         self.data_format = data_format
         self.use_global_stats = use_global_stats
-        self.weight = None if weight_attr is False else nn.Parameter(
-            torch.ones(num_features, device=dev))
-        self.bias = None if bias_attr is False else nn.Parameter(
-            torch.zeros(num_features, device=dev))
+        self.weight = None if weight_attr is False else create_parameter(
+            (num_features,), weight_attr, default_initializer=_ONE,
+            device=dev)
+        self.bias = None if bias_attr is False else create_parameter(
+            (num_features,), bias_attr, is_bias=True, device=dev)
         self.register_buffer("_mean", torch.zeros(num_features, device=dev))
         self.register_buffer("_variance",
                              torch.ones(num_features, device=dev))
@@ -104,10 +113,12 @@ class BatchNorm(_BatchNormBase):
 
 
 class BatchNorm1D(_BatchNormBase):
-    def __init__(self, num_features, momentum=0.9, epsilon=1e-5, *,
-                 data_format="NCL", **kw):
-        super().__init__(num_features, momentum, epsilon,
-                         data_format=data_format, **kw)
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 use_global_stats=None, name=None, *, device=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats,
+                         device=device)
 
 
 class BatchNorm2D(_BatchNormBase):
@@ -115,7 +126,9 @@ class BatchNorm2D(_BatchNormBase):
 
 
 class BatchNorm3D(_BatchNormBase):
-    def __init__(self, num_features, momentum=0.9, epsilon=1e-5, *,
-                 data_format="NCDHW", **kw):
-        super().__init__(num_features, momentum, epsilon,
-                         data_format=data_format, **kw)
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 use_global_stats=None, name=None, *, device=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats,
+                         device=device)

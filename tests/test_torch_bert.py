@@ -112,8 +112,26 @@ def test_embedding_zeroes_a_loaded_nonzero_padding_row():
     raw = torch.nn.functional.embedding(torch.from_numpy(ids).long(),
                                         torch.from_numpy(w), padding_idx=3)
     assert raw[0, 0].abs().sum() > 0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TF.embedding(torch.from_numpy(ids).long(), tw, sparse=True)
+    # sparse=True: the same output; the weight's gradient a sparse COO
+    # tensor over the looked-up rows less the padding id's, as the
+    # reference's SelectedRows (whose rows drop the padding entries)
+    rs = paddle.to_tensor(w, stop_gradient=False)
+    r = ref_nn.functional.embedding(paddle.to_tensor(ids), rs, padding_idx=3,
+                                    sparse=True)
+    (r * paddle.to_tensor(gout)).sum().backward()
+    ts = torch.from_numpy(w).requires_grad_(True)
+    t = TF.embedding(torch.from_numpy(ids).long(), ts, padding_idx=3,
+                     sparse=True)
+    (t * torch.from_numpy(gout)).sum().backward()
+    np.testing.assert_allclose(t.detach().numpy(), r.numpy(), **TOL)
+    assert ts.grad.is_sparse
+    merged = rs.grad.merge()
+    got = ts.grad.coalesce()
+    np.testing.assert_array_equal(got.indices()[0].numpy(),
+                                  np.asarray(merged.rows))
+    np.testing.assert_allclose(got.values().numpy(),
+                               np.asarray(merged.values), **TOL)
+    assert 3 not in got.indices()[0].tolist()
 
 
 def test_embedding_layer_init_and_tanh():
@@ -160,12 +178,38 @@ def test_cross_entropy_matches_jax(labels, reduction):
 
 
 def test_cross_entropy_refuses_what_is_not_ported():
+    """The options once refused (``weight``, ``soft_label``,
+    ``label_smoothing``, ``use_softmax=False``, an ``axis`` other than the
+    last) are ported: each against the reference, value and input
+    gradient; an unknown ``reduction`` is still refused."""
+    rng = np.random.default_rng(2)
+    logits = rng.standard_normal((4, 5)).astype(np.float32)
+    lab = rng.integers(0, 5, (4,)).astype(np.int64)
+    soft = rng.random((4, 5)).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    w = rng.random(5).astype(np.float32) + 0.5
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    cases = [(logits, lab, dict(weight=w)), (logits, soft,
+                                             dict(soft_label=True)),
+             (logits, lab, dict(label_smoothing=0.1)),
+             (probs, lab, dict(use_softmax=False)),
+             (logits[..., None], lab[:, None], dict(axis=1))]
+    for x, y, kw in cases:
+        rkw = {k: paddle.to_tensor(v) if k == "weight" else v
+               for k, v in kw.items()}
+        tkw = {k: torch.from_numpy(v) if k == "weight" else v
+               for k, v in kw.items()}
+        rx = paddle.to_tensor(x, stop_gradient=False)
+        r = ref_nn.functional.cross_entropy(rx, paddle.to_tensor(y), **rkw)
+        r.backward()
+        tx = torch.from_numpy(x).requires_grad_(True)
+        t = TF.cross_entropy(tx, torch.from_numpy(y), **tkw)
+        t.backward()
+        np.testing.assert_allclose(t.detach().numpy(), r.numpy(), **TOL,
+                                   err_msg=str(list(kw)))
+        np.testing.assert_allclose(tx.grad.numpy(), rx.grad.numpy(), **TOL,
+                                   err_msg=str(list(kw)))
     x, lab = torch.zeros(2, 3), torch.zeros(2, dtype=torch.long)
-    for kw in (dict(weight=torch.ones(3)), dict(soft_label=True),
-               dict(label_smoothing=0.1), dict(use_softmax=False),
-               dict(axis=0)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            TF.cross_entropy(x, lab, **kw)
     with pytest.raises(ValueError, match="reduction"):
         TF.cross_entropy(x, lab, reduction="avg")
 

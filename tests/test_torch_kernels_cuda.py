@@ -1687,3 +1687,157 @@ def test_decode_options_on_the_card_match_the_cpu(card, part):
     tokens and stats equal, and equal to plain greedy."""
     readings, ok = _smoke()._reference_decode_options(card, (part,))
     assert ok, readings
+
+
+def _eager_bert_run(dev, level, state, batch, steps=3, lr=1e-4):
+    """A tiny BERT (hidden 64, S = 32: the plain attention) trained by
+    the everyday loop on ``dev`` with chip_smoke.py's train_eager
+    optimizer, schedule, clip and GradScaler: (losses, parameters on the
+    CPU)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.models.nlp import (BertConfig, BertForPretraining,
+                                             load_numpy_state_dict)
+
+    model = load_numpy_state_dict(BertForPretraining(BertConfig.tiny(),
+                                                     device=dev), state)
+    sched = optimizer.lr.LinearWarmup(
+        optimizer.lr.PolynomialDecay(lr, 1000, 0.0), 2, 0.0, lr)
+    opt = optimizer.AdamW(learning_rate=sched,
+                          parameters=model.parameters(), weight_decay=0.01,
+                          grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15,
+                            enable=level is not None)
+    ids, types, mlm, nsp = (t.to(dev) for t in batch)
+    losses = []
+    for _ in range(steps):
+        with amp.auto_cast(enable=level is not None, level=level or "O1"):
+            loss = model.loss(*model(ids, types), mlm, nsp)
+        scaled = scaler.scale(loss)
+        scaled.backward()
+        scaler.minimize(opt, scaled)
+        opt.clear_grad()
+        sched.step()
+        losses.append(float(loss.detach()))
+    return losses, {k: p.detach().float().cpu()
+                    for k, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [None, "O1"], ids=["f32", "O1"])
+def test_eager_bert_loop_on_the_card_matches_the_cpu(card, level):
+    """The eager slice card against CPU from the same weights and batch:
+    f32 by the TRAIN_REF rule (losses 1e-5; at most 1e-4 of a tensor's
+    elements, or one, beyond 1e-5, none beyond lr); O1 (bf16 forward on
+    both) losses within 1e-2 relative and parameters within 2·3·lr; the
+    key biases (noise gradients) within 2·3·lr."""
+    from paddle_tpu_torch.models.nlp import BertConfig, BertForPretraining
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = {k: v.numpy() for k, v in BertForPretraining(
+        BertConfig.tiny(), device="cpu").state_dict().items()}
+    rng = np.random.default_rng(3)
+    batch = [torch.from_numpy(rng.integers(0, 512, (2, 32))),
+             torch.from_numpy((np.arange(32) >= 16).astype(np.int64)[None]
+                              .repeat(2, 0)),
+             torch.from_numpy(np.where(rng.random((2, 32)) < 0.3,
+                                       rng.integers(0, 512, (2, 32)),
+                                       -100)),
+             torch.from_numpy(rng.integers(0, 2, (2,)))]
+    losses, params = _eager_bert_run(card, level, state, batch)
+    losses_c, params_c = _eager_bert_run(torch.device("cpu"), level, state,
+                                         batch)
+    print(level, "losses", losses, losses_c)
+    if level is None:
+        np.testing.assert_allclose(losses, losses_c, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(losses, losses_c, rtol=1e-2, atol=0)
+    for k, p in params.items():
+        diff = (p - params_c[k]).abs()
+        if level is not None or k.endswith("attn.k_proj.bias"):
+            assert float(diff.max()) <= 6e-4, k
+            continue
+        assert int((diff > 1e-5).sum()) <= max(1, 1e-4 * diff.numel()), k
+        assert float(diff.max()) <= 1e-4, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["SGD", "Momentum", "Adam", "AdamW",
+                                  "Adamax", "Adagrad", "RMSProp",
+                                  "Adadelta", "Lamb"])
+def test_optimizer_steps_on_the_card_match_the_cpu(card, name):
+    """Each optimizer's 3 steps (weight decay 0.01, the global-norm clip)
+    on the card against the CPU on the same parameters and gradients:
+    parameters and accumulators within 1e-5 relative + 1e-6 absolute
+    (the card's fused multiply-adds and its norm's order of sums; worst
+    reading Adagrad, one element of 2048 1.76e-6 apart, 4.0e-6
+    relative)."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer
+
+    rng = np.random.default_rng(0)
+    shapes = [(64, 32), (32,), (4, 8, 3)]
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in range(3)]
+    decay = "lamb_weight_decay" if name == "Lamb" else "weight_decay"
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        ps = [torch.nn.Parameter(torch.from_numpy(a).to(dev)) for a in init]
+        opt = getattr(optimizer, name)(
+            learning_rate=0.01, parameters=ps, **{decay: 0.01},
+            grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+        for gs in grads:
+            for p, g in zip(ps, gs):
+                p.grad = torch.from_numpy(g).to(dev)
+            opt.step()
+        runs[dev.type] = ([p.detach().cpu() for p in ps],
+                          [{k: a.cpu() for k, a in
+                            opt._accumulators[id(p)].items()} for p in ps])
+    (ps, accs), (ps_c, accs_c) = runs["cuda"], runs["cpu"]
+    for a, b in zip(ps, ps_c):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    for a, b in zip(accs, accs_c):
+        for k in b:
+            torch.testing.assert_close(a[k], b[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_block_sparse_attention_kernels_match_plain(card, causal):
+    """``F.block_sparse_attention`` (B=2, S=512, 4 heads, head_dim 64,
+    bf16, 64 x 64 blocks, a random mask with an empty block row) through
+    the splash kernels, one launch of each, against its plain versions:
+    output and q / k / v gradients within chip_smoke.py's bf16 limits
+    (2e-3 + 2^-6·|want|); the empty rows exactly 0."""
+    from paddle_tpu_torch.nn import functional as F
+
+    sa = importlib.import_module("paddle_tpu_torch.ops.splash_attention")
+    rng = np.random.default_rng(1)
+    bm = rng.random((8, 8)) < 0.5
+    bm[:, 0] = True
+    bm[3] = False
+    g = torch.Generator(device=card).manual_seed(2)
+    q, k, v, do = (torch.randn((2, 512, 4, 64), generator=g, device=card)
+                   .to(torch.bfloat16) for _ in range(4))
+
+    def run():
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.block_sparse_attention(*ts, bm, causal, 64, 64)
+        return (out.detach(), *torch.autograd.grad(out, ts, do))
+
+    owner = sa.splash_attention
+    before = (owner.launches_fwd, owner.launches_dq, owner.launches_dkv)
+    got = run()
+    assert (owner.launches_fwd, owner.launches_dq, owner.launches_dkv) == \
+        tuple(n + 1 for n in before)
+    kept = sa.splash_fwd, sa.splash_bwd
+    sa.splash_fwd, sa.splash_bwd = sa._splash_fwd_plain, sa._splash_bwd_plain
+    try:
+        want = run()
+    finally:
+        sa.splash_fwd, sa.splash_bwd = kept
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-3,
+                                   rtol=2 ** -6)
+    assert not got[0][:, 3 * 64:4 * 64].any()

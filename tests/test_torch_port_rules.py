@@ -73,7 +73,15 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.serving.autoscale",
              "paddle_tpu_torch.serving.faults",
              "paddle_tpu_torch.quantization",
-             "paddle_tpu_torch.quantization.int8"):
+             "paddle_tpu_torch.quantization.int8",
+             "paddle_tpu_torch.core.flags", "paddle_tpu_torch.ops.dispatch",
+             "paddle_tpu_torch.amp", "paddle_tpu_torch.autograd",
+             "paddle_tpu_torch.autograd.py_layer",
+             "paddle_tpu_torch.regularizer", "paddle_tpu_torch.optimizer",
+             "paddle_tpu_torch.optimizer.lr",
+             "paddle_tpu_torch.optimizer.optimizer",
+             "paddle_tpu_torch.nn.initializer",
+             "paddle_tpu_torch.nn.layer.loss"):
     assert name in names, name
 """
 

@@ -352,10 +352,10 @@ def test_lenet_logits_and_three_steps_match_jax():
 def test_lenet_trains_on_synthetic_mnist():
     """The bar of ``tests/test_e2e_lenet.py``'s eager test (last loss <
     0.7 x the first, training accuracy > 0.5) on the same 512 images,
-    batches of 64, 3 shuffled epochs. The reference test trains with Adam,
-    which the port has not yet (ROADMAP Queue 1 item 12): this one trains
-    with the port's ``resnet_train_step_factory`` (momentum SGD, lr 0.05),
-    which suits any model."""
+    batches of 64, 3 shuffled epochs, with the port's
+    ``resnet_train_step_factory`` (momentum SGD, lr 0.05), which suits any
+    model; ``test_lenet_trains_eagerly_with_adam`` trains with Adam, as
+    the reference test does."""
     train = port_datasets.MNIST(mode="train")
     xs = np.stack([train[i][0] for i in range(512)])
     ys = train.labels[:512]
@@ -378,6 +378,39 @@ def test_lenet_trains_on_synthetic_mnist():
     with torch.no_grad():
         pred = model(torch.from_numpy(xs)).argmax(-1).numpy()
     assert (pred == ys).mean() > 0.5
+
+
+def test_lenet_trains_eagerly_with_adam():
+    """The reference's ``test_lenet_trains_eager`` on the port: Adam (lr
+    1e-3), ``F.cross_entropy``, ``loss.backward(); opt.step();
+    opt.clear_grad()`` over the same 512 images, batches of 64, 3
+    shuffled epochs; the same bar (last loss < 0.7 x the first, training
+    accuracy > 0.5)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn import functional as F
+
+    train = port_datasets.MNIST(mode="train")
+    xs = torch.from_numpy(np.stack([train[i][0] for i in range(512)]))
+    ys = torch.from_numpy(train.labels[:512].astype(np.int64))
+    model = port_models.LeNet(device="cpu", generator=Generator(0))
+    opt = optimizer.Adam(learning_rate=1e-3, parameters=model.parameters())
+    order = np.random.default_rng(0)
+    first = last = None
+    for _ in range(3):
+        perm = torch.from_numpy(order.permutation(512))
+        for i in range(0, 512, 64):
+            idx = perm[i:i + 64]
+            loss = F.cross_entropy(model(xs[idx]), ys[idx])
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            first = float(loss.detach()) if first is None else first
+            last = float(loss.detach())
+    assert last < 0.7 * first, (first, last)
+    model.eval()
+    with torch.no_grad():
+        pred = model(xs).argmax(-1)
+    assert (pred == ys).float().mean() > 0.5
 
 
 def _write_idx(path, arr, gz):

@@ -474,8 +474,10 @@ def test_refusals_name_their_roadmap_item():
         TF.max_pool2d(x, 2, ceil_mode=True)
     with pytest.raises(NotImplementedError, match="Queue 3"):
         TF.avg_pool2d(x, 2, ceil_mode=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TF.max_pool2d(x, 2, return_mask=True)
+    # return_mask is ported (the reference's flat argmax index per window)
+    out, mask = TF.max_pool2d(x, 2, return_mask=True)
+    assert out.shape == mask.shape == (1, 1, 2, 2)
+    assert mask.dtype == torch.int32
     with pytest.raises(NotImplementedError, match="Queue 3"):
         TF.avg_pool2d(x, 2, divisor_override=3)
     with pytest.raises(NotImplementedError, match="Queue 3"):
@@ -486,10 +488,21 @@ def test_refusals_name_their_roadmap_item():
         tnn.AvgPool2D(2, divisor_override=2)
     with pytest.raises(NotImplementedError, match="Queue 3"):
         tnn.Conv2D(1, 2, 3, padding_mode="reflect", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tnn.BatchNorm2D(2, weight_attr=object(), device="cpu")
-    with pytest.raises(TypeError):      # weight_attr is not ported
-        tnn.Conv2D(1, 2, 3, 1, 0, 1, 1, "zeros", None, device="cpu")
+    # ParamAttrs are ported: honoured in the reference's positions
+    attr = tnn.ParamAttr(initializer=tnn.initializer.Constant(3.0),
+                         trainable=False)
+    bn = tnn.BatchNorm2D(2, 0.9, 1e-5, attr, device="cpu")
+    ref_bn = ref_nn.BatchNorm2D(2, 0.9, 1e-5, ref_nn.ParamAttr(
+        initializer=ref_nn.initializer.Constant(3.0), trainable=False))
+    assert torch.equal(bn.weight, torch.full((2,), 3.0))
+    assert not bn.weight.requires_grad and not ref_bn.weight.trainable
+    conv = tnn.Conv2D(1, 2, 3, 1, 0, 1, 1, "zeros", attr, False,
+                      device="cpu")
+    ref_conv = ref_nn.Conv2D(1, 2, 3, 1, 0, 1, 1, "zeros", ref_nn.ParamAttr(
+        initializer=ref_nn.initializer.Constant(3.0)), False)
+    np.testing.assert_array_equal(conv.weight.detach().numpy(),
+                                  ref_conv.weight.numpy())
+    assert conv.bias is None and ref_conv.bias is None
 
 
 # --- dropout (ROADMAP Queue 3 fault 1) ------------------------------------
