@@ -19,6 +19,7 @@ trains.
     python3 chip_smoke.py --phases build,reference,serve_tiers,decode_options
     python3 chip_smoke.py --phases build,reference,train_gpt,transformer,\
 fused_decode
+    python3 chip_smoke.py --phases build,reference,train_rnnlm
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -186,6 +187,20 @@ Phases, each printing JSON lines:
    through the caches (the Transformer's ``Cache`` / ``StaticCache``
    pairs over 32 positions, the fused stack's ``caches`` / ``time_step``
    over 32 tokens) equal to the no-cache forward within ``DECODE_ATOL``.
+   Then the op namespace and the recurrent layers (``op_sweep``): every
+   case of ``tests/torch_op_cases.py`` (every op of ``OP_REGISTRY`` and
+   every other public function of ``ops``) through the port on the card
+   against the port on the CPU, values within the case's tolerance
+   (exact for integers, bools and copies; 1e-6 + 1e-6 rel; 1e-6 + 1e-5
+   rel for transcendental functions and reordered sums; eigenvectors, Q
+   and singular vectors up to sign, ``eig``'s values sorted,
+   ``lstsq``'s solution alone) and gradients within 1e-5 + 1e-5 rel (not
+   compared where the card's solver chose another sign); each
+   random op twice from one seed on the card, equal draws; 2-layer
+   bidirectional LSTM / GRU / SimpleRNN stacks (16 -> 32, B=4, T=6) in
+   both ``time_major`` forms, outputs and every gradient within 1e-5 +
+   1e-5 rel; a small LM (vocab 64, hidden 32) for 3 SGD steps under
+   ``TRAIN_REF`` and its beam-search ids and lengths identical.
 4. ``serve``: Llama-3-8B at full width and 8 of its 32 layers (printed as
    ``cut``: ``serve_engine`` serves all 32), bf16, random weights
    from a seed, through ``examples/serve_paged_llama.serve``: 16 requests,
@@ -510,6 +525,27 @@ Phases, each printing JSON lines:
     B=8, a (12, 8, 2, 12, 1024, 64) cache cast to bf16: 256
     token-by-token steps through ``caches`` / ``time_step`` (0
     launches). Records ms a token and peak memory.
+18. ``train_rnnlm``: the "large" PTB LSTM language model of Zaremba,
+    Sutskever & Vinyals (2014) at its published widths (vocab 10,000,
+    embedding and 2 LSTM layers of 1500, unrolled 35, B=20, dropout 0.65
+    on the non-recurrent connections, U(-0.04, 0.04), untied output, SGD
+    lr 1 with ``ClipGradByGlobalNorm(10)``, f32; 66.0 M parameters), a
+    Paddle user's script through the op namespace (``import
+    paddle_tpu_torch as paddle``, ``set_device("gpu")``, ``to_tensor`` of
+    numpy batches of a seeded synthetic Zipf stream, ``reshape``, the
+    LSTM's states carried across batches with ``detach``): a warm-up
+    step under the dispatch census (ops a step, float dtypes f32), then 5
+    steps on the repeated batch (finite, falling, the first within 0.5
+    of ln 10000), an eval pass under ``no_grad`` (``exp`` of the mean
+    loss), and ``BeamSearchDecoder`` (beam 4, B=8, ``max_step_num`` 31:
+    32 steps unless every beam ends first) over a user's
+    ``RNNCellBase`` running the LM's two ``LSTMCell``s. No kernel of the
+    port is on this path: every counter must read 0. Records step ms,
+    tokens/s, the LSTM stack's forward + backward ms beside
+    ``torch.nn.LSTM`` (cuDNN) with the same weights (a yardstick, never
+    on the path), beam step ms and peak memory; with ``--profile``
+    (``profile_train_rnnlm``) the step's device time by kernel family
+    and the device's idle share.
 
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -2929,7 +2965,9 @@ def phase_reference(dev):
     moe, moe_ok = _reference_moe(dev)
     gpt = _reference_gpt(dev)
     decoders = _reference_decoders(dev)
-    out.update({"llama_d256_g3": {**wide, "ok": wide_ok},
+    ops_rnn, ops_rnn_ok = _reference_ops_and_rnn(dev)
+    out.update({"ops_and_rnn": ops_rnn,
+                "llama_d256_g3": {**wide, "ok": wide_ok},
                 "llama_options": options, "engine": engine,
                 "engine_features": features, "engine_tiers": tiers,
                 "decode_options": decode_options, **enc, **bert,
@@ -2938,7 +2976,7 @@ def phase_reference(dev):
                 and features_ok and tiers_ok and decode_options_ok
                 and enc["encoder_ok"] and bert["bert_ok"]
                 and vision["ok"] and moe_ok and gpt["gpt_ok"]
-                and decoders["decoders_ok"]})
+                and decoders["decoders_ok"] and ops_rnn_ok})
     # the offloaded steps' pinned blocks go back to the host
     _release_pinned()
     emit(out)
@@ -6645,6 +6683,493 @@ def phase_fused_decode(dev):
     return res
 
 
+# --- phase 18: Zaremba's large PTB LSTM language model (nn/layer/rnn.py,
+# the op namespace) ------------------------------------------------------------
+
+# Zaremba, Sutskever & Vinyals, "Recurrent Neural Network Regularization"
+# (2014), the "large" PTB model: vocab 10k, 2 x 1500 LSTM, unrolled 35,
+# batch 20, dropout 0.65 on the non-recurrent connections, U(-0.04, 0.04),
+# SGD lr 1 with the global norm clipped at 10, f32. The data is a seeded
+# synthetic stream (a Zipf unigram over the vocabulary): PTB is not in the
+# repository.
+RNNLM = dict(vocab=10000, hidden=1500, layers=2, T=35, B=20, dropout=0.65,
+             init=0.04, lr=1.0, clip=10.0, steps=5, warmup=1, seed=35,
+             beam_B=8, beam=4, max_step_num=31, start=0, end=9999)
+# card against CPU for the op sweep: TOLS of tests/torch_op_cases.py
+# (1e-6 + 1e-6 rel; 1e-6 + 1e-5 rel for transcendental functions and for
+# sums whose order differs), gradients 1e-5 + 1e-5 rel; the RNNs 1e-5
+RNN_REF_ATOL = 1e-5
+
+
+def _rnnlm_model(paddle, cfg):
+    """The LM as a Paddle user writes it: embedding, dropout, a 2-layer
+    ``nn.LSTM`` (dropout between its layers), dropout, an untied
+    ``Linear``; every weight U(-init, init) by ``set_value``."""
+    nn = paddle.nn
+
+    class RnnLM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(cfg["vocab"], cfg["hidden"])
+            self.lstm = nn.LSTM(cfg["hidden"], cfg["hidden"],
+                                cfg["layers"], dropout=cfg["dropout"])
+            self.drop = nn.Dropout(cfg["dropout"])
+            self.fc = nn.Linear(cfg["hidden"], cfg["vocab"])
+
+        def forward(self, ids, states):
+            x = self.drop(self.embedding(ids))
+            y, states = self.lstm(x, states)
+            return self.fc(self.drop(y)), states
+
+    model = RnnLM()
+    for p in model.parameters():
+        p.set_value(paddle.uniform(p.shape, min=-cfg["init"],
+                                   max=cfg["init"]))
+    return model
+
+
+def _rnnlm_stream(cfg, n, seed):
+    """``n`` token ids of a seeded Zipf(1.1) unigram stream."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, cfg["vocab"] + 1) ** 1.1
+    return rng.choice(cfg["vocab"], n, p=w / w.sum()).astype(np.int64)
+
+
+def _rnnlm_zero_states(paddle, cfg, B):
+    z = paddle.zeros([cfg["layers"], B, cfg["hidden"]])
+    return (z, paddle.zeros([cfg["layers"], B, cfg["hidden"]]))
+
+
+def _beam_cell(paddle, cells):
+    """A user's ``RNNCellBase`` running the LM's two ``LSTMCell``s."""
+    class TwoLayers(paddle.nn.RNNCellBase):
+        def __init__(self):
+            super().__init__()
+            self.cells = torch.nn.ModuleList(cells)
+            self.hidden_size = cells[0].hidden_size
+
+        def forward(self, x, states):
+            new = []
+            for cell, st in zip(self.cells, states):
+                x, st = cell(x, st)
+                new.append(st)
+            return x, new
+    return TwoLayers()
+
+
+def _lstm_yardstick(model, cfg, dev):
+    """``torch.nn.LSTM`` (cuDNN) at the same widths with the port's
+    weights copied in (the gates' order is the same): the time of one
+    forward + backward of the stack, and its largest difference from the
+    port's output on the same input. Recorded only; never on the path."""
+    ref = torch.nn.LSTM(cfg["hidden"], cfg["hidden"], cfg["layers"],
+                        batch_first=True).to(dev)
+    with torch.no_grad():
+        for k, cell in enumerate(model.lstm.cells):
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                getattr(ref, f"{name}_l{k}").copy_(getattr(cell, name))
+    g = torch.Generator(device=dev).manual_seed(cfg["seed"] + 7)
+    x = torch.randn(cfg["B"], cfg["T"], cfg["hidden"], generator=g,
+                    device=dev, requires_grad=True)
+    cot = torch.randn(cfg["B"], cfg["T"], cfg["hidden"], generator=g,
+                      device=dev)
+    model.lstm.eval()
+    # full f32 on both sides, as the port's products run
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+
+    def port_fb():
+        y = model.lstm(x)[0]
+        (y * cot).sum().backward()
+        torch.cuda.synchronize()
+        return y
+
+    def cudnn_fb():
+        y = ref(x)[0]
+        (y * cot).sum().backward()
+        torch.cuda.synchronize()
+        return y
+
+    out = {}
+    for name, fn in (("port", port_fb), ("cudnn", cudnn_fb)):
+        fn()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            y = fn()
+            ts.append(time.perf_counter() - t0)
+        out[name] = (statistics.median(ts) * 1e3, y.detach())
+    model.lstm.train()
+    torch.backends.cudnn.allow_tf32 = tf32
+    return {"lstm_fwd_bwd_ms": out["port"][0],
+            "cudnn_lstm_fwd_bwd_ms": out["cudnn"][0],
+            "cudnn_max_abs_diff": float((out["port"][1]
+                                         - out["cudnn"][1]).abs().max())}
+
+
+def phase_train_rnnlm(dev, profile=False):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import dispatch
+
+    cfg = RNNLM
+    B, T, V = cfg["B"], cfg["T"], cfg["vocab"]
+    prev = paddle.resolve_device(None)      # put back after the phase
+    paddle.set_device("gpu")
+    paddle.seed(cfg["seed"])
+    model = _rnnlm_model(paddle, cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = paddle.optimizer.SGD(
+        learning_rate=cfg["lr"], parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(cfg["clip"]))
+    stream = _rnnlm_stream(cfg, 2 * B * T + 1, cfg["seed"] + 1)
+    data = paddle.reshape(paddle.to_tensor(stream[:B * T + 1][:-1]),
+                          [B, T])
+    label = paddle.reshape(paddle.to_tensor(stream[1:B * T + 1]), [B, T])
+    states = _rnnlm_zero_states(paddle, cfg, B)
+
+    def step():
+        nonlocal states
+        logits, new = model(data, states)
+        loss = F.cross_entropy(paddle.reshape(logits, [-1, V]),
+                               paddle.reshape(label, [-1]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        states = tuple(s.detach() for s in new)     # truncated BPTT
+        return loss.item()
+
+    model.train()
+    with dispatch.census() as census:
+        warmup = [step() for _ in range(cfg["warmup"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    losses, step_s = [], []
+    for _ in range(cfg["steps"]):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t0)
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_med = statistics.median(step_s)
+
+    # an eval pass on the next batch: perplexity = exp(mean loss)
+    model.eval()
+    with paddle.no_grad():
+        ev = paddle.reshape(paddle.to_tensor(stream[B * T:2 * B * T]),
+                            [B, T])
+        ev_label = paddle.reshape(paddle.to_tensor(
+            stream[B * T + 1:2 * B * T + 1]), [B, T])
+        logits, _ = model(ev, _rnnlm_zero_states(paddle, cfg, B))
+        ev_loss = F.cross_entropy(paddle.reshape(logits, [-1, V]),
+                                  paddle.reshape(ev_label, [-1]))
+        ppl = float(paddle.exp(paddle.mean(ev_loss)))
+
+    # beam search over the trained LM's own cells
+    _zero_train_counts()
+    dec = paddle.nn.BeamSearchDecoder(
+        _beam_cell(paddle, list(model.lstm.cells)), cfg["start"], cfg["end"],
+        cfg["beam"], embedding_fn=model.embedding, output_fn=model.fc)
+    zs = [(paddle.zeros([cfg["beam_B"], cfg["hidden"]]),
+           paddle.zeros([cfg["beam_B"], cfg["hidden"]]))
+          for _ in range(cfg["layers"])]
+    paddle.nn.dynamic_decode(dec, zs, max_step_num=2, return_length=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, _, lengths = paddle.nn.dynamic_decode(
+        dec, zs, max_step_num=cfg["max_step_num"], return_length=True)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    beam_counts = _train_counts()
+    n_steps = seqs.shape[1]
+    yard = _lstm_yardstick(model, cfg, dev)
+
+    flat = [d for calls in census.values() for ins, outs in calls
+            for d in ins + outs]
+    float_dtypes = sorted({d for d in flat if "float" in d})
+    n_ops = sum(len(calls) for calls in census.values())
+    out = {"phase": "train_rnnlm",
+           "model": "Zaremba et al. 2014 large PTB LSTM LM",
+           "config": {k: cfg[k] for k in ("vocab", "hidden", "layers", "T",
+                                           "B", "dropout", "init", "lr",
+                                           "clip")},
+           "params": n_params, "dtype": "float32",
+           "data": "seeded synthetic Zipf(1.1) stream (PTB is not in the "
+                   "repository)",
+           "warmup_losses": warmup, "losses": losses,
+           "ln_vocab": float(np.log(V)),
+           "step_ms": [1e3 * t for t in step_s],
+           "step_ms_median": 1e3 * step_med,
+           "tokens_per_s": B * T / step_med, **yard,
+           "ops_per_step": n_ops,
+           "ops_by_name": {k: len(v) for k, v in census.items()},
+           "census_float_dtypes": float_dtypes,
+           "eval_loss": float(ev_loss), "eval_ppl": ppl,
+           "beam": {"B": cfg["beam_B"], "beam": cfg["beam"],
+                    "max_step_num": cfg["max_step_num"],
+                    "shape": list(seqs.shape), "steps": n_steps,
+                    "ms": 1e3 * beam_s, "step_ms": 1e3 * beam_s / n_steps,
+                    "lengths_max": int(lengths.max()),
+                    "ids_min": int(seqs.min()), "ids_max": int(seqs.max())},
+           "peak_mem_gb": peak_gb,
+           "launches": counts, "beam_launches": beam_counts}
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and abs(warmup[0] - float(np.log(V))) <= 0.5
+          and float_dtypes == ["float32"]
+          and not any(counts.values()) and not any(beam_counts.values())
+          and seqs.dtype == torch.int32
+          and tuple(seqs.shape[::2]) == (cfg["beam_B"], cfg["beam"])
+          and n_steps <= cfg["max_step_num"] + 1
+          and 0 <= int(seqs.min()) and int(seqs.max()) < V
+          and int(lengths.max()) <= n_steps and np.isfinite(ppl))
+    out["ok"] = bool(ok)
+    emit(out)
+    if not ok:
+        paddle.set_device(prev)
+        raise AssertionError("train_rnnlm phase failed: " + json.dumps(out))
+    if profile:
+        model.train()
+        emit({"phase": "profile_train_rnnlm", **_profile(
+            step, {"matmul": MATMUL_NAMES,
+                   "elementwise_and_reductions": ("elementwise", "reduce"),
+                   "copies": ("copy", "cat", "memcpy", "memset")})})
+    paddle.set_device(prev)
+    del model, opt, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+# the reference phase: the op sweep and the RNNs, card against CPU ----------
+
+def _op_cases():
+    """``tests/torch_op_cases.py`` (numpy only), from the checkout."""
+    import os
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module("torch_op_cases")
+
+
+def _card_canonical(cid, outs):
+    """Outputs whose form the card's solvers may choose otherwise than
+    LAPACK's, made comparable: eigenvector and Q columns and singular
+    vectors up to sign, eigenvalues of ``eig`` sorted, and ``lstsq``'s
+    solution alone (the card's solver gives no residuals, rank or
+    singular values)."""
+    name = cid.split("[")[0]
+
+    def signs(m):
+        return np.sign(m[np.abs(m).argmax(0), np.arange(m.shape[1])])
+    if name == "eigh":
+        (w, wt), (v, vt) = outs
+        return [(w, wt), (v * signs(v), vt)]
+    if name == "qr":
+        (q, qt), (r, rt) = outs
+        s = signs(q)
+        return [(q * s, qt), (r * s[:, None], rt)]
+    if name in ("eig", "eigvals"):
+        return [(np.sort_complex(outs[0][0]), outs[0][1])]
+    if name == "lstsq":
+        return outs[:1]
+    return outs
+
+
+def op_sweep(dev):
+    """Every case of ``torch_op_cases`` through the port's ops on ``dev``
+    against the port on the CPU: values (and gradients) within the
+    case's tolerance; then each random op twice from one seed on
+    ``dev``, equal draws. Returns (readings, failures)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import ops
+
+    oc = _op_cases()
+    prev = paddle.resolve_device(None)      # put back at the end
+    worst = {"exact": 0.0, "f32": 0.0, "trans": 0.0, "grad": 0.0}
+    failures, resigned = {}, []
+    for cid in sorted(oc.CASES):
+        grad = oc.wants_grad(cid)
+        try:
+            paddle.set_device(dev)
+            got, got_g = oc.run_port(ops, cid, dev, grad)
+            paddle.set_device("cpu")
+            want, want_g = oc.run_port(ops, cid, "cpu", grad)
+            try:
+                oc.compare(cid, got, want)
+                same_form = True
+            except AssertionError:
+                same_form = False
+            got, want = (_card_canonical(cid, got),
+                         _card_canonical(cid, want))
+            err = oc.compare(cid, got, want)
+            tol = oc.CASES[cid].tol
+            worst[tol] = max(worst[tol], err)
+            if not same_form:
+                # another sign of a vector: its gradient under the same
+                # cotangent is another function's, not compared
+                resigned.append(cid)
+                continue
+            for g, w in zip(got_g or [], want_g or []):
+                atol, rtol = oc.GRAD_TOL
+                e = float(np.max(np.abs(g - w) / (atol + rtol * np.abs(w)),
+                                 initial=0.0))
+                worst["grad"] = max(worst["grad"], e)
+                assert e <= 1.0, (cid, "grad", e)
+        except Exception as e:     # recorded; the phase fails on any
+            failures[cid] = f"{type(e).__name__}: {str(e)[:200]}"
+        finally:
+            paddle.set_device(prev)
+    random_ok = {}
+    paddle.set_device(dev)
+    try:
+        for name, make in (
+                ("rand", lambda: ops.rand([64])),
+                ("randn", lambda: ops.randn([64])),
+                ("uniform", lambda: ops.uniform([64], min=-2.0, max=3.0)),
+                ("normal", lambda: ops.normal(1.0, 2.0, [64])),
+                ("standard_normal", lambda: ops.standard_normal([64])),
+                ("randint", lambda: ops.randint(0, 9, [64])),
+                ("randint_like", lambda: ops.randint_like(
+                    torch.zeros(64, device=dev), 0, 9)),
+                ("randperm", lambda: ops.randperm(64)),
+                ("bernoulli", lambda: ops.bernoulli(
+                    torch.full((64,), 0.5, device=dev))),
+                ("poisson", lambda: ops.poisson(
+                    torch.full((64,), 3.0, device=dev))),
+                ("multinomial", lambda: ops.multinomial(
+                    torch.full((8,), 0.125, device=dev), 4))):
+            paddle.seed(5)
+            a = make()
+            paddle.seed(5)
+            b = make()
+            random_ok[name] = a.device.type == "cuda" and torch.equal(a, b)
+    finally:
+        paddle.set_device(prev)
+    for name, same in random_ok.items():
+        if not same:
+            failures[name] = "random draws differ from one seed"
+    return {"op_cases": len(oc.CASES), "op_worst_err_over_tol": worst,
+            "random_ops_reproducible": random_ok,
+            "resigned_no_grad_compare": resigned,
+            "op_failures": failures}, failures
+
+
+def _rnn_small(dev, kind, time_major):
+    """A 2-layer bidirectional stack of ``kind`` (input 16, hidden 32,
+    B=4, T=6) from one seeded generator's weights, moved to ``dev``: its
+    output, final states and the gradients of the input, the initial
+    states and every weight under a fixed cotangent (on the CPU)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import Generator
+
+    make = {"lstm": nn.LSTM, "gru": nn.GRU, "simple": nn.SimpleRNN}[kind]
+    layer = make(16, 32, 2, direction="bidirect", time_major=time_major,
+                 device="cpu", generator=Generator(3)).to(dev)
+    g = torch.Generator().manual_seed(4)
+    shape = (6, 4, 16) if time_major else (4, 6, 16)
+    x = torch.randn(shape, generator=g).to(dev).requires_grad_(True)
+    h0 = torch.randn(4, 4, 32, generator=g).to(dev).requires_grad_(True)
+    c0 = torch.randn(4, 4, 32, generator=g).to(dev).requires_grad_(True)
+    st = (h0, c0) if kind == "lstm" else h0
+    y, fin = layer(x, st)
+    outs = [y] + (list(fin) if kind == "lstm" else [fin])
+    loss = sum((o * torch.randn(o.shape, generator=g).to(dev)).sum()
+               for o in outs)
+    ins = [x, h0] + ([c0] if kind == "lstm" else [])
+    grads = torch.autograd.grad(loss, ins + list(layer.parameters()))
+    return [t.detach().cpu() for t in outs + list(grads)]
+
+
+def _rnnlm_small(dev, state, ids, labels, beam_inits):
+    """A small f32 LM (vocab 64, hidden 32, 2 layers, dropout 0) on
+    ``dev`` from ``state``: the losses of 3 SGD steps with the global-norm
+    clip, the gradients of step 1, the parameters after step 3 (each on
+    the CPU), then beam search (B=4, beam 3, max_step_num 7) ids."""
+    import paddle_tpu_torch as paddle
+
+    cfg = dict(RNNLM, vocab=64, hidden=32, dropout=0.0)
+    prev = paddle.resolve_device(None)
+    paddle.set_device(dev)
+    try:
+        model = _rnnlm_model(paddle, cfg)
+        model.load_state_dict(state)
+        opt = paddle.optimizer.SGD(
+            learning_rate=TRAIN_REF["lr"], parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(cfg["clip"]))
+        ids, labels = ids.to(dev), labels.to(dev)
+        states = _rnnlm_zero_states(paddle, cfg, ids.shape[0])
+        losses, grads = [], None
+        for i in range(3):
+            logits, new = model(ids, states)
+            loss = paddle.nn.functional.cross_entropy(
+                logits.reshape(-1, cfg["vocab"]), labels.reshape(-1))
+            loss.backward()
+            if i == 0:
+                grads = {k: p.grad.detach().cpu()
+                         for k, p in model.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            states = tuple(s.detach() for s in new)
+            losses.append(loss.item())
+        params = {k: p.detach().cpu() for k, p in model.named_parameters()}
+        model.eval()
+        dec = paddle.nn.BeamSearchDecoder(
+            _beam_cell(paddle, list(model.lstm.cells)), 0, 1, 3,
+            embedding_fn=model.embedding, output_fn=model.fc)
+        inits = [tuple(t.to(dev) for t in pair) for pair in beam_inits]
+        seqs, _, lengths = paddle.nn.dynamic_decode(
+            dec, inits, max_step_num=7, return_length=True)
+        return losses, grads, params, seqs.cpu(), lengths.cpu()
+    finally:
+        paddle.set_device(prev)
+
+
+def _reference_rnn(dev):
+    """The small bidirectional LSTM / GRU / SimpleRNN stacks in both
+    ``time_major`` forms, card against CPU, outputs and gradients within
+    ``RNN_REF_ATOL`` (+ the same relative); the small LM's 3 steps under
+    ``TRAIN_REF`` and its beam ids and lengths identical."""
+    import paddle_tpu_torch as paddle
+
+    stacks = {}
+    ok = True
+    for kind in ("lstm", "gru", "simple"):
+        for tm in (False, True):
+            card = _rnn_small(dev, kind, tm)
+            host = _rnn_small(torch.device("cpu"), kind, tm)
+            err = max(float(((a - b).abs() / (RNN_REF_ATOL + RNN_REF_ATOL
+                                              * b.abs())).max())
+                      for a, b in zip(card, host))
+            stacks[f"{kind}{'_time_major' if tm else ''}"] = err
+            ok = ok and err <= 1.0
+    prev = paddle.resolve_device(None)
+    paddle.set_device("cpu")
+    paddle.seed(21)
+    state = _rnnlm_model(paddle, dict(RNNLM, vocab=64, hidden=32,
+                                      dropout=0.0)).state_dict()
+    paddle.set_device(prev)
+    g = torch.Generator().manual_seed(22)
+    ids = torch.randint(0, 64, (4, 9), generator=g)
+    z = torch.zeros(4, 32)
+    inits = [(z, z), (z, z)]
+    card = _rnnlm_small(dev, state, ids[:, :-1], ids[:, 1:], inits)
+    host = _rnnlm_small(torch.device("cpu"), state, ids[:, :-1], ids[:, 1:],
+                        inits)
+    lm, lm_ok = _train_agree(card[:3], host[:3])
+    beam_equal = torch.equal(card[3], host[3]) and torch.equal(card[4],
+                                                               host[4])
+    return {"rnn_stacks_err_over_tol": stacks, "rnn_tol": RNN_REF_ATOL,
+            "rnnlm_small": lm, "rnnlm_beam_ids_equal": beam_equal,
+            "rnn_ok": ok and lm_ok and beam_equal}
+
+
+def _reference_ops_and_rnn(dev):
+    sweep, failures = op_sweep(dev)
+    rnn = _reference_rnn(dev)
+    return {"op_sweep": sweep, **rnn,
+            "ops_ok": not failures}, not failures and rnn["rnn_ok"]
+
+
 # --- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
@@ -6653,7 +7178,7 @@ PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "train_window", "train_full", "train_long", "train_moe",
           "train_encoder", "train_bert", "train_eager", "train_resnet50",
           "train_gpt",
-          "transformer", "fused_decode")
+          "transformer", "fused_decode", "train_rnnlm")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -6955,6 +7480,9 @@ def main():
     if "fused_decode" in phases:
         trains["fused_decode"] = run("fused_decode", phase_fused_decode,
                                      dev)
+    if "train_rnnlm" in phases:
+        trains["train_rnnlm"] = run("train_rnnlm", phase_train_rnnlm, dev,
+                                    profile=args.profile)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

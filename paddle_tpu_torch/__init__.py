@@ -3,9 +3,18 @@ Hopper (H100).
 
 The JAX package ``paddle_tpu`` is the reference; this package mirrors its
 module names (``paddle_tpu_torch/X`` ports ``paddle_tpu/X``) and imports
-neither JAX nor ``paddle_tpu``. Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``. Every TPU kernel on a ported path is a
-kernel written by hand for ``sm_90a`` under ``ops/kernels/``.
+neither JAX nor ``paddle_tpu``. Entry points run on the default device,
+``cuda`` unless ``set_device("cpu")`` was called or the caller passes
+``device="cpu"``. Every TPU kernel on a ported path is a kernel written by
+hand for ``sm_90a`` under ``ops/kernels/``.
+
+A Paddle user script runs as ``import paddle_tpu_torch as paddle``:
+``paddle.set_device("gpu")``, ``paddle.to_tensor``, the op namespace
+(``paddle.reshape``, ``paddle.concat``, ``paddle.zeros``, ...: the
+``ops`` families, each op through the op dispatch), the dtype names as
+torch dtypes, ``paddle.tensor``, the control flow (``cond``,
+``while_loop``, ...), and ``x.astype(...)`` and the other Paddle tensor
+methods torch lacks, attached to ``torch.Tensor``.
 
 Ported so far (README.md, "The PyTorch/CUDA port", has the module map):
 paged Llama serving and the serving engine with its options and
@@ -13,19 +22,40 @@ multi-replica layer (``serving``, ``models.nlp.llama_decode``); the Llama
 training step in its GQA, multi-head and sliding-window forms and its
 options; the fused transformer layers (``incubate.nn``) and fused norms;
 BERT, GPT, ``nn.Transformer`` and ``FusedMultiTransformer``; the vision
-models (ResNet, LeNet) and their ``nn``; the Mixture-of-Experts model; and
-the eager training API: ``optimizer`` (9 optimizers, 15 schedulers in
-``optimizer.lr``), ``amp`` (``auto_cast``, ``decorate``,
-``GradScaler``), ``autograd`` (``grad``, ``PyLayer``), ``regularizer``,
-``nn.initializer`` with ``ParamAttr``, the gradient clips, the losses, and
-the op dispatch (``ops.dispatch``) the amp casts go through.
+models (ResNet, LeNet) and their ``nn``; the Mixture-of-Experts model; the
+eager training API (``optimizer``, ``amp``, ``autograd``,
+``regularizer``, ``nn.initializer`` with ``ParamAttr``, the gradient
+clips, the losses, the op dispatch); the op namespace; and ``nn``'s
+recurrent layers with beam search.
 """
-from . import amp, autograd, optimizer, regularizer  # noqa: F401
+import torch as _torch
+
+from .ops import *  # noqa: F401,F403
+from .ops.manipulation import slice_ as slice  # noqa: F401,A001
+from .ops.control_flow import (case, cond, scan,  # noqa: F401
+                               switch_case, while_loop)
+from .core.dtype import (finfo, get_default_dtype,  # noqa: F401
+                         iinfo, set_default_dtype)
+from .core.place import (CPUPlace, CUDAPinnedPlace,  # noqa: F401
+                         CUDAPlace, Place, device_count, get_device,
+                         is_compiled_with_cuda, set_device)
+from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
+from . import amp, autograd, fft, nn, optimizer, regularizer  # noqa: F401
+from . import ops, tensor  # noqa: F401
 from .autograd import (PyLayer, PyLayerContext, enable_grad,  # noqa: F401
                        grad, no_grad, set_grad_enabled)
 from .core import convert_dtype, resolve_device, seed  # noqa: F401
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .nn import ParamAttr  # noqa: F401
 from .ops.dispatch import enable_static  # noqa: F401
+
+# the dtype names, as torch dtypes (paddle_tpu/__init__.py:11-14, 80-81)
+float16, bfloat16, float32, float64 = (_torch.float16, _torch.bfloat16,
+                                       _torch.float32, _torch.float64)
+int8, int16, int32, int64, uint8 = (_torch.int8, _torch.int16, _torch.int32,
+                                    _torch.int64, _torch.uint8)
+complex64, complex128 = _torch.complex64, _torch.complex128
+bool = bool_ = _torch.bool  # noqa: A001
+dtype = _torch.dtype
 
 __version__ = "0.1.0"

@@ -1,7 +1,13 @@
 """Dtype names for the PyTorch port (counterpart of
 ``paddle_tpu/core/dtype.py``): the same string aliases, mapped to
 ``torch.dtype`` objects, plus the numpy -> torch conversion the weight
-bridge needs for bfloat16 arrays."""
+bridge needs for bfloat16 arrays.
+
+The JAX package runs with 64-bit types off: a 64-bit request gives the
+32-bit type (``jnp.zeros(3, "int64")`` is int32, a float64 array becomes
+float32). The op namespace gives the same dtypes through ``x32``: a
+requested or a computed 64-bit type becomes its 32-bit one, unless the
+op was handed a 64-bit tensor (``ops``'s module docstring)."""
 from __future__ import annotations
 
 import numpy as np
@@ -48,3 +54,40 @@ def numpy_to_torch(a) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
+
+
+# the 32-bit type the JAX package gives for each 64-bit one
+_X32 = {torch.int64: torch.int32, torch.float64: torch.float32,
+        torch.complex128: torch.complex64, torch.uint64: torch.uint32}
+
+_default_dtype = torch.float32
+
+
+def x32(d) -> torch.dtype:
+    """``d`` as a ``torch.dtype``, a 64-bit one replaced by its 32-bit
+    one."""
+    d = convert_dtype(d)
+    return _X32.get(d, d)
+
+
+def set_default_dtype(d) -> None:
+    """``paddle.set_default_dtype``: the float type of the creation ops
+    and ``to_tensor`` of Python floats (a float type only; float64 is
+    float32, as in the reference)."""
+    global _default_dtype
+    d = convert_dtype(d)
+    if not d.is_floating_point:
+        raise TypeError(f"default dtype must be a floating dtype, got {d}")
+    _default_dtype = x32(d)
+
+
+def get_default_dtype() -> torch.dtype:
+    return _default_dtype
+
+
+def finfo(d):
+    return torch.finfo(convert_dtype(d))
+
+
+def iinfo(d):
+    return torch.iinfo(convert_dtype(d))

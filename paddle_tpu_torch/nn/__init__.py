@@ -1,8 +1,9 @@
 """nn of the PyTorch port (counterpart of ``paddle_tpu/nn``): the layers
 and functions the fused transformer layers of ``incubate.nn``, BERT, GPT
 and the vision models are built from, the encoder-decoder
-``Transformer``, the losses, the initializers and ``ParamAttr``, and the
-gradient clips the optimizers take. Every layer is a ``torch.nn.Module``
+``Transformer``, the recurrent layers with beam search (``layer.rnn``),
+the losses, the initializers and ``ParamAttr``, and the gradient clips
+the optimizers take. Every layer is a ``torch.nn.Module``
 that takes ``device`` (``cuda`` unless ``"cpu"`` is asked for; without a
 card a default or ``"cuda"`` device raises) where it holds parameters or
 buffers and, where it draws random numbers, ``generator``."""
@@ -22,6 +23,10 @@ from .layer import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
                     TransformerDecoder, TransformerDecoderLayer,
                     TransformerEncoder, TransformerEncoderLayer,
                     TripletMarginLoss, load_numpy_state_dict)
+from .layer.rnn import (GRU, LSTM, RNN, BiRNN,  # noqa: F401
+                        BeamSearchDecoder, GRUCell, LayerList, LSTMCell,
+                        RNNCellBase, SimpleRNN, SimpleRNNCell,
+                        dynamic_decode)
 
 
 class ClipGradByGlobalNorm:

@@ -4,7 +4,7 @@ BERT, the vision models and the eager training loop use."""
 from .activation import gelu, relu, tanh  # noqa: F401
 from .attention import (block_sparse_attention,  # noqa: F401
                         scaled_dot_product_attention, sparse_attention)
-from .common import dropout, embedding, linear  # noqa: F401
+from .common import dropout, embedding, gather_tree, linear  # noqa: F401
 from .conv import conv1d, conv2d, conv3d  # noqa: F401
 from .loss import (binary_cross_entropy,  # noqa: F401
                    binary_cross_entropy_with_logits, cosine_embedding_loss,

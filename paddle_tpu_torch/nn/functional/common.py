@@ -1,4 +1,5 @@
-"""``linear``, ``embedding`` and ``dropout`` of the PyTorch port.
+"""``linear``, ``embedding``, ``dropout`` and ``gather_tree`` of the
+PyTorch port.
 
 Counterpart of ``paddle_tpu/nn/functional/common.py`` (``linear``,
 ``:17``; ``embedding``, ``:30``; ``dropout``, ``:54``). The weight of
@@ -93,3 +94,22 @@ def _dropout(x, p, axis, mode, generator):
     return torch.where(keep, kept,
                        torch.zeros((), dtype=x.dtype, device=x.device)
                        ).to(x.dtype)
+
+
+def _gather_tree(ids, parents):
+    T = ids.shape[0]
+    beams = torch.arange(ids.shape[2], device=ids.device).expand(
+        ids.shape[1:])
+    outs = [None] * T
+    for t in range(T - 1, -1, -1):
+        outs[t] = torch.gather(ids[t], 1, beams)
+        beams = torch.gather(parents[t], 1, beams).long()
+    return torch.stack(outs)
+
+
+def gather_tree(ids, parents):
+    """Whole beam-search sequences from per-step ids and parents, both
+    (max_time, batch, beam): from the last step back, each slot follows
+    its parent pointer (``paddle_tpu/nn/functional/common.py:363``). The
+    op ``gather_tree``; no gradient."""
+    return apply_op("gather_tree", _gather_tree, ids, parents, nondiff=True)

@@ -18,3 +18,6 @@ from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
 from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
+from .rnn import (GRU, LSTM, RNN, BiRNN, BeamSearchDecoder,  # noqa: F401
+                  GRUCell, LayerList, LSTMCell, RNNCellBase, SimpleRNN,
+                  SimpleRNNCell, dynamic_decode)

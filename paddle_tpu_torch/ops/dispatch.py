@@ -122,15 +122,16 @@ def census():
         _census = prev
 
 
-def def_op(name: str | None = None):
+def def_op(name: str | None = None, nondiff: bool = False):
     """Decorator making ``fn`` a registered op: its positional arguments
-    are the data inputs, its keyword arguments the attributes."""
+    are the data inputs, its keyword arguments the attributes;
+    ``nondiff``: its outputs carry no gradient."""
     def deco(fn):
         opname = name or fn.__name__
 
         @functools.wraps(fn)
         def api(*args, **kwargs):
-            return apply_op(opname, fn, *args, **kwargs)
+            return apply_op(opname, fn, *args, nondiff=nondiff, **kwargs)
 
         api.raw_fn = fn
         api.op_name = opname

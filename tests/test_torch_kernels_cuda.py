@@ -1841,3 +1841,23 @@ def test_block_sparse_attention_kernels_match_plain(card, causal):
         torch.testing.assert_close(a.float(), b.float(), atol=2e-3,
                                    rtol=2 ** -6)
     assert not got[0][:, 3 * 64:4 * 64].any()
+
+
+@pytest.mark.cuda
+def test_op_sweep_on_the_card_matches_the_cpu(card):
+    """Every case of ``torch_op_cases.py`` (every op of the namespace)
+    through the port on the card against the port on the CPU, as
+    chip_smoke.py's reference phase runs it: values within each case's
+    tolerance, gradients within 1e-5 + 1e-5 rel, and each random op's
+    draws equal from one seed on the card."""
+    readings, failures = _smoke().op_sweep(card)
+    assert not failures, readings
+
+
+@pytest.mark.cuda
+def test_rnns_and_beam_search_on_the_card_match_the_cpu(card):
+    """2-layer bidirectional LSTM / GRU / SimpleRNN stacks in both
+    ``time_major`` forms within 1e-5, the small LM's 3 SGD steps under
+    ``TRAIN_REF`` and its beam ids equal, card against CPU."""
+    readings = _smoke()._reference_rnn(card)
+    assert readings["rnn_ok"], readings

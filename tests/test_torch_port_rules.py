@@ -81,7 +81,13 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.optimizer.lr",
              "paddle_tpu_torch.optimizer.optimizer",
              "paddle_tpu_torch.nn.initializer",
-             "paddle_tpu_torch.nn.layer.loss"):
+             "paddle_tpu_torch.nn.layer.loss",
+             "paddle_tpu_torch.core.tensor", "paddle_tpu_torch.ops.creation",
+             "paddle_tpu_torch.ops.math", "paddle_tpu_torch.ops.codegen",
+             "paddle_tpu_torch.ops.control_flow",
+             "paddle_tpu_torch.ops.tensor_methods",
+             "paddle_tpu_torch.tensor", "paddle_tpu_torch.nn.layer.rnn",
+             "paddle_tpu_torch.fft"):
     assert name in names, name
 """
 
@@ -234,6 +240,45 @@ def test_vision_entry_points_refuse_a_missing_card():
                             "master": {}},
                torch.zeros(2, 1, 28, 28), [0, 1])
     assert out[3].device.type == "cpu"
+
+
+def test_op_namespace_refuses_a_missing_card():
+    """to_tensor, the creation ops and the random ops run on the default
+    device: without CUDA they raise until set_device("cpu") asks for the
+    CPU (or to_tensor's place does)."""
+    _needs_no_card()
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place
+
+    assert place._default == torch.device("cuda")
+    makes = (lambda: paddle.to_tensor([1.0, 2.0]),
+             lambda: paddle.to_tensor(np.arange(3)),
+             lambda: paddle.zeros([2]), lambda: paddle.ones([2]),
+             lambda: paddle.full([2], 1.0), lambda: paddle.empty([2]),
+             lambda: paddle.arange(4), lambda: paddle.linspace(0, 1, 3),
+             lambda: paddle.logspace(0, 1, 3), lambda: paddle.eye(2),
+             lambda: paddle.rand([2]), lambda: paddle.randn([2]),
+             lambda: paddle.uniform([2]), lambda: paddle.normal(shape=[2]),
+             lambda: paddle.randint(0, 5, [2]), lambda: paddle.randperm(4),
+             lambda: paddle.standard_normal([2]),
+             lambda: paddle.assign(np.ones(2)), lambda: paddle.Parameter(
+                 [1.0]), lambda: paddle.create_parameter([2], "float32"),
+             lambda: paddle.array_length([]))
+    for make in makes:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    for name in ("gpu", "gpu:0", "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            paddle.set_device(name)
+    assert paddle.to_tensor([1.0], place="cpu").device.type == "cpu"
+    try:
+        paddle.set_device("cpu")
+        assert all(make().device.type == "cpu" for make in makes
+                   if make is not makes[-3] and make is not makes[-1])
+    finally:
+        place._default = torch.device("cuda")
+    assert paddle.get_device() == "gpu:0"
 
 
 def test_chip_smoke_refuses_without_a_card():
