@@ -20,6 +20,7 @@ trains.
     python3 chip_smoke.py --phases build,reference,train_gpt,transformer,\
 fused_decode
     python3 chip_smoke.py --phases build,reference,train_rnnlm
+    python3 chip_smoke.py --phases build,train_layer
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -546,6 +547,26 @@ Phases, each printing JSON lines:
     on the path), beam step ms and peak memory; with ``--profile``
     (``profile_train_rnnlm``) the step's device time by kernel family
     and the device's idle share.
+
+19. ``train_layer``: a Paddle user's ``nn.Layer`` script, as written:
+    ``paddle.set_device("gpu")``, a ``class LM(paddle.nn.Layer)``
+    holding ``LlamaForCausalLM`` of Llama-3-8B at 4 of its 32 layers,
+    full width, bf16 (1.9 B parameters), a forward pre-hook and post-hook
+    counting calls, 5 steps of ``optimizer.AdamW(parameters=
+    model.parameters(), multi_precision=True)`` on ``F.cross_entropy``
+    at B=2 x S=4096 over seeded tokens. The loss must fall, every
+    parameter tensor move, the hooks fire once a step, the grouped flash
+    forward, dq and dk/dv launch 4 x 5 times each (every other counter
+    0), ``state_dict()`` carry the reference's keys and a
+    ``set_state_dict`` round trip give the same logits bit for bit; then
+    ``generate`` 8 tokens from a 64-token prompt (tokens/s). Before it,
+    card against CPU: every function and layer of the slice on small f32
+    tensors (output and input gradients within ``SWEEP_TOL``), one eager
+    step of a small f32 Llama at S=256 (the grouped kernels in f32) under
+    ``TRAIN_REF``, a narrow f32 ``generate`` token for token, and one
+    eager step of ``MoEForCausalLM(MoEConfig.tiny())`` moving 20 of 20
+    tensors. Records step ms, tokens/s, MFU, peak memory and the phase's
+    seconds.
 
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -6940,6 +6961,406 @@ def phase_train_rnnlm(dev, profile=False):
     return out
 
 
+# --- phase 19: a Paddle user's nn.Layer script trains Llama-3-8B's widths -
+
+TRAIN_LAYER = dict(layers=4, B=2, S=4096, steps=5, lr=1e-3, seed=0,
+                   prompt=64, new_tokens=8, small_S=256)
+# the sweep of this slice's functions and layers, card against CPU in f32:
+# sums in other orders and transcendentals a few ulps apart
+SWEEP_TOL = (1e-5, 1e-5)
+
+
+def _layer_sweep_cases(F, nn):
+    """{name: (make, input shapes)}: ``make()`` builds the call on the CPU
+    (a layer, or a function of the inputs); every function and layer this
+    slice added, at small shapes."""
+    g = lambda fn, **kw: lambda: (lambda *a: fn(*a, **kw))  # noqa: E731
+    acts = ["relu", "relu6", "leaky_relu", "elu", "selu", "celu", "gelu",
+            "sigmoid", "hardsigmoid", "hardswish", "hardtanh", "hardshrink",
+            "softshrink", "tanhshrink", "silu", "swish", "mish", "softplus",
+            "softsign", "thresholded_relu", "log_sigmoid", "softmax",
+            "log_softmax", "tanh", "gumbel_softmax", "glu"]
+    cases = {f"F.{a}": (g(getattr(F, a)), [(4, 6, 8)]) for a in acts}
+    cases["F.maxout"] = (g(F.maxout, groups=2), [(4, 6, 8)])
+    for mode, size, corners in (("nearest", [13, 7], False),
+                                ("bilinear", [5, 13], False),
+                                ("bilinear", [13, 5], True),
+                                ("bicubic", [5, 17], False),
+                                ("area", [4, 3], False)):
+        cases[f"F.interpolate.{mode}.{size}.{corners}"] = (
+            g(F.interpolate, size=size, mode=mode, align_corners=corners),
+            [(2, 3, 9, 8)])
+    cases.update({
+        "F.interpolate.trilinear": (g(F.interpolate, size=[3, 7, 5],
+                                      mode="trilinear",
+                                      data_format="NCDHW"),
+                                    [(1, 2, 4, 5, 6)]),
+        "F.pad.reflect": (g(F.pad, pad=[1, 2, 2, 1], mode="reflect"),
+                          [(2, 3, 5, 6)]),
+        "F.zeropad2d": (g(F.zeropad2d, padding=[1, 2, 0, 3]), [(2, 3, 4, 5)]),
+        "F.unfold": (g(F.unfold, kernel_sizes=[2, 3], strides=1,
+                       paddings=1), [(2, 3, 6, 7)]),
+        "F.fold": (g(F.fold, output_sizes=[5, 6], kernel_sizes=[2, 3],
+                     paddings=1), [(2, 18, 36)]),
+        "F.pixel_shuffle": (g(F.pixel_shuffle, upscale_factor=2),
+                            [(2, 8, 3, 4)]),
+        "F.pixel_unshuffle": (g(F.pixel_unshuffle, downscale_factor=2),
+                              [(2, 3, 4, 6)]),
+        "F.channel_shuffle": (g(F.channel_shuffle, groups=3),
+                              [(2, 6, 3, 4)]),
+        "F.bilinear": (g(F.bilinear), [(4, 3), (4, 5), (2, 3, 5), (2,)]),
+        "F.cosine_similarity": (g(F.cosine_similarity), [(4, 6), (4, 6)]),
+        "F.label_smooth": (g(F.label_smooth, epsilon=0.2), [(3, 5)]),
+        "F.diag_embed": (g(F.diag_embed, offset=1), [(2, 3, 4)]),
+        "F.instance_norm": (g(F.instance_norm), [(2, 3, 4, 5)]),
+        "F.group_norm": (g(F.group_norm, num_groups=2), [(2, 4, 3, 5)]),
+        "F.normalize": (g(F.normalize), [(3, 4, 5)]),
+        "F.local_response_norm": (g(F.local_response_norm, size=3),
+                                  [(2, 5, 3, 4)]),
+        "F.adaptive_max_pool2d": (g(F.adaptive_max_pool2d,
+                                    output_size=[3, 2]), [(2, 3, 7, 5)]),
+        "F.max_unpool2d": (lambda: (lambda x: F.max_unpool2d(
+            *F.max_pool2d(x, 2, return_mask=True), 2)), [(2, 3, 6, 8)]),
+        "F.affine_grid": (g(F.affine_grid, out_shape=[2, 3, 5, 4],
+                            align_corners=False), [(2, 2, 3)]),
+        "F.grid_sample.bilinear.reflection": (
+            lambda: (lambda x: F.grid_sample(x, _sweep_grid(x),
+                                             padding_mode="reflection",
+                                             align_corners=False)),
+            [(2, 3, 5, 6)]),
+        "F.grid_sample.nearest.zeros": (
+            lambda: (lambda x: F.grid_sample(x, _sweep_grid(x),
+                                             mode="nearest")),
+            [(2, 3, 5, 6)]),
+        "F.temporal_shift": (g(F.temporal_shift, seg_num=3),
+                             [(6, 8, 3, 4)]),
+        "nn.PReLU": (lambda: nn.PReLU(3, device="cpu"), [(2, 3, 4)]),
+        "nn.Bilinear": (lambda: nn.Bilinear(3, 4, 5, device="cpu"),
+                        [(6, 3), (6, 4)]),
+        "nn.Upsample": (lambda: nn.Upsample(scale_factor=2,
+                                            mode="bilinear"),
+                        [(2, 3, 4, 5)]),
+        "nn.UpsamplingBilinear2D": (lambda: nn.UpsamplingBilinear2D([7, 9]),
+                                    [(2, 3, 4, 5)]),
+        "nn.PairwiseDistance": (lambda: nn.PairwiseDistance(), [(4, 6),
+                                                                (4, 6)]),
+        "nn.Softmax2D": (lambda: nn.Softmax2D(), [(2, 3, 4, 5)]),
+        "nn.InstanceNorm2D": (lambda: nn.InstanceNorm2D(3, device="cpu"),
+                              [(2, 3, 4, 5)]),
+        "nn.GroupNorm": (lambda: nn.GroupNorm(2, 4, device="cpu"),
+                         [(2, 4, 3, 3)]),
+        "nn.LocalResponseNorm": (lambda: nn.LocalResponseNorm(3),
+                                 [(2, 5, 3, 3)]),
+        "nn.SpectralNorm": (lambda: nn.SpectralNorm([4, 6], 0, 2,
+                                                    device="cpu"),
+                            [(4, 6)]),
+        "nn.AdaptiveMaxPool3D": (lambda: nn.AdaptiveMaxPool3D(2),
+                                 [(1, 2, 4, 5, 4)]),
+        "nn.MaxUnPool1D": (lambda: (lambda x: nn.MaxUnPool1D(2)(
+            *F.max_pool1d(x, 2, return_mask=True))), [(2, 3, 8)]),
+        "nn.Pad3D": (lambda: nn.Pad3D([1, 0, 1, 1, 0, 2], mode="replicate"),
+                     [(1, 2, 3, 4, 5)]),
+        "nn.Fold": (lambda: nn.Fold([4, 5], 2), [(2, 12, 12)]),
+    })
+    for name in ("CELU", "GELU", "Hardswish", "LogSoftmax", "Mish", "Silu",
+                 "Softplus", "ThresholdedReLU", "Tanh"):
+        cases[f"nn.{name}"] = ((lambda n: lambda: getattr(nn, n)())(name),
+                               [(4, 6)])
+    return cases
+
+
+def _sweep_grid(x):
+    """A fixed (N, 4, 7, 2) grid over [-1.4, 1.4], on x's device."""
+    n = x.shape[0] * 4 * 7 * 2
+    return (torch.linspace(-1.4, 1.4, n, device=x.device)
+            .reshape(x.shape[0], 4, 7, 2).flip(1))
+
+
+def _layer_sweep(dev):
+    """Every function and layer this slice added, on small f32 tensors:
+    output and input gradients on the card against the same call on the
+    CPU. Returns ({case: err / limit}, failures)."""
+    import copy
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    atol, rtol = SWEEP_TOL
+    worst, failures = {}, []
+    rng = np.random.default_rng(21)
+    for name, (make, shapes) in _layer_sweep_cases(F, nn).items():
+        arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+        cpu_fn = make()
+        card_fn = (copy.deepcopy(cpu_fn).to(dev)
+                   if isinstance(cpu_fn, torch.nn.Module) else cpu_fn)
+        res = []
+        for fn, d in ((cpu_fn, torch.device("cpu")), (card_fn, dev)):
+            ts = [torch.from_numpy(a).to(d).requires_grad_(True)
+                  for a in arrays]
+            out = fn(*ts)
+            gout = torch.ones_like(out)
+            grads = torch.autograd.grad(out, ts, gout, allow_unused=True)
+            res.append([out] + [torch.zeros_like(t) if gr is None else gr
+                                for gr, t in zip(grads, ts)])
+        ratio = 0.0
+        for a, b in zip(*res):
+            lim = atol + rtol * a.detach().abs()
+            ratio = max(ratio, float(((b.detach().cpu() - a.detach())
+                                      .abs() / lim).max()))
+        worst[name] = ratio
+        if not ratio <= 1.0:
+            failures.append(name)
+    return worst, failures
+
+
+def _small_layer_step(dev, state, cfg, tokens, labels):
+    """One eager step (``F.cross_entropy``, ``loss.backward()``, AdamW,
+    ``clear_grad``) of the small f32 Llama on ``dev`` from ``state``: the
+    loss and the parameters after it, on the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.nlp import (LlamaForCausalLM,
+                                             load_numpy_state_dict)
+
+    model = load_numpy_state_dict(LlamaForCausalLM(cfg, device=dev), state)
+    opt = paddle.optimizer.AdamW(learning_rate=TRAIN_REF["lr"],
+                                 parameters=model.parameters())
+    logits = model(tokens.to(dev))
+    loss = paddle.nn.functional.cross_entropy(
+        logits.reshape(-1, cfg.vocab_size), labels.to(dev).reshape(-1))
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return float(loss.detach()), {k: v.detach().cpu() for k, v in
+                                  model.state_dict().items()}
+
+
+def _layer_card_vs_cpu(dev):
+    """The slice's correctness on the card against the CPU: the small f32
+    Llama's eager step (the grouped flash kernels in f32 at S=256) under
+    ``TRAIN_REF``, a narrow f32 ``generate`` token for token, and one
+    eager step of ``MoEForCausalLM(MoEConfig.tiny())`` moving every
+    tensor. Returns (readings, ok)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             load_numpy_state_dict)
+    from paddle_tpu_torch.models.nlp.moe import MoEConfig, MoEForCausalLM
+
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=4,
+                           kv_heads=2)
+    state = {k: v.numpy() for k, v in
+             LlamaForCausalLM(cfg, device="cpu", seed=31).state_dict()
+             .items()}
+    rng = np.random.default_rng(32)
+    tokens, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, TRAIN_LAYER["small_S"]))) for _ in range(2))
+    attn, _, _ = _counters()
+    _zero_train_counts()
+    card = _small_layer_step(dev, state, cfg, tokens, labels)
+    small_launches = {p: getattr(attn["gqa"], f"launches_{p}")
+                      for p in ("fwd", "dq", "dkv")}
+    cpu = _small_layer_step(torch.device("cpu"), state, cfg, tokens, labels)
+    loss_diff = abs(card[0] - cpu[0])
+    param_max, param_frac = 0.0, 0.0
+    for k, want in cpu[1].items():
+        d = (card[1][k] - want).abs()
+        param_max = max(param_max, float(d.max()))
+        param_frac = max(param_frac,
+                         float((d > TRAIN_REF["param"]).float().mean()))
+    step_ok = (loss_diff <= TRAIN_REF["loss"]
+               and param_frac <= TRAIN_REF["param_frac"]
+               and param_max <= TRAIN_REF["lr"]
+               and small_launches == {"fwd": 2, "dq": 2, "dkv": 2})
+
+    narrow = LlamaConfig.tiny(vocab=128, hidden=64, layers=2, heads=4,
+                              kv_heads=2)
+    nstate = {k: v.numpy() for k, v in LlamaForCausalLM(
+        narrow, device="cpu", seed=33).state_dict().items()}
+    prompt = torch.from_numpy(rng.integers(0, narrow.vocab_size, (2, 12)))
+    gens = [load_numpy_state_dict(LlamaForCausalLM(narrow, device=d),
+                                  nstate).generate(prompt.to(d), 8).cpu()
+            for d in (dev, torch.device("cpu"))]
+    gen_ok = bool(torch.equal(*gens))
+
+    mcfg = MoEConfig.tiny()
+    moe = MoEForCausalLM(mcfg, device=dev, seed=34,
+                         generator=paddle.core.Generator(35))
+    before = {k: v.detach().clone() for k, v in moe.state_dict().items()}
+    opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=moe.parameters())
+    ids = torch.from_numpy(rng.integers(0, mcfg.vocab_size, (2, 16))).to(dev)
+    lab = torch.from_numpy(rng.integers(0, mcfg.vocab_size, (2, 16))).to(dev)
+    loss = paddle.nn.functional.cross_entropy(
+        moe(ids).reshape(-1, mcfg.vocab_size), lab.reshape(-1)) \
+        + moe.aux_loss()
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    moved = sum(not torch.equal(v, before[k])
+                for k, v in moe.state_dict().items())
+    moe_ok = moved == len(before) == 20
+    return ({"small_step": {"config": {"hidden": 256, "heads": 4,
+                                       "kv_heads": 2, "layers": 2,
+                                       "S": TRAIN_LAYER["small_S"]},
+                            "loss_card": card[0], "loss_cpu": cpu[0],
+                            "loss_diff": loss_diff,
+                            "param_max_diff": param_max,
+                            "param_frac_over_atol": param_frac,
+                            "gqa_launches": small_launches,
+                            "tol": TRAIN_REF, "ok": step_ok},
+             "generate": {"tokens_card": gens[0].tolist(),
+                          "identical": gen_ok},
+             "moe_step": {"moved": moved, "tensors": len(before),
+                          "ok": moe_ok}},
+            step_ok and gen_ok and moe_ok)
+
+
+def phase_train_layer(dev):
+    """A Paddle user's ``nn.Layer`` script: ``LlamaForCausalLM`` of
+    Llama-3-8B at 4 of its 32 layers inside the user's own ``Layer``,
+    forward hooks counting calls, 5 eager AdamW steps on
+    ``F.cross_entropy``; then ``state_dict`` / ``set_state_dict`` and
+    ``generate``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.nlp.llama_functional import layer_keys
+    from paddle_tpu_torch.nn import functional as F
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sweep, sweep_failures = _layer_sweep(dev)
+    checks, checks_ok = _layer_card_vs_cpu(dev)
+    c = TRAIN_LAYER
+    B, S, L, steps = c["B"], c["S"], c["layers"], c["steps"]
+    prev = paddle.resolve_device(None)      # put back after the phase
+    paddle.set_device("gpu")
+    paddle.seed(c["seed"])
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=L)
+    V = cfg.vocab_size
+
+    class LM(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.llama = LlamaForCausalLM(cfg, seed=c["seed"])
+
+        def forward(self, ids):
+            return self.llama(ids)
+
+    model = LM()
+    calls = {"pre": 0, "post": 0}
+    model.register_forward_pre_hook(
+        lambda layer, inputs: calls.__setitem__("pre", calls["pre"] + 1))
+    model.register_forward_post_hook(
+        lambda layer, inputs, out: calls.__setitem__("post",
+                                                     calls["post"] + 1))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = paddle.optimizer.AdamW(learning_rate=c["lr"],
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    rng = np.random.default_rng(c["seed"] + 1)
+    ids = paddle.to_tensor(rng.integers(0, V, (B, S)))
+    labels = paddle.to_tensor(rng.integers(0, V, (B, S)))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def step():
+        logits = model(ids)
+        loss = F.cross_entropy(logits.reshape([-1, V]),
+                               labels.reshape([-1]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss.detach())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t0)
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: 0 for k in counts}
+    want.update({f"gqa_{p}": L * steps for p in ("fwd", "dq", "dkv")})
+    moved = sum(not torch.equal(v, init[k])
+                for k, v in model.state_dict().items())
+    del init
+    hook_calls = dict(calls)
+    hooks_ok = hook_calls == {"pre": steps, "post": steps}
+
+    # the state dict: the reference's keys; a round trip, bit for bit
+    keys = list(model.llama.state_dict())
+    want_keys = (["model.embed_tokens.weight"]
+                 + [f"model.layers.{i}.{k}" for i in range(L)
+                    for k in layer_keys(cfg)]
+                 + ["model.norm.weight", "lm_head.weight"])
+    probe = ids[:1, :256]
+    with paddle.no_grad():
+        before = model(probe)
+        saved = {k: v.clone() for k, v in model.state_dict().items()}
+        for p in model.parameters():
+            p.mul_(0.5)
+        missing, unexpected = model.set_state_dict(saved)
+        round_trip = bool(torch.equal(model(probe), before))
+    del saved, before
+    # generate: greedy, no cache, from a 64-token prompt
+    prompt = ids[:1, :c["prompt"]]
+    model.llama.generate(prompt, 1)                 # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_ids = model.llama.generate(prompt, c["new_tokens"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    step_med = statistics.median(step_s)
+    flops, matmul_params = _step_flops(cfg, B, S)
+    out = {"phase": "train_layer",
+           "model": "Llama-3-8B widths (LlamaConfig.llama3_8b)",
+           "layers": L, "layers_full": 32,
+           "cut": f"{L} of 32 decoder layers, full width",
+           "script": "class LM(paddle.nn.Layer) holding LlamaForCausalLM; "
+                     "paddle.set_device('gpu'); forward pre- and post-hooks;"
+                     " optimizer.AdamW(parameters=model.parameters(), "
+                     "multi_precision=True); F.cross_entropy; "
+                     "loss.backward(); opt.step(); opt.clear_grad()",
+           "params": n_params, "dtype": "bfloat16", "B": B, "S": S,
+           "steps": steps, "lr": c["lr"], "losses": losses,
+           "step_ms": [1e3 * t for t in step_s],
+           "step_ms_median": 1e3 * step_med,
+           "tokens_per_s": B * S / step_med, "step_flops": flops,
+           "mfu": flops / step_med / BF16_FLOP_PER_S,
+           "peak_mem_gb": peak_gb, "launches": counts,
+           "launches_expected": want, "hook_calls": hook_calls,
+           "params_moved": moved, "param_tensors": len(keys),
+           "state_dict_keys_ok": keys == want_keys,
+           "set_state_dict": {"missing": missing, "unexpected": unexpected,
+                              "logits_bit_equal": round_trip},
+           "generate": {"prompt": c["prompt"], "new": c["new_tokens"],
+                        "ms": 1e3 * gen_s,
+                        "tokens_per_s": c["new_tokens"] / gen_s,
+                        "shape": list(out_ids.shape)},
+           "sweep_worst_err_over_tol": max(sweep.values()),
+           "sweep_worst_case": max(sweep, key=sweep.get),
+           "sweep_cases": len(sweep), "sweep_failures": sweep_failures,
+           "sweep_tol": SWEEP_TOL, "card_vs_cpu": checks,
+           "seconds": time.perf_counter() - t_phase}
+    ok = (counts == want and all(np.isfinite(losses))
+          and losses[-1] < losses[0] and moved == len(keys)
+          and hooks_ok and keys == want_keys and not missing
+          and not unexpected and round_trip
+          and tuple(out_ids.shape) == (1, c["prompt"] + c["new_tokens"])
+          and not sweep_failures and checks_ok)
+    out["ok"] = bool(ok)
+    emit(out)
+    paddle.set_device(prev)
+    del model, opt
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("train_layer phase failed: " + json.dumps(
+            {k: v for k, v in out.items() if k != "card_vs_cpu"}))
+    return out
+
+
 # the reference phase: the op sweep and the RNNs, card against CPU ----------
 
 def _op_cases():
@@ -7178,7 +7599,7 @@ PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "train_window", "train_full", "train_long", "train_moe",
           "train_encoder", "train_bert", "train_eager", "train_resnet50",
           "train_gpt",
-          "transformer", "fused_decode", "train_rnnlm")
+          "transformer", "fused_decode", "train_rnnlm", "train_layer")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -7299,8 +7720,10 @@ def _kernels_line(kern, serve, engine, features, cluster, tiers, trains,
                                          "bound_ms", "bound_by")}
                       for c in cases]})
     # the GQA and CE kernels at B=2, S=4096 (G = 4) run in train and
-    # train_full; the GQA kernels at G = 3, S=8192 in train_long
-    launches, by_phase = _phase_launches(trains, ("train", "train_full"))
+    # train_full, the GQA kernels there also in train_layer (its CE is
+    # F.cross_entropy: 0); the GQA kernels at G = 3, S=8192 in train_long
+    launches, by_phase = _phase_launches(trains, ("train", "train_full",
+                                                  "train_layer"))
     if kern.get("gqa"):                     # [0]: the training shapes
         kernels += _attention_entries("gqa_flash", GQA_SOURCE,
                                       GQA_FWD_REPLACES, GQA_BWD_REPLACES,
@@ -7483,6 +7906,8 @@ def main():
     if "train_rnnlm" in phases:
         trains["train_rnnlm"] = run("train_rnnlm", phase_train_rnnlm, dev,
                                     profile=args.profile)
+    if "train_layer" in phases:
+        trains["train_layer"] = run("train_layer", phase_train_layer, dev)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -44,7 +44,8 @@ from . import amp, autograd, fft, nn, optimizer, regularizer  # noqa: F401
 from . import ops, tensor  # noqa: F401
 from .autograd import (PyLayer, PyLayerContext, enable_grad,  # noqa: F401
                        grad, no_grad, set_grad_enabled)
-from .core import convert_dtype, resolve_device, seed  # noqa: F401
+from .core import (convert_dtype, get_rng_state,  # noqa: F401
+                   resolve_device, seed, set_rng_state)
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .nn import ParamAttr  # noqa: F401
 from .ops.dispatch import enable_static  # noqa: F401
@@ -59,3 +60,34 @@ bool = bool_ = _torch.bool  # noqa: A001
 dtype = _torch.dtype
 
 __version__ = "0.1.0"
+
+is_grad_enabled = _torch.is_grad_enabled
+
+
+def in_dynamic_mode() -> bool:
+    """True: the port runs eagerly (``enable_static`` raises)."""
+    return True
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    """``paddle.set_printoptions``: torch's, which prints the port's
+    tensors (the reference sets numpy's, which print its)."""
+    _torch.set_printoptions(precision=precision, threshold=threshold,
+                            edgeitems=edgeitems, linewidth=linewidth,
+                            sci_mode=sci_mode)
+
+
+def batch(reader, batch_size, drop_last=False):
+    """``paddle.batch``: a reader of lists of ``batch_size`` items from
+    ``reader`` (the last one shorter unless ``drop_last``)."""
+    def batched():
+        buf = []
+        for item in reader():
+            buf.append(item)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+    return batched

@@ -85,6 +85,26 @@ def get_default_dtype() -> torch.dtype:
     return _default_dtype
 
 
+def is_floating_point(d) -> bool:
+    """True for the floating and the complex types, as the reference's
+    (``issubdtype(d, inexact)``)."""
+    d = convert_dtype(d)
+    return d.is_floating_point or d.is_complex
+
+
+def is_integer(d) -> bool:
+    d = convert_dtype(d)
+    return not (d.is_floating_point or d.is_complex or d == torch.bool)
+
+
+def is_bool(d) -> bool:
+    return convert_dtype(d) == torch.bool
+
+
+def is_complex(d) -> bool:
+    return convert_dtype(d).is_complex
+
+
 def finfo(d):
     return torch.finfo(convert_dtype(d))
 

@@ -1,7 +1,8 @@
 """Random number generator of the PyTorch port.
 
 Counterpart of ``paddle_tpu/core/generator.py:19-66`` (``Generator``,
-``default_generator``, ``seed``). The reference folds (seed, offset) into
+``default_generator``, ``seed``; ``get_rng_state`` / ``set_rng_state``,
+``:69-76``). The reference folds (seed, offset) into
 a JAX key for each random op; here a ``Generator`` keeps one seeded
 ``torch.Generator`` per device, and every random op of the port (the
 dropout masks, the dropout-add-LayerNorm bits, the layers' initial
@@ -37,6 +38,25 @@ class Generator:
     def initial_seed(self) -> int:
         return self._seed
 
+    def get_state(self):
+        """(seed, {device: the state of its ``torch.Generator``}): every
+        stream drawn from so far, where each stands."""
+        with self._lock:
+            return (self._seed, {dev: gen.get_state()
+                                 for dev, gen in self._per_device.items()})
+
+    def set_state(self, state) -> None:
+        """Put every stream back where ``get_state`` found it; a device
+        that had not drawn then starts again from the seed."""
+        seed, streams = state
+        with self._lock:
+            self._seed = int(seed)
+            self._per_device.clear()
+            for dev, st in streams.items():
+                gen = torch.Generator(device=dev)
+                gen.set_state(st)
+                self._per_device[dev] = gen
+
     def torch_generator(self, device) -> torch.Generator:
         """The ``torch.Generator`` of ``device``, made and seeded at its
         first use."""
@@ -61,6 +81,17 @@ def default_generator() -> Generator:
 def seed(s: int) -> Generator:
     """``paddle.seed``: reseed the default generator."""
     return _default_generator.manual_seed(int(s))
+
+
+def get_rng_state():
+    """``paddle.get_rng_state``: the default generator's state (the
+    reference's is (seed, offset); here (seed, the per-device torch
+    states))."""
+    return _default_generator.get_state()
+
+
+def set_rng_state(state) -> None:
+    _default_generator.set_state(state)
 
 
 def torch_generator(generator, device) -> torch.Generator:

@@ -238,7 +238,7 @@ def expert_choice_gating(logits, capacity):
             torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
-class BaseGate(nn.Module):
+class BaseGate(pnn.Layer):
     """The router: ``wg`` (d_model, num_experts), no bias."""
 
     routing = "token"   # tokens pick experts (the GShard / Switch family)
@@ -289,7 +289,7 @@ def xavier_normal_std(shape):
     return math.sqrt(2.0 / (fan_in + fan_out))
 
 
-class MoELayer(nn.Module):
+class MoELayer(pnn.Layer):
     """Routed experts over one device: the gate ``gate.wg`` (d_model, E)
     and stacked expert weights ``w_in`` (E, d_model, d_hidden), ``w_out``
     (E, d_hidden, d_model), each expert a two-matrix FFN with the tanh

@@ -52,15 +52,24 @@ def _fused_epilogue(x, residual, ln, p, training, generator=None):
                                         generator=generator)
 
 
-class FusedMultiHeadAttention(_nn.Module):
+class FusedMultiHeadAttention(nn.Layer):
     """Attention with its residual: pre-LN ``query + dropout(attn(
     ln_pre(query)))`` or post-LN ``ln_post(query + dropout(attn(query)))``
     (the fused epilogue). A ``cache`` reaches the attention; its update
-    is dropped, as in the reference."""
+    is dropped, as in the reference. The reference accepts ``kdim``,
+    ``vdim``, ``need_weights``, the ``*_attr`` arguments, ``nranks`` and
+    ``ring_id`` and reads none of them (its attention's projections take
+    the default initializers); so does the port."""
 
     def __init__(self, embed_dim, num_heads, dropout_rate=0.5,
-                 attn_dropout_rate=0.5, *, normalize_before=False,
-                 epsilon=1e-5, device=None, generator=None):
+                 attn_dropout_rate=0.5, kdim=None, vdim=None,
+                 normalize_before=False, need_weights=False,
+                 qkv_weight_attr=None, qkv_bias_attr=None,
+                 linear_weight_attr=None, linear_bias_attr=None,
+                 pre_ln_scale_attr=None, pre_ln_bias_attr=None,
+                 ln_scale_attr=None, ln_bias_attr=None, epsilon=1e-5,
+                 nranks=1, ring_id=-1, name=None, *, device=None,
+                 generator=None):
         super().__init__()
         self.normalize_before = normalize_before
         self.generator = generator
@@ -86,19 +95,29 @@ class FusedMultiHeadAttention(_nn.Module):
         return residual + self.dropout(out)
 
 
-class FusedFeedForward(_nn.Module):
+class FusedFeedForward(nn.Layer):
     """linear2(dropout1(activation(linear1(x)))) with its residual, pre-LN
-    or post-LN (the fused epilogue)."""
+    or post-LN (the fused epilogue). ``linear1_*_attr`` /
+    ``linear2_*_attr`` reach the two ``Linear``s; the ``ln*_attr``
+    arguments, ``nranks`` and ``ring_id`` are accepted and never read, as
+    in the reference."""
 
     def __init__(self, d_model, dim_feedforward, dropout_rate=0.1,
                  epsilon=1e-5, activation="relu", act_dropout_rate=None,
-                 normalize_before=False, *, device=None, generator=None):
+                 normalize_before=False, linear1_weight_attr=None,
+                 linear1_bias_attr=None, linear2_weight_attr=None,
+                 linear2_bias_attr=None, ln1_scale_attr=None,
+                 ln1_bias_attr=None, ln2_scale_attr=None, ln2_bias_attr=None,
+                 nranks=1, ring_id=-1, name=None, *, device=None,
+                 generator=None):
         super().__init__()
         self.normalize_before = normalize_before
         self.generator = generator
         kw = {"device": device, "generator": generator}
-        self.linear1 = nn.Linear(d_model, dim_feedforward, **kw)
-        self.linear2 = nn.Linear(dim_feedforward, d_model, **kw)
+        self.linear1 = nn.Linear(d_model, dim_feedforward,
+                                 linear1_weight_attr, linear1_bias_attr, **kw)
+        self.linear2 = nn.Linear(dim_feedforward, d_model,
+                                 linear2_weight_attr, linear2_bias_attr, **kw)
         self.dropout1 = nn.Dropout(act_dropout_rate if act_dropout_rate
                                    is not None else dropout_rate,
                                    generator=generator)
@@ -119,7 +138,7 @@ class FusedFeedForward(_nn.Module):
         return residual + self.dropout2(src)
 
 
-class FusedTransformerEncoderLayer(_nn.Module):
+class FusedTransformerEncoderLayer(nn.Layer):
     """``FusedMultiHeadAttention`` then ``FusedFeedForward``."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout_rate=0.1,
@@ -169,7 +188,7 @@ def _write_step(cache, k, v, t_step):
     return new
 
 
-class FusedMultiTransformer(_nn.Module):
+class FusedMultiTransformer(nn.Layer):
     """The whole decoder stack as one module, the reference's
     (``paddle_tpu/incubate/nn/__init__.py:121-280``): per-layer weights
     stacked on a leading axis (``qkv_weight`` (L, D, 3D), ``qkv_bias``,

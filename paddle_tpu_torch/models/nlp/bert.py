@@ -25,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch import nn
 
 from ... import nn as pnn
 from ...core.generator import torch_generator
@@ -57,7 +56,7 @@ class BertConfig:
                           attention_probs_dropout_prob=0.0)
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(pnn.Layer):
     """Word + position (0..S-1) (+ token-type, when given) embeddings,
     then LayerNorm and dropout."""
 
@@ -97,7 +96,7 @@ def _additive_mask(attention_mask):
     return ((1.0 - m) * torch.finfo(torch.float32).min)[:, None, None, :]
 
 
-class BertModel(nn.Module):
+class BertModel(pnn.Layer):
     """Embeddings, the post-LN encoder, and the pooler
     ``tanh(pooler(seq[:, 0]))``. Returns (seq (B, S, H), pooled (B,
     H))."""
@@ -125,7 +124,7 @@ class BertModel(nn.Module):
         return seq, F.tanh(self.pooler(seq[:, 0]))
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(pnn.Layer):
     """MLM and NSP heads: MLM logits (B, S, V) = mlm_norm(act(
     mlm_transform(seq))) @ word_embeddings.weightᵀ (tied, no bias), NSP
     logits (B, 2) = nsp_head(pooled)."""
@@ -160,7 +159,7 @@ class BertForPretraining(nn.Module):
         return mlm + F.cross_entropy(nsp_logits, nsp_labels)
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(pnn.Layer):
     """classifier(dropout(pooled))."""
 
     def __init__(self, config: BertConfig, num_classes=2, *, device=None,

@@ -25,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch import nn
 
 from ... import nn as pnn
 from ...core.place import resolve_device
@@ -51,7 +50,7 @@ class GPTConfig:
                          dropout=0.0)
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(pnn.Layer):
     def __init__(self, c: GPTConfig, *, device=None, generator=None):
         super().__init__()
         kw = {"device": device, "generator": generator}
@@ -80,7 +79,7 @@ def causal_mask(S, device):
         ~keep, torch.finfo(torch.float32).min)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(pnn.Layer):
     """ids (B, S) -> logits (B, S, vocab)."""
 
     def __init__(self, config: GPTConfig, *, device=None, generator=None):
@@ -91,7 +90,7 @@ class GPTForCausalLM(nn.Module):
         self.wpe = pnn.Embedding(config.max_position_embeddings,
                                  config.hidden_size, **kw)
         self.drop = pnn.Dropout(config.dropout, generator=generator)
-        self.blocks = nn.ModuleList([GPTBlock(config, **kw) for _ in
+        self.blocks = pnn.LayerList([GPTBlock(config, **kw) for _ in
                                      range(config.num_hidden_layers)])
         self.ln_f = pnn.LayerNorm(config.hidden_size, config.layer_norm_eps,
                                   device=device)

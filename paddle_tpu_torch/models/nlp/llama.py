@@ -1,18 +1,23 @@
-"""Llama for the PyTorch port: config, rotary embedding, the model and
-its training step.
+"""Llama for the PyTorch port: config, rotary embedding, the model's
+layers and its training step.
 
 Counterpart of ``paddle_tpu/models/nlp/llama.py`` (``LlamaConfig``,
-``_rope_freqs``, ``apply_rotary``, ``LlamaForCausalLM`` and
+``_rope_freqs``, ``apply_rotary``, the ``Layer`` classes
+``LlamaAttention``, ``LlamaMLP``, ``LlamaDecoderLayer``, ``LlamaModel``
+and ``LlamaForCausalLM`` with ``generate``, ``llama.py:180-476``, and
 ``llama_train_step_factory``, ``llama.py:500-738``). Layouts are the
 reference's: every projection weight is ``(in, out)`` and is applied as
 ``x @ w``, and ``state_dict()`` keys equal the reference's, fused
 projections included (``qkv_proj``, ``gate_up_proj``), so a reference
 state dict loads with ``load_numpy_state_dict`` unchanged.
 
-``LlamaForCausalLM.forward`` and the train step share one implementation
-of the layer math, ``llama_functional.forward``: on the card, the flash
-attention kernels (grouped or multi-head), the splash kernels for a
-``sliding_window`` shorter than the sequence, and the fused CE kernels.
+The layers' ``forward`` and the train step share one implementation of
+the layer math, ``llama_functional``'s (``attention``, ``swiglu``,
+``_rms``): on the card, the flash attention kernels (grouped or
+multi-head), the splash kernels for a ``sliding_window`` shorter than
+the sequence, and, in the train step, the fused CE kernels. Every
+parameter requires grad, as in the reference; the decode and serving
+factories read detached copies under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import torch
 from torch import nn
 
 from ...core.place import resolve_device
-from ...nn.layer.layers import load_numpy_state_dict  # noqa: F401
+from ...nn.layer.layers import (Layer, LayerList,  # noqa: F401
+                                load_numpy_state_dict)
 
 
 @dataclasses.dataclass
@@ -88,79 +94,172 @@ def apply_rotary(x, positions, theta):
     return out.to(x.dtype)
 
 
-class _Weight(nn.Module):
-    """One named ``weight`` parameter, so module paths spell the
-    reference's state-dict keys (``...q_proj.weight``)."""
+class _Weight(Layer):
+    """One named, trainable ``weight`` parameter, so module paths spell the
+    reference's state-dict keys (``...q_proj.weight``). Made empty: the
+    owning model fills it (``init_llama_weights``)."""
 
     def __init__(self, shape, dtype, device):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(shape, dtype=dtype,
-                                               device=device),
-                                   requires_grad=False)
+                                               device=device))
 
 
-class _Attention(nn.Module):
-    def __init__(self, c: LlamaConfig, dtype, device):
+class _Embedding(_Weight):
+    """The token embedding (V, H): rows at the ids."""
+
+    def forward(self, ids):
+        return torch.nn.functional.embedding(ids, self.weight)
+
+
+class _RMSNorm(_Weight):
+    """``llama_functional._rms``: normalised in f32, rounded to x's dtype
+    before the weight multiply, as the reference's ``nn.RMSNorm``."""
+
+    def __init__(self, size, eps, dtype, device):
+        super().__init__((size,), dtype, device)
+        self.eps = eps
+
+    def forward(self, x):
+        from .llama_functional import _rms
+        return _rms(x, self.weight, self.eps)
+
+
+@torch.no_grad()
+def init_llama_weights(layer, generator: torch.Generator):
+    """Norms ones, every other weight N(0, 0.02) from ``generator``, in
+    ``named_parameters`` order."""
+    for name, p in layer.named_parameters():
+        if name.endswith("norm.weight"):
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, 0.02, generator=generator)
+
+
+def _seeded(layer, seed, device):
+    init_llama_weights(layer, torch.Generator(device=device).manual_seed(
+        seed))
+
+
+class LlamaAttention(Layer):
+    """q, k, v and o projections (``qkv_proj`` under
+    ``fuse_attention_qkv``), (in, out) each; ``forward(x, positions)`` is
+    ``llama_functional.attention`` of the normed input x: the rotary at
+    ``positions`` and the causal attention, on the card through the
+    flash / grouped-flash / splash kernels."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
+        c = self.config = config
+        dev = resolve_device(device)
         H = c.hidden_size
         kv_out = c.num_key_value_heads * (H // c.num_attention_heads)
         if c.fuse_attention_qkv:
             # one (H, H + 2*kv) product, sliced q, k, v (llama.py:195-199)
-            self.qkv_proj = _Weight((H, H + 2 * kv_out), dtype, device)
+            self.qkv_proj = _Weight((H, H + 2 * kv_out), c.dtype, dev)
         else:
-            self.q_proj = _Weight((H, H), dtype, device)
-            self.k_proj = _Weight((H, kv_out), dtype, device)
-            self.v_proj = _Weight((H, kv_out), dtype, device)
-        self.o_proj = _Weight((H, H), dtype, device)
+            self.q_proj = _Weight((H, H), c.dtype, dev)
+            self.k_proj = _Weight((H, kv_out), c.dtype, dev)
+            self.v_proj = _Weight((H, kv_out), c.dtype, dev)
+        self.o_proj = _Weight((H, H), c.dtype, dev)
+        _seeded(self, seed, dev)
+
+    def forward(self, x, positions=None):
+        from .llama_functional import attention
+        return attention(self.config, dict(self.named_parameters()), x,
+                         positions, prefix="")
 
 
-class _MLP(nn.Module):
-    def __init__(self, c: LlamaConfig, dtype, device):
+class LlamaMLP(Layer):
+    """The SwiGLU MLP: gate, up (``gate_up_proj`` under
+    ``fuse_ffn_gate_up``) and down projections (``llama_functional
+    .swiglu``)."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
+        c = self.config = config
+        dev = resolve_device(device)
         H, F = c.hidden_size, c.intermediate_size
         if c.fuse_ffn_gate_up:
             # one (H, 2F) product, sliced gate, up (llama.py:388-390)
-            self.gate_up_proj = _Weight((H, 2 * F), dtype, device)
+            self.gate_up_proj = _Weight((H, 2 * F), c.dtype, dev)
         else:
-            self.gate_proj = _Weight((H, F), dtype, device)
-            self.up_proj = _Weight((H, F), dtype, device)
-        self.down_proj = _Weight((F, H), dtype, device)
+            self.gate_proj = _Weight((H, F), c.dtype, dev)
+            self.up_proj = _Weight((H, F), c.dtype, dev)
+        self.down_proj = _Weight((F, H), c.dtype, dev)
+        _seeded(self, seed, dev)
+
+    def forward(self, x):
+        from .llama_functional import swiglu
+        return swiglu(self.config, dict(self.named_parameters()), x,
+                      prefix="")
 
 
-class _DecoderLayer(nn.Module):
-    def __init__(self, c: LlamaConfig, dtype, device):
+class LlamaDecoderLayer(Layer):
+    """x + attention(norm(x)), then + mlp(norm(x)):
+    ``llama_functional.layer_forward``'s arithmetic, through the
+    sublayers (so their hooks run)."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        self.input_layernorm = _Weight((c.hidden_size,), dtype, device)
-        self.self_attn = _Attention(c, dtype, device)
-        self.post_attention_layernorm = _Weight((c.hidden_size,), dtype,
-                                                device)
-        self.mlp = _MLP(c, dtype, device)
+        c = config
+        dev = resolve_device(device)
+        self.input_layernorm = _RMSNorm(c.hidden_size, c.rms_norm_eps,
+                                        c.dtype, dev)
+        self.self_attn = LlamaAttention(c, dev)
+        self.post_attention_layernorm = _RMSNorm(c.hidden_size,
+                                                 c.rms_norm_eps, c.dtype,
+                                                 dev)
+        self.mlp = LlamaMLP(c, dev)
+        _seeded(self, seed, dev)
+
+    def forward(self, x, positions=None):
+        x = x + self.self_attn(self.input_layernorm(x), positions)
+        return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class _LlamaModel(nn.Module):
-    def __init__(self, c: LlamaConfig, dtype, device):
+class LlamaModel(Layer):
+    """The embedding, the decoder layers and the final norm: the final
+    normed hidden states (B, S, H)."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        self.embed_tokens = _Weight((c.vocab_size, c.hidden_size), dtype,
-                                    device)
-        self.layers = nn.ModuleList(
-            [_DecoderLayer(c, dtype, device)
-             for _ in range(c.num_hidden_layers)])
-        self.norm = _Weight((c.hidden_size,), dtype, device)
+        c = self.config = config
+        dev = resolve_device(device)
+        self.embed_tokens = _Embedding((c.vocab_size, c.hidden_size),
+                                       c.dtype, dev)
+        self.layers = LayerList([LlamaDecoderLayer(c, dev)
+                                 for _ in range(c.num_hidden_layers)])
+        self.norm = _RMSNorm(c.hidden_size, c.rms_norm_eps, c.dtype, dev)
+        _seeded(self, seed, dev)
+
+    def forward(self, input_ids, positions=None):
+        from .llama_functional import _positions
+        tokens = torch.as_tensor(input_ids,
+                                 device=self.norm.weight.device).long()
+        positions = _positions(positions, tokens)
+        x = self.embed_tokens(tokens)
+        for layer in self.layers:
+            x = layer(x, positions)
+        return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
-    """Parameter holder with the reference's state-dict keys:
+class LlamaForCausalLM(Layer):
+    """The causal LM with the reference's state-dict keys:
     ``model.embed_tokens.weight`` (V, H), ``model.layers.{i}.<key>`` for
     each key of ``llama_functional.layer_keys(config)`` (projections (in,
     out); ``self_attn.qkv_proj.weight`` (H, H + 2·kv·hd) under
     ``fuse_attention_qkv``, ``mlp.gate_up_proj.weight`` (H, 2F) under
     ``fuse_ffn_gate_up``), ``model.norm.weight``, ``lm_head.weight`` (H,
-    V; absent when ``tie_word_embeddings``).
+    V; absent when ``tie_word_embeddings``). Every parameter trains, as
+    in the reference.
 
-    Parameters are made on ``device`` (``cuda`` unless ``"cpu"`` is
-    asked for) and filled from a ``torch.Generator`` seeded with ``seed``:
-    norms are ones, every other weight is N(0, 0.02). Load real or
-    reference weights with ``load_numpy_state_dict``."""
+    Parameters are made on ``device`` (the default device unless another
+    is asked for) and filled from a ``torch.Generator`` seeded with
+    ``seed`` (``init_llama_weights``: norms ones, every other weight N(0,
+    0.02)); each sublayer built alone is filled the same way. Load real
+    or reference weights with ``load_numpy_state_dict`` or
+    ``set_state_dict``."""
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
@@ -170,36 +269,40 @@ class LlamaForCausalLM(nn.Module):
                              f"disable")
         dev = resolve_device(device)
         self.config = config
-        self.model = _LlamaModel(config, config.dtype, dev)
+        self.model = LlamaModel(config, dev)
         self.lm_head = None if config.tie_word_embeddings else _Weight(
             (config.hidden_size, config.vocab_size), config.dtype, dev)
         self.init_weights(torch.Generator(device=dev).manual_seed(seed))
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        for name, p in self.named_parameters():
-            if name.endswith("norm.weight"):
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, 0.02, generator=generator)
+        init_llama_weights(self, generator)
 
     @property
     def device(self) -> torch.device:
         return self.model.norm.weight.device
 
     def forward(self, input_ids, positions=None):
-        """Logits (B, S, V) for input_ids (B, S): the functional forward
-        (``llama_functional.forward``) over this model's own parameters,
-        differentiable in those that require grad. ``positions`` ((S,) or
-        (B, S)) feed the rotary in place of 0..S-1, as in the reference;
-        the causal mask stays that of the sequence order."""
-        from .llama_functional import forward, param_views
+        """Logits (B, S, V) for input_ids (B, S), differentiable in every
+        parameter: ``llama_functional.forward``'s arithmetic through the
+        layers. ``positions`` ((S,) or (B, S)) feed the rotary in place of
+        0..S-1, as in the reference; the causal mask stays that of the
+        sequence order."""
+        h = self.model(input_ids, positions)
+        if self.lm_head is None:
+            return h @ self.model.embed_tokens.weight.T
+        return h @ self.lm_head.weight
 
-        outer, layers = param_views(dict(self.named_parameters()),
-                                    self.config.num_hidden_layers)
-        return forward(self.config, outer, layers,
-                       torch.as_tensor(input_ids, device=self.device).long(),
-                       remat=False, positions=positions)
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 16):
+        """Greedy decoding without a cache (``paddle_tpu/models/nlp/
+        llama.py:465-476``): each step runs the whole sequence and appends
+        the argmax of the last position's logits. Returns (B, S +
+        max_new_tokens) ids in input_ids' dtype."""
+        out = torch.as_tensor(input_ids, device=self.device)
+        for _ in range(max_new_tokens):
+            nxt = self(out)[:, -1].argmax(-1)
+            out = torch.cat([out, nxt[:, None].to(out.dtype)], 1)
+        return out
 
 
 def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,

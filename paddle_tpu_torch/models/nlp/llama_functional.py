@@ -157,16 +157,16 @@ def _attention(cfg, qt, kt, vt):
     return flash_attention(qt, kt, vt, True)
 
 
-def _qkv(cfg, p, h):
-    """q, k, v projections of h: one fused product sliced q, k, v, or
-    three."""
+def _qkv(cfg, p, h, prefix="self_attn."):
+    """q, k, v projections of h over the weights under ``prefix``: one
+    fused product sliced q, k, v, or three."""
     if cfg.fuse_attention_qkv:
         H = h.shape[-1]
         kv = cfg.num_key_value_heads * (H // cfg.num_attention_heads)
-        qkv = h @ p["self_attn.qkv_proj.weight"]
+        qkv = h @ p[prefix + "qkv_proj.weight"]
         return qkv[..., :H], qkv[..., H:H + kv], qkv[..., H + kv:]
-    return (h @ p["self_attn.q_proj.weight"], h @ p["self_attn.k_proj.weight"],
-            h @ p["self_attn.v_proj.weight"])
+    return (h @ p[prefix + "q_proj.weight"], h @ p[prefix + "k_proj.weight"],
+            h @ p[prefix + "v_proj.weight"])
 
 
 def _gate_up(cfg, p, h, prefix="mlp."):
@@ -185,25 +185,32 @@ def swiglu(cfg, p, h, prefix="mlp."):
     return (F.silu(gate) * up) @ p[prefix + "down_proj.weight"]
 
 
-def attention_residual(cfg, p: Dict[str, torch.Tensor], x, positions=None):
-    """The first half of a decoder layer: x + attention(RMSNorm(x)), with
-    the rotary at ``positions`` ((S,) or (B, S); 0..S-1 by default)."""
-    B, S, H = x.shape
+def attention(cfg, p: Dict[str, torch.Tensor], h, positions=None,
+              prefix="self_attn."):
+    """The attention of the normed input h (B, S, H) over the weights under
+    ``prefix``: projections, the rotary at ``positions`` ((S,) or (B, S);
+    0..S-1 by default), causal attention (``_attention``), the output
+    projection."""
+    B, S, H = h.shape
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     hd = H // nh
-    h = _rms(x, p["input_layernorm.weight"], cfg.rms_norm_eps)
-    q, k, v = _qkv(cfg, p, h)
+    q, k, v = _qkv(cfg, p, h, prefix)
     q, k, v = (q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd),
                v.reshape(B, S, nkv, hd))
-    pos = torch.arange(S, device=x.device) if positions is None \
+    pos = torch.arange(S, device=h.device) if positions is None \
         else positions
     q = apply_rotary(q, pos, cfg.rope_theta)
     k = apply_rotary(k, pos, cfg.rope_theta)
     ctx = _attention(cfg, q.transpose(1, 2), k.transpose(1, 2),
                      v.transpose(1, 2))
-    attn = ctx.transpose(1, 2).reshape(B, S, H) \
-        @ p["self_attn.o_proj.weight"]
-    return x + attn
+    return ctx.transpose(1, 2).reshape(B, S, H) \
+        @ p[prefix + "o_proj.weight"]
+
+
+def attention_residual(cfg, p: Dict[str, torch.Tensor], x, positions=None):
+    """The first half of a decoder layer: x + attention(RMSNorm(x))."""
+    h = _rms(x, p["input_layernorm.weight"], cfg.rms_norm_eps)
+    return x + attention(cfg, p, h, positions)
 
 
 def layer_forward(cfg, p: Dict[str, torch.Tensor], x, positions=None):

@@ -8,14 +8,15 @@ Counterpart of ``paddle_tpu/models/nlp/moe.py`` (``MoEConfig`` :17,
 shared SwiGLU expert where ``num_shared_experts`` > 0, with the head tied
 to the embedding.
 
-The modules hold parameters with the reference's state-dict keys
+The ``Layer``s hold parameters with the reference's state-dict keys
 (``embed_tokens.weight``, ``layers.{i}.self_attn.q_proj.weight``,
 ``layers.{i}.mlp.gate.wg.weight``, ``layers.{i}.mlp.w_in`` ...,
 ``norm.weight``), so a reference state dict loads with
 ``load_numpy_state_dict``. The attention half of each layer and the
-SwiGLU MLPs are ``llama_functional``'s (``attention_residual``,
-``swiglu``): on the card the grouped flash kernels (or multi-head ones)
-where the shape is flash-eligible, e.g. a bf16 model at S >= 256.
+SwiGLU MLPs are Llama's layers (``LlamaAttention``, ``LlamaMLP``:
+``llama_functional``'s ``attention`` and ``swiglu``): on the card the
+grouped flash kernels (or multi-head ones) where the shape is
+flash-eligible, e.g. a bf16 model at S >= 256.
 
 Not ported yet, and refused: expert parallelism (a ``mesh`` with an
 "expert" axis: ROADMAP item 15).
@@ -26,12 +27,12 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch import nn
 
 from ...core.place import resolve_device
 from ...incubate.distributed.models.moe import MoELayer, xavier_normal_std
-from .llama import LlamaConfig, _Attention, _MLP, _Weight
-from .llama_functional import _rms, attention_residual, swiglu
+from ...nn.layer.layers import Layer, LayerList
+from .llama import (LlamaAttention, LlamaConfig, LlamaMLP, _Embedding,
+                    _RMSNorm)
 
 
 @dataclasses.dataclass
@@ -99,20 +100,22 @@ class MoEConfig:
             or self.intermediate_size * self.num_shared_experts
 
 
-class MoEDecoderLayer(nn.Module):
+class MoEDecoderLayer(Layer):
     """x + attention(norm(x)), then + mlp(h) (+ shared_mlp(h)) with h =
-    post_attention_layernorm(x)."""
+    post_attention_layernorm(x); the attention and the SwiGLU MLPs are
+    Llama's layers (``llama_functional``'s arithmetic)."""
 
     def __init__(self, config: MoEConfig, use_moe: bool, *, device=None,
                  generator=None):
         super().__init__()
         dev = resolve_device(device)
-        lc = self._lc = config.as_llama()
+        lc = config.as_llama()
         f32 = torch.float32
-        self.input_layernorm = _Weight((config.hidden_size,), f32, dev)
-        self.self_attn = _Attention(lc, f32, dev)
-        self.post_attention_layernorm = _Weight((config.hidden_size,), f32,
-                                                dev)
+        self.input_layernorm = _RMSNorm(config.hidden_size, lc.rms_norm_eps,
+                                        f32, dev)
+        self.self_attn = LlamaAttention(lc, dev)
+        self.post_attention_layernorm = _RMSNorm(config.hidden_size,
+                                                 lc.rms_norm_eps, f32, dev)
         self.shared_mlp = None
         if use_moe:
             self.mlp = MoELayer(config.hidden_size, config.intermediate_size,
@@ -124,51 +127,51 @@ class MoEDecoderLayer(nn.Module):
                                 dispatch_mode=config.dispatch_mode,
                                 device=dev, generator=generator)
             if config.num_shared_experts > 0:
-                self._shared_lc = dataclasses.replace(
-                    lc, intermediate_size=config.shared_intermediate())
-                self.shared_mlp = _MLP(self._shared_lc, f32, dev)
+                self.shared_mlp = LlamaMLP(dataclasses.replace(
+                    lc, intermediate_size=config.shared_intermediate()), dev)
         else:
-            self.mlp = _MLP(lc, f32, dev)
+            self.mlp = LlamaMLP(lc, dev)
         self.use_moe = use_moe
 
     def forward(self, x):
-        p = dict(self.named_parameters())
-        x = attention_residual(self._lc, p, x)
-        h = _rms(x, p["post_attention_layernorm.weight"],
-                 self._lc.rms_norm_eps)
-        out = self.mlp(h) if self.use_moe else swiglu(self._lc, p, h)
+        x = x + self.self_attn(self.input_layernorm(x))
+        h = self.post_attention_layernorm(x)
+        out = self.mlp(h)
         if self.shared_mlp is not None:
-            out = out + swiglu(self._shared_lc, p, h, "shared_mlp.")
+            out = out + self.shared_mlp(h)
         return x + out
 
 
-class MoEForCausalLM(nn.Module):
-    """The MoE decoder LM with the head tied to ``embed_tokens``.
+class MoEForCausalLM(Layer):
+    """The MoE decoder LM with the head tied to ``embed_tokens``; every
+    parameter trains, as in the reference.
 
-    Parameters are made in f32 on ``device`` (``cuda`` unless ``"cpu"``
-    is asked for; ``.to(torch.bfloat16)`` casts the model, the reference's
-    ``Layer.bfloat16()``) and drawn from a ``torch.Generator`` seeded with
-    ``seed``, by the reference's rules: the embedding N(0, 0.02), the
-    norms ones, every other weight XavierNormal (the projections and
-    ``gate.wg`` by their (in, out); ``w_in`` / ``w_out`` by the 3-D fan
-    rule, ``xavier_normal_std``). The top-1 router noise draws from
-    ``generator`` (the default generator when None). Built in training
-    mode, as the reference."""
+    Parameters are made in f32 on ``device`` (the default device unless
+    another is asked for; ``.to(torch.bfloat16)`` casts the model, the
+    reference's ``Layer.bfloat16()``) and drawn from a ``torch.Generator``
+    seeded with ``seed``, by the reference's rules: the embedding N(0,
+    0.02), the norms ones, every other weight XavierNormal (the
+    projections and ``gate.wg`` by their (in, out); ``w_in`` / ``w_out`` by
+    the 3-D fan rule, ``xavier_normal_std``). The top-1 router noise draws
+    from ``generator`` (the default generator when None). Built in
+    training mode, as the reference."""
 
     def __init__(self, config: MoEConfig, device=None, seed: int = 0,
                  generator=None):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
-        self.embed_tokens = _Weight((config.vocab_size, config.hidden_size),
-                                    torch.float32, dev)
-        self.layers = nn.ModuleList([
+        self.embed_tokens = _Embedding((config.vocab_size,
+                                        config.hidden_size), torch.float32,
+                                       dev)
+        self.layers = LayerList([
             MoEDecoderLayer(config,
                             use_moe=(i % config.moe_every
                                      == config.moe_every - 1),
                             device=dev, generator=generator)
             for i in range(config.num_hidden_layers)])
-        self.norm = _Weight((config.hidden_size,), torch.float32, dev)
+        self.norm = _RMSNorm(config.hidden_size, config.rms_norm_eps,
+                             torch.float32, dev)
         self.init_weights(torch.Generator(device=dev).manual_seed(seed))
 
     @torch.no_grad()
@@ -189,10 +192,10 @@ class MoEForCausalLM(nn.Module):
     def hidden_states(self, input_ids):
         """The final normed hidden states (B, S, H): the head's input."""
         tokens = torch.as_tensor(input_ids, device=self.device).long()
-        x = torch.nn.functional.embedding(tokens, self.embed_tokens.weight)
+        x = self.embed_tokens(tokens)
         for layer in self.layers:
             x = layer(x)
-        return _rms(x, self.norm.weight, self.config.rms_norm_eps)
+        return self.norm(x)
 
     def forward(self, input_ids):
         """Logits (B, S, V) through the tied head."""

@@ -1,4 +1,5 @@
-"""``batch_norm`` and ``layer_norm`` of the PyTorch port.
+"""``batch_norm``, ``layer_norm``, ``instance_norm``, ``group_norm``,
+``normalize`` and ``local_response_norm`` of the PyTorch port.
 
 ``batch_norm`` is the counterpart of ``paddle_tpu/nn/functional/norm.py
 :18-90``, the reference's formula operation for operation: batch
@@ -17,8 +18,15 @@ then the weight and the bias. It does not call the fused LayerNorm
 kernel (``ops.layer_norm.fused_layer_norm``): the reference does not, and
 the two round differently in bfloat16 (the kernel normalises in f32).
 
-Both go through the op dispatch (``ops.dispatch``) as the reference's do:
-``layer_norm``, and in training the batch statistics ``bn_mean`` and
+``instance_norm``, ``group_norm``, ``normalize`` and
+``local_response_norm`` are the reference's formulas in x's dtype
+(``paddle_tpu/nn/functional/norm.py:122-219``): biased variances,
+``(x - mu) * reciprocal(sqrt(var + eps))``. ``instance_norm`` reads
+neither running statistics nor ``use_input_stats`` nor ``momentum``, as
+in the reference: it always normalises with the instance's own.
+
+Each goes through the op dispatch (``ops.dispatch``) as the reference's
+do: ``layer_norm``, and in training the batch statistics ``bn_mean`` and
 ``bn_var``, then ``batch_norm`` over (x, mean, var, weight, bias).
 """
 from __future__ import annotations
@@ -97,3 +105,89 @@ def _layer_norm(x, weight, bias, n, epsilon):
     if bias is not None:
         out = out + bias
     return out
+
+
+def _affine(out, weight, bias, shape):
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def _instance_norm(x, weight, bias, eps, channel_first):
+    nd = x.dim()
+    axes = tuple(range(2, nd)) if channel_first else tuple(range(1, nd - 1))
+    shape = [1] * nd
+    shape[1 if channel_first else nd - 1] = x.shape[1 if channel_first
+                                                    else nd - 1]
+    mu = x.mean(axes, keepdim=True)
+    var = x.var(axes, keepdim=True, correction=0)
+    out = (x - mu) * torch.reciprocal(torch.sqrt(var + eps))
+    return _affine(out, weight, bias, shape)
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW"):
+    """Normalise each (sample, channel) over its spatial axes."""
+    return apply_op("instance_norm", _instance_norm, x, weight, bias,
+                    eps=eps, channel_first=data_format.startswith("NC"))
+
+
+def _group_norm(x, weight, bias, num_groups, epsilon, channel_first):
+    xm = x if channel_first else torch.movedim(x, -1, 1)
+    N, C = xm.shape[0], xm.shape[1]
+    g = xm.reshape((N, num_groups, C // num_groups) + tuple(xm.shape[2:]))
+    axes = tuple(range(2, g.dim()))
+    mu = g.mean(axes, keepdim=True)
+    var = g.var(axes, keepdim=True, correction=0)
+    g = (g - mu) * torch.reciprocal(torch.sqrt(var + epsilon))
+    out = _affine(g.reshape(xm.shape), weight, bias,
+                  (1, C) + (1,) * (xm.dim() - 2))
+    return out if channel_first else torch.movedim(out, 1, -1)
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW"):
+    """Normalise each sample's channels in ``num_groups`` groups, each
+    over its channels and spatial axes together."""
+    return apply_op("group_norm", _group_norm, x, weight, bias,
+                    num_groups=num_groups, epsilon=epsilon,
+                    channel_first=data_format.startswith("NC"))
+
+
+def _normalize(x, p, axis, epsilon):
+    norm = torch.sum(torch.abs(x) ** p, axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp_min(norm, epsilon)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12):
+    """x / max(||x||_p along ``axis``, epsilon)."""
+    return apply_op("normalize", _normalize, x, p=p, axis=axis,
+                    epsilon=epsilon)
+
+
+def _local_response_norm(x, size, alpha, beta, k, data_format):
+    ax = 1 if data_format.startswith("NC") else x.dim() - 1
+    sq = torch.square(x)
+    C, half = x.shape[ax], size // 2
+    pads = [0, 0] * x.dim()
+    # F.pad's pairs run from the last axis backwards
+    pads[2 * (x.dim() - 1 - ax)] = half
+    pads[2 * (x.dim() - 1 - ax) + 1] = size - half - 1
+    padded = torch.nn.functional.pad(sq, pads)
+    acc = torch.zeros_like(x)
+    for i in range(size):
+        acc = acc + padded.narrow(ax, i, C)
+    return x / torch.pow(k + alpha * acc, beta)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW"):
+    """x / (k + alpha * (the sum of squares over ``size`` neighbouring
+    channels)) ** beta; the sum is not divided by ``size``, as in the
+    reference."""
+    return apply_op("local_response_norm", _local_response_norm, x,
+                    size=size, alpha=alpha, beta=beta, k=k,
+                    data_format=data_format)

@@ -1,5 +1,6 @@
-"""Pooling of the PyTorch port: ``max_pool1d/2d/3d``, ``avg_pool1d/2d/3d``
-and ``adaptive_avg_pool1d/2d/3d``.
+"""Pooling of the PyTorch port: ``max_pool1d/2d/3d``, ``avg_pool1d/2d/3d``,
+``adaptive_avg_pool1d/2d/3d``, ``adaptive_max_pool1d/2d/3d`` and
+``max_unpool1d/2d/3d``.
 
 Counterpart of ``paddle_tpu/nn/functional/pooling.py`` (``_pool_nd`` :21,
 ``_adaptive_pool`` :235), which lowers to ``lax.reduce_window`` and jnp
@@ -24,8 +25,8 @@ value and every real element raised to at least half of it, so a pad
 never wins, even in a window of -inf. Each function goes through the op
 dispatch (``ops.dispatch``) under its reference name.
 
-Refused: ``ceil_mode=True`` (the reference accepts it and ignores it:
-ROADMAP Queue 3).
+Refused: ``ceil_mode=True`` and the adaptive max pools' ``return_mask=True``
+(the reference accepts each and ignores it: ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -242,3 +243,109 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
 def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
     return apply_op("adaptive_avg_pool3d", _adaptive_avg, x,
                     output_size=output_size, n=3, data_format=data_format)
+
+
+def _adaptive_max(x, output_size, n, data_format):
+    channel_last = data_format in CHANNEL_LAST
+    out_sz = _tuplize(output_size, n)
+    spatial_axes = (range(1, n + 1) if channel_last else range(2, n + 2))
+    out = x
+    for ax, osz in zip(spatial_axes, out_sz):
+        isz = out.shape[ax]
+        if osz == 1:
+            out = out.amax(ax, keepdim=True)
+        elif isz % osz == 0:
+            shape = out.shape[:ax] + (osz, isz // osz) + out.shape[ax + 1:]
+            out = out.reshape(shape).amax(ax + 1)
+        else:
+            starts = (np.arange(osz) * isz) // osz
+            ends = ((np.arange(osz) + 1) * isz + osz - 1) // osz
+            out = torch.cat([out.narrow(ax, int(s), int(e - s))
+                             .amax(ax, keepdim=True)
+                             for s, e in zip(starts, ends)], ax)
+    return out
+
+
+def _adaptive_max_op(name, x, output_size, n, return_mask, data_format):
+    if return_mask:
+        raise NotImplementedError(
+            "return_mask=True: the reference's adaptive max pools accept it "
+            "and return no mask (ROADMAP Queue 3, faults of the "
+            "reference); the port refuses it")
+    return apply_op(name, _adaptive_max, x, output_size=output_size, n=n,
+                    data_format=data_format)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, data_format="NCL"):
+    """The largest element of each of the reference's bins (those of
+    ``adaptive_avg_pool1d``), axis by axis."""
+    return _adaptive_max_op("adaptive_max_pool1d", x, output_size, 1,
+                            return_mask, data_format)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False,
+                        data_format="NCHW"):
+    return _adaptive_max_op("adaptive_max_pool2d", x, output_size, 2,
+                            return_mask, data_format)
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False,
+                        data_format="NCDHW"):
+    return _adaptive_max_op("adaptive_max_pool3d", x, output_size, 3,
+                            return_mask, data_format)
+
+
+def _max_unpool(x, indices, kernel_size, stride, padding, output_size, n,
+                data_format):
+    """Each pooled value written at its flat index into the output's
+    spatial map (``paddle_tpu/nn/functional/pooling.py:153-186``): the
+    output is (in - 1) * stride - 2 * padding + kernel per axis unless
+    ``output_size`` (its last n entries) says otherwise; zeros elsewhere;
+    an index outside the output is dropped."""
+    channel_last = data_format in CHANNEL_LAST
+    v = torch.movedim(x, -1, 1) if channel_last else x
+    idx = torch.movedim(indices, -1, 1) if channel_last else indices
+    ks = _tuplize(kernel_size, n)
+    st = _tuplize(stride if stride is not None else kernel_size, n)
+    p = _tuplize(padding, n)
+    if output_size is None:
+        out_spatial = tuple((v.shape[2 + i] - 1) * st[i] - 2 * p[i] + ks[i]
+                            for i in range(n))
+    else:
+        out_spatial = tuple(int(s) for s in output_size[-n:])
+    N, C, L = v.shape[0], v.shape[1], int(np.prod(out_spatial))
+    # an index past the output lands in a spare slot, dropped after: the
+    # reference's scatter drops it
+    flat = idx.reshape(N, C, -1).long()
+    flat = torch.where((flat >= 0) & (flat < L), flat, L)
+    out = torch.zeros((N, C, L + 1), dtype=v.dtype, device=v.device)
+    out = out.scatter(2, flat, v.reshape(N, C, -1))[:, :, :L]
+    out = out.reshape((N, C) + out_spatial)
+    return torch.movedim(out, 1, -1) if channel_last else out
+
+
+def _unpool_op(name, x, indices, kernel_size, stride, padding, data_format,
+               output_size, n):
+    return apply_op(name, _max_unpool, x, indices, kernel_size=kernel_size,
+                    stride=stride, padding=padding, output_size=output_size,
+                    n=n, data_format=data_format)
+
+
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+    """The inverse of ``max_pool1d(return_mask=True)``: ``indices`` are
+    its mask."""
+    return _unpool_op("max_unpool1d", x, indices, kernel_size, stride,
+                      padding, data_format, output_size, 1)
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+    return _unpool_op("max_unpool2d", x, indices, kernel_size, stride,
+                      padding, data_format, output_size, 2)
+
+
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+    return _unpool_op("max_unpool3d", x, indices, kernel_size, stride,
+                      padding, data_format, output_size, 3)

@@ -17,15 +17,14 @@ from __future__ import annotations
 
 import math
 
-from torch import nn
 
 from .. import functional as F
 from .. import initializer as init
 from ..functional.conv import _tuplize
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, n, stride,
                  padding, dilation, groups, padding_mode, weight_attr,
                  bias_attr, data_format, device, generator):

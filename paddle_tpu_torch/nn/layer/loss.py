@@ -18,9 +18,10 @@ from torch import nn
 from ...core.generator import torch_generator
 from ...core.place import resolve_device
 from .. import functional as F
+from .layers import Layer
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
@@ -35,7 +36,7 @@ class CrossEntropyLoss(nn.Module):
         return F.cross_entropy(input, label, weight=self.weight, **self.kw)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  name=None):
         super().__init__()
@@ -48,7 +49,7 @@ class NLLLoss(nn.Module):
                           self.reduction)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -59,7 +60,7 @@ class BCELoss(nn.Module):
                                       self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None,
                  name=None):
         super().__init__()
@@ -72,7 +73,7 @@ class BCEWithLogitsLoss(nn.Module):
             logit, label, self.weight, self.reduction, self.pos_weight)
 
 
-class MSELoss(nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -81,7 +82,7 @@ class MSELoss(nn.Module):
         return F.mse_loss(input, label, self.reduction)
 
 
-class L1Loss(nn.Module):
+class L1Loss(Layer):
     def __init__(self, reduction="mean", name=None):
         super().__init__()
         self.reduction = reduction
@@ -90,7 +91,7 @@ class L1Loss(nn.Module):
         return F.l1_loss(input, label, self.reduction)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0, name=None):
         super().__init__()
         self.reduction = reduction
@@ -100,7 +101,7 @@ class SmoothL1Loss(nn.Module):
         return F.smooth_l1_loss(input, label, self.reduction, self.delta)
 
 
-class HuberLoss(nn.Module):
+class HuberLoss(Layer):
     def __init__(self, delta=1.0, reduction="mean", name=None):
         super().__init__()
         self.delta = delta
@@ -110,7 +111,7 @@ class HuberLoss(nn.Module):
         return F.huber_loss(input, label, self.delta, self.reduction)
 
 
-class KLDivLoss(nn.Module):
+class KLDivLoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -119,7 +120,7 @@ class KLDivLoss(nn.Module):
         return F.kl_div(input, label, self.reduction)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -130,7 +131,7 @@ class MarginRankingLoss(nn.Module):
                                      self.reduction)
 
 
-class CosineEmbeddingLoss(nn.Module):
+class CosineEmbeddingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -141,7 +142,7 @@ class CosineEmbeddingLoss(nn.Module):
                                        self.reduction)
 
 
-class TripletMarginLoss(nn.Module):
+class TripletMarginLoss(Layer):
     def __init__(self, margin=1.0, p=2, epsilon=1e-6, swap=False,
                  reduction="mean", name=None):
         super().__init__()
@@ -152,7 +153,7 @@ class TripletMarginLoss(nn.Module):
         return F.triplet_margin_loss(input, positive, negative, **self.kw)
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     def __init__(self, blank=0, reduction="mean"):
         super().__init__()
         self.blank = blank
@@ -164,7 +165,7 @@ class CTCLoss(nn.Module):
                           self.blank, self.reduction, norm_by_times)
 
 
-class HingeEmbeddingLoss(nn.Module):
+class HingeEmbeddingLoss(Layer):
     """~ paddle.nn.HingeEmbeddingLoss."""
 
     def __init__(self, margin=1.0, reduction="mean", name=None):
@@ -177,7 +178,7 @@ class HingeEmbeddingLoss(nn.Module):
                                       self.reduction)
 
 
-class HSigmoidLoss(nn.Module):
+class HSigmoidLoss(Layer):
     """Hierarchical sigmoid over a class tree."""
 
     def __init__(self, feature_size, num_classes, weight_attr=None,

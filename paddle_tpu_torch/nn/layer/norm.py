@@ -1,4 +1,4 @@
-"""``LayerNorm``, ``RMSNorm`` and the batch norms of the PyTorch port.
+"""The normalisation layers of the PyTorch port.
 
 Counterpart of ``paddle_tpu/nn/layer/norm.py`` (``LayerNorm``, ``:10-35``;
 ``RMSNorm``, ``:38-64``; ``BatchNorm``, ``BatchNorm1D/2D/3D``, ``:67-126``):
@@ -13,22 +13,30 @@ the batch's statistics in training mode and blends them into the buffers
 reference's ``weight_attr`` / ``bias_attr`` in the reference's positions
 (a ``ParamAttr``, or False for none); ``device`` is keyword-only and
 ``name`` unused.
+
+``InstanceNorm1D/2D/3D``, ``GroupNorm``, ``LocalResponseNorm`` and
+``SpectralNorm`` follow ``paddle_tpu/nn/layer/norm.py:154-260``: an
+instance norm's ``weight_attr=False`` drops its bias too, and its
+``momentum`` is never read; ``SpectralNorm`` divides the weight it is
+called on by sigma from ``power_iters`` power iterations that start, at
+every call, from its ``weight_u`` / ``weight_v`` buffers (N(0, 1) from
+``generator``), which it never updates, as in the reference.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
-from torch import nn
 
 from ...core.place import resolve_device
 from ...ops.dispatch import apply_op
 from .. import functional as F
 from .. import initializer as init
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 _ONE = init.Constant(1.0)
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, name=None, *, device=None):
         super().__init__()
@@ -50,7 +58,7 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self.normalized_shape}"
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """x * reciprocal(sqrt(mean(x^2) + eps)) in f32, rounded to x's dtype,
     then times the weight (the reference rounds before the weight
     multiply; the fused kernel after it)."""
@@ -78,7 +86,7 @@ def _rms_norm(x, weight, epsilon):
     return out.to(x.dtype) * weight
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, *, device=None):
@@ -132,3 +140,95 @@ class BatchNorm3D(_BatchNormBase):
         super().__init__(num_features, momentum, epsilon, weight_attr,
                          bias_attr, data_format, use_global_stats,
                          device=device)
+
+
+class InstanceNorm1D(Layer):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 name=None, *, device=None):
+        super().__init__()
+        self.epsilon, self.data_format = epsilon, data_format
+        self.weight = self.bias = None
+        if weight_attr is not False:
+            self.weight = create_parameter((num_features,), weight_attr,
+                                           default_initializer=_ONE,
+                                           device=device)
+            self.bias = create_parameter((num_features,), bias_attr,
+                                         is_bias=True, device=device)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self.epsilon,
+                               data_format=self.data_format)
+
+
+class InstanceNorm2D(InstanceNorm1D):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format, device=device)
+
+
+class InstanceNorm3D(InstanceNorm1D):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 name=None, *, device=None):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format, device=device)
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None):
+        super().__init__()
+        self.num_groups, self.epsilon = num_groups, epsilon
+        self.data_format = data_format
+        self.weight = None if weight_attr is False else create_parameter(
+            (num_channels,), weight_attr, default_initializer=_ONE,
+            device=device)
+        self.bias = None if bias_attr is False else create_parameter(
+            (num_channels,), bias_attr, is_bias=True, device=device)
+
+    def forward(self, x):
+        return F.group_norm(x, self.num_groups, self.epsilon, self.weight,
+                            self.bias, self.data_format)
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.args = (size, alpha, beta, k, data_format)
+
+    def forward(self, x):
+        return F.local_response_norm(x, *self.args)
+
+
+def _spectral_norm(w, u, v, dim, iters, eps):
+    wm = torch.movedim(w, dim, 0).reshape(w.shape[dim], -1)
+    for _ in range(iters):
+        v = wm.T @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = wm @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    return w / (u @ wm @ v)
+
+
+class SpectralNorm(Layer):
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 name=None, *, device=None, generator=None):
+        super().__init__()
+        self.dim, self.power_iters, self.eps = dim, power_iters, eps
+        h = weight_shape[dim]
+        w = int(np.prod(weight_shape)) // h
+        normal = init.Normal(0.0, 1.0)
+        kw = {"device": device, "generator": generator}
+        self.register_buffer("weight_u", normal((h,), **kw))
+        self.register_buffer("weight_v", normal((w,), **kw))
+
+    def forward(self, weight):
+        return apply_op("spectral_norm", _spectral_norm, weight,
+                        u=self.weight_u, v=self.weight_v, dim=self.dim,
+                        iters=self.power_iters, eps=self.eps)

@@ -1,5 +1,6 @@
 """Pooling layers of the PyTorch port: ``MaxPool1D/2D/3D``,
-``AvgPool1D/2D/3D`` and ``AdaptiveAvgPool1D/2D/3D``.
+``AvgPool1D/2D/3D``, ``AdaptiveAvgPool1D/2D/3D``,
+``AdaptiveMaxPool1D/2D/3D`` and ``MaxUnPool1D/2D/3D``.
 
 Counterpart of ``paddle_tpu/nn/layer/pooling.py``: each layer calls its
 function of ``nn.functional.pooling`` with the arguments it was made
@@ -11,13 +12,13 @@ reference).
 """
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
 from ..functional.pooling import _refuse, _refuse_divisor
+from .layers import Layer
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     def __init__(self, fn, **kw):
         super().__init__()
         if kw.pop("return_mask", False):
@@ -104,3 +105,55 @@ class AdaptiveAvgPool3D(_Pool):
     def __init__(self, output_size, data_format="NCDHW"):
         super().__init__(F.adaptive_avg_pool3d, output_size=output_size,
                          data_format=data_format)
+
+
+class AdaptiveMaxPool1D(_Pool):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__(F.adaptive_max_pool1d, output_size=output_size,
+                         return_mask=return_mask)
+
+
+class AdaptiveMaxPool2D(_Pool):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__(F.adaptive_max_pool2d, output_size=output_size,
+                         return_mask=return_mask)
+
+
+class AdaptiveMaxPool3D(_Pool):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__(F.adaptive_max_pool3d, output_size=output_size,
+                         return_mask=return_mask)
+
+
+class _MaxUnPool(Layer):
+    def __init__(self, fn, kernel_size, stride, padding, data_format,
+                 output_size):
+        super().__init__()
+        self._fn = fn
+        self._args = (kernel_size, stride, padding, data_format, output_size)
+
+    def forward(self, x, indices):
+        return self._fn(x, indices, *self._args)
+
+
+class MaxUnPool1D(_MaxUnPool):
+    """``F.max_unpool1d`` of a pooled x and its mask."""
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+        super().__init__(F.max_unpool1d, kernel_size, stride, padding,
+                         data_format, output_size)
+
+
+class MaxUnPool2D(_MaxUnPool):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+        super().__init__(F.max_unpool2d, kernel_size, stride, padding,
+                         data_format, output_size)
+
+
+class MaxUnPool3D(_MaxUnPool):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+        super().__init__(F.max_unpool3d, kernel_size, stride, padding,
+                         data_format, output_size)

@@ -40,16 +40,13 @@ import math
 
 import torch
 import torch.nn.functional as TF
-from torch import nn
 
 from ...core.dtype import convert_dtype
 from ...ops.dispatch import apply_op
 from ...ops.manipulation import concat, stack
 from .. import functional as F
 from .. import initializer as init
-from .layers import create_parameter
-
-LayerList = nn.ModuleList
+from .layers import Layer, LayerList, create_parameter  # noqa: F401
 
 
 def _linear(x, w, b):
@@ -80,7 +77,7 @@ def _gru_cell(x, h, wi, wh, bi, bh):
     return (1 - z) * n + z * h
 
 
-class RNNCellBase(nn.Module):
+class RNNCellBase(Layer):
     """Base of the cells: ``get_initial_states``."""
 
     def get_initial_states(self, batch_ref, shape=None, dtype=None,
@@ -196,7 +193,7 @@ def _run(cell, inputs, states, is_reverse, time_major):
     return stack(outputs, axis=time_axis), states
 
 
-class RNN(nn.Module):
+class RNN(Layer):
     """A cell run over a sequence (batch-major unless ``time_major``);
     ``sequence_length`` is not read."""
 
@@ -211,7 +208,7 @@ class RNN(nn.Module):
                     self.time_major)
 
 
-class BiRNN(nn.Module):
+class BiRNN(Layer):
     """A forward and a reverse cell over one sequence; outputs
     concatenated on the last axis, states (forward, backward)."""
 
@@ -228,7 +225,7 @@ class BiRNN(nn.Module):
         return concat([o_fw, o_bw], axis=-1), (s_fw, s_bw)
 
 
-class _RNNBase(nn.Module):
+class _RNNBase(Layer):
     """A stack of ``num_layers`` (bi)directional layers of one cell kind;
     dropout ``dropout`` on the outputs between layers in training."""
 

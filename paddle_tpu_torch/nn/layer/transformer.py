@@ -27,7 +27,10 @@ layer starts from the same weights (the reference's behaviour, kept);
 the copies draw their dropout from the generator of the layer given, not
 from copies of it. ``Transformer``: an encoder and a decoder stack (or
 ``custom_encoder`` / ``custom_decoder``), with final norms only under
-``normalize_before``. The ``*_attr`` arguments are not ported.
+``normalize_before``. ``weight_attr`` / ``bias_attr`` (a ``ParamAttr``,
+or False for no bias) reach every ``Linear`` of a layer, as in the
+reference (``:31-47``, ``:101-113``); ``activation`` names a function of
+the port's ``F``.
 """
 from __future__ import annotations
 
@@ -35,21 +38,21 @@ import collections
 import copy
 
 import torch
-from torch import nn
 
 from ...core.place import resolve_device
 from .. import functional as F
 from .common import Dropout, Linear
+from .layers import Layer, LayerList
 from .norm import LayerNorm
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
-                 vdim=None, need_weights=False, *, device=None,
-                 generator=None):
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, *, device=None, generator=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
@@ -62,10 +65,11 @@ class MultiHeadAttention(nn.Module):
         self.need_weights = need_weights
         self.head_dim = embed_dim // num_heads
         kw = {"device": device, "generator": generator}
-        self.q_proj = Linear(embed_dim, embed_dim, **kw)
-        self.k_proj = Linear(self.kdim, embed_dim, **kw)
-        self.v_proj = Linear(self.vdim, embed_dim, **kw)
-        self.out_proj = Linear(embed_dim, embed_dim, **kw)
+        attrs = (weight_attr, bias_attr)
+        self.q_proj = Linear(embed_dim, embed_dim, *attrs, **kw)
+        self.k_proj = Linear(self.kdim, embed_dim, *attrs, **kw)
+        self.v_proj = Linear(self.vdim, embed_dim, *attrs, **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, *attrs, **kw)
 
     def _heads(self, x, B):
         return x.reshape(B, -1, self.num_heads, self.head_dim)
@@ -124,7 +128,7 @@ class MultiHeadAttention(nn.Module):
         return outs[0] if len(outs) == 1 else tuple(outs)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention then a feed-forward block (``linear2(dropout(
     activation(linear1(x))))``), each added to its residual through
     ``dropout1`` / ``dropout2``; post-LN (``norm1`` / ``norm2`` after each
@@ -134,17 +138,19 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, *, device=None, generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None, *,
+                 device=None, generator=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         kw = {"device": device, "generator": generator}
+        attrs = {"weight_attr": weight_attr, "bias_attr": bias_attr}
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
-                                            **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, **kw)
+                                            **attrs, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, **attrs, **kw)
         self.dropout = Dropout(act_dropout, generator=generator)
-        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, **attrs, **kw)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.dropout1 = Dropout(dropout, generator=generator)
@@ -183,11 +189,11 @@ def _stack(layer, num_layers):
     sharing the generators its dropouts draw from."""
     shared = {id(m.generator): m.generator for m in layer.modules()
               if isinstance(m, Dropout) and m.generator is not None}
-    return nn.ModuleList([layer] + [copy.deepcopy(layer, dict(shared))
+    return LayerList([layer] + [copy.deepcopy(layer, dict(shared))
                                     for _ in range(num_layers - 1)])
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` layers (``layers``: the layer given, then deep
     copies of it), then ``norm`` if given."""
 
@@ -215,7 +221,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention, cross-attention over ``memory`` and a feed-forward
     block, each added to its residual through ``dropout1`` / ``dropout2``
     / ``dropout3``; post-LN (``norm1..3`` after each sum) or pre-LN
@@ -223,19 +229,21 @@ class TransformerDecoderLayer(nn.Module):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, *, device=None, generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None, *,
+                 device=None, generator=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         kw = {"device": device, "generator": generator}
+        attrs = {"weight_attr": weight_attr, "bias_attr": bias_attr}
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
-                                            **kw)
+                                            **attrs, **kw)
         self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
-                                             **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, **kw)
+                                             **attrs, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, **attrs, **kw)
         self.dropout = Dropout(act_dropout, generator=generator)
-        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, **attrs, **kw)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.norm3 = LayerNorm(d_model, device=device)
@@ -288,7 +296,7 @@ class TransformerDecoderLayer(nn.Module):
                     memory, type=MultiHeadAttention.StaticCache))
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` decoder layers (the layer given, then deep copies
     of it), then ``norm`` if given."""
 
@@ -321,7 +329,7 @@ class TransformerDecoder(nn.Module):
         return list(zip(*caches)) if do_zip else caches
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """An encoder stack over ``src`` and a decoder stack over ``tgt`` and
     the encoder's output. The defaults are Transformer-base (d_model
     512, 8 heads, 6 + 6 layers, FFN 2048, dropout 0.1, ReLU)."""
@@ -329,11 +337,13 @@ class Transformer(nn.Module):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, custom_encoder=None,
-                 custom_decoder=None, *, device=None, generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, *, device=None,
+                 generator=None):
         super().__init__()
         args = (d_model, nhead, dim_feedforward, dropout, activation,
-                attn_dropout, act_dropout, normalize_before)
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
         kw = {"device": device, "generator": generator}
         if custom_encoder is not None:
             self.encoder = custom_encoder

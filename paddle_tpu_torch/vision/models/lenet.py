@@ -8,13 +8,12 @@ Made in f32 on ``device`` (``cuda`` unless ``"cpu"`` is asked for) from
 """
 from __future__ import annotations
 
-from torch import nn
 
 from ... import nn as pnn
 from ...ops.manipulation import flatten
 
 
-class LeNet(nn.Module):
+class LeNet(pnn.Layer):
     def __init__(self, num_classes=10, *, device=None, generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)

@@ -17,14 +17,13 @@ the reference's formulas in PyTorch.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ... import nn as pnn
 from ...core.place import resolve_device
 from ...ops.manipulation import flatten
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(pnn.Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -52,7 +51,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(pnn.Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -84,7 +83,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(pnn.Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, *, device=None, generator=None):
         super().__init__()

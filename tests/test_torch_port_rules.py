@@ -242,6 +242,47 @@ def test_vision_entry_points_refuse_a_missing_card():
     assert out[3].device.type == "cpu"
 
 
+def test_layer_slice_refuses_a_missing_card():
+    """``nn.Layer().create_parameter``, the layers with parameters or
+    buffers this slice added and the Llama / MoE layers run on the default
+    device: without CUDA a default or "cuda" device raises; "cpu" runs."""
+    _needs_no_card()
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.models.nlp import LlamaConfig
+    from paddle_tpu_torch.models.nlp.llama import (LlamaAttention,
+                                                   LlamaDecoderLayer,
+                                                   LlamaMLP, LlamaModel)
+    from paddle_tpu_torch.models.nlp.moe import MoEConfig, MoEForCausalLM
+
+    assert place._default == torch.device("cuda")
+    cfg = LlamaConfig.tiny(vocab=32, hidden=16, layers=1, heads=2,
+                           kv_heads=1)
+    for device in (None, "cuda"):
+        kw = {} if device is None else {"device": device}
+        for make in (lambda: nn.Layer().create_parameter([2, 3]),
+                     lambda: nn.PReLU(3, **kw),
+                     lambda: nn.Bilinear(2, 3, 4, **kw),
+                     lambda: nn.GroupNorm(2, 4, **kw),
+                     lambda: nn.InstanceNorm2D(3, **kw),
+                     lambda: nn.SpectralNorm([3, 4], **kw),
+                     lambda: nn.Linear(2, 3).to("gpu"),
+                     lambda: LlamaAttention(cfg, **kw),
+                     lambda: LlamaMLP(cfg, **kw),
+                     lambda: LlamaDecoderLayer(cfg, **kw),
+                     lambda: LlamaModel(cfg, **kw),
+                     lambda: MoEForCausalLM(MoEConfig.tiny(), **kw)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
+    assert LlamaModel(cfg, device="cpu").norm.weight.device.type == "cpu"
+    try:
+        place.set_device("cpu")
+        assert nn.Layer().create_parameter([2]).device.type == "cpu"
+        assert nn.GroupNorm(2, 4).weight.device.type == "cpu"
+    finally:
+        place._default = torch.device("cuda")
+
+
 def test_op_namespace_refuses_a_missing_card():
     """to_tensor, the creation ops and the random ops run on the default
     device: without CUDA they raise until set_device("cpu") asks for the
