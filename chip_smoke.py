@@ -21,6 +21,7 @@ trains.
 fused_decode
     python3 chip_smoke.py --phases build,reference,train_rnnlm
     python3 chip_smoke.py --phases build,train_layer
+    python3 chip_smoke.py --phases build,fit
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -568,6 +569,39 @@ Phases, each printing JSON lines:
     tensors. Records step ms, tokens/s, MFU, peak memory and the phase's
     seconds.
 
+20. ``fit``: a Paddle user's fine-tuning script through hapi, as
+    written: ``class Tokens(paddle.io.Dataset)`` over seeded numpy ids
+    (the label a function of the ids: 1 position in 4 holds an id of the
+    class's own pool of 32), ``DataLoader(num_workers=4,
+    persistent_workers=True)`` over the shared-memory worker processes
+    (forked after the parent holds its CUDA context),
+    ``paddle.Model(net).prepare(AdamW(LinearWarmup(5e-5, 2)),
+    CrossEntropyLoss(), Accuracy())`` after ``amp.decorate(level="O2")``,
+    ``fit`` for 2 epochs of 8 steps with an evaluation of 2 batches each
+    epoch, ``EarlyStopping``, ``ReduceLROnPlateau`` and
+    ``ModelCheckpoint(save_freq=2)``, then ``evaluate`` and ``predict``
+    over 2 batches, and ``Model.load`` of the final checkpoint into a fresh
+    ``Model`` whose predictions must equal the trained model's bit for
+    bit. The network: ``nn.Embedding`` of BERT-base's vocabulary and
+    width, 12 ``nn.TransformerEncoderLayer``s (768, 12 heads, FFN 3072,
+    dropout 0.1), a mean pool and a 2-class head, bf16, B=32 x S=512:
+    the multi-head flash kernels must launch exactly 12 x (training
+    steps + evaluation, prediction and reload batches) forwards and 12 x
+    training steps dq and dk/dv (every other counter 0), the loss fall
+    and the evaluation's accuracy reach ``FIT_EVAL_ACC``. Before it: a
+    2-layer f32 classifier (d 256, head_dim 64, S=256) takes 3 fit steps
+    on the card and on the CPU from the same weights (losses within
+    ``FIT_SMALL_LOSS_ATOL``, accuracy within one sample, predictions
+    within ``REF_ATOL``); the shared-memory loader's 8 batches of the
+    full run's dataset equal the synchronous loader's, byte for byte;
+    a bf16 state dict keeps its bits through ``paddle.save`` /
+    ``paddle.load``; every metric on card tensors equals its value on
+    host numpy. Records step ms (median and range after the first),
+    tokens/s, the loader's wait a batch inside ``fit`` and alone, the
+    losses, the evaluation, each checkpoint's bytes and seconds, the
+    load's seconds, peak memory and the phase's seconds, beside the
+    card's name and power limit.
+
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result line. Without CUDA it exits at once.
@@ -580,6 +614,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -7591,6 +7626,412 @@ def _reference_ops_and_rnn(dev):
             "ops_ok": not failures}, not failures and rnn["rnn_ok"]
 
 
+# --- phase 20: hapi fine-tuning through the shared-memory loader ----------
+
+# fit: a Paddle user's fine-tuning script through the port's hapi: an
+# io.Dataset of seeded numpy ids, DataLoader(num_workers=4,
+# persistent_workers=True) over the shared-memory worker processes,
+# Model.prepare(AdamW(LinearWarmup), CrossEntropyLoss, Accuracy), fit
+# with EarlyStopping, ModelCheckpoint and ReduceLROnPlateau, evaluate,
+# predict, and Model.load of the checkpoint into a fresh Model. The
+# network: an embedding of BERT-base's vocabulary and width, 12
+# nn.TransformerEncoderLayers (768, 12 heads, FFN 3072, dropout 0.1,
+# post-LN), a mean pool and a 2-class head, bf16 through
+# amp.decorate(level="O2") (f32 masters), B=32 x S=512. A sequence's ids
+# are uniform over the vocabulary but for 1 position in 4, which holds
+# an id of its class's own pool of 32 (the label a function of the ids).
+# AdamW at 5e-5 after a 2-step warm-up (a first run at 2e-4 and one at
+# 1e-4 with 1 marked position in 8 spiked to losses of 7.5 and 2.5 and
+# ended at chance; this one ends at accuracy 1.0 in the first epoch).
+FIT = dict(vocab=30522, d=768, heads=12, ffn=3072, layers=12, S=512, B=32,
+           classes=2, epochs=2, steps=8, eval_batches=2, workers=4,
+           lr=5e-5, warmup=2, seed=0, pool=32, marked=0.25)
+# the evaluation's accuracy after fit must reach this
+FIT_EVAL_ACC = 0.9
+# the card-against-CPU part: a 2-layer f32 classifier at d 256, 4 heads
+# (head_dim 64), S=256 (the flash gate's shape), dropout 0, 3 fit steps
+# with shuffle=False (AdamW lr 1e-3) from the same weights on both. f32
+# on both sides, the kernels' sums in another order than the plain
+# version's: each step's loss within FIT_SMALL_LOSS_ATOL, its running
+# accuracy within one sample of the batch (1 / B), the predictions within
+# REF_ATOL
+FIT_SMALL = dict(vocab=1024, d=256, heads=4, ffn=512, layers=2, S=256, B=8,
+                 classes=2, steps=3, lr=1e-3, seed=1, pool=32, marked=0.125)
+FIT_SMALL_LOSS_ATOL = 1e-4
+
+
+def _fit_classifier(paddle, cfg, dropout):
+    """The phase's network, a user's ``nn.Layer``, on the default
+    device."""
+    nn = paddle.nn
+
+    class Classifier(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(cfg["vocab"], cfg["d"])
+            layer = nn.TransformerEncoderLayer(cfg["d"], cfg["heads"],
+                                               cfg["ffn"], dropout=dropout)
+            self.encoder = nn.TransformerEncoder(layer, cfg["layers"])
+            self.head = nn.Linear(cfg["d"], cfg["classes"])
+
+        def forward(self, ids):
+            h = self.encoder(self.embed(ids))
+            return self.head(paddle.mean(h, axis=1))
+
+    return Classifier()
+
+
+def _fit_dataset(paddle, cfg, n, seed):
+    """n sequences of seeded numpy ids (module comment above FIT)."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, cfg["classes"], n)
+    x = rng.integers(0, cfg["vocab"], (n, cfg["S"]))
+    marked = rng.random((n, cfg["S"])) < cfg["marked"]
+    pool = rng.integers(0, cfg["pool"], (n, cfg["S"]))
+    x = np.where(marked, y[:, None] * cfg["pool"] + pool, x).astype(np.int64)
+
+    class Tokens(paddle.io.Dataset):
+        def __getitem__(self, i):
+            return x[i], np.int64(y[i])
+
+        def __len__(self):
+            return n
+
+    return Tokens()
+
+
+def _fit_small_run(paddle, cfg, state, device):
+    """3 fit steps of the small classifier on ``device`` from ``state``:
+    (each step's (loss, accuracy), the evaluation, the predictions)."""
+    paddle.set_device(device)
+    try:
+        net = _fit_classifier(paddle, cfg, dropout=0.0)
+        net.set_state_dict(state)
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.AdamW(
+            learning_rate=cfg["lr"], parameters=net.parameters()),
+            paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        steps = []
+
+        class Record(paddle.callbacks.Callback):
+            def on_train_batch_end(self, step, logs=None):
+                steps.append((logs["loss"], float(logs["acc"])))
+
+        model.fit(_fit_dataset(paddle, cfg, cfg["B"] * cfg["steps"], 5),
+                  batch_size=cfg["B"], shuffle=False, verbose=0,
+                  callbacks=[Record()])
+        ev = model.evaluate(_fit_dataset(paddle, cfg, 2 * cfg["B"], 6),
+                            batch_size=cfg["B"], verbose=0)
+        pred = model.predict(_fit_dataset(paddle, cfg, 2 * cfg["B"], 6),
+                             batch_size=cfg["B"], stack_outputs=True)[0]
+        return steps, ev, pred
+    finally:
+        paddle.set_device("gpu")
+
+
+def _fit_metrics_on_device(paddle, dev):
+    """Every metric on card tensors against the same metric on host
+    numpy: (all equal, readings)."""
+    rng = np.random.default_rng(3)
+    pred = rng.standard_normal((96, 5)).astype(np.float32)
+    label = rng.integers(0, 5, (96, 1))
+    prob = rng.random(96).astype(np.float32)
+    binary = rng.integers(0, 2, 96)
+    card = {k: torch.from_numpy(v).to(dev)
+            for k, v in dict(pred=pred, label=label, prob=prob,
+                             binary=binary).items()}
+    got, want = {}, {}
+    for out, src in ((got, card), (want, dict(pred=pred, label=label,
+                                              prob=prob, binary=binary))):
+        acc = paddle.metric.Accuracy(topk=(1, 2))
+        acc.update(acc.compute(src["pred"], src["label"]))
+        out["acc_top1_top2"] = acc.accumulate()
+        for name in ("Precision", "Recall", "Auc"):
+            m = getattr(paddle.metric, name)()
+            m.update(src["prob"], src["binary"])
+            out[name.lower()] = m.accumulate()
+        a = paddle.metric.accuracy(src["pred"], src["label"], k=2)
+        out["accuracy_k2"] = float(a)
+    on_card = card["pred"].device.type == "cuda"
+    return on_card and got == want, {"card": got, "host": want}
+
+
+def _fit_small_checks(paddle, dev, tmp):
+    """Card against CPU (the small fit), the shared-memory loader against
+    the synchronous one on the full run's dataset, a bf16 save / load
+    round trip, and the metrics on card tensors against host numpy."""
+    cfg = FIT_SMALL
+    paddle.seed(cfg["seed"])
+    net = _fit_classifier(paddle, cfg, dropout=0.0)
+    state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    card = _fit_small_run(paddle, cfg, state, "gpu")
+    host = _fit_small_run(paddle, cfg, state, "cpu")
+    loss_diff = max(abs(a[0] - b[0]) for a, b in zip(card[0], host[0]))
+    acc_diff = max(abs(a[1] - b[1]) for a, b in zip(card[0], host[0]))
+    pred_diff = float(np.abs(card[2] - host[2]).max())
+    small_ok = (len(card[0]) == len(host[0]) == cfg["steps"]
+                and loss_diff <= FIT_SMALL_LOSS_ATOL
+                and acc_diff <= 1.0 / cfg["B"]
+                and abs(card[1]["loss"] - host[1]["loss"])
+                <= FIT_SMALL_LOSS_ATOL and pred_diff <= REF_ATOL)
+    # the shared-memory loader's batches against the synchronous one's
+    ds = _fit_dataset(paddle, FIT, FIT["B"] * FIT["steps"], FIT["seed"] + 1)
+    sync = list(paddle.io.DataLoader(ds, batch_size=FIT["B"]))
+    shm = paddle.io.DataLoader(ds, batch_size=FIT["B"],
+                               num_workers=FIT["workers"])
+    it = iter(shm)
+    shm_kind = type(it).__name__
+    shm_batches = list(it)
+    loader_equal = (shm_kind == "MultiprocessDataLoaderIter"
+                    and len(shm_batches) == len(sync) == FIT["steps"]
+                    and all(a.device.type == "cuda" and a.dtype == b.dtype
+                            and torch.equal(a, b)
+                            for x, y in zip(shm_batches, sync)
+                            for a, b in zip(x, y)))
+    # bf16 state dict through paddle.save / paddle.load
+    bf = {k: v.to(dev, torch.bfloat16) for k, v in state.items()}
+    path = os.path.join(tmp, "bf16.pdparams")
+    paddle.save(bf, path)
+    back = paddle.load(path)
+    bits_equal = all(back[k].dtype == torch.bfloat16
+                     and back[k].device.type == "cuda"
+                     and torch.equal(back[k].view(torch.int16),
+                                     v.view(torch.int16))
+                     for k, v in bf.items())
+    metrics_equal, metrics = _fit_metrics_on_device(paddle, dev)
+    out = {"small": {"card_steps": card[0], "cpu_steps": host[0],
+                     "card_eval": card[1], "cpu_eval": host[1],
+                     "loss_diff": loss_diff, "acc_diff": acc_diff,
+                     "pred_diff": pred_diff,
+                     "loss_atol": FIT_SMALL_LOSS_ATOL,
+                     "acc_atol": 1.0 / cfg["B"], "pred_atol": REF_ATOL,
+                     "ok": small_ok},
+           "shm_loader": {"iterator": shm_kind, "batches": len(shm_batches),
+                          "equal_to_sync": loader_equal},
+           "bf16_save_load_bits_equal": bits_equal,
+           "metrics_card_equal_host": metrics_equal, "metrics": metrics}
+    return out, small_ok and loader_equal and bits_equal and metrics_equal
+
+
+def phase_fit(dev):
+    """A Paddle user's fine-tuning script through hapi at BERT-base's
+    widths and depth (the comment above ``FIT``): launches of the
+    multi-head flash kernels counted from 0 over fit, evaluate, predict
+    and the reloaded model's predictions."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import shm_channel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device("gpu")
+    cfg = FIT
+    B, S = cfg["B"], cfg["S"]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        checks, checks_ok = _fit_small_checks(paddle, dev, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        paddle.seed(cfg["seed"])
+        net = _fit_classifier(paddle, cfg, dropout=0.1)
+        n_params = sum(p.numel() for p in net.parameters())
+        sched = paddle.optimizer.lr.LinearWarmup(cfg["lr"], cfg["warmup"],
+                                                 0.0, cfg["lr"])
+        opt = paddle.optimizer.AdamW(learning_rate=sched,
+                                     parameters=net.parameters(),
+                                     weight_decay=0.01)
+        net, opt = paddle.amp.decorate(net, opt, level="O2",
+                                       dtype="bfloat16")
+        model = paddle.Model(net)
+        model.prepare(opt, paddle.nn.CrossEntropyLoss(),
+                      paddle.metric.Accuracy())
+        train = paddle.io.DataLoader(
+            _fit_dataset(paddle, cfg, B * cfg["steps"], cfg["seed"] + 1),
+            batch_size=B, shuffle=True, drop_last=True,
+            num_workers=cfg["workers"], persistent_workers=True)
+        evald = paddle.io.DataLoader(
+            _fit_dataset(paddle, cfg, B * cfg["eval_batches"],
+                         cfg["seed"] + 2),
+            batch_size=B, num_workers=cfg["workers"],
+            persistent_workers=True)
+        saves = []
+        real_save = model.save
+
+        def timed_save(path, training=True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_save(path, training)
+            saves.append({"path": os.path.basename(path),
+                          "s": time.perf_counter() - t0,
+                          "bytes": sum(os.path.getsize(path + ext)
+                                       for ext in (".pdparams", ".pdopt")
+                                       if os.path.exists(path + ext))})
+
+        model.save = timed_save
+        rec = {"step_s": [], "wait_s": [], "losses": [], "accs": [],
+               "lr": [], "epochs": 0, "evals": []}
+
+        class Timer(paddle.callbacks.Callback):
+            def on_epoch_begin(self, epoch, logs=None):
+                self._t = time.perf_counter()
+
+            def on_train_batch_begin(self, step, logs=None):
+                now = time.perf_counter()
+                rec["wait_s"].append(now - self._t)
+                self._t = now
+
+            def on_train_batch_end(self, step, logs=None):
+                now = time.perf_counter()
+                rec["step_s"].append(now - self._t)
+                rec["losses"].append(logs["loss"])
+                rec["accs"].append(float(logs["acc"]))
+                rec["lr"].append(opt.get_lr())
+                self._t = now
+
+            def on_eval_end(self, logs=None):
+                rec["evals"].append({k: float(np.ravel(v)[0])
+                                     for k, v in logs.items()})
+
+            def on_epoch_end(self, epoch, logs=None):
+                rec["epochs"] += 1
+
+        early = paddle.callbacks.EarlyStopping("loss", patience=1,
+                                               verbose=0)
+        plateau = paddle.callbacks.ReduceLROnPlateau(patience=2,
+                                                     verbose=0)
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        ckpt = paddle.callbacks.ModelCheckpoint(save_freq=2,
+                                                save_dir=ckpt_dir)
+        _zero_train_counts()
+        t0 = time.perf_counter()
+        model.fit(train, evald, epochs=cfg["epochs"], verbose=0,
+                  callbacks=[Timer(), early, plateau, ckpt])
+        fit_s = time.perf_counter() - t0
+        worker_pids = train._persistent_iter.pids \
+            if train._persistent_iter is not None else []
+        t0 = time.perf_counter()
+        ev = model.evaluate(evald, verbose=0)
+        eval_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = model.predict(evald)[0]
+        predict_s = time.perf_counter() - t0
+        n_eval = len(pred)
+        # the checkpoint into a fresh Model: the same logits, bit for bit
+        paddle.seed(cfg["seed"] + 9)
+        fresh_net = paddle.amp.decorate(
+            _fit_classifier(paddle, cfg, dropout=0.1), level="O2",
+            dtype="bfloat16")
+        fresh = paddle.Model(fresh_net)
+        t0 = time.perf_counter()
+        fresh.load(os.path.join(ckpt_dir, "final"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        again = fresh.predict(evald)[0]
+        counts = _train_counts()
+        reload_equal = len(again) == n_eval and all(
+            a.dtype == b.dtype and a.tobytes() == b.tobytes()
+            for a, b in zip(again, pred))
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the loader alone: one more epoch of the persistent train loader
+        t0 = time.perf_counter()
+        n_alone = sum(1 for _ in train)
+        loader_alone_s = time.perf_counter() - t0
+        for loader in (train, evald):
+            if loader._persistent_iter is not None:
+                loader._persistent_iter.close()
+        ckpt_files = sorted(os.listdir(ckpt_dir))
+        zombies = [p for p in worker_pids if _alive(p)]
+    steps = len(rec["step_s"])
+    fit_evals = cfg["eval_batches"] * len(rec["evals"])
+    L = cfg["layers"]
+    want = {k: 0 for k in counts}
+    want.update({"mha_fwd": L * (steps + fit_evals + cfg["eval_batches"]
+                                 + n_eval + len(again)),
+                 "mha_dq": L * steps, "mha_dkv": L * steps})
+    timed = rec["step_s"][1:]
+    losses = rec["losses"]
+    k = max(1, steps // 4)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    out = {"phase": "fit", "card": card, "config": cfg,
+           "params": n_params, "param_dtype": "bfloat16 + float32 masters",
+           "optimizer": f"AdamW(LinearWarmup({cfg['lr']}, "
+                        f"{cfg['warmup']}, 0.0, {cfg['lr']}), "
+                        "weight_decay=0.01) through amp.decorate(O2)",
+           **checks, "steps": steps, "epochs_run": rec["epochs"],
+           "step_ms_first": 1e3 * rec["step_s"][0],
+           "step_ms_median": 1e3 * statistics.median(timed),
+           "step_ms_min": 1e3 * min(timed), "step_ms_max": 1e3 * max(timed),
+           "tokens_per_s": B * S / statistics.median(timed),
+           "loader_wait_ms_median": 1e3 * statistics.median(
+               rec["wait_s"][1:]),
+           "loader_wait_ms_max": 1e3 * max(rec["wait_s"][1:]),
+           "loader_wait_ms_first": 1e3 * rec["wait_s"][0],
+           "loader_alone_ms_per_batch": 1e3 * loader_alone_s
+           / max(1, n_alone),
+           "losses": losses, "accs": rec["accs"], "lrs": rec["lr"],
+           "loss_first_mean": statistics.mean(losses[:k]),
+           "loss_last_mean": statistics.mean(losses[-k:]),
+           "fit_evals": rec["evals"], "eval": ev,
+           "eval_accuracy": float(ev["acc"]),
+           "fit_s": fit_s, "eval_s": eval_s, "predict_s": predict_s,
+           "checkpoint_saves": saves, "checkpoint_files": ckpt_files,
+           "checkpoint_bytes": saves[-1]["bytes"] if saves else None,
+           "checkpoint_save_s": [s["s"] for s in saves],
+           "checkpoint_load_s": load_s,
+           "reload_logits_bit_equal": reload_equal,
+           "early_stopping": {"best": early.best, "wait": early.wait,
+                              "stopped": model.stop_training},
+           "plateau_wait": plateau._wait, "worker_pids": worker_pids,
+           "workers_left_running": zombies,
+           "peak_mem_gb": peak_gb, "launches": counts,
+           "launches_expected": want,
+           "phase_s": time.perf_counter() - t_phase}
+    ok = (checks_ok and steps == cfg["epochs"] * cfg["steps"]
+          and all(np.isfinite(losses))
+          and out["loss_last_mean"] < out["loss_first_mean"]
+          and out["eval_accuracy"] >= FIT_EVAL_ACC and reload_equal and counts == want and len(saves) == 2
+          and ckpt_files == ["0.pdopt", "0.pdparams", "final.pdopt",
+                             "final.pdparams"]
+          and len(worker_pids) == cfg["workers"] and not zombies
+          and n_alone == cfg["steps"])
+    out["ok"] = ok
+    out = _plain(out)
+    emit(out)
+    if not ok:
+        raise AssertionError("fit phase failed: " + json.dumps(
+            {k: v for k, v in out.items()
+             if k not in ("config", "metrics", "losses", "accs", "lrs")}))
+    del model, fresh, net, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _plain(obj):
+    """``obj`` with numpy scalars and arrays made Python numbers and
+    lists, for JSON."""
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    if isinstance(obj, (np.generic, np.ndarray)):
+        return obj.tolist()
+    return obj
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except OSError:
+        return False
+    return True
+
+
 # --- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
@@ -7599,7 +8040,8 @@ PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "train_window", "train_full", "train_long", "train_moe",
           "train_encoder", "train_bert", "train_eager", "train_resnet50",
           "train_gpt",
-          "transformer", "fused_decode", "train_rnnlm", "train_layer")
+          "transformer", "fused_decode", "train_rnnlm", "train_layer",
+          "fit")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -7798,6 +8240,12 @@ def _kernels_line(kern, serve, engine, features, cluster, tiers, trains,
             "flash_mha_eager", GQA_SOURCE, MHA_FWD_REPLACES,
             MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0],
             trains.get("train_eager", {}).get("launches", {}), card)
+        # and at the fit phase's: hapi's Model.fit / evaluate / predict
+        # over the same shapes
+        kernels += _attention_entries(
+            "flash_mha_fit", GQA_SOURCE, MHA_FWD_REPLACES,
+            MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0],
+            trains.get("fit", {}).get("launches", {}), card)
         # and at the transformer phase's: encoder self-attention and
         # cross-attention of Transformer-base
         kernels += _attention_entries(
@@ -7908,6 +8356,8 @@ def main():
                                     profile=args.profile)
     if "train_layer" in phases:
         trains["train_layer"] = run("train_layer", phase_train_layer, dev)
+    if "fit" in phases:
+        trains["fit"] = run("fit", phase_fit, dev)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

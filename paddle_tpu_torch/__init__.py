@@ -25,8 +25,12 @@ BERT, GPT, ``nn.Transformer`` and ``FusedMultiTransformer``; the vision
 models (ResNet, LeNet) and their ``nn``; the Mixture-of-Experts model; the
 eager training API (``optimizer``, ``amp``, ``autograd``,
 ``regularizer``, ``nn.initializer`` with ``ParamAttr``, the gradient
-clips, the losses, the op dispatch); the op namespace; and ``nn``'s
-recurrent layers with beam search.
+clips, the losses, the op dispatch); the op namespace; ``nn``'s
+recurrent layers with beam search; ``nn.Layer``; and a script's data and
+training loop: ``io`` (datasets, samplers, ``DataLoader`` with
+shared-memory worker processes), ``save`` / ``load``, ``device``,
+``metric``, ``callbacks`` and hapi's ``Model`` with ``summary`` and
+``flops``.
 """
 import torch as _torch
 
@@ -38,7 +42,7 @@ from .core.dtype import (finfo, get_default_dtype,  # noqa: F401
                          iinfo, set_default_dtype)
 from .core.place import (CPUPlace, CUDAPinnedPlace,  # noqa: F401
                          CUDAPlace, Place, device_count, get_device,
-                         is_compiled_with_cuda, set_device)
+                         set_device)
 from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
 from . import amp, autograd, fft, nn, optimizer, regularizer  # noqa: F401
 from . import ops, tensor  # noqa: F401
@@ -49,6 +53,15 @@ from .core import (convert_dtype, get_rng_state,  # noqa: F401
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .nn import ParamAttr  # noqa: F401
 from .ops.dispatch import enable_static  # noqa: F401
+from . import callbacks, framework, hapi, io, metric, vision  # noqa: F401
+from .framework import device  # noqa: F401
+from .framework.device import (get_cudnn_version,  # noqa: F401
+                               is_compiled_with_cinn, is_compiled_with_cuda,
+                               is_compiled_with_ipu, is_compiled_with_mlu,
+                               is_compiled_with_npu, is_compiled_with_rocm,
+                               is_compiled_with_xpu)
+from .framework.io import load, save  # noqa: F401
+from .hapi import Model, flops, summary  # noqa: F401
 
 # the dtype names, as torch dtypes (paddle_tpu/__init__.py:11-14, 80-81)
 float16, bfloat16, float32, float64 = (_torch.float16, _torch.bfloat16,

@@ -118,4 +118,6 @@ def device_count() -> int:
 
 
 def is_compiled_with_cuda() -> bool:
-    return torch.cuda.is_available()
+    """Whether this PyTorch was built with CUDA (``torch.version.cuda``),
+    whether or not a card is present."""
+    return torch.version.cuda is not None

@@ -87,7 +87,16 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.ops.control_flow",
              "paddle_tpu_torch.ops.tensor_methods",
              "paddle_tpu_torch.tensor", "paddle_tpu_torch.nn.layer.rnn",
-             "paddle_tpu_torch.fft"):
+             "paddle_tpu_torch.fft", "paddle_tpu_torch.io",
+             "paddle_tpu_torch.io.shm_channel",
+             "paddle_tpu_torch.io.native_loader",
+             "paddle_tpu_torch.utils.native", "paddle_tpu_torch.framework",
+             "paddle_tpu_torch.framework.io",
+             "paddle_tpu_torch.framework.device",
+             "paddle_tpu_torch.framework.custom_device",
+             "paddle_tpu_torch.metric", "paddle_tpu_torch.hapi",
+             "paddle_tpu_torch.hapi.model", "paddle_tpu_torch.hapi.callbacks",
+             "paddle_tpu_torch.callbacks", "paddle_tpu_torch.ops.autotune"):
     assert name in names, name
 """
 
@@ -279,6 +288,102 @@ def test_layer_slice_refuses_a_missing_card():
         place.set_device("cpu")
         assert nn.Layer().create_parameter([2]).device.type == "cpu"
         assert nn.GroupNorm(2, 4).weight.device.type == "cpu"
+    finally:
+        place._default = torch.device("cuda")
+
+
+def test_native_loader_build_failure_raises(monkeypatch, tmp_path):
+    """A failed build of the native data path raises, at the ring, the
+    batch assembler and the shared-memory DataLoader: nothing hands over
+    to numpy or to threads."""
+    import numpy as np
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.io import (DataLoader, Dataset, native_loader,
+                                     shm_channel)
+    from paddle_tpu_torch.utils import native
+
+    class Rows(Dataset):
+        def __getitem__(self, i):
+            return np.float32(i)
+
+        def __len__(self):
+            return 8
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    prev = place._default
+    try:
+        place.set_device("cpu")
+        for make in (lambda: native.get_lib(),
+                     lambda: shm_channel.ShmRing("/ptt_x", create=True),
+                     lambda: native_loader.NativeBatchAssembler(
+                         np.zeros((4, 2), np.float32)),
+                     lambda: iter(DataLoader(Rows(), batch_size=2,
+                                             num_workers=2))):
+            with pytest.raises(RuntimeError, match="native data-path "
+                                                   "build failed"):
+                make()
+        # the synchronous and the thread path need no native library
+        assert len(list(DataLoader(Rows(), batch_size=2))) == 4
+        assert len(list(DataLoader(Rows(), batch_size=2, num_workers=2,
+                                   use_shared_memory=False))) == 4
+    finally:
+        place._default = prev
+    assert not (tmp_path / "build").exists() or not any(
+        p.suffix == ".so" for p in (tmp_path / "build").iterdir())
+
+
+def test_fit_slice_refuses_a_missing_card(tmp_path):
+    """DataLoader, Model.fit / evaluate / predict / train_batch,
+    paddle.load and the device statistics run on the default device:
+    without CUDA they raise until the CPU is asked for (set_device, or
+    the loader's places)."""
+    _needs_no_card()
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place
+
+    class Rows(paddle.io.Dataset):
+        def __getitem__(self, i):
+            return np.full(3, i, np.float32), np.int64(i % 2)
+
+        def __len__(self):
+            return 4
+
+    assert place._default == torch.device("cuda")
+    try:
+        place.set_device("cpu")
+        net = paddle.nn.Linear(3, 2)
+        paddle.save(net.state_dict(), str(tmp_path / "w.pdparams"))
+    finally:
+        place._default = torch.device("cuda")
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.SGD(parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    for run in (lambda: list(paddle.io.DataLoader(Rows(), batch_size=2)),
+                lambda: iter(paddle.io.DataLoader(Rows(), batch_size=2,
+                                                  num_workers=2)),
+                lambda: model.fit(Rows(), batch_size=2, verbose=0),
+                lambda: model.evaluate(Rows(), batch_size=2, verbose=0),
+                lambda: model.predict(Rows(), batch_size=2),
+                lambda: model.train_batch([np.zeros((2, 3), np.float32)],
+                                          [np.zeros(2, np.int64)]),
+                lambda: paddle.load(str(tmp_path / "w.pdparams")),
+                lambda: paddle.device.memory_allocated(),
+                lambda: paddle.device.cuda.synchronize()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+    batches = list(paddle.io.DataLoader(Rows(), batch_size=2,
+                                        places=paddle.CPUPlace()))
+    assert batches[0][0].device.type == "cpu"
+    try:
+        place.set_device("cpu")
+        model.fit(Rows(), batch_size=2, verbose=0, shuffle=False)
+        assert set(model.evaluate(Rows(), batch_size=2, verbose=0)) == {
+            "loss", "acc"}
+        assert paddle.load(str(tmp_path / "w.pdparams"))[
+            "weight"].device.type == "cpu"
     finally:
         place._default = torch.device("cuda")
 
