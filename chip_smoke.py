@@ -22,6 +22,7 @@ fused_decode
     python3 chip_smoke.py --phases build,reference,train_rnnlm
     python3 chip_smoke.py --phases build,train_layer
     python3 chip_smoke.py --phases build,fit
+    python3 chip_smoke.py --phases build,deploy
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -305,8 +306,9 @@ Phases, each printing JSON lines:
    and prefix hits a replica, handoffs and the transforms' ms (the spans'
    host wall, and CUDA events on a 500-token chain), retries, resumed
    tokens, incidents, peak memory.
-7b. ``serve_tiers``: Llama-3-8B at full width and depth, bf16, seeded
-   weights, ``serve_engine``'s geometry (``SERVE_TIERS``), through
+7b. ``serve_tiers``: Llama-3-8B at full width and 16 of its 32 layers
+   (``CUT``), bf16, seeded weights, ``serve_engine``'s geometry
+   (``SERVE_TIERS``), through
    ``ServingEngine(slots=8, policy="paged")``. Dispatch-ahead:
    ``serve_engine``'s first 12 requests on the fixed clock with the flag
    off and on (identical outputs, slot logs and reports), then its 32 on
@@ -319,12 +321,13 @@ Phases, each printing JSON lines:
    pages > 0, the stored bytes never above the budget, and the share of
    streams equal to the untiered (flag-off) run's. Host memory: 8
    two-turn sessions and 2 priority-9 requests on a pool of 41 pages
-   with a 1 GiB arena, fixed clock: page-outs, page-ins, preemptions and
+   with a 0.5 GiB arena (128 pages of 16 layers, as 1 GiB held of 32),
+   fixed clock: page-outs, page-ins, preemptions and
    restores > 0, the arena's census and budget held, every tensor it
    took pinned host memory; the CUDA-event ms of one page's spill and
    page-in; the share of streams equal to the same trace on the ample
    pool. Every run: streams min(budget, cancel_after) tokens, the page
-   census conserved, paged launches == 32 x decode steps (a discarded
+   census conserved, paged launches == 16 x decode steps (a discarded
    dispatched-ahead batch's steps included), all ``split``.
 7c. ``decode_options``: int8 weights (``llama_decode_factory(
    weight_dtype="int8")``) on Llama-3-8B, B=8, a 512-token prompt, 64
@@ -601,6 +604,31 @@ Phases, each printing JSON lines:
     losses, the evaluation, each checkpoint's bytes and seconds, the
     load's seconds, peak memory and the phase's seconds, beside the
     card's name and power limit.
+
+21. ``deploy``: the fit classifier (its widths and depth, bf16, in
+    eval, from its own seed) deployed as a user does after fine-tuning:
+    (a) ``jit.to_static`` at B=32, one capture then a cache hit, logits
+    equal to eager mode's bit for bit; (b) ``jit.save`` with
+    ``InputSpec([None, 512], "int64")``, ``jit.load`` and
+    ``inference.create_predictor(Config(path))`` at B = 1, 3, 8 and 32,
+    bit for bit against eager, the loaded program holding 12 ``gqa_fwd``
+    operator nodes; (c) a ``DynamicBatcher`` (max_batch 32) serving 64
+    requests of 1-4 rows from 8 threads, each response within
+    ``DEPLOY_BATCH_ATOL`` of its own eager forward; (d)
+    ``PostTrainingQuantization`` (abs_max, 4 batches) to ``Int8Linear``,
+    saved and loaded, and one ``Int8Linear`` on the card against the CPU
+    (int32 sums equal, outputs within ``INT8_REL``); (e) ``to_static`` of
+    a function with a tensor ``while`` and a tensor ``if``, captured as
+    ``while_loop`` / ``cond``, equal to eager. The multi-head flash
+    forward must launch exactly 12 x the forwards run (eager, captured,
+    loaded, batched, calibration), every other counter 0: the operator's
+    CUDA implementation counts, in a captured program as eagerly. Before
+    it, the host microseconds of a forward call through the operator
+    against the launch alone. Records the capture, export and load
+    seconds, the artifacts' bytes, the predictor's ms per batch size,
+    the batcher's requests/s and p50 / p95 latency, the int8 logits'
+    relative error against bf16 and the peak memory, beside the card's
+    name and power limit.
 
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -3358,7 +3386,8 @@ SERVE_FEATURES = dict(max_len=2048, page_size=64, slots=8, chunked_prefill=64,
                       spec_interarrival=0.1, layers=16)
 # the depth that keeps the whole script within its time limit: a paged
 # turn is the host's loop over the layers, so a phase's wall time follows
-# its depth; serve_engine and serve_tiers serve all 32
+# its depth; serve_engine serves all 32 (serve_tiers was cut to 16 when
+# the deploy phase joined the script)
 CUT = "16 of 32 decoder layers, full width: the whole script's time limit"
 
 
@@ -4126,20 +4155,22 @@ def phase_serve_cluster(dev):
 # --- phase 7b: the memory tiers and dispatch-ahead, Llama-3-8B -----------
 
 # serve_tiers: serve_engine's geometry and trace over one seeded Llama-3-8B
-# (32 layers, bf16), two factories of it: one with a pressure pool, one
+# (16 of its 32 layers, CUT; bf16), two factories of it: one with a pressure pool, one
 # plain. Pressure: a byte budget of 60 % of the full-precision pool
 # (compaction at allocation) and a QoS scheduler whose SLO monitor trips
 # the tier at 50 % (a ThresholdRule on the pool's stored bytes). Host
 # memory: 8 two-turn sessions (first prompts 256-512, turns of 64-128,
 # 32-64 new tokens, 40 virtual s of thinking) and 2 high-priority
-# requests, 8 slots, a pool of 41 pages (2,560 tokens) and a 1 GiB arena,
+# requests, 8 slots, a pool of 41 pages (2,560 tokens) and a 0.5 GiB arena
+# (128 pages of 4 MiB at 16 layers, the pages 1 GiB held at 32 layers),
 # on the fixed clock, so that its spills, page-ins and preemption are the
 # ones rehearsed on SimServing (the same bookkeeping: 47 spills, 15
 # page-ins, 1 preemption and 1 restore); the same trace on an ample pool
 # (serve_engine's 257 pages) is the stream control. Dispatch-ahead:
 # serve_engine's trace, paged, flag off then on, on the measured clock.
 SERVE_TIERS = dict(SERVE_ENGINE, budget_frac=0.6, slo_frac=0.5,
-                   hm_pages=41, hm_sessions=8, hm_high=2, arena_gib=1.0)
+                   hm_pages=41, hm_sessions=8, hm_high=2, arena_gib=0.5,
+                   layers=16)
 
 
 def _hostmem_trace(vocab):
@@ -4309,11 +4340,12 @@ def _page_transfer_ms(eng):
 
 
 def phase_serve_tiers(dev):
-    """Llama-3-8B, full width and depth, bf16, seeded weights: the pressure
-    page tier, the host-memory tier and dispatch-ahead turns through
-    ``ServingEngine(policy="paged")`` (SERVE_TIERS). Each run sits between
-    a reset and a read of the paged kernel's counts: every launch must be
-    a decode step's (``split``, 32 a step; a dispatched-ahead batch that
+    """Llama-3-8B, full width, 16 of its 32 layers (CUT), bf16, seeded
+    weights: the pressure page tier, the host-memory tier and
+    dispatch-ahead turns through ``ServingEngine(policy="paged")``
+    (SERVE_TIERS). Each run sits between a reset and a read of the paged
+    kernel's counts: every launch must be a decode step's (``split``, one
+    a layer and step; a dispatched-ahead batch that
     was discarded launched its steps too); the streams min(budget,
     cancel_after) tokens; the page census conserved."""
     from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
@@ -4323,7 +4355,8 @@ def phase_serve_tiers(dev):
                                           ServingEngine)
 
     t = SERVE_TIERS
-    cfg = LlamaConfig.llama3_8b()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=t["layers"])
     L = cfg.num_hidden_layers
     ps, C, slots = t["page_size"], t["chunked_prefill"], t["slots"]
     n_pages = slots * (t["max_len"] // ps) + 1
@@ -4341,7 +4374,7 @@ def phase_serve_tiers(dev):
     build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     trace = _serve_engine_trace(cfg.vocab_size)
     out = {"phase": "serve_tiers", "model": "llama3_8b", "layers": L,
-           "dtype": "bfloat16", "setup_s": setup_s,
+           "cut": CUT, "dtype": "bfloat16", "setup_s": setup_s,
            "build_peak_mem_gb": build_peak}
     checks, parts = {}, {}
 
@@ -8012,6 +8045,348 @@ def phase_fit(dev):
     return out
 
 
+# --- deploy: to_static, jit.save / load, the predictor and PTQ ---------------
+
+# The fit phase's classifier (FIT's widths and depth: 12 layers, d 768, 12
+# heads, FFN 3072, vocabulary 30522, S=512), bf16, in eval, from its own
+# seed, deployed as a user does after fine-tuning: to_static at B=32,
+# jit.save with a symbolic batch, the predictor at B = 1, 3, 8 and 32, a
+# DynamicBatcher of 64 requests of 1-4 rows from 8 threads, PTQ (abs_max
+# over 4 calibration batches of 8) to Int8Linear, saved and loaded again.
+DEPLOY = dict(seed=7, B=32, sizes=(1, 3, 8, 32), reps=5, requests=64,
+              threads=8, rows=(1, 4), max_batch=32, max_delay_ms=5.0,
+              calib_batches=4, calib_B=8, int8_B=8, linear_rows=64)
+# to_static's program and the loaded program hold the ops eager mode runs,
+# in its order, at the same shapes: their logits must equal eager's bit
+# for bit
+DEPLOY_EXACT = 0.0
+# a batched response against its request's own eager forward: the batch
+# (a padded power-of-two bucket) gives the GEMMs other row counts, so
+# cuBLAS may take other kernels and sum in another order; 12 bf16 layers
+# carry that to the logits. The limit: 2^-4 absolute, 32 bf16 ulps at the
+# logits' scale (|logit| < 1 at these random weights)
+DEPLOY_BATCH_ATOL = 2 ** -4
+# Int8Linear on the card against the CPU: the int32 sums are exact on both;
+# the f32 rescale is one product, the bias one add
+INT8_REL = 1e-6
+
+
+def _deploy_dyn(x, n):
+    """The dy2static part: a tensor-bounded loop and a tensor branch."""
+    s = x * 0
+    i = 0
+    while i < n:
+        s = s + x
+        i = i + 1
+    if s.sum() > 0:
+        s = s * 2
+    else:
+        s = -s
+    return s
+
+
+def _graph_ops(ep):
+    """Every call_function node's target of ``ep``, its branch and body
+    graphs included."""
+    return [n.target for m in ep.graph_module.modules()
+            if isinstance(m, torch.fx.GraphModule)
+            for n in m.graph.nodes if n.op == "call_function"]
+
+
+def _ids(cfg, B, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg["vocab"], (B, cfg["S"]))
+                            ).to(dev)
+
+
+def _max_diff(a, b):
+    return float((torch.as_tensor(a).float()
+                  - torch.as_tensor(b).float()).abs().max())
+
+
+def _op_overhead_us(dev, reps=2000):
+    """Host microseconds a call of the multi-head forward through the
+    ``gqa_fwd`` operator (``mha_fwd``) and through the launch alone
+    (``_launch_fwd``), at a shape small enough that the host bounds the
+    call: B=1, 1 head, S=256, head_dim 64, bf16. Alternated in turns of
+    ``reps`` calls; each turn ends in a synchronize."""
+    from paddle_tpu_torch.ops import flash_attention as fm
+    from paddle_tpu_torch.ops import flash_attention_gqa as fa
+    q, k, v = (torch.randn(1, 1, 256, 64, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    scale = 64 ** -0.5
+    calls = {"op": lambda: fm.mha_fwd(q, k, v, False, scale),
+             "launch": lambda: fa._launch_fwd(q, k, v, False, scale,
+                                              fm.flash_attention)}
+    out = {name: [] for name in calls}
+    for name in ("op", "launch", "launch", "op"):
+        fn = calls[name]
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name].append(1e6 * (time.perf_counter() - t0) / reps)
+    return {f"{name}_us": min(v) for name, v in out.items()} | {
+        "overhead_us": min(out["op"]) - min(out["launch"]),
+        "shape": "B=1 H=1 S=256 D=64 bf16", "reps": reps}
+
+
+def _timed_ms(fn, reps):
+    """Median wall ms of ``fn()`` (which ends on the host: a predictor
+    run copies its outputs there)."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ts)
+
+
+def _int8_linear_card_vs_cpu(layer, dev, rows):
+    """One Int8Linear of the converted model on the card and on the CPU,
+    on the same f32 input: int32 sums equal, outputs within INT8_REL."""
+    import copy
+
+    from paddle_tpu_torch.quantization import int8 as q8
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (rows, layer.in_features)).astype(np.float32))
+    host = copy.deepcopy(layer).to("cpu")
+    sx = torch.clamp_min(x.abs().amax(), 1e-8) / q8.QMAX
+    xq = torch.clamp(torch.round(x / sx), -q8.QMAX, q8.QMAX).to(torch.int8)
+    acc_card = q8._int_mm(xq.to(dev), layer.weight_q).cpu()
+    acc_host = q8._int_mm(xq, host.weight_q)
+    with torch.no_grad():
+        card = layer(x.to(dev)).cpu()
+        cpu = host(x)
+    rel = _max_diff(card, cpu) / float(cpu.abs().max())
+    return {"rows": rows, "in": layer.in_features, "out": layer.out_features,
+            "int32_equal": bool(torch.equal(acc_card, acc_host)),
+            "out_rel": rel, "rel_limit": INT8_REL,
+            "ok": bool(torch.equal(acc_card, acc_host)) and rel <= INT8_REL}
+
+
+def phase_deploy(dev):
+    """The deployment path of a fine-tuned classifier (the comment above
+    ``DEPLOY``): every check of parts a-e, the multi-head flash forward
+    launched exactly 12 x the forwards run (eager, captured, loaded,
+    batched), every other counter 0."""
+    import tempfile
+    import threading
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, quantization
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device("gpu")
+    cfg, d = FIT, DEPLOY
+    L, B = cfg["layers"], d["B"]
+    t_phase = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    overhead = _op_overhead_us(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    paddle.seed(d["seed"])
+    net = _fit_classifier(paddle, cfg, dropout=0.1).to(dtype="bfloat16")
+    net.eval()
+    forwards = 0
+    out = {"phase": "deploy", "card": card, "config": cfg, "deploy": d,
+           "op_overhead": overhead}
+    checks = {}
+    _zero_train_counts()
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        # a. to_static at B=32
+        ids = _ids(cfg, B, 1, dev)
+        eager = net(ids)
+        forwards += 1
+        st = paddle.jit.to_static(net).forward_static
+        t0 = time.perf_counter()
+        first = st(ids)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        stats_first = st.cache_stats()
+        second = st(ids)
+        forwards += 2
+        stats = st.cache_stats()
+        diff_a = max(_max_diff(first, eager), _max_diff(second, eager))
+        checks["a_to_static"] = (
+            (stats_first["misses"], stats_first["compiles"],
+             stats_first["hits"]) == (1, 1, 0)
+            and (stats["hits"], stats["misses"]) == (1, 1)
+            and diff_a <= DEPLOY_EXACT)
+        out["to_static"] = {"capture_s": stats["last_compile_s"],
+                            "first_call_s": first_s,
+                            "cache_stats": stats, "max_abs_diff": diff_a,
+                            "limit": DEPLOY_EXACT}
+        del st, first, second
+        # b. jit.save with a symbolic batch, jit.load, the predictor
+        path = os.path.join(tmp, "classifier")
+        t0 = time.perf_counter()
+        paddle.jit.save(net, path, input_spec=[paddle.jit.InputSpec(
+            [None, cfg["S"]], "int64")])
+        save_s = time.perf_counter() - t0
+        sizes = {ext: os.path.getsize(path + ext)
+                 for ext in (".pdmodel", ".pdiparams", ".pdexport",
+                             ".pdmeta")}
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(path))
+        load_s = time.perf_counter() - t0
+        fwd_op = torch.ops.paddle_tpu_torch.gqa_fwd.default
+        n_nodes = sum(t is fwd_op for t in _graph_ops(pred._layer.program))
+        pred_rows = {}
+        for b in d["sizes"]:
+            x = _ids(cfg, b, 100 + b, dev)
+            got = pred.run([x])[0]
+            want = net(x)
+            forwards += 2
+            ms = _timed_ms(lambda: pred.run([x]), d["reps"])
+            forwards += d["reps"]
+            pred_rows[b] = {"max_abs_diff": _max_diff(got, want.cpu()),
+                            "ms": ms, "seqs_per_s": 1e3 * b / ms}
+        diff_b = max(r["max_abs_diff"] for r in pred_rows.values())
+        checks["b_predictor"] = n_nodes == L and diff_b <= DEPLOY_EXACT
+        out["export"] = {"save_s": save_s, "load_s": load_s,
+                         "artifact_bytes": sizes,
+                         "gqa_fwd_nodes": n_nodes,
+                         "inputs": pred.get_input_names(),
+                         "predictor": pred_rows, "limit": DEPLOY_EXACT}
+        # c. DynamicBatcher: 64 requests of 1-4 rows from 8 threads
+        rng = np.random.default_rng(3)
+        reqs = [rng.integers(0, cfg["vocab"],
+                             (int(rng.integers(d["rows"][0],
+                                               d["rows"][1] + 1)), cfg["S"]))
+                for _ in range(d["requests"])]
+        batcher = inference.DynamicBatcher(pred, max_batch=d["max_batch"],
+                                           max_delay_ms=d["max_delay_ms"])
+        responses, lat = [None] * len(reqs), [None] * len(reqs)
+        per = len(reqs) // d["threads"]
+
+        def client(t):
+            for i in range(t * per, (t + 1) * per):
+                t1 = time.perf_counter()
+                responses[i] = batcher.infer([reqs[i]])[0]
+                lat[i] = time.perf_counter() - t1
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(d["threads"])]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        alive = any(th.is_alive() for th in threads)
+        batcher.shutdown()
+        forwards += batcher._runs
+        diffs = []
+        for x, got in zip(reqs, responses):
+            want = net(torch.from_numpy(x).to(dev))
+            forwards += 1
+            diffs.append(_max_diff(got, want.cpu()) if got is not None
+                         else float("inf"))
+        lat_ms = sorted(1e3 * v for v in lat if v is not None)
+        checks["c_batcher"] = (not alive and len(lat_ms) == len(reqs)
+                               and max(diffs) <= DEPLOY_BATCH_ATOL)
+        out["batcher"] = {
+            "requests": len(reqs), "rows": sum(len(x) for x in reqs),
+            "runs": batcher._runs, "requests_per_s": len(reqs) / wall,
+            "rows_per_s": sum(len(x) for x in reqs) / wall,
+            "p50_ms": lat_ms[len(lat_ms) // 2] if lat_ms else None,
+            "p95_ms": lat_ms[int(0.95 * (len(lat_ms) - 1))]
+            if lat_ms else None,
+            "max_abs_diff": max(diffs), "limit": DEPLOY_BATCH_ATOL}
+        del pred, batcher
+        # d. PTQ (abs_max, 4 batches) -> Int8Linear, saved and loaded
+        x8 = _ids(cfg, d["int8_B"], 200, dev)
+        ref_logits = net(x8).float()
+        forwards += 1
+        calib = [_ids(cfg, d["calib_B"], 300 + i, dev)
+                 for i in range(d["calib_batches"])]
+        ptq = quantization.PostTrainingQuantization(net, calib,
+                                                    algo="abs_max")
+        t0 = time.perf_counter()
+        qnet = ptq.quantize()
+        calib_s = time.perf_counter() - t0
+        forwards += d["calib_batches"]
+        n_int8 = sum(isinstance(m, quantization.Int8Linear)
+                     for m in qnet.sublayers())
+        q_eager = qnet(x8).float()
+        forwards += 1
+        qpath = os.path.join(tmp, "int8")
+        t0 = time.perf_counter()
+        paddle.jit.save(qnet, qpath, input_spec=[paddle.jit.InputSpec(
+            [None, cfg["S"]], "int64")])
+        qsave_s = time.perf_counter() - t0
+        qpred = inference.create_predictor(inference.Config(qpath))
+        q_loaded = torch.from_numpy(qpred.run([x8])[0])
+        forwards += 1
+        q_ms = _timed_ms(lambda: qpred.run([x8]), d["reps"])
+        forwards += d["reps"]
+        int8_rel = _max_diff(q_eager, ref_logits) / float(
+            ref_logits.abs().max())
+        lin = _int8_linear_card_vs_cpu(qnet.encoder.layers[0].linear1, dev,
+                                       d["linear_rows"])
+        int8_nodes = sum(t is torch.ops.aten._int_mm.default
+                         for t in _graph_ops(qpred._layer.program))
+        checks["d_int8"] = (lin["ok"] and n_int8 == 6 * L + 1
+                            and int8_nodes == n_int8
+                            and _max_diff(q_loaded, q_eager.cpu())
+                            <= DEPLOY_EXACT and np.isfinite(int8_rel))
+        out["int8"] = {"act_scales": len(ptq.act_scales),
+                       "int8_linears": n_int8, "int_mm_nodes": int8_nodes,
+                       "calibrate_s": calib_s, "save_s": qsave_s,
+                       "artifact_bytes": os.path.getsize(
+                           qpath + ".pdexport"),
+                       "logits_rel_err_vs_bf16": int8_rel,
+                       "loaded_vs_eager_max_abs_diff": _max_diff(
+                           q_loaded, q_eager.cpu()),
+                       "predictor_ms_B8": q_ms, "linear_card_vs_cpu": lin}
+        del qpred, qnet, ptq
+        # e. dy2static on the card: a tensor `while` and a tensor `if`
+        dyn = paddle.jit.to_static(_deploy_dyn)
+        x = torch.randn(4, 8, device=dev)
+        n = torch.tensor(3, device=dev)
+        runs = [(x, n), (-x, torch.tensor(5, device=dev))]
+        got = [dyn(*a) for a in runs]
+        want = [_deploy_dyn(*a) for a in runs]
+        names = {getattr(t, "__name__", str(t))
+                 for t in _graph_ops(dyn.concrete_program)}
+        diff_e = max(_max_diff(g, w) for g, w in zip(got, want))
+        checks["e_dy2static"] = ({"cond", "while_loop"} <= names
+                                 and diff_e <= DEPLOY_EXACT
+                                 and dyn.cache_stats()["compiles"] == 1)
+        out["dy2static"] = {"captured": sorted(n for n in names
+                                               if n in ("cond",
+                                                        "while_loop")),
+                            "max_abs_diff": diff_e,
+                            "cache_stats": dyn.cache_stats()}
+    counts = _train_counts()
+    want_counts = {k: 0 for k in counts}
+    want_counts["mha_fwd"] = L * forwards
+    out.update({"forwards": forwards, "launches": counts,
+                "launches_expected": want_counts, "checks": checks,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "phase_s": time.perf_counter() - t_phase})
+    ok = all(checks.values()) and counts == want_counts
+    out["ok"] = ok
+    out = _plain(out)
+    emit(out)
+    if not ok:
+        raise AssertionError("deploy phase failed: " + json.dumps(
+            {k: v for k, v in out.items() if k not in ("config",)}))
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _plain(obj):
     """``obj`` with numpy scalars and arrays made Python numbers and
     lists, for JSON."""
@@ -8041,7 +8416,7 @@ PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "train_encoder", "train_bert", "train_eager", "train_resnet50",
           "train_gpt",
           "transformer", "fused_decode", "train_rnnlm", "train_layer",
-          "fit")
+          "fit", "deploy")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -8246,6 +8621,13 @@ def _kernels_line(kern, serve, engine, features, cluster, tiers, trains,
             "flash_mha_fit", GQA_SOURCE, MHA_FWD_REPLACES,
             MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0],
             trains.get("fit", {}).get("launches", {}), card)
+        # and at the deploy phase's: the fit classifier's forward,
+        # eager, captured by to_static, exported and loaded, batched
+        # (inference: the forward kernel only)
+        kernels += _attention_entries(
+            "flash_mha_deploy", GQA_SOURCE, MHA_FWD_REPLACES,
+            MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0],
+            trains.get("deploy", {}).get("launches", {}), card)[:1]
         # and at the transformer phase's: encoder self-attention and
         # cross-attention of Transformer-base
         kernels += _attention_entries(
@@ -8358,6 +8740,8 @@ def main():
         trains["train_layer"] = run("train_layer", phase_train_layer, dev)
     if "fit" in phases:
         trains["fit"] = run("fit", phase_fit, dev)
+    if "deploy" in phases:
+        trains["deploy"] = run("deploy", phase_deploy, dev)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

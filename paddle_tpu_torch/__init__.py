@@ -30,7 +30,12 @@ recurrent layers with beam search; ``nn.Layer``; and a script's data and
 training loop: ``io`` (datasets, samplers, ``DataLoader`` with
 shared-memory worker processes), ``save`` / ``load``, ``device``,
 ``metric``, ``callbacks`` and hapi's ``Model`` with ``summary`` and
-``flops``.
+``flops``; and the deployment path: ``jit`` (``to_static`` with the
+dy2static pass and captured control flow, ``save`` / ``load``),
+``inference`` (``Config``, ``Predictor``, ``DynamicBatcher``),
+``quantization`` (QAT, PTQ, ``Int8Linear``) and ``static.InputSpec``.
+Importing the package registers the kernel operators
+(``paddle_tpu_torch::gqa_fwd``) that a saved program names.
 """
 import torch as _torch
 
@@ -62,6 +67,7 @@ from .framework.device import (get_cudnn_version,  # noqa: F401
                                is_compiled_with_xpu)
 from .framework.io import load, save  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
+from . import inference, jit, quantization, static  # noqa: F401
 
 # the dtype names, as torch dtypes (paddle_tpu/__init__.py:11-14, 80-81)
 float16, bfloat16, float32, float64 = (_torch.float16, _torch.bfloat16,

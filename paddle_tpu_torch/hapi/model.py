@@ -13,8 +13,8 @@ host, as the reference's (``:178-182``).
 
 ``StaticGraphAdapter`` (the reference's static-graph adapter,
 ``:31-136``) is refused by name: static graphs are ROADMAP Queue 1 item
-14. The port has no static mode (``enable_static`` raises), so ``Model``
-never reaches it.
+14's remainder (static, onnx). The port has no static mode
+(``enable_static`` raises), so ``Model`` never reaches it.
 
 Kept as the reference has them (ROADMAP Queue 3): ``prepare`` never
 reads ``amp_configs`` (call ``amp.decorate`` first); ``fit`` never reads
@@ -67,7 +67,8 @@ class StaticGraphAdapter:
     def __init__(self, model=None):
         raise NotImplementedError(
             "hapi's StaticGraphAdapter (a Model over static Programs) is "
-            "not ported yet: ROADMAP Queue 1 item 14")
+            "not ported yet: ROADMAP Queue 1 item 14's remainder (static, "
+            "onnx)")
 
 
 class Model:

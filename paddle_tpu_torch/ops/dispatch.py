@@ -25,7 +25,8 @@ after one thread-local read and three module-level reads.
 cast) and output dtypes by name, the measure the tests and
 ``chip_smoke.py`` hold against the reference's.
 The reference's static-graph capture (``:100-102``) is not ported:
-``enable_static`` raises, naming its ROADMAP item.
+``enable_static`` raises, naming its ROADMAP item (item 14's remainder:
+static, onnx). ``jit.to_static`` captures programs instead.
 """
 from __future__ import annotations
 
@@ -145,4 +146,4 @@ def enable_static():
     Program; not ported."""
     raise NotImplementedError(
         "static-graph capture (enable_static, Program, Executor) is not "
-        "ported yet: ROADMAP Queue 1 item 14")
+        "ported yet: ROADMAP Queue 1 item 14's remainder (static, onnx)")

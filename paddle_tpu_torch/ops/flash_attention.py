@@ -84,3 +84,4 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
 flash_attention.launches_fwd = 0
 flash_attention.launches_dq = 0
 flash_attention.launches_dkv = 0
+_gqa._OWNERS["flash_attention"] = flash_attention

@@ -252,14 +252,47 @@ def _device_kind(t, what="grouped flash attention"):
     return t.device.type
 
 
+# the entry points that own forward launch counts, by the name the op
+# takes (flash_attention.py adds its own)
+_OWNERS: dict = {}
+
+
+@torch.library.custom_op("paddle_tpu_torch::gqa_fwd", mutates_args=(),
+                         device_types="cpu")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, sm_scale: float,
+            counts: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator, ``paddle_tpu_torch::gqa_fwd``, so that
+    a captured program (``jit``, ``torch.export``) keeps it as one node and
+    runs the kernel when it runs. Its CPU implementation is the plain
+    version; its CUDA implementation (below) the kernel's launch, which
+    counts the launch on the entry point named ``counts``. Neither runs
+    while a program is captured: the fake implementation gives the
+    shapes."""
+    return _gqa_fwd_plain(q, k, v, causal, sm_scale)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_op_cuda(q, k, v, causal, sm_scale, counts):
+    return _launch_fwd(q, k, v, causal, sm_scale, _OWNERS[counts])
+
+
+@_fwd_op.register_fake
+def _fwd_op_fake(q, k, v, causal, sm_scale, counts):
+    B, Hq, _, _, Sq, _, _ = _shapes(q, k, v)
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, Hq, Sq), dtype=torch.float32))
+
+
 def gqa_fwd(q, k, v, causal=False, sm_scale=None, counts=None):
-    """(out, lse) of the forward: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. A launch is counted on ``counts`` (the
-    entry point that owns it; ``grouped_flash_attention`` by default)."""
+    """(out, lse) of the forward through the ``gqa_fwd`` operator: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors. A
+    launch is counted on ``counts`` (the entry point that owns it;
+    ``grouped_flash_attention`` by default)."""
     sm_scale = _scale_of(q, sm_scale)
-    if _device_kind(q) == "cpu":
-        return _gqa_fwd_plain(q, k, v, causal, sm_scale)
-    return _launch_fwd(q, k, v, causal, sm_scale, counts)
+    _device_kind(q)
+    owner = (counts or grouped_flash_attention).__name__
+    return _fwd_op(q, k, v, bool(causal), float(sm_scale), owner)
 
 
 def gqa_bwd(q, k, v, do, lse, delta, causal=False, sm_scale=None,
@@ -314,3 +347,4 @@ def grouped_flash_attention(q, k, v, causal=False, sm_scale=None):
 grouped_flash_attention.launches_fwd = 0
 grouped_flash_attention.launches_dq = 0
 grouped_flash_attention.launches_dkv = 0
+_OWNERS["grouped_flash_attention"] = grouped_flash_attention

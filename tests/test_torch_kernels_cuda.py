@@ -1861,3 +1861,88 @@ def test_rnns_and_beam_search_on_the_card_match_the_cpu(card):
     ``TRAIN_REF`` and its beam ids equal, card against CPU."""
     readings = _smoke()._reference_rnn(card)
     assert readings["rnn_ok"], readings
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_the_flash_kernel(card, tmp_path):
+    """A classifier saved by ``jit.save`` (symbolic batch) and loaded: its
+    program holds one ``gqa_fwd`` node a layer, and running it launches
+    the multi-head flash forward kernel once a layer, counted by the
+    operator's CUDA implementation. Its logits equal eager mode's bit for
+    bit (the same operators in the same order) and the plain CPU
+    forward's within 1e-4 (f32, the kernel's sums in another order)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import flash_attention as fm
+
+    paddle.set_device("gpu")
+    nn = paddle.nn
+    L, S = 2, 256
+
+    class Classifier(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(97, 64)
+            self.encoder = nn.TransformerEncoder(
+                nn.TransformerEncoderLayer(64, 1, 128, dropout=0.0), L)
+            self.head = nn.Linear(64, 3)
+
+        def forward(self, ids):
+            return self.head(paddle.mean(self.encoder(self.embed(ids)),
+                                         axis=1))
+
+    paddle.seed(0)
+    net = Classifier()
+    net.eval()
+    path = str(tmp_path / "c")
+    paddle.jit.save(net, path,
+                    input_spec=[paddle.jit.InputSpec([None, S], "int64")])
+    layer = paddle.jit.load(path)
+    fwd = torch.ops.paddle_tpu_torch.gqa_fwd.default
+    assert sum(n.target is fwd for n in layer.program.graph.nodes) == L
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 97, (3, S))
+                           ).to(card)
+    before = fm.flash_attention.launches_fwd
+    got = layer(ids)
+    torch.cuda.synchronize()
+    assert fm.flash_attention.launches_fwd == before + L
+    with torch.no_grad():
+        assert torch.equal(got, net(ids))
+        cpu = net.to("cpu")(ids.cpu())
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-4
+
+
+def _dy2static_fn(x, n):
+    s = x * 0
+    i = 0
+    while i < n:
+        s = s + x
+        if s.sum() > 100:
+            break
+        i = i + 1
+    if s.sum() > 0:
+        s = s * 2
+    else:
+        s = -s
+    return s
+
+
+@pytest.mark.cuda
+def test_dy2static_captures_control_flow_on_the_card(card):
+    """A tensor ``while`` with a tensor ``break`` and a tensor ``if``
+    under ``jit.to_static`` on card tensors: the program holds
+    ``while_loop`` and ``cond`` (the card's PyTorch traces their bodies
+    with dynamo), and its outputs equal eager mode's bit for bit."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    sf = paddle.jit.to_static(_dy2static_fn)
+    x = torch.randn(4, 8, device=card)
+    for a, n in ((x, 3), (-x, 5), (x.abs() * 10, 7)):
+        n = torch.tensor(n, device=card)
+        assert torch.equal(sf(a, n), _dy2static_fn(a, n))
+    names = {getattr(nd.target, "__name__", str(nd.target))
+             for m in sf.concrete_program.graph_module.modules()
+             if isinstance(m, torch.fx.GraphModule)
+             for nd in m.graph.nodes if nd.op == "call_function"}
+    assert {"cond", "while_loop"} <= names
+    assert sf.cache_stats()["compiles"] == 1

@@ -96,7 +96,12 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.framework.custom_device",
              "paddle_tpu_torch.metric", "paddle_tpu_torch.hapi",
              "paddle_tpu_torch.hapi.model", "paddle_tpu_torch.hapi.callbacks",
-             "paddle_tpu_torch.callbacks", "paddle_tpu_torch.ops.autotune"):
+             "paddle_tpu_torch.callbacks", "paddle_tpu_torch.ops.autotune",
+             "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.dy2static",
+             "paddle_tpu_torch.jit.dy2static.convert_operators",
+             "paddle_tpu_torch.jit.dy2static.transformer",
+             "paddle_tpu_torch.quantization.observers",
+             "paddle_tpu_torch.static"):
     assert name in names, name
 """
 
@@ -386,6 +391,37 @@ def test_fit_slice_refuses_a_missing_card(tmp_path):
             "weight"].device.type == "cpu"
     finally:
         place._default = torch.device("cuda")
+
+
+def test_deploy_slice_refuses_a_missing_card(tmp_path):
+    """inference.Config takes the default device and create_predictor the
+    Config's: without CUDA both refuse until the CPU is asked for
+    (set_device, or Config.disable_gpu); neither falls back to the CPU."""
+    _needs_no_card()
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place
+
+    assert place._default == torch.device("cuda")
+    path = str(tmp_path / "m")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle.inference.Config(path)
+    try:
+        place.set_device("cpu")
+        paddle.jit.save(paddle.nn.Linear(3, 2), path,
+                        input_spec=[paddle.jit.InputSpec([None, 3])])
+        cfg = paddle.inference.Config(path)
+    finally:
+        place._default = torch.device("cuda")
+    assert not cfg.use_gpu()
+    out = paddle.inference.create_predictor(cfg).run(
+        [np.ones((2, 3), np.float32)])
+    assert out[0].shape == (2, 2)
+    cfg.enable_use_gpu()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle.inference.create_predictor(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle.inference.Predictor(path)
 
 
 def test_op_namespace_refuses_a_missing_card():
