@@ -23,6 +23,7 @@ fused_decode
     python3 chip_smoke.py --phases build,train_layer
     python3 chip_smoke.py --phases build,fit
     python3 chip_smoke.py --phases build,deploy
+    python3 chip_smoke.py --phases build,static
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -629,6 +630,32 @@ Phases, each printing JSON lines:
     the batcher's requests/s and p50 / p95 latency, the int8 logits'
     relative error against bf16 and the peak memory, beside the card's
     name and power limit.
+
+22. ``static``: the static-graph path. (1) small programs on the card,
+    each against the same layers run eagerly on the card: an ``fc`` /
+    ``conv2d`` + ``batch_norm`` / ``embedding`` program, ``append_backward``
+    and ``gradients`` with respect to fed data, a second startup run
+    restoring the initial weights, two batch sizes through one program
+    with a -1 batch, and ``Executor(CPUPlace())`` running the same
+    program on the host within ``REF_ATOL`` of the card. (2) The fit
+    classifier (FIT's widths and depth, bf16 through ``amp.decorate(O2)``,
+    dropout 0) in static mode through hapi's ``StaticGraphAdapter``
+    (``InputSpec([-1, 512], "int64")``, AdamW under ``LinearWarmup``):
+    ``fit`` for FIT's 8 steps with ``shuffle=False``, then the same steps
+    from the same weights and batches by a dynamic-mode ``Model``; each
+    step's loss within ``STATIC_LOSS_ATOL`` of the dynamic run's, and the
+    multi-head flash forward, dq and dk/dv launched 12 x 8 times in each.
+    (3) ``static.save_inference_model`` of the predict program (feed
+    ``[-1, 512]``, the logits) served by ``inference.create_predictor`` at
+    B = 8 and 32, bit for bit against the Executor's own fetch, 12 flash
+    forwards inside the loaded program a run. (4) ``onnx.export`` of
+    ``LeNet`` with its weights on the card (initializers bit-equal to the
+    card's weights, ops equal to the CPU export's) and of the classifier
+    (no converter for ``scaled_dot_product_attention``: a warning and
+    ``jit.save``'s artifacts, loaded, logits equal to eager). Records both
+    modes' median step ms, the loss differences, the predictor's ms, the
+    peak memory and the phase's seconds beside the card's name and power
+    limit.
 
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -4799,12 +4826,16 @@ def _profile(step, families, n=5):
         raise RuntimeError("the profiler saw no device activity")
     busy_us = sum(fam.values()) / n
     top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    host = sorted(((a.key, a.self_cpu_time_total, a.count)
+                   for a in prof.key_averages()), key=lambda r: -r[1])[:10]
     return {"steps": n, "step_ms": step_us / 1e3,
             "kernels_per_step": kernels / n,
             **{f"{k}_ms_per_step": v / n / 1e3 for k, v in fam.items()},
             "device_busy_ms_per_step": busy_us / 1e3,
             "device_idle_share": 1 - busy_us / step_us,
-            "other_top_ms_per_step": {k: v / n / 1e3 for k, v in top}}
+            "other_top_ms_per_step": {k: v / n / 1e3 for k, v in top},
+            "host_top_self_ms_per_step": {k: [us / n / 1e3, c / n]
+                                          for k, us, c in host}}
 
 
 # --- phase 8: train Llama-3-8B, Llama-2-7B and Mistral-7B (8 layers) -------
@@ -8387,6 +8418,341 @@ def phase_deploy(dev):
     return out
 
 
+# --- static: the fit classifier trained as a static program -----------------
+
+# The fit phase's classifier (FIT: 12 layers, d 768, 12 heads, FFN 3072,
+# S=512, B=32) built as a static program through hapi's StaticGraphAdapter
+# (paddle.enable_static(), InputSpec([-1, 512], "int64")), bf16 through
+# amp.decorate(O2), AdamW under LinearWarmup, dropout 0, fit for FIT's 8
+# steps on its batches with shuffle=False; then the same steps from the
+# same initial weights and batches by a dynamic-mode Model. The Executor
+# replays the captured ops, which are the ops eager mode runs, in its
+# order, on the same kernels: each step's loss must equal the dynamic
+# run's within STATIC_LOSS_ATOL (stated from the readings, PERF.md §6)
+STATIC_LOSS_ATOL = 0.0
+# the small programs on the card against the same layers run eagerly on
+# the card (the same ops, the same device: bit for bit), and the
+# Executor on the CPU against the card's (f32, other backends: REF_ATOL)
+STATIC_SMALL_EXACT = 0.0
+STATIC_BATCHES = (8, 32)
+
+
+def _static_small_checks(paddle, dev):
+    """Parts 1a-e of the static phase on small programs: (readings, ok)."""
+    static, nn = paddle.static, paddle.nn
+    rng = np.random.default_rng(11)
+    out, ok = {}, True
+    paddle.enable_static()
+    try:
+        # a. fc / conv2d + batch_norm / embedding against eager
+        main, start = static.Program(), static.Program()
+        with static.program_guard(main, start):
+            x = static.data("x", [-1, 16], "float32")
+            im = static.data("im", [-1, 3, 8, 8], "float32")
+            ids = static.data("ids", [-1, 5], "int64")
+            h = static.nn.fc(x, 8, activation="relu")
+            c = static.nn.batch_norm(static.nn.conv2d(im, 4, 3, padding=1))
+            e = static.nn.embedding(ids, size=[20, 6])
+        exe = static.Executor(paddle.CUDAPlace(0))
+        exe.run(start)
+        feed = {"x": rng.standard_normal((4, 16)).astype("f4"),
+                "im": rng.standard_normal((4, 3, 8, 8)).astype("f4"),
+                "ids": rng.integers(0, 20, (4, 5))}
+        got = exe.run(main, feed=feed, fetch_list=[h, c, e],
+                      return_numpy=False)
+        fc, conv, bn, emb = main._layers
+        paddle.disable_static()
+        t = {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+        with torch.no_grad():
+            want = [paddle.nn.functional.relu(fc(t["x"])),
+                    bn(conv(t["im"])), emb(t["ids"])]
+        paddle.enable_static()
+        d_a = max(_max_diff(g, w) for g, w in zip(got, want))
+        on_card = all(g.device.type == "cuda" for g in got)
+        out["a_layers"] = {"max_abs_diff": d_a, "on_card": on_card,
+                           "limit": STATIC_SMALL_EXACT}
+        ok &= on_card and d_a <= STATIC_SMALL_EXACT
+        # b. append_backward and gradients with respect to fed data
+        main, start = static.Program(), static.Program()
+        with static.program_guard(main, start):
+            x = static.data("x", [-1, 16], "float32")
+            loss = paddle.sum(static.nn.fc(x, 8) ** 2)
+            (w, gw), (b, gb) = static.append_backward(loss)
+            gx, = static.gradients(loss, [x])
+        xs = rng.standard_normal((5, 16)).astype("f4")
+        got = exe.run(main, feed={"x": xs}, fetch_list=[gw, gb, gx],
+                      return_numpy=False)
+        paddle.disable_static()
+        xt = torch.from_numpy(xs).to(dev).requires_grad_(True)
+        want = torch.autograd.grad(
+            paddle.sum(main._layers[0](xt) ** 2), [w, b, xt])
+        paddle.enable_static()
+        d_b = max(_max_diff(g, w_) for g, w_ in zip(got, want))
+        out["b_gradients"] = {"max_abs_diff": d_b,
+                              "limit": STATIC_SMALL_EXACT}
+        ok &= d_b <= STATIC_SMALL_EXACT
+        # c. a second startup run restores the initial weights
+        main, start = static.Program(), static.Program()
+        with static.program_guard(main, start):
+            x = static.data("x", [-1, 16], "float32")
+            loss = paddle.mean(static.nn.fc(x, 1) ** 2)
+            paddle.optimizer.SGD(learning_rate=0.5).minimize(loss)
+        exe.run(start)
+        init = [p.detach().clone() for p in main._params]
+        exe.run(main, feed={"x": xs}, fetch_list=[loss])
+        moved = any(not torch.equal(p, q) for p, q in zip(main._params,
+                                                          init))
+        exe.run(start)
+        restored = all(torch.equal(p, q) for p, q in zip(main._params, init))
+        out["c_startup_restores"] = {"moved": moved, "restored": restored}
+        ok &= moved and restored
+        # d. two batch sizes through one program with a -1 batch, and e.
+        # the Executor on the CPU running the same program
+        main = static.Program()
+        with static.program_guard(main):
+            x = static.data("x", [-1, 16], "float32")
+            y = static.nn.fc(static.nn.fc(x, 32, activation="tanh"), 4)
+        cpu = static.Executor(paddle.CPUPlace())
+        rows = {}
+        for n in (3, 7):
+            xs = rng.standard_normal((n, 16)).astype("f4")
+            card_y, = exe.run(main, feed={"x": xs}, fetch_list=[y])
+            host_y, = cpu.run(main, feed={"x": xs}, fetch_list=[y])
+            paddle.disable_static()
+            with torch.no_grad():
+                t = torch.from_numpy(xs).to(dev)
+                eager = main._layers[1](torch.tanh(main._layers[0](t)))
+            paddle.enable_static()
+            rows[n] = {"shape": list(card_y.shape),
+                       "vs_eager": _max_diff(card_y, eager.cpu()),
+                       "cpu_vs_card": _max_diff(host_y, card_y)}
+        out["d_two_batches"] = {n: {k: r[k] for k in ("shape", "vs_eager")}
+                                for n, r in rows.items()}
+        out["e_cpu_executor"] = {n: r["cpu_vs_card"] for n, r in rows.items()}
+        out["e_limit"] = REF_ATOL
+        ok &= all(r["shape"] == [n, 4] and r["vs_eager"] <= STATIC_SMALL_EXACT
+                  and r["cpu_vs_card"] <= REF_ATOL for n, r in rows.items())
+    finally:
+        paddle.disable_static()
+    return out, bool(ok)
+
+
+def _static_fit(paddle, cfg, init, static_mode, profile=False):
+    """``FIT["steps"]`` fit steps of the classifier from ``init`` (its
+    bf16 state dict) in static or dynamic mode: (model, the record of
+    each step, the launch counts, and with ``profile`` a torch.profiler
+    split of ``train_batch`` on the first batch after them)."""
+    B, S = cfg["B"], cfg["S"]
+    paddle.seed(cfg["seed"])
+    net = _fit_classifier(paddle, cfg, dropout=0.0)
+    sched = paddle.optimizer.lr.LinearWarmup(cfg["lr"], cfg["warmup"], 0.0,
+                                             cfg["lr"])
+    opt = paddle.optimizer.AdamW(learning_rate=sched,
+                                 parameters=net.parameters(),
+                                 weight_decay=0.01)
+    net, opt = paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    net.set_state_dict(init)
+    if static_mode:
+        paddle.enable_static()
+    try:
+        spec = paddle.static.InputSpec
+        model = paddle.Model(net, inputs=[spec([-1, S], "int64", "ids")],
+                             labels=[spec([-1, 1], "int64", "label")])
+        model.prepare(opt, paddle.nn.CrossEntropyLoss(),
+                      paddle.metric.Accuracy())
+        rec = {"step_s": [], "losses": [], "accs": []}
+
+        class Timer(paddle.callbacks.Callback):
+            def on_train_batch_begin(self, step, logs=None):
+                torch.cuda.synchronize()
+                self._t = time.perf_counter()
+
+            def on_train_batch_end(self, step, logs=None):
+                rec["step_s"].append(time.perf_counter() - self._t)
+                rec["losses"].append(logs["loss"])
+                rec["accs"].append(float(logs["acc"]))
+
+        data = _fit_dataset(paddle, cfg, B * cfg["steps"], cfg["seed"] + 1)
+        _zero_train_counts()
+        model.fit(data, batch_size=B, epochs=1, shuffle=False, verbose=0,
+                  callbacks=[Timer()])
+        torch.cuda.synchronize()
+        counts = _train_counts()
+        prof = None
+        if profile:
+            ids, label = next(iter(paddle.io.DataLoader(data, batch_size=B)))
+            prof = _profile(lambda: model.train_batch([ids], [label]),
+                            {"attention": ("fwd_mma", "dq_mma", "dkv_mma"),
+                             "matmul": MATMUL_NAMES})
+    finally:
+        if static_mode:
+            paddle.disable_static()
+    return model, rec, counts, prof
+
+
+def phase_static(dev, profile=False):
+    """The static-graph path (the comment above ``STATIC_LOSS_ATOL``):
+    the small programs against eager mode, the classifier's static fit
+    against its dynamic fit (losses, launches, step ms), the saved
+    inference model served by the predictor, and the ONNX export."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.onnx import proto
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device("gpu")
+    cfg = FIT
+    L, S = cfg["layers"], cfg["S"]
+    t_phase = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    out = {"phase": "static", "card": card, "config": cfg}
+    small, ok = _static_small_checks(paddle, dev)
+    out["small"] = small
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # 2. the main path: the same steps in static then dynamic mode
+    paddle.seed(cfg["seed"])
+    init = {k: v.detach().clone() for k, v in paddle.amp.decorate(
+        _fit_classifier(paddle, cfg, dropout=0.0), level="O2",
+        dtype="bfloat16").state_dict().items()}
+    t0 = time.perf_counter()
+    model, srec, scounts, sprof = _static_fit(paddle, cfg, init, True,
+                                              profile)
+    static_fit_s = time.perf_counter() - t0
+    adapter = model._adapter
+    steps = cfg["steps"]
+    want = {k: 0 for k in scounts}
+    want.update({"mha_fwd": L * steps, "mha_dq": L * steps,
+                 "mha_dkv": L * steps})
+    # 3. the eval program saved for the predictor: feed [-1, 512], logits
+    with tempfile.TemporaryDirectory() as tmp:
+        paddle.enable_static()
+        try:
+            pmain, _, _, pfetch = adapter._build("predict")
+            ids_var = pmain._datas["ids"]
+            t0 = time.perf_counter()
+            paddle.static.save_inference_model(
+                os.path.join(tmp, "cls"), [ids_var], pfetch, program=pmain)
+            save_s = time.perf_counter() - t0
+            exe = adapter._executor()
+            pred = inference.create_predictor(
+                inference.Config(os.path.join(tmp, "cls")))
+            rows = {}
+            for b in STATIC_BATCHES:
+                x = _ids(cfg, b, 200 + b, dev)
+                want_b, = exe.run(pmain, feed={"ids": x}, fetch_list=pfetch)
+                _zero_train_counts()
+                got_b = pred.run([x])[0]
+                launched = _train_counts()["mha_fwd"]
+                ms = _timed_ms(lambda: pred.run([x]), 5)
+                rows[b] = {"max_abs_diff": _max_diff(got_b, want_b),
+                           "fwd_launches": launched, "ms": ms}
+        finally:
+            paddle.disable_static()
+        pred_ok = all(r["max_abs_diff"] <= DEPLOY_EXACT
+                      and r["fwd_launches"] == L for r in rows.values())
+        out["inference_model"] = {"save_s": save_s, "predictor": rows,
+                                  "limit": DEPLOY_EXACT, "ok": pred_ok}
+        # 4. ONNX: LeNet with its weights on the card, and the classifier
+        lenet = paddle.vision.models.LeNet()
+        lenet.eval()
+        onnx_card = paddle.onnx.export(
+            lenet, os.path.join(tmp, "lenet_card"),
+            input_spec=[paddle.jit.InputSpec([1, 1, 28, 28])])
+        paddle.set_device("cpu")
+        try:
+            lenet_cpu = paddle.vision.models.LeNet()
+            lenet_cpu.set_state_dict({k: v.cpu() for k, v in
+                                      lenet.state_dict().items()})
+            lenet_cpu.eval()
+            onnx_cpu = paddle.onnx.export(
+                lenet_cpu, os.path.join(tmp, "lenet_cpu"),
+                input_spec=[paddle.jit.InputSpec([1, 1, 28, 28])])
+        finally:
+            paddle.set_device("gpu")
+
+        def graph_of(path):
+            g = proto.decode_message(proto.decode_message(
+                open(path, "rb").read())[7][0])
+            return ([proto.decode_message(n)[4][0].decode()
+                     for n in g.get(1, [])],
+                    [proto.decode_message(t) for t in g.get(5, [])])
+
+        ops_card, inits = graph_of(onnx_card)
+        ops_cpu, _ = graph_of(onnx_cpu)
+        weights = [p.detach().cpu().numpy() for p in lenet.parameters()]
+        blobs = {t[9][0] for t in inits}
+        bits_equal = all(w.tobytes() in blobs for w in weights)
+        import warnings
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            bert_path = paddle.onnx.export(
+                model.network, os.path.join(tmp, "bert"),
+                input_spec=[paddle.jit.InputSpec([-1, S], "int64")])
+        warned = any("torch.export artifact set" in str(w.message)
+                     for w in caught)
+        files = sorted(f for f in os.listdir(tmp) if f.startswith("bert"))
+        loaded = paddle.jit.load(bert_path)
+        x = _ids(cfg, 2, 300, dev)
+        with torch.no_grad():
+            bert_diff = _max_diff(loaded(x), model.network(x))
+        onnx_ok = (ops_card == ops_cpu and bits_equal and warned
+                   and files == ["bert.pdexport", "bert.pdiparams",
+                                 "bert.pdmeta", "bert.pdmodel"]
+                   and bert_diff <= DEPLOY_EXACT)
+        out["onnx"] = {"lenet_ops": ops_card, "ops_equal_cpu": ops_card
+                       == ops_cpu, "initializers_bit_equal": bits_equal,
+                       "bert_warned": warned, "bert_files": files,
+                       "bert_loaded_vs_eager": bert_diff, "ok": onnx_ok}
+    del model, adapter, pred, loaded, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dmodel, drec, dcounts, dprof = _static_fit(paddle, cfg, init, False,
+                                               profile)
+    dynamic_fit_s = time.perf_counter() - t0
+    del dmodel
+    diffs = [abs(a - b) for a, b in zip(srec["losses"], drec["losses"])]
+    timed = {k: 1e3 * statistics.median(r["step_s"][1:])
+             for k, r in (("static", srec), ("dynamic", drec))}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    out.update({
+        "steps": steps, "static_losses": srec["losses"],
+        "dynamic_losses": drec["losses"], "loss_diffs": diffs,
+        "loss_atol": STATIC_LOSS_ATOL, "static_accs": srec["accs"],
+        "dynamic_accs": drec["accs"],
+        "static_step_ms_first": 1e3 * srec["step_s"][0],
+        "static_step_ms_median": timed["static"],
+        "dynamic_step_ms_first": 1e3 * drec["step_s"][0],
+        "dynamic_step_ms_median": timed["dynamic"],
+        "static_fit_s": static_fit_s, "dynamic_fit_s": dynamic_fit_s,
+        "launches": scounts, "dynamic_launches": dcounts,
+        "launches_expected": want, "peak_mem_gb": peak_gb,
+        "phase_s": time.perf_counter() - t_phase})
+    if profile:
+        out["profile"] = {"static": sprof, "dynamic": dprof}
+    ok &= (len(srec["losses"]) == len(drec["losses"]) == steps
+           and all(np.isfinite(srec["losses"]))
+           and max(diffs) <= STATIC_LOSS_ATOL
+           and scounts == want == dcounts and pred_ok and onnx_ok)
+    out["ok"] = bool(ok)
+    out = _plain(out)
+    emit(out)
+    if not ok:
+        raise AssertionError("static phase failed: " + json.dumps(
+            {k: v for k, v in out.items() if k != "config"}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _plain(obj):
     """``obj`` with numpy scalars and arrays made Python numbers and
     lists, for JSON."""
@@ -8416,7 +8782,7 @@ PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "train_encoder", "train_bert", "train_eager", "train_resnet50",
           "train_gpt",
           "transformer", "fused_decode", "train_rnnlm", "train_layer",
-          "fit", "deploy")
+          "fit", "deploy", "static")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -8628,6 +8994,13 @@ def _kernels_line(kern, serve, engine, features, cluster, tiers, trains,
             "flash_mha_deploy", GQA_SOURCE, MHA_FWD_REPLACES,
             MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0],
             trains.get("deploy", {}).get("launches", {}), card)[:1]
+        # and at the static phase's: the fit classifier trained as a
+        # static program, replayed by the Executor (its dynamic twin's
+        # launches are checked equal inside the phase)
+        kernels += _attention_entries(
+            "flash_mha_static", GQA_SOURCE, MHA_FWD_REPLACES,
+            MHA_BWD_REPLACES, "mha", kern["mha_encoder"][0],
+            trains.get("static", {}).get("launches", {}), card)
         # and at the transformer phase's: encoder self-attention and
         # cross-attention of Transformer-base
         kernels += _attention_entries(
@@ -8742,6 +9115,9 @@ def main():
         trains["fit"] = run("fit", phase_fit, dev)
     if "deploy" in phases:
         trains["deploy"] = run("deploy", phase_deploy, dev)
+    if "static" in phases:
+        trains["static"] = run("static", phase_static, dev,
+                               profile=args.profile)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

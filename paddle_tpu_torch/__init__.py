@@ -32,8 +32,12 @@ shared-memory worker processes), ``save`` / ``load``, ``device``,
 ``metric``, ``callbacks`` and hapi's ``Model`` with ``summary`` and
 ``flops``; and the deployment path: ``jit`` (``to_static`` with the
 dy2static pass and captured control flow, ``save`` / ``load``),
-``inference`` (``Config``, ``Predictor``, ``DynamicBatcher``),
-``quantization`` (QAT, PTQ, ``Int8Linear``) and ``static.InputSpec``.
+``inference`` (``Config``, ``Predictor``, ``DynamicBatcher``) and
+``quantization`` (QAT, PTQ, ``Int8Linear``); and static graphs:
+``enable_static`` / ``disable_static``, ``static`` (``Program``,
+``data``, ``Executor`` with ``append_backward`` and ``minimize``,
+``static.nn``, the passes, ``save_inference_model``), ``onnx.export`` and
+hapi's ``StaticGraphAdapter``.
 Importing the package registers the kernel operators
 (``paddle_tpu_torch::gqa_fwd``) that a saved program names.
 """
@@ -57,7 +61,6 @@ from .core import (convert_dtype, get_rng_state,  # noqa: F401
                    resolve_device, seed, set_rng_state)
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .nn import ParamAttr  # noqa: F401
-from .ops.dispatch import enable_static  # noqa: F401
 from . import callbacks, framework, hapi, io, metric, vision  # noqa: F401
 from .framework import device  # noqa: F401
 from .framework.device import (get_cudnn_version,  # noqa: F401
@@ -68,6 +71,8 @@ from .framework.device import (get_cudnn_version,  # noqa: F401
 from .framework.io import load, save  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
 from . import inference, jit, quantization, static  # noqa: F401
+from . import onnx  # noqa: F401
+from .static.graph import disable_static, enable_static  # noqa: F401
 
 # the dtype names, as torch dtypes (paddle_tpu/__init__.py:11-14, 80-81)
 float16, bfloat16, float32, float64 = (_torch.float16, _torch.bfloat16,
@@ -84,8 +89,8 @@ is_grad_enabled = _torch.is_grad_enabled
 
 
 def in_dynamic_mode() -> bool:
-    """True: the port runs eagerly (``enable_static`` raises)."""
-    return True
+    """False between ``enable_static()`` and ``disable_static()``."""
+    return not static.in_static_mode()
 
 
 def set_printoptions(precision=None, threshold=None, edgeitems=None,

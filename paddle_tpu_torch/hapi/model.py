@@ -11,10 +11,12 @@ a batch given as numpy to ``train_batch`` / ``eval_batch`` /
 step reads its loss on the host (``float``) and updates the metrics on the
 host, as the reference's (``:178-182``).
 
-``StaticGraphAdapter`` (the reference's static-graph adapter,
-``:31-136``) is refused by name: static graphs are ROADMAP Queue 1 item
-14's remainder (static, onnx). The port has no static mode
-(``enable_static`` raises), so ``Model`` never reaches it.
+A ``Model`` made while static mode is on (``paddle.enable_static()``)
+drives ``StaticGraphAdapter`` (the reference's, ``:31-147``): one
+(main, startup) Program per mode built from the declared ``InputSpec``s,
+run by ``static.Executor`` on the default device; the training program
+appends ``optimizer.minimize``. Its metrics run on the host over the
+fetched outputs (numpy, a bfloat16 output as float32).
 
 Kept as the reference has them (ROADMAP Queue 3): ``prepare`` never
 reads ``amp_configs`` (call ``amp.decorate`` first); ``fit`` never reads
@@ -62,13 +64,98 @@ def _host(out):
 
 
 class StaticGraphAdapter:
-    """The reference's static-graph adapter: not ported."""
+    """~ hapi/model.py StaticGraphAdapter:248 (module docstring): the
+    Model's InputSpecs become ``static.data`` feed slots, the network and
+    loss are captured, and ``train`` appends ``optimizer.minimize``."""
 
-    def __init__(self, model=None):
-        raise NotImplementedError(
-            "hapi's StaticGraphAdapter (a Model over static Programs) is "
-            "not ported yet: ROADMAP Queue 1 item 14's remainder (static, "
-            "onnx)")
+    def __init__(self, model: "Model"):
+        self.model = model
+        self._progs = {}
+        self._exe = None
+        self._startup_done = set()
+
+    def _executor(self):
+        if self._exe is None:
+            from ..static import Executor
+            self._exe = Executor()
+        return self._exe
+
+    @staticmethod
+    def _declare(specs, prefix):
+        from .. import static
+        out = []
+        for i, s in enumerate(specs):
+            shape = [(-1 if d is None else int(d)) for d in s.shape]
+            out.append(static.data(s.name or f"{prefix}{i}", shape, s.dtype))
+        return out
+
+    def _build(self, mode):
+        if mode in self._progs:
+            return self._progs[mode]
+        from ..static import Program, program_guard
+        m = self.model
+        if not m._input_specs:
+            raise ValueError(
+                "Model in static mode requires inputs=[InputSpec(...)]")
+        if mode in ("train", "eval") and m._loss is not None \
+                and not m._label_specs:
+            raise ValueError(
+                "Model prepared with a loss in static mode requires "
+                "labels=[InputSpec(...)] at construction")
+        main, startup = Program(), Program()
+        with program_guard(main, startup):
+            ins = self._declare(m._input_specs, "x")
+            m.network.train() if mode == "train" else m.network.eval()
+            outs = _to_list(m.network(*ins))
+            feed_names = [v.name for v in ins]
+            fetches = list(outs)
+            if mode in ("train", "eval") and m._loss is not None:
+                lbls = self._declare(m._label_specs, "label")
+                feed_names += [v.name for v in lbls]
+                loss = m._loss(*(outs + lbls))
+                fetches = [loss] + fetches
+                if mode == "train":
+                    m._optimizer.minimize(loss)
+        self._progs[mode] = (main, startup, feed_names, fetches)
+        return self._progs[mode]
+
+    def _run(self, mode, inputs, labels):
+        main, startup, feed_names, fetches = self._build(mode)
+        exe = self._executor()
+        if mode not in self._startup_done:
+            exe.run(startup)
+            self._startup_done.add(mode)
+        vals = list(inputs) + list(labels)
+        return exe.run(main, feed=dict(zip(feed_names, vals)),
+                       fetch_list=fetches)
+
+    def _host_metrics(self, outs_np, labels):
+        outs = [torch.from_numpy(o) for o in outs_np]
+        lbls = [torch.as_tensor(_host(x)) for x in labels]
+        metrics = []
+        for mt in self.model._metrics:
+            mt.update(*_to_list(mt.compute(*(outs + lbls))))
+            metrics.append(mt.accumulate())
+        return metrics
+
+    def train_batch(self, inputs, labels):
+        res = self._run("train", inputs, labels)
+        loss, outs = res[0], res[1:]
+        metrics = self._host_metrics(outs, labels)
+        return ([float(loss)], metrics) if metrics else [float(loss)]
+
+    def eval_batch(self, inputs, labels):
+        has_loss = self.model._loss is not None and labels
+        res = self._run("eval", inputs, labels)
+        loss, outs = (res[0], res[1:]) if has_loss else (None, res)
+        metrics = self._host_metrics(outs, labels)
+        if loss is not None:
+            return [float(loss)], metrics
+        return metrics
+
+    def predict_batch(self, inputs):
+        res = self._run("predict", inputs, [])
+        return res[0] if len(res) == 1 else res
 
 
 class Model:
@@ -82,6 +169,10 @@ class Model:
         self._metrics: List[Metric] = []
         self._input_specs = _to_list(inputs)
         self._label_specs = _to_list(labels)
+        # the adapter is chosen at construction, as the reference's
+        from ..static import in_static_mode
+        self._adapter = StaticGraphAdapter(self) if in_static_mode() \
+            else None
 
     # -- setup --------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -96,6 +187,9 @@ class Model:
         """One step: forward, loss, backward, (``update``) the optimizer's
         step and ``clear_grad``, then the metrics. Returns ([loss],
         [metric values]) or [loss]."""
+        if self._adapter is not None:
+            return self._adapter.train_batch(_to_list(inputs),
+                                             _to_list(labels))
         self.network.train()
         inputs = _as_tensors(_to_list(inputs))
         labels = _as_tensors(_to_list(labels))
@@ -114,6 +208,9 @@ class Model:
 
     @torch.no_grad()
     def eval_batch(self, inputs, labels=None):
+        if self._adapter is not None:
+            return self._adapter.eval_batch(_to_list(inputs),
+                                            _to_list(labels))
         self.network.eval()
         inputs = _as_tensors(_to_list(inputs))
         labels = _as_tensors(_to_list(labels))
@@ -129,6 +226,8 @@ class Model:
 
     @torch.no_grad()
     def predict_batch(self, inputs):
+        if self._adapter is not None:
+            return self._adapter.predict_batch(_to_list(inputs))
         self.network.eval()
         return self.network(*_as_tensors(_to_list(inputs)))
 

@@ -336,8 +336,8 @@ def symbolic_export(module, shapes_dtypes, device=None,
     warning.
 
     ``shapes_dtypes``: list of (shape, dtype) with None/-1 for dynamic
-    dims. The shared contract for ``jit.save`` (and the static slice's
-    ``save_inference_model`` to come)."""
+    dims. The shared contract for ``jit.save`` and
+    ``static.save_inference_model``."""
     dims, dyn, any_sym = {}, [], False
     for shape, _ in shapes_dtypes:
         spec = {}
@@ -371,11 +371,16 @@ def symbolic_export(module, shapes_dtypes, device=None,
 
 
 def _numpy_state(layer) -> dict:
-    """{name: ndarray} of ``layer``'s state dict; a bfloat16 tensor as
+    """{name: ndarray} of ``layer``'s state dict (``_numpy_state_of``)."""
+    return _numpy_state_of(layer.state_dict())
+
+
+def _numpy_state_of(tensors: dict) -> dict:
+    """{name: ndarray} of {name: tensor}; a bfloat16 tensor as
     ``framework/io.py``'s record (its bits as uint16, ``"dtype":
     "bfloat16"``)."""
     out = {}
-    for k, v in layer.state_dict().items():
+    for k, v in tensors.items():
         t = v.detach().cpu()
         out[k] = _record(t) if t.dtype == torch.bfloat16 else t.numpy().copy()
     return out

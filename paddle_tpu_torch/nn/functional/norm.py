@@ -54,7 +54,11 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     if training and not use_stats:
         mean = apply_op("bn_mean", _bn_mean, x, axes=axes)
         var = apply_op("bn_var", _bn_var, x, axes=axes)
-        if running_mean is not None:
+        if running_mean is not None and not getattr(mean, "_symbolic",
+                                                    False):
+            # a static program's statistics are symbolic: the running
+            # ones stay frozen in it (paddle_tpu/nn/functional/norm.py
+            # :46-49)
             with torch.no_grad():
                 running_mean.copy_((momentum * running_mean
                                     + (1 - momentum) * mean)

@@ -18,15 +18,19 @@ entry point may call another (``F.linear`` calls ``ops.linalg.matmul``).
 So ``fn`` runs with amp suspended and the dispatch bypassed for the ops it
 calls (a thread-local depth): a nested op is neither cast a second time
 nor counted as an op of its own. With amp off and nothing watching (no
-tracer, no nan / inf flag, no ``census``), ``apply_op`` calls ``fn``
-after one thread-local read and three module-level reads.
+static mode, no tracer, no nan / inf flag, no ``census``), ``apply_op``
+calls ``fn`` after one thread-local read and four module-level reads.
 
 ``census()`` records each dispatched op's input dtypes (after the amp
 cast) and output dtypes by name, the measure the tests and
 ``chip_smoke.py`` hold against the reference's.
-The reference's static-graph capture (``:100-102``) is not ported:
-``enable_static`` raises, naming its ROADMAP item (item 14's remainder:
-static, onnx). ``jit.to_static`` captures programs instead.
+The static-graph capture (``:38-39``, ``:100-102``): while
+``STATIC_MODE`` is on (``paddle.enable_static()``), an op with a
+``static.StaticVar`` among its positional arguments is appended to the
+default main program by ``static.graph.capture`` under its name, before
+any amp cast, and returns symbolic outputs; the torch functions and
+methods called on a ``StaticVar`` directly are captured by the
+variable's ``__torch_function__``.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import torch
 from ..core import flags as _flags
 from ..obs import trace as _trace
 
-__all__ = ["apply_op", "def_op", "OP_REGISTRY", "census", "enable_static"]
+__all__ = ["apply_op", "def_op", "OP_REGISTRY", "census"]
 
 # name -> api function of the ops made with ``def_op``
 OP_REGISTRY: dict[str, Callable] = {}
@@ -54,10 +58,13 @@ class _State(threading.local):
 _state = _State()
 _census = None      # {op name: [output dtype names, ...]} while recording
 _check = _flags._values
+# set by static.enable_static(): an op whose positional arguments hold a
+# StaticVar is captured into the default main program instead of run
+STATIC_MODE = False
 
 
 def _watching() -> bool:
-    return (_census is not None or _trace._active is not None
+    return (STATIC_MODE or _census is not None or _trace._active is not None
             or _check["check_nan_inf"])
 
 
@@ -76,6 +83,9 @@ def apply_op(name: str, fn: Callable, *args, nondiff: bool = False,
 
 
 def _apply_watched(st, name, fn, args, kwargs, nondiff):
+    if STATIC_MODE and any(getattr(a, "_symbolic", False) for a in args):
+        from ..static import graph as _sg
+        return _sg.capture(name, fn, args, kwargs, nondiff=nondiff)
     amp = st.amp
     if amp is not None:
         from .. import amp as _amp
@@ -140,10 +150,3 @@ def def_op(name: str | None = None, nondiff: bool = False):
         return api
     return deco
 
-
-def enable_static():
-    """The reference's static-graph mode captures dispatched ops into a
-    Program; not ported."""
-    raise NotImplementedError(
-        "static-graph capture (enable_static, Program, Executor) is not "
-        "ported yet: ROADMAP Queue 1 item 14's remainder (static, onnx)")

@@ -90,13 +90,19 @@ def _axis(axis):
 
 
 def concat(x, axis=0):
-    axis = _axis(axis)
-    return call("concat", lambda *vs: torch.cat(vs, axis), *x)
+    return call("concat", _cat, *x, axis=_axis(axis))
+
+
+def _cat(*vs, axis):
+    return torch.cat(vs, axis)
 
 
 def stack(x, axis=0):
-    axis = _axis(axis)
-    return call("stack", lambda *vs: torch.stack(vs, axis), *x)
+    return call("stack", _stack, *x, axis=_axis(axis))
+
+
+def _stack(*vs, axis):
+    return torch.stack(vs, axis)
 
 
 def split(x, num_or_sections, axis=0):

@@ -233,6 +233,16 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
+        """Eager: ``loss.backward()`` then ``step()``. A symbolic loss
+        (static mode) appends this optimizer's update to the default main
+        program instead, which ``static.Executor.run`` applies after the
+        gradients; returns (None, [(param, grad var)])."""
+        if getattr(loss, "_symbolic", False):
+            from ..static import graph as _sg
+            prog = _sg.default_main_program()
+            params = parameters or self._parameters or None
+            prog._append_opt(self, loss, params)
+            return None, _sg.append_backward(loss, params)
         loss.backward()
         self.step()
         return None, None

@@ -12,7 +12,7 @@ the same numpy inputs:
   white-listed, at O1): the same dtypes as the reference's;
 * a nested entry point (``F.linear`` calls ``matmul``) cast once and not
   recorded as an op of its own; the ``op::`` spans of the ``obs`` tracer;
-  ``FLAGS_check_nan_inf``; ``enable_static`` refused;
+  ``FLAGS_check_nan_inf``; ``enable_static``'s capture;
 * ``GradScaler``: the scale sequence with an injected inf (the step
   skipped, ``update`` called by ``step`` itself, as the reference's),
   the gradients divided by the scale, ``decorate``'s masters retrofitted
@@ -237,8 +237,21 @@ def test_spans_nan_check_and_static_refusal():
     assert ptt.get_flags("check_nan_inf") == {"check_nan_inf": False}
     with pytest.raises(KeyError):
         ptt.set_flags({"no_such_flag": 1})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ptt.enable_static()
+    # static mode: an op on a StaticVar is captured (its span is not
+    # recorded: nothing runs), and the eager path is back after it
+    ptt.enable_static()
+    try:
+        prog = ptt.static.Program()
+        with ptt.static.program_guard(prog), port_trace.use(tracer):
+            x = ptt.static.data("x", [2, 3], "float32")
+            y = TF.relu(x)
+        assert isinstance(y, ptt.static.StaticVar)
+        assert ptt.static.apply_pass(prog, "op_stats") == {"relu": 1}
+        assert not ptt.in_dynamic_mode()
+    finally:
+        ptt.disable_static()
+    assert ptt.in_dynamic_mode()
+    assert [e["name"] for e in tracer.events] == names
 
 
 def _scaler_run(pkg_amp, pkg_opt, make_param, set_grad, read_grad):

@@ -499,6 +499,20 @@ def test_evaluate_and_predict_read_no_callbacks():
 
 
 def test_static_graph_adapter_is_refused():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        port_model.StaticGraphAdapter(tp.Model(_mlp(tp)))
+    """The adapter is no longer refused: a Model made in static mode
+    drives it (the full parity test is tests/test_torch_static.py), one
+    made in dynamic mode does not."""
+    assert tp.Model(_mlp(tp))._adapter is None
+    tp.enable_static()
+    try:
+        net = _mlp(tp)
+        model = tp.Model(net, inputs=[tp.static.InputSpec([-1, 6], "float32",
+                                                          "x")])
+        assert isinstance(model._adapter, port_model.StaticGraphAdapter)
+        x = np.ones((2, 6), np.float32)
+        out = model.predict_batch([x])
+    finally:
+        tp.disable_static()
+    np.testing.assert_allclose(out, net(torch.from_numpy(x)).detach().numpy(),
+                               rtol=1e-6)
     assert tp.in_dynamic_mode()

@@ -1946,3 +1946,68 @@ def test_dy2static_captures_control_flow_on_the_card(card):
              for nd in m.graph.nodes if nd.op == "call_function"}
     assert {"cond", "while_loop"} <= names
     assert sf.cache_stats()["compiles"] == 1
+
+
+@pytest.mark.cuda
+def test_static_program_on_the_card_matches_eager(card):
+    """A 1-layer encoder (d 128, 2 heads of 64) at S=512 as a static
+    program with a -1 batch, replayed by ``static.Executor`` on the card:
+    the logits, the loss and the gradients of every parameter and of the
+    embedded input equal the eager forward and backward's on the card
+    bit for bit (the same ops in the same order), and the multi-head
+    flash forward, dq and dk/dv launch as often as eagerly (once each)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import flash_attention as fm
+
+    paddle.set_device("gpu")
+    nn = paddle.nn
+    S = 512
+    paddle.seed(0)
+    enc = nn.TransformerEncoder(
+        nn.TransformerEncoderLayer(128, 2, 256, dropout=0.0), 1)
+    head = nn.Linear(128, 3)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, S, 128)).astype("f4")
+                         ).to(card)
+    label = torch.from_numpy(rng.integers(0, 3, (2, 1))).to(card)
+    params = list(enc.parameters()) + list(head.parameters())
+    counter = fm.flash_attention
+
+    def launches():
+        return (counter.launches_fwd, counter.launches_dq,
+                counter.launches_dkv)
+
+    paddle.enable_static()
+    try:
+        main = paddle.static.Program()
+        with paddle.static.program_guard(main):
+            xv = paddle.static.data("x", [-1, S, 128], "float32")
+            lv = paddle.static.data("label", [-1, 1], "int64")
+            logits = head(paddle.mean(enc(xv), axis=1))
+            loss = paddle.nn.CrossEntropyLoss()(logits, lv)
+            pairs = paddle.static.append_backward(loss)
+            grads = [g for _, g in pairs]
+            gx, = paddle.static.gradients(loss, [xv])
+        exe = paddle.static.Executor(paddle.CUDAPlace(0))
+        before = launches()
+        got = exe.run(main, feed={"x": x, "label": label},
+                      fetch_list=[logits, loss] + grads + [gx],
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        static_launches = [a - b for a, b in zip(launches(), before)]
+    finally:
+        paddle.disable_static()
+    xe = x.clone().requires_grad_(True)
+    before = launches()
+    e_logits = head(paddle.mean(enc(xe), axis=1))
+    e_loss = paddle.nn.CrossEntropyLoss()(e_logits, label)
+    assert {id(p) for p, _ in pairs} == {id(p) for p in params}
+    want = [e_logits, e_loss] + list(torch.autograd.grad(
+        e_loss, [p for p, _ in pairs] + [xe]))
+    torch.cuda.synchronize()
+    eager_launches = [a - b for a, b in zip(launches(), before)]
+    assert static_launches == eager_launches == [1, 1, 1]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w.detach())
