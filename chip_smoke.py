@@ -24,6 +24,7 @@ fused_decode
     python3 chip_smoke.py --phases build,fit
     python3 chip_smoke.py --phases build,deploy
     python3 chip_smoke.py --phases build,static
+    python3 chip_smoke.py --phases build,train_mesh
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -90,9 +91,12 @@ Phases, each printing JSON lines:
    * grouped flash attention once more at the train_long phase's call:
      B=1, 24 query / 8 kv heads (G = 3), S=8192, head_dim 128, bf16,
      causal; and at the train_moe phase's: B=1, 28 query / 4 kv heads
-     (G = 7), S=4096, head_dim 128, bf16, causal;
+     (G = 7), S=4096, head_dim 128, bf16, causal; and at one rank's call
+     in train_mesh: mesh A's B=1, 16 / 4 heads, S=4096, mesh B's B=1,
+     32 / 8 heads, S=2048;
    * fused cross-entropy (``ce_fwd``, ``ce_bwd``) at N=8192 rows of
-     V=128256 bf16 logits, int64 labels. Yardstick: ``F.cross_entropy(...,
+     V=128256 bf16 logits, int64 labels, and at one train_mesh B rank's
+     2048 rows. Yardstick: ``F.cross_entropy(...,
      reduction="none")`` forward, and its backward alone.
    * multi-head flash once more at the train_encoder phase's call: B=32,
      12 heads, S=512, head_dim 64, bf16, non-causal;
@@ -242,7 +246,7 @@ Phases, each printing JSON lines:
    ``report()``, the median decode turn, prefill chunk and dense step
    (from the run's trace spans), ``engine_host_frac``, the routing
    decisions by backend and rule, prefix-cache hits and peak memory.
-6. ``serve_features``: Llama-3-8B at full width and 16 of its 32 layers
+6. ``serve_features``: Llama-3-8B at full width and 8 of its 32 layers
    (printed as ``cut``), bf16, seeded weights, through ``llama_serving_decode_factory`` (the serve_engine
    phase's build) and ``ServingEngine(slots=8, policy="paged")``, two
    engines in turn, each freed before the next. First multi-LoRA +
@@ -264,7 +268,7 @@ Phases, each printing JSON lines:
    Checks: every stream has min(budget, cancel_after) tokens or stops at
    its grammar's accept; every constrained stream parses under its
    schema; the adapter, grammar and page censuses hold; paged launches
-   == 16 x the plain decode steps, all ``split`` (the spec round, the
+   == 8 x the plain decode steps, all ``split`` (the spec round, the
    ragged lane and prefill attend by the page gather); spec rounds > 0
    with an acceptance rate in [0, 1]. Records, per engine: requests
    completed and cancelled, tokens, tokens/s on the wall clock, TTFT
@@ -280,7 +284,7 @@ Phases, each printing JSON lines:
    factories (its outputs equal a lone engine's) and ``disaggregated``
    with an int8 decode replica of 8-token pages (every handoff re-paged
    and transcoded); outputs, slot logs and censuses card against CPU.
-   Then three factories of one seeded Llama-3-8B (16 of its 32 layers,
+   Then three factories of one seeded Llama-3-8B (8 of its 32 layers,
    printed as ``cut``, bf16): A and
    B over bf16 pools of 64-token pages, C over int8 pools of 32-token
    pages holding the same 16,384 tokens; each replica a
@@ -300,8 +304,8 @@ Phases, each printing JSON lines:
    least one retried; the streams that match the fault-free run,
    recorded). Every replay: the
    census conserved, every stream min(budget, cancel_after) tokens,
-   paged launches == 16 x the decode steps summed over the replicas, all
-   ``split``, and those over int8 pages == 16 x the int8 replica's steps.
+   paged launches == 8 x the decode steps summed over the replicas, all
+   ``split``, and those over int8 pages == 8 x the int8 replica's steps.
    Records wall s and tokens/s, the router's virtual rollup (one card a
    replica: not a speed of this card), TTFT / TPOT p50 / p95, placements
    and prefix hits a replica, handoffs and the transforms' ms (the spans'
@@ -656,6 +660,37 @@ Phases, each printing JSON lines:
     modes' median step ms, the loss differences, the predictor's ms, the
     peak memory and the phase's seconds beside the card's name and power
     limit.
+
+23. ``train_mesh``: the Llama train step on a mesh of processes. (1) In
+    this process, ``distributed.init_parallel_env()`` with no backend
+    named (NCCL, the card being the default device) at a world of one:
+    ``all_reduce``, ``all_gather``, ``broadcast`` and ``barrier`` on CUDA
+    tensors, then 2 steps of the factory on ``{"data": 1, "model": 1,
+    "sharding": 1}`` at a small bf16 size, losses bit-equal to
+    ``mesh=None``'s; the group destroyed. (2) Mesh A ``{"data": 2,
+    "model": 2}``: four processes from ``distributed.spawn``, all on the
+    one card, over gloo (NCCL refuses two ranks of one communicator on one
+    device; gloo stages CUDA tensors through host memory), train
+    Llama-3-8B's widths at 2 of 32 layers, bf16, global B=2 x S=4096,
+    ``remat=False``, 3 steps (``TRAIN_MESH``). Beforehand this process
+    runs the same steps with ``mesh=None`` on the same weights and batch
+    and keeps the losses and the final parameters on the host. On every
+    rank: each step's loss within ``MESH_LOSS_RTOL`` of the single-device
+    loss, each parameter shard within ``MESH_PARAM_REL`` (norm of the
+    difference over norm) of its slice of the single-device parameters,
+    the grouped flash forward, dq and dk/dv launched 2 a step each on the
+    rank's 16 query / 4 kv heads, the fused CE not at all (the model axis
+    takes the vocabulary-split f32 CE). (3) Mesh B ``{"data": 2,
+    "sharding": 2}``, the same model and steps at S=2048 (each rank holds
+    the whole bf16 model, its gradients and half of the f32 moments: at
+    S=4096 four ranks would need about 72 GB of the card's 80): the same
+    checks, the flash kernels on 32 / 8 heads, the fused CE forward and
+    backward once a step each, and each rank's moment bytes half of the
+    unsharded ones. Records per mesh the median step ms, the seconds
+    inside collectives (the card synchronised around each), the peak
+    memory of each rank and the phase's seconds beside the card's name and
+    power limit. These step times measure a correctness run: gloo on one
+    card measures no scaling.
 
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -1752,7 +1787,17 @@ def phase_kernel(dev):
     gqa_moe = [_attention_case("gqa_G7_B1_S4096_D128/bfloat16", "gqa", 1, 4,
                                7, 4096, 4096, 128, "bfloat16", 81, dev,
                                flush)]
-    for c in gqa + ce + gqa_long + gqa_moe:
+    # and at train_mesh's calls, one rank's: mesh A's 16 / 4 heads at
+    # B=1 x S=4096, mesh B's 32 / 8 at B=1 x S=2048, and mesh B's CE over
+    # one rank's 2048 rows
+    gqa_mesh = [_attention_case("gqa_meshA_B1_H16_S4096_D128/bfloat16",
+                                "gqa", 1, 4, 4, 4096, 4096, 128, "bfloat16",
+                                82, dev, flush),
+                _attention_case("gqa_meshB_B1_H32_S2048_D128/bfloat16",
+                                "gqa", 1, 8, 4, 2048, 2048, 128, "bfloat16",
+                                83, dev, flush)]
+    ce_mesh = [_ce_case(2048, 128256, 84, dev, flush)]
+    for c in gqa + ce + gqa_long + gqa_moe + gqa_mesh + ce_mesh:
         emit({"phase": "kernel", **c})
     mha = [_attention_case("mha_B2_S4096_D128/bfloat16", "mha", 2, 32, 1,
                            4096, 4096, 128, "bfloat16", 9, dev, flush),
@@ -1813,7 +1858,8 @@ def phase_kernel(dev):
                  for i, (N, H) in enumerate(((8192, 4096), (16384, 768)))]
     for c in ln_retime:
         emit({"phase": "kernel", **c})
-    bad = [c["case"] for c in cases + gqa + ce + gqa_long + gqa_moe + mha
+    bad = [c["case"] for c in cases + gqa + ce + gqa_long + gqa_moe
+           + gqa_mesh + ce_mesh + mha
            + splash + block_sparse + mha_enc + norm if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
@@ -1821,7 +1867,8 @@ def phase_kernel(dev):
     del flush
     torch.cuda.empty_cache()
     return {"paged": cases, "gqa": gqa, "ce": ce, "gqa_long": gqa_long,
-            "gqa_moe": gqa_moe, "mha": mha,
+            "gqa_moe": gqa_moe, "gqa_mesh": gqa_mesh, "ce_mesh": ce_mesh,
+            "mha": mha,
             "splash": splash, "block_sparse": block_sparse,
             "mha_encoder": mha_enc, "norm": norm,
             "ln_retime": ln_retime}
@@ -3410,12 +3457,15 @@ def phase_serve_engine(dev):
 SERVE_FEATURES = dict(max_len=2048, page_size=64, slots=8, chunked_prefill=64,
                       lora=(4, 16), grammar=(3, 64), prefill_chunk_budget=256,
                       n_draft=3, replay=8, spread_s=1.0,
-                      spec_interarrival=0.1, layers=16)
+                      spec_interarrival=0.1, layers=8)
 # the depth that keeps the whole script within its time limit: a paged
 # turn is the host's loop over the layers, so a phase's wall time follows
 # its depth; serve_engine serves all 32 (serve_tiers was cut to 16 when
-# the deploy phase joined the script)
+# the deploy phase joined the script; serve_features and serve_cluster
+# from 16 to 8 when train_mesh did, after whole runs of 1007.6 and 1033.3
+# s of 1200 on one H100)
 CUT = "16 of 32 decoder layers, full width: the whole script's time limit"
+CUT8 = "8 of 32 decoder layers, full width: the whole script's time limit"
 
 
 def _llama32_1b_draft():
@@ -3612,7 +3662,7 @@ def _spec_f32_control(dev, build, trace):
 
 
 def phase_serve_features(dev):
-    """Llama-3-8B, full width, 16 of its 32 layers, bf16, seeded weights,
+    """Llama-3-8B, full width, 8 of its 32 layers, bf16, seeded weights,
     through ``llama_serving_decode_factory`` and
     ``ServingEngine(policy="paged")`` with the options of ROADMAP item 11, two engines in
     turn, each freed before the next: multi-LoRA + grammar + the ragged
@@ -3641,7 +3691,7 @@ def phase_serve_features(dev):
     mixed, spec_trace = _features_traces(cfg.vocab_size)
     vocab = TokenVocab.ascii_default(cfg.vocab_size)
     out = {"phase": "serve_features", "model": "llama3_8b", "layers": L,
-           "cut": CUT, "dtype": "bfloat16", "policy": "paged",
+           "cut": CUT8, "dtype": "bfloat16", "policy": "paged",
            "clock": "measured"}
 
     # 1. multi-LoRA + grammar + the ragged lane
@@ -3753,7 +3803,8 @@ def phase_serve_features(dev):
 
 # --- phase 7: the multi-replica serving layer, Llama-3-8B replicas --------
 
-# serve_cluster: three factories of one seeded Llama-3-8B (16 layers, bf16)
+# serve_cluster: three factories of one seeded Llama-3-8B (8 layers, bf16;
+# CUT8)
 # with serve_engine's geometry: A and B over bf16 pools of 64-token pages,
 # C over int8 pools of 32-token pages holding the same 16,384 tokens. The
 # fixed-clock parts start the trace at 0 and divide its arrivals by
@@ -3761,7 +3812,7 @@ def phase_serve_features(dev):
 # (about one decode turn, as it is on the measured clock); the
 # disaggregated parts price a handoff at kv_transfer_unit a page.
 SERVE_CLUSTER = dict(SERVE_ENGINE, int8_page_size=32, kv_transfer_unit=0.05,
-                     measured_requests=16, layers=16)
+                     measured_requests=16, layers=8)
 # the f32 case: ENGINE_SMALL's model and factories, the int8 decode
 # replica over pages of 8
 CLUSTER_SMALL_INT8_PAGE = 8
@@ -4022,7 +4073,7 @@ def _transform_ms(facs, e):
 
 def phase_serve_cluster(dev):
     """The multi-replica serving layer: ``ClusterRouter`` over replicas of
-    Llama-3-8B (16 layers, bf16, seeded) on factories A, B (bf16 pools,
+    Llama-3-8B (8 layers, bf16, seeded) on factories A, B (bf16 pools,
     pages of 64) and C (int8 pools, pages of 32), each replica a
     ``ServingEngine(slots=8, policy="paged")``, on ``_serve_engine_trace``:
     placement (a fixed-clock replay of 12 requests through
@@ -4054,7 +4105,7 @@ def phase_serve_cluster(dev):
     fixed = _fixed_arrivals(trace)
     n = len(trace)
     out = {"phase": "serve_cluster", "model": "llama3_8b", "layers": L,
-           "cut": CUT, "dtype": "bfloat16", "requests": n,
+           "cut": CUT8, "dtype": "bfloat16", "requests": n,
            "setup_s": setup_s,
            "memory": {"build_peak_gb": build_peak,
                       "after_build_gb": torch.cuda.memory_allocated()
@@ -8753,6 +8804,274 @@ def phase_static(dev, profile=False):
     return out
 
 
+# --- train_mesh: the Llama train step on a mesh of processes ---------------
+#
+# Llama-3-8B's widths at 2 of its 32 layers, bf16, random weights from a
+# seed, 3 steps of ``llama_train_step_factory(mesh=...)`` by four processes
+# on the one card over gloo; beside them, the same steps on one device.
+TRAIN_MESH = dict(layers=2, B=2, steps=3, lr=1e-3, seed=0, world=4)
+MESHES = {"A": ({"data": 2, "model": 2}, 4096),
+          "B": ({"data": 2, "sharding": 2}, 2048)}
+MESH_SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                  num_hidden_layers=2, num_attention_heads=4,
+                  num_key_value_heads=2, B=2, S=256, steps=2)
+# the mesh runs against the single-device run, the same bf16 weights and
+# batch. The row-parallel products (A) are rounded to bf16 in halves before
+# their sum, each rank's gradient in its half of the batch before the
+# average, and AdamW steps near-zero gradients by their sign: bf16 noise.
+# First readings (one H100, PERF.md §6): losses 1.9e-3 (A) and 3.3e-3 (B)
+# relative at the third step, whose loss has fallen to 0.049 / 0.016 (the
+# first two steps within 5e-5); parameter shards 0.0109 (A) and 0.0026 (B)
+# in norm, the worst layer 1's k_proj. Limits about twice the readings
+MESH_LOSS_RTOL = 7e-3
+MESH_PARAM_REL = 0.025
+
+
+def _mesh_cfg():
+    from paddle_tpu_torch.models.nlp import LlamaConfig
+    return dataclasses.replace(LlamaConfig.llama3_8b(),
+                               num_hidden_layers=TRAIN_MESH["layers"])
+
+
+def _mesh_nccl_world1(dev):
+    """Part 1: NCCL at a world of one in this process."""
+    import torch.distributed as dist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.nlp.llama import llama_train_step_factory
+
+    D.init_parallel_env()
+    out = {"backend": dist.get_backend(), "world": D.get_world_size()}
+    try:
+        x = torch.arange(4, dtype=torch.float32, device=dev) + 1
+        D.all_reduce(x)
+        got = []
+        D.all_gather(got, x)
+        y = x.clone()
+        D.broadcast(y, src=0)
+        D.barrier()
+        out["collectives_ok"] = (x.tolist() == [1.0, 2.0, 3.0, 4.0]
+                                 and len(got) == 1
+                                 and torch.equal(got[0], x)
+                                 and torch.equal(y, x))
+        c = MESH_SMALL
+        cfg = LlamaConfig(**{k: v for k, v in c.items()
+                             if k not in ("B", "S", "steps")})
+        tokens, labels = _batch(cfg, c["B"], c["S"], 1, dev)
+        runs = {}
+        for name, mesh in (("none", None),
+                           ("mesh", D.build_mesh({"data": 1, "model": 1,
+                                                  "sharding": 1}))):
+            model = LlamaForCausalLM(cfg, device=dev, seed=0)
+            params, opt, step = llama_train_step_factory(
+                model, learning_rate=1e-3, remat=False, mesh=mesh)
+            runs[name] = [float(step(params, opt, tokens, labels)[2])
+                          for _ in range(c["steps"])]
+        out["losses"] = runs
+        out["bit_equal"] = runs["none"] == runs["mesh"]
+    finally:
+        D.destroy_process_group()
+    out["ok"] = bool(out["backend"] == "nccl" and out["collectives_ok"]
+                     and out["bit_equal"])
+    return out
+
+
+def _mesh_single(dev, S, path):
+    """The single-device run: its losses and step seconds; its final
+    parameters saved to ``path`` (host memory)."""
+    from paddle_tpu_torch.models.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.models.nlp.llama import llama_train_step_factory
+    t = TRAIN_MESH
+    cfg = _mesh_cfg()
+    model = LlamaForCausalLM(cfg, device=dev, seed=t["seed"])
+    params, opt, step = llama_train_step_factory(
+        model, learning_rate=t["lr"], remat=False)
+    tokens, labels = _batch(cfg, t["B"], S, t["seed"], dev)
+    losses, step_s = [], []
+    for _ in range(t["steps"]):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, labels)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    torch.save({k: v.detach().cpu() for k, v in params.items()}, path)
+    del model, params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, step_s
+
+
+def _mesh_rank(name, dims, S, ref_losses, ref_path, out_dir, device):
+    """One rank of a mesh world (in its own process): 3 factory steps
+    from 0 launch counts, then the checks against the single-device run
+    (a JSON file per rank)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.models.nlp.llama import (llama_train_step_factory,
+                                                   param_shardings,
+                                                   shard_llama_tensor)
+
+    paddle.set_device(device)
+    # several ranks share the one card: gloo, not NCCL (which refuses two
+    # ranks of one communicator on one device)
+    D.init_parallel_env(backend="gloo")
+    dev = paddle.resolve_device(None)
+    t = TRAIN_MESH
+    cfg = _mesh_cfg()
+    rank = D.get_rank()
+    mesh = D.build_mesh(dims)
+    model = LlamaForCausalLM(cfg, device=dev, seed=t["seed"])
+    specs = param_shardings(model, mesh)
+    params, opt, step = llama_train_step_factory(
+        model, learning_rate=t["lr"], remat=False, mesh=mesh)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens, labels = _batch(cfg, t["B"], S, t["seed"], dev)
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention_gqa")
+    seen = set()
+    kernel_fwd = fa.gqa_fwd
+
+    def recording(q, k, v, *a, **kw):
+        seen.add((int(q.shape[0]), int(q.shape[1]), int(k.shape[1]),
+                  int(q.shape[2])))
+        return kernel_fwd(q, k, v, *a, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, per_step = [], [], []
+    C.reset_stats(sync=True)
+    _zero_train_counts()
+    with _swapped([(fa, "gqa_fwd", recording)]):
+        for _ in range(t["steps"]):
+            before = _train_counts()
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, tokens, labels)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+            after = _train_counts()
+            per_step.append({k: after[k] - before[k] for k in after
+                             if after[k] != before[k]})
+    counts = _train_counts()
+    coll = dict(C.STATS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref = torch.load(ref_path, mmap=True)
+    coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
+    rel = {}
+    for k, p in params.items():
+        want = shard_llama_tensor(cfg, k, ref[k], specs[k], mesh.shape,
+                                  coords).to(dev).float()
+        rel[k] = float((p.detach().float() - want).norm() / want.norm())
+    moment = sum(m.numel() * m.element_size() for m in opt["m"].values())
+    unsharded = sum(p.numel() * 4 for p in params.values())
+    res = {"rank": rank, "coords": coords, "losses": losses,
+           "loss_rel": [abs(a - b) / abs(b) for a, b in
+                        zip(losses, ref_losses)],
+           "step_s": step_s, "launches": counts, "per_step": per_step,
+           "heads_seen": sorted(seen), "collective_s": coll["seconds"],
+           "collective_calls": coll["calls"],
+           "collective_gb": coll["bytes"] / 1e9, "peak_mem_gb": peak,
+           "param_rel_max": max(rel.values()),
+           "param_rel_worst": max(rel, key=rel.get),
+           "param_rel_median": statistics.median(rel.values()),
+           "moment_bytes": moment, "moment_bytes_unsharded": unsharded}
+    with open(os.path.join(out_dir, f"{name}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    D.barrier()
+    D.destroy_process_group()
+
+
+def phase_train_mesh(dev):
+    """The mesh phase (the docstring's item 23)."""
+    import tempfile
+
+    from paddle_tpu_torch import distributed as D
+
+    t_phase = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    out = {"phase": "train_mesh", "card": card, "config": TRAIN_MESH,
+           "loss_rtol": MESH_LOSS_RTOL, "param_rel_limit": MESH_PARAM_REL}
+    t0 = time.perf_counter()
+    out["nccl_world1"] = _mesh_nccl_world1(dev)
+    out["nccl_world1"]["s"] = time.perf_counter() - t0
+    ok = out["nccl_world1"]["ok"]
+    t = TRAIN_MESH
+    L, steps = t["layers"], t["steps"]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (dims, S) in MESHES.items():
+            t0 = time.perf_counter()
+            path = os.path.join(tmp, f"single_{name}.pt")
+            ref_losses, ref_step_s = _mesh_single(dev, S, path)
+            single_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            D.spawn(_mesh_rank, (name, dims, S, ref_losses, path, tmp,
+                                 dev.type), nprocs=t["world"], timeout=900)
+            world_s = time.perf_counter() - t1
+            ranks = []
+            for r in range(t["world"]):
+                with open(os.path.join(tmp, f"{name}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            model_axis = dims.get("model", 1)
+            hq, hkv = 32 // model_axis, 8 // model_axis
+            want = {"gqa_fwd": L, "gqa_dq": L, "gqa_dkv": L}
+            if model_axis == 1:
+                want.update({"ce_fwd": 1, "ce_bwd": 1})
+            checks = []
+            for r in ranks:
+                moments_ok = (r["moment_bytes"] * dims.get("sharding", 1)
+                              == r["moment_bytes_unsharded"])
+                checks.append(
+                    max(r["loss_rel"]) <= MESH_LOSS_RTOL
+                    and r["param_rel_max"] <= MESH_PARAM_REL
+                    and all(p == want for p in r["per_step"])
+                    and r["heads_seen"] == [[t["B"] // dims["data"], hq,
+                                             hkv, S]]
+                    and moments_ok and all(np.isfinite(r["losses"])))
+            launches[name] = {}
+            for r in ranks:
+                for k, n in r["launches"].items():
+                    launches[name][k] = launches[name].get(k, 0) + n
+            out[f"mesh_{name}"] = {
+                "dims": dims, "B": t["B"], "S": S, "steps": steps,
+                "single_losses": ref_losses,
+                "single_step_ms": [1e3 * x for x in ref_step_s],
+                "rank_losses": [r["losses"] for r in ranks],
+                "loss_rel_max": max(max(r["loss_rel"]) for r in ranks),
+                "param_rel_max": max(r["param_rel_max"] for r in ranks),
+                "param_rel_worst": [r["param_rel_worst"] for r in ranks],
+                "param_rel_median": [r["param_rel_median"] for r in ranks],
+                "step_ms_median": [1e3 * statistics.median(r["step_s"])
+                                   for r in ranks],
+                "step_ms": [[1e3 * x for x in r["step_s"]] for r in ranks],
+                "collective_s": [r["collective_s"] for r in ranks],
+                "collective_calls": [r["collective_calls"] for r in ranks],
+                "collective_gb": [r["collective_gb"] for r in ranks],
+                "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+                "launches_per_step_expected": want,
+                "launches_per_step": [r["per_step"] for r in ranks],
+                "heads_seen": [r["heads_seen"] for r in ranks],
+                "moment_bytes": [r["moment_bytes"] for r in ranks],
+                "moment_bytes_unsharded": [r["moment_bytes_unsharded"]
+                                           for r in ranks],
+                "single_s": single_s, "world_s": world_s,
+                "checks": checks}
+            ok &= all(checks)
+            emit({"phase": f"train_mesh_{name}", **out[f"mesh_{name}"]})
+    out["launches_by_mesh"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["ok"] = bool(ok)
+    out = _plain(out)
+    emit(out)
+    if not ok:
+        raise AssertionError("train_mesh phase failed: " + json.dumps(out))
+    return out
+
+
 def _plain(obj):
     """``obj`` with numpy scalars and arrays made Python numbers and
     lists, for JSON."""
@@ -8782,7 +9101,7 @@ PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "train_encoder", "train_bert", "train_eager", "train_resnet50",
           "train_gpt",
           "transformer", "fused_decode", "train_rnnlm", "train_layer",
-          "fit", "deploy", "static")
+          "fit", "deploy", "static", "train_mesh")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -8925,6 +9244,23 @@ def _kernels_line(kern, serve, engine, features, cluster, tiers, trains,
                                       GQA_FWD_REPLACES, GQA_BWD_REPLACES,
                                       "gqa", kern["gqa_moe"][0],
                                       moe_launches, card, moe_by_phase)
+    mesh_runs = trains.get("train_mesh", {}).get("launches_by_mesh", {})
+    for i, m in enumerate(("A", "B")):
+        if kern.get("gqa_mesh") and m in mesh_runs:
+            # summed over the mesh's four ranks
+            kernels += _attention_entries(
+                f"gqa_flash_mesh{m}", GQA_SOURCE, GQA_FWD_REPLACES,
+                GQA_BWD_REPLACES, "gqa", kern["gqa_mesh"][i], mesh_runs[m],
+                card)
+    if kern.get("ce_mesh") and "B" in mesh_runs:
+        c = kern["ce_mesh"][0]
+        for name, replaces, part, errs in (
+                ("fused_ce_meshB_fwd", CE_FWD_REPLACES, "fwd",
+                 ("loss", "lse")),
+                ("fused_ce_meshB_bwd", CE_BWD_REPLACES, "bwd", ("dx",))):
+            kernels.append(_entry(name, CE_SOURCE, replaces,
+                                  mesh_runs["B"].get(f"ce_{part}"), c, part,
+                                  part, errs, card))
     if kern.get("ce"):
         c = kern["ce"][0]
         for name, replaces, part, errs in (
@@ -9118,6 +9454,8 @@ def main():
     if "static" in phases:
         trains["static"] = run("static", phase_static, dev,
                                profile=args.profile)
+    if "train_mesh" in phases:
+        trains["train_mesh"] = run("train_mesh", phase_train_mesh, dev)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -37,7 +37,10 @@ dy2static pass and captured control flow, ``save`` / ``load``),
 ``enable_static`` / ``disable_static``, ``static`` (``Program``,
 ``data``, ``Executor`` with ``append_backward`` and ``minimize``,
 ``static.nn``, the passes, ``save_inference_model``), ``onnx.export`` and
-hapi's ``StaticGraphAdapter``.
+hapi's ``StaticGraphAdapter``; and several processes: ``distributed``
+(process groups and collectives over ``torch.distributed``, the hybrid
+topology and mesh, ``DataParallel``, fleet's tensor-parallel layers and
+hybrid optimizer, ZeRO) with the Llama train step on a mesh.
 Importing the package registers the kernel operators
 (``paddle_tpu_torch::gqa_fwd``) that a saved program names.
 """
@@ -72,6 +75,8 @@ from .framework.io import load, save  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
 from . import inference, jit, quantization, static  # noqa: F401
 from . import onnx  # noqa: F401
+from . import distributed, parallel  # noqa: F401
+from .distributed.parallel import DataParallel  # noqa: F401
 from .static.graph import disable_static, enable_static  # noqa: F401
 
 # the dtype names, as torch dtypes (paddle_tpu/__init__.py:11-14, 80-81)

@@ -259,15 +259,17 @@ class BatchSampler(Sampler):
 class DistributedBatchSampler(BatchSampler):
     """This rank's batches of the index space padded to a multiple of the
     ranks; ``shuffle`` permutes it by numpy from the epoch (``set_epoch``),
-    as the reference. ``num_replicas`` / ``rank`` default to 1 / 0: the
-    port has no process group yet (ROADMAP Queue 1 item 15)."""
+    as the reference. ``num_replicas`` / ``rank`` default to the world
+    size and rank of ``distributed`` (1 / 0 with no process group)."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
+        from ..distributed import get_rank, get_world_size
         self.dataset = dataset
         self.batch_size = batch_size
-        self.nranks = 1 if num_replicas is None else num_replicas
-        self.local_rank = 0 if rank is None else rank
+        self.nranks = num_replicas if num_replicas is not None \
+            else get_world_size()
+        self.local_rank = rank if rank is not None else get_rank()
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.epoch = 0

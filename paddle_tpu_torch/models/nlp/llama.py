@@ -5,7 +5,9 @@ Counterpart of ``paddle_tpu/models/nlp/llama.py`` (``LlamaConfig``,
 ``_rope_freqs``, ``apply_rotary``, the ``Layer`` classes
 ``LlamaAttention``, ``LlamaMLP``, ``LlamaDecoderLayer``, ``LlamaModel``
 and ``LlamaForCausalLM`` with ``generate``, ``llama.py:180-476``, and
-``llama_train_step_factory``, ``llama.py:500-738``). Layouts are the
+``llama_train_step_factory``, ``llama.py:500-738``, on one device or
+on a mesh of processes, with ``param_shardings`` and the tensor /
+context-parallel setters, ``:96-135``, ``:481-497``). Layouts are the
 reference's: every projection weight is ``(in, out)`` and is applied as
 ``x @ w``, and ``state_dict()`` keys equal the reference's, fused
 projections included (``qkv_proj``, ``gate_up_proj``), so a reference
@@ -305,6 +307,127 @@ class LlamaForCausalLM(Layer):
         return out
 
 
+# --- tensor and context parallelism (llama.py:85-135) ----------------------
+# The mesh whose model axis splits the heads: set by the train-step factory
+# around its forward (``set_tensor_parallel_mesh``); ``llama_functional``
+# then runs the layer math on this rank's shards.
+_TP = {"mesh": None, "axis": "model"}
+_CP = {"mesh": None, "axis": "sep"}
+SEP_PIPE_NOT_PORTED = ("a {axis!r} axis above 1 is not ported yet: ROADMAP "
+                       "Queue 1 item 15 (ring and Ulysses attention, the "
+                       "pipeline)")
+
+
+def set_tensor_parallel_mesh(mesh, axis: str = "model"):
+    """The mesh whose ``axis`` splits the attention heads (None: none)."""
+    _TP["mesh"] = mesh
+    _TP["axis"] = axis
+
+
+def _tensor_parallel_mesh():
+    mesh, axis = _TP["mesh"], _TP["axis"]
+    if mesh is None or mesh.shape.get(axis, 1) <= 1:
+        return None, None
+    return mesh, axis
+
+
+def set_context_parallel_mesh(mesh, axis: str = "sep"):
+    """The mesh whose ``axis`` splits the sequence (None: none). An axis
+    above 1 needs ring attention, which is refused."""
+    if mesh is not None and mesh.shape.get(axis, 1) > 1:
+        raise NotImplementedError(SEP_PIPE_NOT_PORTED.format(axis=axis))
+    _CP["mesh"] = mesh
+    _CP["axis"] = axis
+
+
+# the reference's sharding annotations of the Llama layers (llama.py
+# :196-226, :387-395; the mp layers' PartitionSpecs): vocabulary rows of the
+# embedding, columns of the column-parallel projections and the head, rows
+# of the row-parallel ones; the norms replicated
+_COLUMN = ("q_proj", "k_proj", "v_proj", "qkv_proj", "gate_proj", "up_proj",
+           "gate_up_proj")
+_ROW = ("o_proj", "down_proj")
+
+
+def _spec_of(key):
+    if key == "model.embed_tokens.weight":
+        return ("model", None)
+    if key == "lm_head.weight":
+        return (None, "model")
+    layer = key.rsplit(".", 2)
+    if len(layer) == 3 and layer[-1] == "weight":
+        if layer[-2] in _COLUMN:
+            return (None, "model")
+        if layer[-2] in _ROW:
+            return ("model", None)
+    return ()
+
+
+def _axes(mesh):
+    return dict(mesh.shape) if hasattr(mesh, "shape") and isinstance(
+        mesh.shape, dict) else dict(mesh)
+
+
+def param_shardings(model, mesh):
+    """{state-dict key: spec}: one mesh axis name or None per dimension,
+    the reference's annotations with the axes the mesh lacks dropped
+    (``llama.py:481-497``). ``mesh``: a ``distributed.Mesh`` or {axis:
+    size}."""
+    names = set(_axes(mesh))
+    return {k: tuple(a if a in names else None for a in _spec_of(k))
+            for k in model.state_dict()}
+
+
+_FUSED = {"self_attn.qkv_proj.weight": "qkv", "mlp.gate_up_proj.weight":
+          "gate_up"}
+
+
+def _component_widths(cfg, key):
+    """The column widths of a fused key's components (q, k, v or gate,
+    up), or None."""
+    kind = next((v for k, v in _FUSED.items() if key.endswith(k)), None)
+    if kind == "qkv":
+        H = cfg.hidden_size
+        kv = cfg.num_key_value_heads * (H // cfg.num_attention_heads)
+        return (H, kv, kv)
+    if kind == "gate_up":
+        return (cfg.intermediate_size,) * 2
+    return None
+
+
+def shard_llama_tensor(cfg, key, full, spec, mesh_shape, coords):
+    """Rank ``coords``' shard of the full tensor ``full`` (numpy or torch)
+    of ``key`` under ``spec``: the block the reference's device holds,
+    except for a fused projection split over "model", which is cut by
+    component (each rank's q, k and v columns, or gate and up, side by
+    side) so that the rank holds whole heads."""
+    from ...distributed.topology import shard_of
+    widths = _component_widths(cfg, key)
+    n = mesh_shape.get("model", 1)
+    if widths is None or n == 1 or "model" not in spec:
+        return shard_of(full, spec, mesh_shape, coords)
+    parts, off = [], 0
+    for w in widths:
+        parts.append(shard_of(full[:, off:off + w], spec, mesh_shape,
+                              coords))
+        off += w
+    if isinstance(full, torch.Tensor):
+        return torch.cat(parts, dim=1)
+    return np.concatenate(parts, axis=1)
+
+
+def shard_llama_state_dict(cfg, state: dict, mesh_shape: dict, rank: int):
+    """Rank ``rank``'s shards of a full Llama state dict ({key: array},
+    the reference's keys and layouts) on a row-major mesh of
+    ``mesh_shape`` ({axis: size}), as ``shard_llama_tensor`` cuts them."""
+    from ...distributed.topology import coords_of
+    coords = coords_of(mesh_shape, rank)
+    names = set(mesh_shape)
+    return {k: shard_llama_tensor(
+        cfg, k, v, tuple(a if a in names else None for a in _spec_of(k)),
+        mesh_shape, coords) for k, v in state.items()}
+
+
 def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
                              weight_decay=0.01, beta1=0.9, beta2=0.95,
                              eps=1e-8, accum_dtype=torch.float32,
@@ -340,17 +463,16 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
     never built. Requires tied word embeddings (ValueError otherwise, as
     in the reference).
 
-    Not ported yet, and refused: ``mesh`` axes (data/sep/model/sharding:
-    ROADMAP Queue 1, distributed and parallel)."""
+    mesh: a ``distributed.build_mesh`` over the axes "data", "model" and
+    "sharding" (keyword only), one rank of it per process; see
+    ``_mesh_step``. A "sep" or "pipe" axis above 1 is refused (ROADMAP
+    Queue 1 item 15), and so is ``chunked_vocab_ce`` with a model axis
+    above 1, as in the reference."""
     from .llama_functional import (CHUNKED_NEEDS_TIED, _check_remat,
                                    loss_fn, param_views)
     from .train_utils import apply_adamw, make_adamw_state
 
     dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh axes (data/sep/model/sharding) are not ported yet: ROADMAP "
-            "Queue 1, distributed / parallel")
     _check_remat(remat)
     if chunked_vocab_ce and model.lm_head is not None:
         raise ValueError(CHUNKED_NEEDS_TIED)
@@ -358,6 +480,10 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
     if model.device.type != dev.type:
         raise ValueError(f"the model lives on {model.device}; build it with "
                          f"device={dev}")
+    if mesh is not None:
+        return _mesh_step(model, mesh, dev, learning_rate, weight_decay,
+                          beta1, beta2, eps, accum_dtype, remat,
+                          offload_moments, chunked_vocab_ce)
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
@@ -375,5 +501,100 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
         apply_adamw(params, grads, opt_state, learning_rate, beta1, beta2,
                     eps, weight_decay, accum_dtype, offload=offload_moments)
         return params, opt_state, loss.detach()
+
+    return params, opt_state, train_step
+
+
+# gradients are averaged over "data" in flat buckets of this many bytes
+GRAD_BUCKET_BYTES = 256 * 2 ** 20
+MESH_AXES = ("data", "pipe", "sharding", "sep", "model")
+
+
+def _mesh_step(model, mesh, dev, lr, weight_decay, beta1, beta2, eps,
+               accum_dtype, remat, offload_moments, chunked_vocab_ce):
+    """The factory on a mesh (``llama.py:500-640``), from this rank:
+
+    * ``params`` are this rank's shards ({key: tensor}), cut from the
+      model's parameters by ``param_shardings`` (``shard_llama_tensor``:
+      fused projections by component), new tensors: the model keeps its
+      own weights and is not trained;
+    * ``train_step`` takes the global batch; the rank keeps its rows of
+      "data" (the batch is replicated over the other axes);
+    * the loss is the global mean: without a model axis the fused CE
+      kernels on the rank's rows, with one the vocabulary-split f32 CE;
+      then averaged over "data" (the value returned);
+    * gradients are averaged over "data"; over "sharding" the batch is
+      replicated, so each rank's gradient is whole already;
+    * the update is ZeRO-1 over "sharding" (``train_utils``: each rank
+      updates its slice of every moment and parameter and the parameters
+      are all-gathered), in pinned host memory with
+      ``offload_moments``."""
+    from ...distributed.collective import ReduceOp, all_reduce
+    from ...distributed.parallel import _bucketed_all_reduce
+    from .llama_functional import loss_fn, param_views
+    from .train_utils import apply_adamw, make_adamw_state
+
+    shape = mesh.shape
+    unknown = set(shape) - set(MESH_AXES)
+    if unknown:
+        raise ValueError(f"mesh axes {sorted(unknown)} are not among "
+                         f"{MESH_AXES}")
+    for axis in ("sep", "pipe"):
+        if shape.get(axis, 1) > 1:
+            raise NotImplementedError(SEP_PIPE_NOT_PORTED.format(axis=axis))
+    has_model = shape.get("model", 1) > 1
+    if chunked_vocab_ce and has_model:
+        raise ValueError(
+            "chunked_vocab_ce is a single-chip/vocab-replicated path; with a "
+            ">1 'model' axis the vocab-sharded dense CE already avoids the "
+            "(B*S, V) gather — drop the flag there")
+    if chunked_vocab_ce and model.lm_head is not None:
+        from .llama_functional import CHUNKED_NEEDS_TIED
+        raise ValueError(CHUNKED_NEEDS_TIED)
+    if model.device.type != dev.type:
+        raise ValueError(f"the model lives on {model.device}; build it with "
+                         f"device={dev}")
+    cfg = model.config
+    specs = param_shardings(model, mesh)
+    coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
+    with torch.no_grad():
+        params = {k: shard_llama_tensor(cfg, k, v.detach(), specs[k], shape,
+                                        coords).clone().requires_grad_(True)
+                  for k, v in model.named_parameters()}
+    opt_state = make_adamw_state(params, accum_dtype, offload=offload_moments,
+                                 mesh=mesh, shardings=specs)
+    dp = shape.get("data", 1)
+    row = coords.get("data", 0)
+    data = mesh.group("data") if "data" in shape else None
+    tp_mesh = mesh if has_model else None
+    n_layers = cfg.num_hidden_layers
+
+    def train_step(params, opt_state, tokens, labels):
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        labels = torch.as_tensor(labels, device=dev).long()
+        if tokens.shape[0] % dp:
+            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
+                             f"divide over data={dp}")
+        b = tokens.shape[0] // dp
+        tokens, labels = (t[row * b:(row + 1) * b] for t in (tokens, labels))
+        keys = list(params)
+        prev = (_TP["mesh"], _TP["axis"])
+        set_tensor_parallel_mesh(tp_mesh)
+        try:
+            outer, layers = param_views(params, n_layers)
+            loss = loss_fn(cfg, outer, layers, tokens, labels, remat,
+                           chunked_vocab_ce)
+            grads = list(torch.autograd.grad(loss, [params[k] for k in keys]))
+        finally:
+            set_tensor_parallel_mesh(*prev)
+        loss = loss.detach().clone()
+        if dp > 1:
+            with torch.no_grad():
+                _bucketed_all_reduce(grads, data, GRAD_BUCKET_BYTES)
+            all_reduce(loss, op=ReduceOp.AVG, group=data)
+        apply_adamw(params, grads, opt_state, lr, beta1, beta2, eps,
+                    weight_decay, accum_dtype, offload=offload_moments,
+                    mesh=mesh)
+        return params, opt_state, loss
 
     return params, opt_state, train_step

@@ -7,8 +7,9 @@ PyTorch runs eagerly, so ``forward`` is a Python loop over a list of
 per-layer dicts (views of a model's own parameters: ``param_views``).
 
 Attention follows the branches of the reference's
-``LlamaAttention.forward`` (``llama.py:239-305``, ``:359-376``), without
-its mesh branches (sequence, tensor and ring parallelism are not ported):
+``LlamaAttention.forward`` (``llama.py:239-305``, ``:359-376``); of its
+mesh branches, the model axis (tensor parallelism, below) is ported, and
+the sequence axis (ring and Ulysses attention) is not:
 
 * ``sliding_window`` shorter than the sequence, at a flash-eligible
   shape: ``splash_attention`` over the banded block mask, with K/V at the
@@ -24,6 +25,18 @@ sliced q, k, v and gate, up, as the reference's layers do
 (``llama.py:210-226``, ``:401-407``). Explicit ``positions`` move the
 rotary only, as in the reference (``llama.py:233-236``): the causal
 mask, the window and the flash gate stay those of 0..S-1.
+
+Under a model axis of several ranks (``llama.set_tensor_parallel_mesh``,
+set by the train-step factory on a mesh), the weights are this rank's
+shards (``llama.param_shardings``; fused projections cut by component)
+and the layer math is Megatron's, as the reference's GSPMD partition
+computes it: the embedding's vocabulary rows looked up and all-reduced;
+each projection's input through ``c_identity`` (its gradient
+all-reduced); the attention on the rank's heads
+(``parallel.pallas_sharding``); the output and down projections
+all-reduced (``mp_allreduce``); the head's vocabulary columns into the
+vocabulary-parallel f32 CE (``parallel_cross_entropy``), the reference's
+dense branch for a model axis.
 
 Every kernel path runs its plain version on the CPU. The loss is
 ``causal_lm_loss``, the fused CE kernels (their plain version on the
@@ -41,11 +54,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ...distributed.collective import c_concat, c_identity, mp_allreduce
+from ...distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+    parallel_cross_entropy, vocab_parallel_embedding)
 from ...ops.chunked_ce import chunked_causal_lm_loss
 from ...ops.flash_attention import flash_attention, flash_eligible
 from ...ops.flash_attention_gqa import grouped_flash_attention
 from ...ops.fused_ce import causal_lm_loss
 from ...ops.splash_attention import banded_block_mask, splash_attention
+from ...parallel.pallas_sharding import local_heads, shard_map_attention
 from .llama import LlamaForCausalLM, apply_rotary
 
 LAYER_KEYS = [
@@ -157,32 +174,77 @@ def _attention(cfg, qt, kt, vt):
     return flash_attention(qt, kt, vt, True)
 
 
-def _qkv(cfg, p, h, prefix="self_attn."):
+def _qkv(cfg, p, h, prefix="self_attn.", n=1):
     """q, k, v projections of h over the weights under ``prefix``: one
-    fused product sliced q, k, v, or three."""
+    fused product sliced q, k, v, or three. ``n``: the model axis, whose
+    fused shard holds this rank's q, k and v columns, 1/n of each."""
     if cfg.fuse_attention_qkv:
         H = h.shape[-1]
         kv = cfg.num_key_value_heads * (H // cfg.num_attention_heads)
+        q_n, kv_n = H // n, kv // n
         qkv = h @ p[prefix + "qkv_proj.weight"]
-        return qkv[..., :H], qkv[..., H:H + kv], qkv[..., H + kv:]
+        return (qkv[..., :q_n], qkv[..., q_n:q_n + kv_n],
+                qkv[..., q_n + kv_n:])
     return (h @ p[prefix + "q_proj.weight"], h @ p[prefix + "k_proj.weight"],
             h @ p[prefix + "v_proj.weight"])
 
 
 def _gate_up(cfg, p, h, prefix="mlp."):
-    """gate and up projections of h: one fused product sliced gate, up, or
-    two."""
+    """gate and up projections of h: one fused product sliced gate, up (the
+    halves of its columns), or two."""
     if cfg.fuse_ffn_gate_up:
         gu = h @ p[prefix + "gate_up_proj.weight"]
-        return gu[..., :cfg.intermediate_size], gu[..., cfg.intermediate_size:]
+        half = gu.shape[-1] // 2
+        return gu[..., :half], gu[..., half:]
     return h @ p[prefix + "gate_proj.weight"], h @ p[prefix + "up_proj.weight"]
+
+
+def _model_group():
+    """The model-parallel group when a mesh with a model axis of several
+    ranks is set (``llama.set_tensor_parallel_mesh``), else None."""
+    from .llama import _tensor_parallel_mesh
+    mesh, axis = _tensor_parallel_mesh()
+    return None if mesh is None else mesh.group(axis)
 
 
 def swiglu(cfg, p, h, prefix="mlp."):
     """The SwiGLU MLP of h over the weights under ``prefix``:
-    ``(silu(h @ gate) * (h @ up)) @ down``."""
+    ``(silu(h @ gate) * (h @ up)) @ down`` (summed over the model group
+    under one)."""
+    group = _model_group()
+    if group is not None:
+        h = c_identity(h, group)
     gate, up = _gate_up(cfg, p, h, prefix)
-    return (F.silu(gate) * up) @ p[prefix + "down_proj.weight"]
+    out = (F.silu(gate) * up) @ p[prefix + "down_proj.weight"]
+    return out if group is None else mp_allreduce(out, group)
+
+
+def _local_qkv(cfg, p, h, prefix, group):
+    """This rank's q (B, S, its query heads, hd), k and v (B, S, the kv
+    heads they read, hd) under the model group."""
+    B, S, H = h.shape
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    hd = H // nh
+    n = group.nranks
+    plan = local_heads(nh, nkv, n, group.rank)
+    h = c_identity(h, group)
+    q, k, v = _qkv(cfg, p, h, prefix, n)
+    if q.shape[-1] != plan.q_count * hd:
+        raise ValueError(f"{prefix}: the query projection gives "
+                         f"{q.shape[-1]} columns; a model axis of {n} gives "
+                         f"each rank {plan.q_count * hd} (load this rank's "
+                         f"shards: llama.param_shardings)")
+    if plan.kv_index is None:
+        k = k.reshape(B, S, plan.kv_count, hd)
+        v = v.reshape(B, S, plan.kv_count, hd)
+    else:
+        # the kv heads do not divide the axis: gather the projections
+        # (each rank's gradient of them is its part) and read the heads
+        # this rank's query heads use
+        idx = torch.as_tensor(plan.kv_index, device=h.device)
+        k = c_concat(k, group, True).reshape(B, S, nkv, hd)[:, :, idx]
+        v = c_concat(v, group, True).reshape(B, S, nkv, hd)[:, :, idx]
+    return q.reshape(B, S, plan.q_count, hd), k, v
 
 
 def attention(cfg, p: Dict[str, torch.Tensor], h, positions=None,
@@ -190,7 +252,11 @@ def attention(cfg, p: Dict[str, torch.Tensor], h, positions=None,
     """The attention of the normed input h (B, S, H) over the weights under
     ``prefix``: projections, the rotary at ``positions`` ((S,) or (B, S);
     0..S-1 by default), causal attention (``_attention``), the output
-    projection."""
+    projection. Under a model group: the rank's heads, the output summed
+    over the group."""
+    group = _model_group()
+    if group is not None:
+        return _attention_tp(cfg, p, h, positions, prefix, group)
     B, S, H = h.shape
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     hd = H // nh
@@ -205,6 +271,24 @@ def attention(cfg, p: Dict[str, torch.Tensor], h, positions=None,
                      v.transpose(1, 2))
     return ctx.transpose(1, 2).reshape(B, S, H) \
         @ p[prefix + "o_proj.weight"]
+
+
+def _attention_tp(cfg, p, h, positions, prefix, group):
+    from .llama import _tensor_parallel_mesh
+    B, S, H = h.shape
+    q, k, v = _local_qkv(cfg, p, h, prefix, group)
+    pos = torch.arange(S, device=h.device) if positions is None \
+        else positions
+    q = apply_rotary(q, pos, cfg.rope_theta)
+    k = apply_rotary(k, pos, cfg.rope_theta)
+    mesh, axis = _tensor_parallel_mesh()
+    ctx = shard_map_attention(
+        lambda qt, kt, vt: _attention(cfg, qt, kt, vt), q.transpose(1, 2),
+        k.transpose(1, 2), v.transpose(1, 2), mesh, axis,
+        num_heads=cfg.num_attention_heads)
+    out = ctx.transpose(1, 2).reshape(B, S, -1) \
+        @ p[prefix + "o_proj.weight"]
+    return mp_allreduce(out, group)
 
 
 def attention_residual(cfg, p: Dict[str, torch.Tensor], x, positions=None):
@@ -265,7 +349,7 @@ def hidden_states(cfg, outer, layers, tokens, remat=True, positions=None):
     again in the backward); dq and dk/dv launch L times each in all."""
     _check_remat(remat)
     positions = _positions(positions, tokens)
-    x = F.embedding(tokens, outer["model.embed_tokens.weight"])
+    x = _embed(tokens, outer["model.embed_tokens.weight"])
     for lp in layers:
         if remat == "dots":
             x = checkpoint(layer_forward, cfg, lp, x, positions,
@@ -278,11 +362,26 @@ def hidden_states(cfg, outer, layers, tokens, remat=True, positions=None):
     return _rms(x, outer["model.norm.weight"], cfg.rms_norm_eps)
 
 
+def _embed(tokens, table):
+    """The embedding's rows; under a model group the table holds this
+    rank's block of the vocabulary: looked up and summed over the
+    group."""
+    group = _model_group()
+    if group is None:
+        return F.embedding(tokens, table)
+    return vocab_parallel_embedding(tokens, table,
+                                    group.rank * table.shape[0], group)
+
+
 def forward(cfg, outer, layers, tokens, remat=True, positions=None):
     """Causal-LM logits (B, S, V) for tokens (B, S); ``layers`` is a list
     of per-layer param dicts; ``remat`` and ``positions`` as in
-    ``hidden_states``."""
+    ``hidden_states``. Under a model group: this rank's vocabulary columns
+    (B, S, V / n)."""
     x = hidden_states(cfg, outer, layers, tokens, remat, positions)
+    group = _model_group()
+    if group is not None:
+        x = c_identity(x, group)
     head = outer.get("lm_head.weight")
     if head is None:
         return x @ outer["model.embed_tokens.weight"].T
@@ -306,6 +405,13 @@ def loss_fn(cfg, outer, layers, tokens, labels, remat=True,
         x = hidden_states(cfg, outer, layers, tokens, remat)
         return chunked_causal_lm_loss(x, outer["model.embed_tokens.weight"],
                                       labels, int(chunked_vocab_ce))
-    return causal_lm_loss(forward(cfg, outer, layers, tokens, remat),
-                          labels)
+    logits = forward(cfg, outer, layers, tokens, remat)
+    group = _model_group()
+    if group is not None:
+        # the vocabulary-split f32 CE: the reference's dense branch for a
+        # model axis (llama.py:623-626)
+        start = group.rank * logits.shape[-1]
+        return torch.mean(parallel_cross_entropy(logits, labels, group,
+                                                 start))
+    return causal_lm_loss(logits, labels)
 

@@ -1,12 +1,18 @@
 """The AdamW update and optimizer state of the port's train-step
 factories.
 
-Counterpart of ``paddle_tpu/models/nlp/train_utils.py:53-84``
-(``adamw_update``, ``make_adamw_state``) on one device, with the
+Counterpart of ``paddle_tpu/models/nlp/train_utils.py:27-85``
+(``zero_like_sharded``, ``adamw_update``, ``make_adamw_state``), with the
 reference's host-memory moments (``make_adamw_state(offload=True)`` and
-the chunked update of ``llama.py:652-737``). The ZeRO moment sharding
-(``zero_like_sharded``) belongs to the distributed queue (ROADMAP
-Queue 1).
+the chunked update of ``llama.py:652-737``).
+
+On a mesh with a "sharding" axis of several ranks the moments are ZeRO-1:
+each rank keeps the moments of its parameter shard's slice on the
+dimension the reference shards them over (``zero_like_sharded``: the
+largest dimension of the full parameter that is not split over another
+axis and that the axis divides); ``apply_adamw`` updates that slice of
+the parameter and all-gathers it over "sharding". AdamW is elementwise,
+so the sliced update gives the same bits as the whole-tensor update.
 """
 from __future__ import annotations
 
@@ -63,10 +69,52 @@ def _update_one(params, grads, i, k, m, v, t, hyper, accum_dtype):
         v.copy_(v2)
 
 
+def moment_dim(mesh, spec, v):
+    """The dimension of ``v`` (this rank's shard of a parameter annotated
+    ``spec``) whose slices the "sharding" ranks keep, or None: the first,
+    by decreasing size of the full parameter, that ``spec`` leaves
+    unsplit and the axis divides (``train_utils.py:40-46``)."""
+    n = mesh.shape.get("sharding", 1)
+    if n <= 1:
+        return None
+    spec = list(spec) + [None] * (v.dim() - len(spec))
+    full = [v.shape[i] * (mesh.shape[a] if a in mesh.shape else 1)
+            for i, a in enumerate(spec)]
+    for i in sorted(range(v.dim()), key=lambda i: -full[i]):
+        if spec[i] is None and full[i] % n == 0:
+            return i
+    return None
+
+
+def _slice(mesh, d, t):
+    """This sharding rank's slice of ``t`` on dimension ``d``."""
+    n = mesh.shape["sharding"]
+    size = t.shape[d] // n
+    return t.narrow(d, mesh.coordinate("sharding") * size, size)
+
+
+def _moment_shape(mesh, spec, v):
+    d = moment_dim(mesh, spec, v)
+    return v.shape if d is None else _slice(mesh, d, v).shape
+
+
+def zero_like_sharded(mesh, shardings, name, v, accum_dtype=torch.float32,
+                      offload=False):
+    """Zeros for the moment of parameter ``name`` (``v``: this rank's shard,
+    ``shardings[name]`` its spec): the shard's shape, cut on
+    ``moment_dim`` to this sharding rank's slice; in pinned host memory
+    with ``offload`` (pinned where the parameter is on the card)."""
+    shape = _moment_shape(mesh, shardings[name], v)
+    if offload:
+        return torch.zeros(shape, dtype=accum_dtype,
+                           pin_memory=v.device.type == "cuda")
+    return torch.zeros(shape, dtype=accum_dtype, device=v.device)
+
+
 @torch.no_grad()
 def apply_adamw(params: Dict[str, torch.Tensor], grads: list, opt_state,
                 lr, beta1, beta2, eps, weight_decay,
-                accum_dtype=torch.float32, offload=False):
+                accum_dtype=torch.float32, offload=False, mesh=None):
     """One AdamW step of the train-step factories, IN PLACE: advance
     ``opt_state["step"]``, then ``adamw_update`` each tensor of
     ``params`` and its moments. ``grads`` is a list in ``params``' order;
@@ -81,13 +129,31 @@ def apply_adamw(params: Dict[str, torch.Tensor], grads: list, opt_state,
     opt_state["step"] += 1
     t = opt_state["step"].to(torch.float32)
     hyper = (lr, beta1, beta2, eps, weight_decay)
+    dims = opt_state.get("dims")
+    full = params
+    if dims and any(d is not None for d in dims.values()):
+        # ZeRO-1: the update runs on this rank's slices (copies), which
+        # are then all-gathered into the parameters
+        params = {k: (p if dims[k] is None
+                      else _slice(mesh, dims[k], p).contiguous())
+                  for k, p in params.items()}
+        for i, k in enumerate(params):
+            if dims[k] is not None and grads[i] is not None:
+                grads[i] = _slice(mesh, dims[k], grads[i]).contiguous()
     if offload:
         _apply_offloaded(params, grads, opt_state, t, hyper, accum_dtype)
-        return
-    for i, k in enumerate(params):
-        if grads[i] is not None:
-            _update_one(params, grads, i, k, opt_state["m"][k],
-                        opt_state["v"][k], t, hyper, accum_dtype)
+    else:
+        for i, k in enumerate(params):
+            if grads[i] is not None:
+                _update_one(params, grads, i, k, opt_state["m"][k],
+                            opt_state["v"][k], t, hyper, accum_dtype)
+    if params is not full:
+        from ...distributed.collective import all_gather
+        group = mesh.group("sharding")
+        for k, d in dims.items():
+            if d is not None:
+                full[k].copy_(torch.cat(all_gather([], params[k], group),
+                                        dim=d))
 
 
 def _apply_offloaded(params, grads, opt_state, t, hyper, accum_dtype):
@@ -180,7 +246,8 @@ def _apply_offloaded(params, grads, opt_state, t, hyper, accum_dtype):
 
 
 def make_adamw_state(params: Dict[str, torch.Tensor],
-                     accum_dtype=torch.float32, offload=False):
+                     accum_dtype=torch.float32, offload=False, mesh=None,
+                     shardings=None):
     """{"step": int32 scalar, "m": {k: zeros}, "v": {k: zeros}}, each
     moment in ``accum_dtype`` on its parameter's device.
 
@@ -188,23 +255,36 @@ def make_adamw_state(params: Dict[str, torch.Tensor],
     parameters are on the card (the reference's ``pinned_host`` memory
     kind), as views of one host block per moment: the pinned allocator
     rounds every block up to a power of two, so one block a moment wastes
-    least. ``apply_adamw(..., offload=True)`` streams them."""
+    least. ``apply_adamw(..., offload=True)`` streams them.
+
+    ``mesh`` and ``shardings`` ({key: spec}; ``params`` this rank's
+    shards): under a "sharding" axis of several ranks each moment is the
+    slice ``zero_like_sharded`` keeps, and ``"dims"`` ({key: the sliced
+    dimension or None}) tells ``apply_adamw``."""
     dev = next(iter(params.values())).device
     state = {"step": torch.zeros((), dtype=torch.int32, device=dev)}
+    sharded = mesh is not None and mesh.shape.get("sharding", 1) > 1
+    shapes = {k: p.shape for k, p in params.items()}
+    if sharded:
+        state["dims"] = {k: moment_dim(mesh, shardings[k], p)
+                         for k, p in params.items()}
+        shapes = {k: _moment_shape(mesh, shardings[k], p)
+                  for k, p in params.items()}
     if not offload:
         for name in ("m", "v"):
-            state[name] = {k: torch.zeros(v.shape, dtype=accum_dtype,
+            state[name] = {k: torch.zeros(shapes[k], dtype=accum_dtype,
                                           device=v.device)
                            for k, v in params.items()}
         return state
-    total = sum(p.numel() for p in params.values())
+    total = sum(s.numel() for s in shapes.values())
     for name in ("m", "v"):
         block = torch.zeros(total, dtype=accum_dtype,
                             pin_memory=dev.type == "cuda")
         views, off = {}, 0
-        for k, p in params.items():
-            views[k] = block[off:off + p.numel()].view(p.shape)
-            off += p.numel()
+        for k, shape in shapes.items():
+            n = shape.numel()
+            views[k] = block[off:off + n].view(shape)
+            off += n
         state[name] = views
     return state
 

@@ -31,9 +31,18 @@ ignores ``lr_ratio`` and ``lazy_mode``; ``Lamb`` ignores
 the step (it has no product with a tensor); ``clear_grad`` sets every
 gradient to None whatever ``set_to_zero`` says.
 
-Not ported, and refused: the ZeRO state sharding and offload of the
-reference's fleet wrappers (``_shard_states_axis``, ``_offload_states``:
-ROADMAP Queue 1 item 15).
+ZeRO (``distributed.sharding.group_sharded_parallel`` sets
+``_shard_states_axis``, ``_offload_states`` and ``_sharding_group``): each
+rank of the sharding group keeps its slice of every accumulator (and
+master), on the dimension the reference splits a state over (``:150-160``:
+the parameter's own "sharding" dimension at stage 3, else its largest
+dimension that the group divides), updates that slice of the parameter and
+all-gathers the parameter. The rules are elementwise, so the sliced update
+gives the bits of the whole one; a parameter with no divisible dimension is
+updated whole on every rank. ``Lamb``, whose trust ratio takes the norms of
+the whole parameter, and sparse gradients are refused there.
+``_offload_states`` keeps the accumulators in pinned host memory between
+steps.
 """
 from __future__ import annotations
 
@@ -54,6 +63,34 @@ def _global_norm(grads):
 
 def _scale_of(clip_norm, norm):
     return torch.clamp_max(clip_norm / torch.clamp_min(norm, 1e-12), 1.0)
+
+
+def _shard_dim(p, n):
+    """The dimension of ``p`` whose slices ``n`` ranks update: the one its
+    ``sharding_spec`` names "sharding" (stage 3), else the largest (the
+    first of equals) that is not split over another axis and that ``n``
+    divides; None when there is none (the reference's ``_state_sharding``,
+    ``optimizer/optimizer.py:123-136``)."""
+    spec = list(getattr(p, "sharding_spec", None) or ())
+    spec += [None] * (p.dim() - len(spec))
+    if "sharding" in spec:
+        d = spec.index("sharding")
+        if p.shape[d] % n == 0:
+            return d
+        spec[d] = None
+    for d in sorted(range(p.dim()), key=lambda i: -p.shape[i]):
+        if spec[d] is None and p.shape[d] % n == 0 and p.shape[d] >= n:
+            return d
+    return None
+
+
+def _to_host(t):
+    """``t`` in host memory, pinned when it comes from the card."""
+    if not t.is_cuda:
+        return t.clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
 
 
 def _merge(grad):
@@ -110,11 +147,17 @@ class Optimizer:
         na["_master"] = nm
         return nm.to(v.dtype), na
 
-    def _accs_for(self, p) -> dict:
+    def _accs_for(self, p, like=None) -> dict:
+        """``p``'s accumulators, made at their first use in the shape of
+        ``like`` (a slice of ``p`` under ZeRO; ``p`` itself by default),
+        in pinned host memory under ``_offload_states``."""
         if id(p) not in self._accumulators:
-            accs = self._create_accumulators(p)
+            src = p if like is None else like
+            accs = self._create_accumulators(src)
             if self._multi_precision and p.dtype in _LOW:
-                accs["_master"] = p.detach().to(torch.float32)
+                accs["_master"] = src.detach().to(torch.float32)
+            if getattr(self, "_offload_states", False):
+                accs = {k: _to_host(v) for k, v in accs.items()}
             self._accumulators[id(p)] = accs
         return self._accumulators[id(p)]
 
@@ -151,18 +194,53 @@ class Optimizer:
                     for g in grads]
         return grads
 
-    def _refuse_sharding(self):
-        if getattr(self, "_shard_states_axis", None) or \
-                getattr(self, "_offload_states", False):
-            raise NotImplementedError(
-                "ZeRO optimizer-state sharding and offload are not ported "
-                "yet: ROADMAP Queue 1 item 15, distributed / parallel")
+    # ---- ZeRO ---------------------------------------------------------------
+    _elementwise = True
+
+    def _sharding(self):
+        """(the sharding group, its size) under ZeRO, else (None, 1)."""
+        if not getattr(self, "_shard_states_axis", None):
+            return None, 1
+        from ..distributed import collective as C
+        group = getattr(self, "_sharding_group", None) or C._default_group()
+        return group, (group.nranks if C._pg(group) is not None else 1)
+
+    def _update_param(self, p, g, lr, t):
+        """One parameter's rule, in place: whole, or under ZeRO this rank's
+        slice and then the all-gather; accumulators staged from host
+        memory under ``_offload_states``."""
+        group, n = self._sharding()
+        d = _shard_dim(p, n) if n > 1 else None
+        if d is None:
+            part, gpart = p, g
+        else:
+            if not self._elementwise:
+                raise NotImplementedError(
+                    f"{type(self).__name__} under ZeRO sharding: its rule "
+                    f"reads the whole parameter")
+            size = p.shape[d] // n
+            part = p.narrow(d, group.rank * size, size).contiguous()
+            gpart = g.narrow(d, group.rank * size, size).contiguous()
+        accs = self._accs_for(p, like=part)
+        offload = getattr(self, "_offload_states", False)
+        if offload:
+            accs = {k: v.to(p.device, non_blocking=True)
+                    for k, v in accs.items()}
+        nv, na = self._update_with_master(part, gpart.to(torch.float32),
+                                          accs, lr, t)
+        if offload:
+            na = {k: _to_host(v) for k, v in na.items()}
+        self._accumulators[id(p)] = na
+        if d is None:
+            p.copy_(nv)
+            return
+        from ..distributed import collective as C
+        p.copy_(torch.cat(C.all_gather([], nv.contiguous(), group), dim=d))
 
     # ---- main entry -------------------------------------------------------
     @torch.no_grad()
     def step(self):
         from ..nn import ClipGradByGlobalNorm
-        self._refuse_sharding()
         all_params = [p for p in self._parameters
                       if p.requires_grad and p.grad is not None]
         sparse_params = [p for p in all_params if p.grad.is_sparse]
@@ -178,6 +256,10 @@ class Optimizer:
             joint_scale = _scale_of(self._grad_clip.clip_norm,
                                     torch.sqrt(sq))
         if sparse_params:
+            if self._sharding()[1] > 1 or getattr(self, "_offload_states",
+                                                  False):
+                raise NotImplementedError(
+                    "a sparse gradient under ZeRO sharding or offload")
             self._sparse_step(sparse_params, scale=joint_scale)
         if not params:
             self._step_count += 1
@@ -192,11 +274,7 @@ class Optimizer:
         for p, g in zip(params, grads):
             if p.device not in scalars:
                 scalars[p.device] = self._scalars(p.device)
-            lr, t = scalars[p.device]
-            nv, na = self._update_with_master(
-                p, g.to(torch.float32), self._accs_for(p), lr, t)
-            p.copy_(nv)
-            self._accumulators[id(p)] = na
+            self._update_param(p, g, *scalars[p.device])
         self._step_count += 1
 
     def _sparse_step(self, sparse_params, scale=None):
@@ -467,6 +545,8 @@ class Adadelta(Optimizer):
 class Lamb(Optimizer):
     """~ python/paddle/optimizer/lamb.py (trust-ratio scaling).
     ``exclude_from_weight_decay_fn`` is ignored, as in the reference."""
+
+    _elementwise = False
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,

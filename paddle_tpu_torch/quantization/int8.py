@@ -17,8 +17,9 @@ sizes (zeros add nothing to an int32 sum) and the result is sliced back
 dynamic batch) is padded by a count the capture can prove nonnegative.
 
 ``convert_to_int8`` swaps ``nn.Linear`` sublayers; the reference also
-converts its model-parallel Linears, which the port does not have yet
-(ROADMAP Queue 1 item 15): a sublayer of theirs is refused by name.
+converts its model-parallel Linears, whose int8 form the port does not
+have yet (ROADMAP Queue 1 item 15): a sublayer of theirs is refused by
+name.
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ import torch
 from ..nn.layer.layers import Layer
 
 QMAX = 127
-# the reference's model-parallel Linears, which convert_to_int8 quantizes
-# there and the port does not have yet
+# the model-parallel Linears, which the reference's convert_to_int8
+# quantizes and the port's does not yet
 _MP_LINEARS = ("ColumnParallelLinear", "RowParallelLinear")
 
 
@@ -151,8 +152,8 @@ def convert_to_int8(model, act_scales: dict | None = None,
         path = f"{prefix}.{name}" if prefix else name
         if type(sub).__name__ in _MP_LINEARS:
             raise NotImplementedError(
-                f"convert_to_int8: {path} is a {type(sub).__name__}; the "
-                "model-parallel Linears are not ported yet (ROADMAP "
+                f"convert_to_int8: {path} is a {type(sub).__name__}; int8 "
+                "of the model-parallel Linears is not ported yet (ROADMAP "
                 "Queue 1 item 15)")
         if isinstance(sub, Linear):
             model._modules[name] = Int8Linear(

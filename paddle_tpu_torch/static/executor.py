@@ -264,7 +264,12 @@ class Executor:
         """The reference places a ZeRO optimizer's states on its mesh
         (``:194-216``); the port refuses it by name."""
         for optimizer, _loss, _ps in prog._opts:
-            optimizer._refuse_sharding()
+            if getattr(optimizer, "_shard_states_axis", None) or \
+                    getattr(optimizer, "_offload_states", False):
+                raise NotImplementedError(
+                    "a ZeRO optimizer (state sharding or offload) in the "
+                    "static Executor is not ported yet: ROADMAP Queue 1 "
+                    "item 15, distributed / parallel")
 
     @staticmethod
     def _opt_params(prog, optimizer, opt_params):

@@ -1,12 +1,13 @@
 """ctypes bindings of the native data path of the PyTorch port.
 
 Counterpart of ``paddle_tpu/utils/native.py:20-137``, for the symbols the
-data loader uses: the threaded batch gatherer (``bl_*``,
-``csrc/batch_loader.cc``) and the shared-memory record ring
-(``shm_ring_*``, ``csrc/shm_ring.cc``). The TCP store and the WordPiece
-tokenizer of the same library are not ported yet.
+data loader and the distributed store use: the threaded batch gatherer
+(``bl_*``, ``csrc/batch_loader.cc``), the shared-memory record ring
+(``shm_ring_*``, ``csrc/shm_ring.cc``) and the rendezvous key-value store
+(``tcpstore_*``, ``csrc/tcp_store.cc``; ``distributed/store.py``). The
+WordPiece tokenizer of the same library is not ported yet.
 
-The two sources are compiled with ``g++ -O2 -fPIC -std=c++17 -pthread
+The three sources are compiled with ``g++ -O2 -fPIC -std=c++17 -pthread
 -shared ... -lrt`` (``$CXX`` when set) into ``build/paddle_tpu_torch/`` at
 the root of the checkout, named by a hash of the sources and the flags, so
 an edited source is rebuilt and an unchanged one reused. Nothing is built
@@ -27,7 +28,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 CSRC = ROOT / "csrc"
-SOURCES = ("batch_loader.cc", "shm_ring.cc")
+SOURCES = ("batch_loader.cc", "shm_ring.cc", "tcp_store.cc")
 BUILD_DIR = ROOT / "build" / "paddle_tpu_torch"
 CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 LIBS = ["-lrt"]
@@ -40,7 +41,7 @@ def _compiler() -> str:
 
 
 def library_path() -> Path:
-    """Where the library is built: named by a hash of both sources, the
+    """Where the library is built: named by a hash of the sources, the
     compiler and the flags."""
     h = hashlib.sha256()
     for name in SOURCES:
@@ -107,3 +108,20 @@ def _bind_signatures(lib: ctypes.CDLL) -> None:
     lib.shm_ring_read.argtypes = [vp, vp, i64, i64]
     lib.shm_ring_close.restype = None
     lib.shm_ring_close.argtypes = [vp]
+    cp = ctypes.c_char_p
+    lib.tcpstore_server_start.restype = vp
+    lib.tcpstore_server_start.argtypes = [i32]
+    lib.tcpstore_connect.restype = i32
+    lib.tcpstore_connect.argtypes = [cp, i32]
+    lib.tcpstore_set.restype = i32
+    lib.tcpstore_set.argtypes = [i32, cp, cp, i32]
+    lib.tcpstore_get.restype = i32
+    lib.tcpstore_get.argtypes = [i32, cp, vp, i32]
+    lib.tcpstore_add.restype = i64
+    lib.tcpstore_add.argtypes = [i32, cp, i64]
+    lib.tcpstore_wait.restype = i32
+    lib.tcpstore_wait.argtypes = [i32, cp, vp, i32]
+    lib.tcpstore_delete.restype = i32
+    lib.tcpstore_delete.argtypes = [i32, cp]
+    lib.tcpstore_close.restype = None
+    lib.tcpstore_close.argtypes = [i32]

@@ -2011,3 +2011,41 @@ def test_static_program_on_the_card_matches_eager(card):
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert torch.equal(g, w.detach())
+
+
+@pytest.mark.cuda
+def test_mesh_factory_on_the_card_matches_one_device(card, tmp_path):
+    """Four gloo ranks on the one card train a small f32 Llama (hidden
+    256, 4 / 2 heads, S=256: the grouped flash kernels on each rank's
+    heads) on {data 2, model 2} and {data 2, sharding 2}: 3 losses within
+    1e-5 relative of the factory on one device (the same weights and
+    batch)."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_dist_ranks as R
+    from paddle_tpu_torch.models.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.nlp.llama import llama_train_step_factory
+
+    cfg = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
+               num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=2, dtype=torch.float32)
+    model = LlamaForCausalLM(LlamaConfig(**cfg), device=card, seed=3)
+    state = {k: v.detach().cpu().numpy()
+             for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(4)
+    tokens, labels = (rng.integers(0, 256, (4, 256)) for _ in range(2))
+    params, opt, step = llama_train_step_factory(model, learning_rate=1e-3,
+                                                 remat=False)
+    want = [float(step(params, opt, tokens, labels)[2]) for _ in range(3)]
+    runs = {name: (name, "llama_mesh", dict(dims=dims, cfg=cfg, state=state,
+                                            tokens=tokens, labels=labels))
+            for name, dims in (("dm", {"data": 2, "model": 2}),
+                               ("ds", {"data": 2, "sharding": 2}))}
+    ranks = R.run_world(tmp_path, 4, list(runs.values()), device="gpu")
+    for name in runs:
+        for r in ranks:
+            got = r[name]
+            assert "error" not in got, got.get("error")
+            np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
+    assert all(tuple(r["dm"]["engaged"]["heads"]) == (2, 1) for r in ranks)

@@ -394,10 +394,22 @@ def test_lr_and_refusals():
     sgd = port_opt.SGD(learning_rate=0.1, parameters=[p])
     sgd.set_lr(0.2)
     assert sgd.get_lr() == 0.2 and math.isclose(sgd._learning_rate, 0.2)
-    sgd._shard_states_axis = "sharding"
-    p.grad = torch.ones(2)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        sgd.step()
+    # ZeRO with no process group: a world of one rank keeps every slice,
+    # and the sharded (and offloaded) step is the unsharded one bit for bit
+    # (several ranks: tests/test_torch_distributed.py)
+    twins = [torch.nn.Parameter(torch.arange(4.0)) for _ in range(2)]
+    plain, zero = (port_opt.AdamW(learning_rate=0.1, parameters=[t])
+                   for t in twins)
+    zero._shard_states_axis, zero._offload_states = "sharding", True
+    for step in range(2):
+        for t in twins:
+            t.grad = torch.full((4,), 0.5 - step)
+        plain.step()
+        zero.step()
+    assert torch.equal(twins[0], twins[1])
+    assert all(torch.equal(a, b) for a, b in zip(
+        plain._accumulators[id(twins[0])].values(),
+        zero._accumulators[id(twins[1])].values()))
     # a parameter without requires_grad, or without a gradient, stays
     q = torch.nn.Parameter(torch.ones(2), requires_grad=False)
     q.grad = torch.ones(2)

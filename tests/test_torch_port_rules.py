@@ -101,7 +101,30 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.jit.dy2static.convert_operators",
              "paddle_tpu_torch.jit.dy2static.transformer",
              "paddle_tpu_torch.quantization.observers",
-             "paddle_tpu_torch.static"):
+             "paddle_tpu_torch.static", "paddle_tpu_torch.distributed",
+             "paddle_tpu_torch.distributed.env",
+             "paddle_tpu_torch.distributed.store",
+             "paddle_tpu_torch.distributed.topology",
+             "paddle_tpu_torch.distributed.collective",
+             "paddle_tpu_torch.distributed.parallel",
+             "paddle_tpu_torch.distributed.sharding",
+             "paddle_tpu_torch.distributed.fleet",
+             "paddle_tpu_torch.distributed.fleet.fleet_base",
+             "paddle_tpu_torch.distributed.fleet.distributed_strategy",
+             "paddle_tpu_torch.distributed.fleet.role_maker",
+             "paddle_tpu_torch.distributed.fleet.meta_parallel",
+             "paddle_tpu_torch.distributed.fleet.meta_parallel"
+             ".parallel_layers.mp_layers",
+             "paddle_tpu_torch.distributed.fleet.meta_parallel"
+             ".parallel_layers.random",
+             "paddle_tpu_torch.distributed.fleet.meta_parallel"
+             ".tensor_parallel",
+             "paddle_tpu_torch.distributed.fleet.meta_parallel"
+             ".sharding_parallel",
+             "paddle_tpu_torch.distributed.fleet.meta_parallel"
+             ".hybrid_parallel_optimizer",
+             "paddle_tpu_torch.parallel",
+             "paddle_tpu_torch.parallel.pallas_sharding"):
     assert name in names, name
 """
 
@@ -337,6 +360,51 @@ def test_native_loader_build_failure_raises(monkeypatch, tmp_path):
         place._default = prev
     assert not (tmp_path / "build").exists() or not any(
         p.suffix == ".so" for p in (tmp_path / "build").iterdir())
+
+
+def test_distributed_slice_refuses_a_missing_card(monkeypatch):
+    """init_parallel_env() with no backend takes it from the default
+    device: without CUDA it raises, as every entry point does, and makes
+    no group; asked for the CPU (set_device, or backend="gloo") it joins a
+    gloo group. fleet.init goes through it, and so does the mesh factory's
+    model."""
+    _needs_no_card()
+    import torch.distributed as dist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.core import place
+
+    for k in ("PADDLE_MASTER", "PADDLE_WORLD_SIZE", "PADDLE_TRAINERS_NUM"):
+        monkeypatch.delenv(k, raising=False)
+    assert place._default == torch.device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        D.init_parallel_env()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        D.fleet.init(is_collective=True)
+    assert not dist.is_initialized()
+    try:
+        place.set_device("cpu")
+        D.init_parallel_env()
+        assert dist.get_backend() == "gloo" and D.get_world_size() == 1
+        x = torch.ones(3)
+        D.all_reduce(x)
+        assert x.tolist() == [1.0, 1.0, 1.0]
+    finally:
+        place._default = torch.device("cuda")
+        if dist.is_initialized():
+            D.destroy_process_group()
+
+
+def test_tcp_store_build_failure_raises(monkeypatch, tmp_path):
+    """TCPStore is the native library's: a failed build raises, and
+    nothing hands over to the Python client of the protocol."""
+    from paddle_tpu_torch.distributed import TCPStore
+    from paddle_tpu_torch.utils import native
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="native data-path build failed"):
+        TCPStore("127.0.0.1", 1, is_master=True, timeout=1)
 
 
 def test_fit_slice_refuses_a_missing_card(tmp_path):

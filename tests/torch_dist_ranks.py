@@ -1,0 +1,473 @@
+"""Rank code of the port's multi-process CPU tests
+(``test_torch_distributed.py``, ``test_torch_fleet.py``,
+``test_torch_llama_mesh.py``).
+
+``run_world`` spawns a world of gloo ranks on the CPU through
+``paddle_tpu_torch.distributed.spawn``; they meet through a ``file://``
+store under the test's temporary directory (so concurrent test workers
+never share a port), take one thread each, run every scenario named, and
+pickle {scenario: its readings} for the test process, which holds them
+against the JAX package or numpy. This module imports neither JAX nor the
+JAX package, and each rank records whether either got loaded.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import sys
+import traceback
+
+import numpy as np
+import torch
+
+
+def run_world(tmp_dir, nprocs, scenarios, timeout=240, device="cpu"):
+    """Spawn ``nprocs`` ranks running ``scenarios`` ([(name, function
+    name in this module, kwargs)]) with ``device`` the default device
+    (gloo either way: on one card the ranks share it); a list of each
+    rank's {name: readings}."""
+    from paddle_tpu_torch.distributed import spawn
+    tmp_dir = str(tmp_dir)
+    spawn(_rank_main, (tmp_dir, scenarios, device), nprocs=nprocs,
+          init_method=f"file://{os.path.join(tmp_dir, 'store')}",
+          timeout=timeout)
+    out = []
+    for r in range(nprocs):
+        with open(os.path.join(tmp_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _rank_main(tmp_dir, scenarios, device):
+    torch.set_num_threads(1)
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    paddle.set_device(device)
+    # a collective that one rank never reaches raises after a minute
+    # instead of holding the others
+    D.init_parallel_env(backend="gloo",
+                        timeout=datetime.timedelta(seconds=60))
+    results = {}
+    for name, fn, kwargs in scenarios:
+        try:
+            results[name] = globals()[fn](**kwargs)
+        except Exception:              # noqa: BLE001 — reported per test
+            results[name] = {"error": traceback.format_exc()}
+    results["_loaded"] = sorted({m.split(".")[0] for m in sys.modules}
+                                & {"jax", "jaxlib", "paddle_tpu"})
+    with open(os.path.join(tmp_dir, f"rank{D.get_rank()}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    D.barrier()
+    D.destroy_process_group()
+
+
+def rank_data(r, shape=(2, 3)):
+    """The tensor rank ``r`` contributes to the collectives."""
+    return (np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+            + 10.0 * r + 1.0)
+
+
+# --- test_torch_distributed.py ----------------------------------------------
+
+def collectives():
+    from paddle_tpu_torch import distributed as D
+    r, w = D.get_rank(), D.get_world_size()
+    x = torch.from_numpy(rank_data(r))
+    out = {"rank": r, "world": w}
+    for name, op in (("sum", D.ReduceOp.SUM), ("max", D.ReduceOp.MAX),
+                     ("min", D.ReduceOp.MIN), ("prod", D.ReduceOp.PROD),
+                     ("avg", D.ReduceOp.AVG)):
+        t = x.clone()
+        D.all_reduce(t, op=op)
+        out[f"all_reduce_{name}"] = t.numpy()
+    t = x.clone()
+    D.broadcast(t, src=2)
+    out["broadcast"] = t.numpy()
+    lst = []
+    D.all_gather(lst, x)
+    out["all_gather"] = np.stack([t.numpy() for t in lst])
+    t = x.clone()
+    D.reduce(t, dst=1)
+    out["reduce"] = t.numpy()
+    t = torch.empty_like(x)
+    D.scatter(t, [x + 100.0 * i for i in range(w)] if r == 0 else None,
+              src=0)
+    out["scatter"] = t.numpy()
+    outs = []
+    D.alltoall([x + 1000.0 * j for j in range(w)], outs)
+    out["alltoall"] = np.stack([t.numpy() for t in outs])
+    t = x.clone()
+    peer = r + 1 if r % 2 == 0 else r - 1
+    if r % 2 == 0:
+        D.send(x, dst=peer)
+        D.recv(t, src=peer)
+    else:
+        D.recv(t, src=peer)
+        D.send(x, dst=peer)
+    out["recv"] = t.numpy()
+    t = x.clone()
+    task = D.all_reduce(t, sync_op=False)
+    out["async_ok"] = task.wait(timeout=60)
+    out["async_completed"] = task.is_completed()
+    out["async_all_reduce"] = t.numpy()
+    lst = []
+    task = D.all_gather(lst, x, sync_op=False)
+    task.synchronize()
+    out["async_all_gather"] = np.stack([t.numpy() for t in lst])
+    t = x.clone()
+    D.all_reduce(t, op=D.ReduceOp.AVG, sync_op=False).wait()
+    out["async_avg"] = t.numpy()
+    D.barrier()
+    g = D.new_group([1, 3])
+    out["group_rank"] = D.get_rank(g)
+    out["group_size"] = D.get_world_size(g)
+    if r in (1, 3):
+        t = x.clone()
+        D.all_reduce(t, group=g)
+        out["group_sum"] = t.numpy()
+    out["split"] = D.split(torch.arange(8.0), 4, axis=0).numpy()
+    return out
+
+
+def hybrid_group():
+    from paddle_tpu_torch import distributed as D
+    topo = D.CommunicateTopology(["data", "pipe", "sharding", "sep",
+                                  "model"], [2, 1, 1, 1, 2])
+    hcg = D.HybridCommunicateGroup(topo)
+    out = {"mode": hcg.get_parallel_mode()}
+    for axis in ("data", "pipe", "sharding", "sep", "model"):
+        g = hcg._groups[axis]
+        t = torch.tensor([float(D.get_rank())])
+        D.all_reduce(t, group=g)
+        out[axis] = {"ranks": g.ranks, "rank": g.rank, "nranks": g.nranks,
+                     "sum": float(t)}
+    out["mp_rank"] = hcg.get_model_parallel_rank()
+    out["dp_rank"] = hcg.get_data_parallel_rank()
+    out["mesh_coords"] = {a: hcg.mesh.coordinate(a)
+                          for a in hcg.mesh.axis_names}
+    return out
+
+
+def _mlp(state):
+    from paddle_tpu_torch import nn
+    net = nn.Sequential(nn.Linear(6, 4), nn.Tanh(), nn.Linear(4, 2))
+    net.set_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return net
+
+
+def data_parallel(state, x1, y1, x2, y2, table, ids):
+    """Pairs of ranks ({0, 1}, {2, 3}) each run DataParallel over their
+    pair: micro-batch 1 under no_sync, micro-batch 2 synchronised; each
+    rank takes its half of each. Then a sparse embedding's gradient."""
+    from paddle_tpu_torch import distributed as D
+    r = D.get_rank()
+    groups = [D.new_group([0, 1]), D.new_group([2, 3])]
+    g = groups[r // 2]
+    i = g.rank
+    net = D.DataParallel(_mlp(state), group=g)
+
+    def loss_of(x, y):
+        h = len(x) // 2
+        xs, ys = (torch.from_numpy(a[i * h:(i + 1) * h]) for a in (x, y))
+        return torch.mean((net(xs) - ys) ** 2)
+
+    with net.no_sync():
+        loss_of(x1, y1).backward()
+    unsynced = {k: p.grad.clone().numpy()
+                for k, p in net.named_parameters()}
+    loss_of(x2, y2).backward()
+    out = {"grads": {k: p.grad.numpy() for k, p in net.named_parameters()},
+           "unsynced": unsynced, "keys": list(net.state_dict())}
+    emb = torch.nn.Parameter(torch.from_numpy(table.copy()))
+    dp = D.DataParallel(torch.nn.ParameterList([emb]), group=g)
+    h = len(ids) // 2
+    mine = torch.from_numpy(ids[i * h:(i + 1) * h])
+    torch.nn.functional.embedding(mine, emb, sparse=True).sum().backward()
+    out["sparse_is_sparse"] = bool(emb.grad.is_sparse)
+    out["sparse_grad"] = emb.grad.to_dense().numpy()
+    del dp
+    return out
+
+
+def zero(state, grads, steps=2):
+    """group_sharded_parallel over the world: the sharded AdamW step
+    against a plain twin on the same gradients, at each level, with
+    offload and with bf16 masters."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import nn, optimizer
+    out = {}
+    for name, level, offload, dtype in (
+            ("os", "os", False, torch.float32),
+            ("os_g", "os_g", False, torch.float32),
+            ("p_g_os", "p_g_os", False, torch.float32),
+            ("os_offload", "os", True, torch.float32),
+            ("os_bf16", "os", False, torch.bfloat16)):
+        nets = []
+        for _ in range(2):
+            net = nn.Sequential(nn.Linear(8, 16), nn.Linear(16, 3))
+            net.to(dtype=dtype)
+            net.set_state_dict({k: torch.from_numpy(v).to(dtype)
+                                for k, v in state.items()})
+            nets.append(net)
+        mp = dtype != torch.float32
+        plain = optimizer.AdamW(learning_rate=0.01,
+                                parameters=nets[0].parameters(),
+                                multi_precision=mp)
+        opt = optimizer.AdamW(learning_rate=0.01,
+                              parameters=nets[1].parameters(),
+                              multi_precision=mp)
+        model, opt = D.sharding.group_sharded_parallel(nets[1], opt, level,
+                                                       offload=offload)
+        for s in range(steps):
+            for net in (nets[0], model):
+                for (k, p) in net.named_parameters():
+                    p.grad = torch.from_numpy(grads[s][k]).to(dtype)
+            plain.step()
+            opt.step()
+        specs = {k: getattr(p, "sharding_spec", None)
+                 for k, p in nets[1].named_parameters()}
+        acc_bytes = sum(a.numel() * a.element_size()
+                        for accs in opt._accumulators.values()
+                        for a in accs.values())
+        plain_bytes = sum(a.numel() * a.element_size()
+                          for accs in plain._accumulators.values()
+                          for a in accs.values())
+        out[name] = {
+            "equal": all(torch.equal(a, b) for a, b in
+                         zip(nets[0].parameters(), nets[1].parameters())),
+            "params": {k: p.detach().float().numpy()
+                       for k, p in nets[1].named_parameters()},
+            "acc_bytes": acc_bytes, "plain_bytes": plain_bytes,
+            "specs": specs,
+            "pinned": all(a.is_pinned() or not torch.cuda.is_available()
+                          for accs in opt._accumulators.values()
+                          for a in accs.values()) if offload else None,
+            "on_host": all(a.device.type == "cpu"
+                           for accs in opt._accumulators.values()
+                           for a in accs.values())}
+    return out
+
+
+def sampler(n=10, batch_size=2):
+    from paddle_tpu_torch import io
+    s = io.DistributedBatchSampler(list(range(n)), batch_size, shuffle=True)
+    first = list(s)
+    s.set_epoch(1)
+    return {"nranks": s.nranks, "local_rank": s.local_rank, "epoch0": first,
+            "epoch1": list(s)}
+
+
+def store(port):
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.store import _PyClient
+    r, w = D.get_rank(), D.get_world_size()
+    st = D.TCPStore("127.0.0.1", port, is_master=(r == 0), world_size=w,
+                    timeout=60)
+    st.set(f"key{r}", f"value{r}".encode())
+    counts = st.add("counter", r + 1)
+    st.barrier("after_set")
+    out = {"get": [st.get(f"key{i}") for i in range(w)],
+           "wait": st.wait(f"key{(r + 1) % w}"), "add": counts}
+    if r == 1:
+        py = _PyClient("127.0.0.1", port)
+        py.set("from_python", b"py")
+        out["py_add"] = py.add("counter", 100)
+        out["py_get"] = py.get("key0")
+        py.close()
+    st.barrier("after_python")
+    out["from_python"] = st.get("from_python")
+    out["counter"] = st.add("counter", 0)
+    st.barrier("end")
+    st.close()
+    return out
+
+
+# --- test_torch_fleet.py -----------------------------------------------------
+
+def _fleet_init(dp=2, mp=2):
+    from paddle_tpu_torch.distributed import fleet
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp,
+                               "pp_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    return fleet
+
+
+def mp_layers(w_col, b_col, w_row, b_row, table, x, dy_col, dy_row, ids,
+              logits, labels):
+    """Each model-parallel layer at tp = 2 (data 2 x model 2), loaded with
+    full weights through ``TensorParallel.set_state_dict``: its output and
+    gradients."""
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpu
+    fleet = _fleet_init()
+    hcg = fleet.get_hybrid_communicate_group()
+    group = hcg.get_model_parallel_group()
+    out = {"mp_rank": group.rank, "dp_rank": hcg.get_data_parallel_rank()}
+
+    def run(layer, state, inp, dy, name, parallel_in=False):
+        tp = mpu.TensorParallel(layer, hcg)
+        tp.set_state_dict(state)
+        xin = torch.from_numpy(inp).requires_grad_(True)
+        if parallel_in:
+            half = inp.shape[-1] // group.nranks
+            xin = torch.from_numpy(inp[..., group.rank * half:(group.rank + 1)
+                                       * half].copy()).requires_grad_(True)
+        y = tp(xin)
+        y.backward(torch.from_numpy(dy if not (name == "col_local")
+                                    else _cols(dy, group)))
+        out[name] = {"y": y.detach().numpy(), "dx": xin.grad.numpy(),
+                     "grads": {k: p.grad.numpy()
+                               for k, p in layer.named_parameters()},
+                     "full_state": {k: v.numpy() for k, v in
+                                    tp.state_dict().items()},
+                     "specs": {k: p.sharding_spec
+                               for k, p in layer.named_parameters()}}
+
+    col_state = {"weight": w_col, "bias": b_col}
+    run(mpu.ColumnParallelLinear(*w_col.shape, gather_output=True),
+        col_state, x, dy_col, "col_gather")
+    run(mpu.ColumnParallelLinear(*w_col.shape, gather_output=False),
+        col_state, x, dy_col, "col_local")
+    row_state = {"weight": w_row, "bias": b_row}
+    h = np.tanh(x @ w_col)
+    run(mpu.RowParallelLinear(*w_row.shape, input_is_parallel=False),
+        row_state, h, dy_row, "row_full")
+    run(mpu.RowParallelLinear(*w_row.shape, input_is_parallel=True),
+        row_state, h, dy_row, "row_parallel", parallel_in=True)
+    emb = mpu.VocabParallelEmbedding(*table.shape)
+    tp = mpu.TensorParallel(emb, hcg)
+    tp.set_state_dict({"weight": table})
+    y = tp(torch.from_numpy(ids))
+    y.backward(torch.from_numpy(np.ones(y.shape, np.float32)))
+    out["embedding"] = {"y": y.detach().numpy(),
+                        "grad": emb.weight.grad.numpy()}
+    # from one seed a rank's layer holds its slice of the one-rank layer
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.core import generator
+    alone = D.ParallelGroup([D.get_rank()], D.get_rank(), "model")
+    seeded = {}
+    for name, make, dim in (
+            ("column", mpu.ColumnParallelLinear, 1),
+            ("row", mpu.RowParallelLinear, 0),
+            ("embedding", mpu.VocabParallelEmbedding, 0)):
+        generator.seed(5)
+        mine = make(16, 8).weight
+        generator.seed(5)
+        whole = make(16, 8, mp_group=alone).weight
+        seeded[name] = torch.equal(mine, whole.chunk(2, dim)[group.rank])
+    out["seeded"] = seeded
+    ce = mpu.ParallelCrossEntropy()
+    lg = torch.from_numpy(_cols(logits, group)).requires_grad_(True)
+    loss = ce(lg, torch.from_numpy(labels))
+    loss.sum().backward()
+    out["cross_entropy"] = {"loss": loss.detach().numpy(),
+                            "dlogits": lg.grad.numpy()}
+    return out
+
+
+def _cols(a, group):
+    n = a.shape[-1] // group.nranks
+    return a[..., group.rank * n:(group.rank + 1) * n].copy()
+
+
+def fleet_mlp(state, x, y, steps, lr, clip):
+    """fleet.init (data 2 x model 2) -> distributed_model ->
+    distributed_optimizer on a Column -> tanh -> Row MLP; SGD with a
+    global-norm clip; each data rank its half of the batch."""
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpu
+    fleet = _fleet_init()
+    hcg = fleet.get_hybrid_communicate_group()
+
+    class MLP(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = mpu.ColumnParallelLinear(16, 32, gather_output=False)
+            self.fc2 = mpu.RowParallelLinear(32, 16, input_is_parallel=True)
+
+        def forward(self, x):
+            return self.fc2(torch.tanh(self.fc1(x)))
+
+    net = MLP()
+    model = fleet.distributed_model(net)
+    model.set_state_dict(state)
+    opt = fleet.distributed_optimizer(optimizer.SGD(
+        learning_rate=lr, parameters=model.parameters(),
+        grad_clip=nn.ClipGradByGlobalNorm(clip)))
+    d = hcg.get_data_parallel_rank()
+    h = len(x) // 2
+    xs, ys = (torch.from_numpy(a[d * h:(d + 1) * h]) for a in (x, y))
+    losses = []
+    for _ in range(steps):
+        loss = torch.mean((model(xs) - ys) ** 2)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return {"losses": losses, "wrapper": type(model).__name__,
+            "optimizer": type(opt).__name__,
+            "state": {k: v.detach().numpy()
+                      for k, v in model.state_dict().items()},
+            "worker": (fleet.worker_index(), fleet.worker_num(),
+                       fleet.is_first_worker())}
+
+
+def rng_tracker():
+    from paddle_tpu_torch.core import generator as gen
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpu
+    fleet = _fleet_init()
+    hcg = fleet.get_hybrid_communicate_group()
+    mpu.model_parallel_random_seed(123)
+    g = gen.torch_generator(None, "cpu")
+    plain = torch.rand(4, generator=g).numpy()
+    with mpu.get_rng_state_tracker().rng_state():
+        local = torch.rand(4, generator=gen.torch_generator(None,
+                                                            "cpu")).numpy()
+    return {"mp_rank": hcg.get_model_parallel_rank(),
+            "dp_rank": hcg.get_data_parallel_rank(),
+            "plain": plain, "local": local}
+
+
+# --- test_torch_llama_mesh.py ------------------------------------------------
+
+def llama_mesh(dims, cfg, state, tokens, labels, steps=3, lr=1e-3,
+               offload=False, remat=False):
+    """``llama_train_step_factory(model, mesh=build_mesh(dims))`` from the
+    full ``state``: the losses of ``steps`` steps, this rank's shards after
+    them, the moments' bytes, the attention's local heads."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
+                                             load_numpy_state_dict)
+    from paddle_tpu_torch.models.nlp.llama import llama_train_step_factory
+    from paddle_tpu_torch.parallel import pallas_sharding
+    config = LlamaConfig(**cfg)
+    model = LlamaForCausalLM(config)
+    load_numpy_state_dict(model, state)
+    mesh = D.build_mesh(dims)
+    pallas_sharding.ENGAGED.update(flag=False, heads=None)
+    params, opt, step = llama_train_step_factory(
+        model, mesh=mesh, learning_rate=lr, remat=remat,
+        offload_moments=offload)
+    first = {k: v.detach().cpu().numpy().copy() for k, v in params.items()}
+    losses = []
+    for _ in range(steps):
+        params, opt, loss = step(params, opt, tokens, labels)
+        losses.append(float(loss))
+    moment = sum(m.numel() * m.element_size() for m in opt["m"].values())
+    return {"losses": losses, "first": first,
+            "params": {k: v.detach().cpu().numpy()
+                       for k, v in params.items()},
+            "moment_bytes": moment,
+            "moment_shapes": {k: tuple(m.shape) for k, m in opt["m"].items()},
+            "engaged": dict(pallas_sharding.ENGAGED),
+            "coords": {a: mesh.coordinate(a) for a in mesh.axis_names}}
+
+
+def fail_on_rank(bad_rank):
+    """Rank ``bad_rank`` raises at once; the others would wait for a
+    minute."""
+    import time
+    if int(os.environ["PADDLE_GLOBAL_RANK"]) == bad_rank:
+        raise RuntimeError("this rank fails")
+    time.sleep(60)
