@@ -25,6 +25,7 @@ fused_decode
     python3 chip_smoke.py --phases build,deploy
     python3 chip_smoke.py --phases build,static
     python3 chip_smoke.py --phases build,train_mesh
+    python3 chip_smoke.py --phases build,kernel,train_sep
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
@@ -93,7 +94,12 @@ Phases, each printing JSON lines:
      causal; and at the train_moe phase's: B=1, 28 query / 4 kv heads
      (G = 7), S=4096, head_dim 128, bf16, causal; and at one rank's call
      in train_mesh: mesh A's B=1, 16 / 4 heads, S=4096, mesh B's B=1,
-     32 / 8 heads, S=2048;
+     32 / 8 heads, S=2048; and in train_sep: a ring chunk of run C
+     (B=1, 32 / 8 heads, Sq=Sk=4096, not causal), the multi-head kernels
+     at Ulysses' call (B=1, 16 heads, S=8192, causal) and splash at a
+     window-ring pair of run D (B=1, 32 / 8 heads, S/n=2048, q_offset
+     2048, window 4096, not causal); the fused CE at a C rank's 4096 rows
+     of 128256 and a D rank's 2048 of 32000;
    * fused cross-entropy (``ce_fwd``, ``ce_bwd``) at N=8192 rows of
      V=128256 bf16 logits, int64 labels, and at one train_mesh B rank's
      2048 rows. Yardstick: ``F.cross_entropy(...,
@@ -246,7 +252,7 @@ Phases, each printing JSON lines:
    ``report()``, the median decode turn, prefill chunk and dense step
    (from the run's trace spans), ``engine_host_frac``, the routing
    decisions by backend and rule, prefix-cache hits and peak memory.
-6. ``serve_features``: Llama-3-8B at full width and 8 of its 32 layers
+6. ``serve_features``: Llama-3-8B at full width and 4 of its 32 layers
    (printed as ``cut``), bf16, seeded weights, through ``llama_serving_decode_factory`` (the serve_engine
    phase's build) and ``ServingEngine(slots=8, policy="paged")``, two
    engines in turn, each freed before the next. First multi-LoRA +
@@ -268,7 +274,7 @@ Phases, each printing JSON lines:
    Checks: every stream has min(budget, cancel_after) tokens or stops at
    its grammar's accept; every constrained stream parses under its
    schema; the adapter, grammar and page censuses hold; paged launches
-   == 8 x the plain decode steps, all ``split`` (the spec round, the
+   == 4 x the plain decode steps, all ``split`` (the spec round, the
    ragged lane and prefill attend by the page gather); spec rounds > 0
    with an acceptance rate in [0, 1]. Records, per engine: requests
    completed and cancelled, tokens, tokens/s on the wall clock, TTFT
@@ -284,7 +290,7 @@ Phases, each printing JSON lines:
    factories (its outputs equal a lone engine's) and ``disaggregated``
    with an int8 decode replica of 8-token pages (every handoff re-paged
    and transcoded); outputs, slot logs and censuses card against CPU.
-   Then three factories of one seeded Llama-3-8B (8 of its 32 layers,
+   Then three factories of one seeded Llama-3-8B (4 of its 32 layers,
    printed as ``cut``, bf16): A and
    B over bf16 pools of 64-token pages, C over int8 pools of 32-token
    pages holding the same 16,384 tokens; each replica a
@@ -304,15 +310,15 @@ Phases, each printing JSON lines:
    least one retried; the streams that match the fault-free run,
    recorded). Every replay: the
    census conserved, every stream min(budget, cancel_after) tokens,
-   paged launches == 8 x the decode steps summed over the replicas, all
-   ``split``, and those over int8 pages == 8 x the int8 replica's steps.
+   paged launches == 4 x the decode steps summed over the replicas, all
+   ``split``, and those over int8 pages == 4 x the int8 replica's steps.
    Records wall s and tokens/s, the router's virtual rollup (one card a
    replica: not a speed of this card), TTFT / TPOT p50 / p95, placements
    and prefix hits a replica, handoffs and the transforms' ms (the spans'
    host wall, and CUDA events on a 500-token chain), retries, resumed
    tokens, incidents, peak memory.
-7b. ``serve_tiers``: Llama-3-8B at full width and 16 of its 32 layers
-   (``CUT``), bf16, seeded weights, ``serve_engine``'s geometry
+7b. ``serve_tiers``: Llama-3-8B at full width and 8 of its 32 layers
+   (``CUT8``), bf16, seeded weights, ``serve_engine``'s geometry
    (``SERVE_TIERS``), through
    ``ServingEngine(slots=8, policy="paged")``. Dispatch-ahead:
    ``serve_engine``'s first 12 requests on the fixed clock with the flag
@@ -326,7 +332,7 @@ Phases, each printing JSON lines:
    pages > 0, the stored bytes never above the budget, and the share of
    streams equal to the untiered (flag-off) run's. Host memory: 8
    two-turn sessions and 2 priority-9 requests on a pool of 41 pages
-   with a 0.5 GiB arena (128 pages of 16 layers, as 1 GiB held of 32),
+   with a 0.25 GiB arena (128 pages of 8 layers, as 1 GiB held of 32),
    fixed clock: page-outs, page-ins, preemptions and
    restores > 0, the arena's census and budget held, every tensor it
    took pinned host memory; the CUDA-event ms of one page's spill and
@@ -691,6 +697,29 @@ Phases, each printing JSON lines:
     memory of each rank and the phase's seconds beside the card's name and
     power limit. These step times measure a correctness run: gloo on one
     card measures no scaling.
+
+24. ``train_sep``: context parallelism on a "sep" axis. Four processes on
+    the one card over gloo (as in ``train_mesh``), bf16, B=1 x S=8192, 2
+    layers, ``remat=False``, lr 1e-3 (``TRAIN_SEP``), each run against the
+    single-device steps of this process on the same weights and batch:
+    run C, Llama-3-8B's widths on ``{"sep": 2, "sharding": 2}`` (S/n =
+    4096, ZeRO-1), 2 steps with ``context_parallel_backend="ring"`` then
+    2 with ``"ulysses"``; run D, Mistral-7B's widths (window 4096) on
+    ``{"sep": 4}`` (S/n = 2048), 2 steps of the window ring (3 of 4 pair
+    distances active). On every rank: the first step's loss within
+    ``SEP_FIRST_LOSS_RTOL`` and each step's within ``SEP_LOSS_RTOL`` of
+    the single-device loss, each parameter within
+    ``SEP_PARAM_REL`` (norm of the difference over norm) of the
+    single-device one after the last step, each step's launches equal to
+    those the routing predicts for the rank's sep coordinate c (ring: the
+    grouped flash forward, dq and dk/dv c + 1 times a layer; Ulysses: the
+    multi-head ones once a layer; window ring: splash min(c, 2) + 1 times
+    a layer; the fused CE once each way) and its transport's staged bytes
+    equal to the predicted (``_sep_expected``). Records each step's
+    seconds, transport seconds and collective seconds, each rank's peak
+    memory and the phase's seconds beside the card's name and power
+    limit. Gloo through host memory measures correctness, not the speed
+    of a multi-GPU run.
 
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -1797,7 +1826,29 @@ def phase_kernel(dev):
                                 "gqa", 1, 8, 4, 2048, 2048, 128, "bfloat16",
                                 83, dev, flush)]
     ce_mesh = [_ce_case(2048, 128256, 84, dev, flush)]
-    for c in gqa + ce + gqa_long + gqa_moe + gqa_mesh + ce_mesh:
+    # and at train_sep's calls, one rank's: a ring chunk of run C (32 / 8
+    # heads, a whole 4096 x 4096 chunk of an earlier rank: not causal),
+    # Ulysses' call over the whole sequence (16 of C's 32 heads, S=8192,
+    # causal), a window-ring pair of run D (S/n=2048, the pair at distance
+    # 1: q_offset 2048, window 4096, its block mask at the port's block)
+    # and the CE over a C rank's 4096 rows and a D rank's 2048 (Mistral's
+    # vocabulary)
+    ra = importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+    blk = ra.WINDOW_MASK_BLOCK
+    gqa_sep = [_attention_case(
+        "gqa_sep_ring_chunk_B1_H32_S4096_D128_noncausal/bfloat16", "gqa", 1,
+        8, 4, 4096, 4096, 128, "bfloat16", 85, dev, flush, causal=False)]
+    mha_sep = [_attention_case("mha_sep_ulysses_B1_H16_S8192_D128/bfloat16",
+                               "mha", 1, 16, 1, 8192, 8192, 128, "bfloat16",
+                               86, dev, flush)]
+    splash_sep = [_attention_case(
+        "splash_sep_pair_d1_B1_H32_S2048_D128_w4096/bfloat16", "splash", 1,
+        8, 4, 2048, 2048, 128, "bfloat16", 87, dev, flush, causal=False,
+        mask=(ra._pair_mask(1, 2048, blk, 4096), blk, blk, 4096, 2048))]
+    ce_sep = [_ce_case(4096, 128256, 88, dev, flush),
+              _ce_case(2048, 32000, 89, dev, flush)]
+    for c in (gqa + ce + gqa_long + gqa_moe + gqa_mesh + ce_mesh + gqa_sep
+              + mha_sep + splash_sep + ce_sep):
         emit({"phase": "kernel", **c})
     mha = [_attention_case("mha_B2_S4096_D128/bfloat16", "mha", 2, 32, 1,
                            4096, 4096, 128, "bfloat16", 9, dev, flush),
@@ -1859,7 +1910,8 @@ def phase_kernel(dev):
     for c in ln_retime:
         emit({"phase": "kernel", **c})
     bad = [c["case"] for c in cases + gqa + ce + gqa_long + gqa_moe
-           + gqa_mesh + ce_mesh + mha
+           + gqa_mesh + ce_mesh + gqa_sep + mha_sep + splash_sep + ce_sep
+           + mha
            + splash + block_sparse + mha_enc + norm if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
@@ -1868,7 +1920,8 @@ def phase_kernel(dev):
     torch.cuda.empty_cache()
     return {"paged": cases, "gqa": gqa, "ce": ce, "gqa_long": gqa_long,
             "gqa_moe": gqa_moe, "gqa_mesh": gqa_mesh, "ce_mesh": ce_mesh,
-            "mha": mha,
+            "gqa_sep": gqa_sep, "mha_sep": mha_sep, "splash_sep": splash_sep,
+            "ce_sep": ce_sep, "mha": mha,
             "splash": splash, "block_sparse": block_sparse,
             "mha_encoder": mha_enc, "norm": norm,
             "ln_retime": ln_retime}
@@ -3457,15 +3510,17 @@ def phase_serve_engine(dev):
 SERVE_FEATURES = dict(max_len=2048, page_size=64, slots=8, chunked_prefill=64,
                       lora=(4, 16), grammar=(3, 64), prefill_chunk_budget=256,
                       n_draft=3, replay=8, spread_s=1.0,
-                      spec_interarrival=0.1, layers=8)
+                      spec_interarrival=0.1, layers=4)
 # the depth that keeps the whole script within its time limit: a paged
 # turn is the host's loop over the layers, so a phase's wall time follows
-# its depth; serve_engine serves all 32 (serve_tiers was cut to 16 when
-# the deploy phase joined the script; serve_features and serve_cluster
-# from 16 to 8 when train_mesh did, after whole runs of 1007.6 and 1033.3
-# s of 1200 on one H100)
-CUT = "16 of 32 decoder layers, full width: the whole script's time limit"
+# its depth and the host's speed; serve_engine serves all 32 (serve_tiers
+# was cut to 16 when the deploy phase joined the script, serve_features
+# and serve_cluster from 16 to 8 when train_mesh did, after whole runs of
+# 1007.6 and 1033.3 s of 1200 on one H100; serve_tiers to 8 and
+# serve_features and serve_cluster to 4 when train_sep did, after a whole
+# run of 1284.0 s on a slow host, where another took 930.6)
 CUT8 = "8 of 32 decoder layers, full width: the whole script's time limit"
+CUT4 = "4 of 32 decoder layers, full width: the whole script's time limit"
 
 
 def _llama32_1b_draft():
@@ -3662,7 +3717,7 @@ def _spec_f32_control(dev, build, trace):
 
 
 def phase_serve_features(dev):
-    """Llama-3-8B, full width, 8 of its 32 layers, bf16, seeded weights,
+    """Llama-3-8B, full width, 4 of its 32 layers, bf16, seeded weights,
     through ``llama_serving_decode_factory`` and
     ``ServingEngine(policy="paged")`` with the options of ROADMAP item 11, two engines in
     turn, each freed before the next: multi-LoRA + grammar + the ragged
@@ -3691,7 +3746,7 @@ def phase_serve_features(dev):
     mixed, spec_trace = _features_traces(cfg.vocab_size)
     vocab = TokenVocab.ascii_default(cfg.vocab_size)
     out = {"phase": "serve_features", "model": "llama3_8b", "layers": L,
-           "cut": CUT8, "dtype": "bfloat16", "policy": "paged",
+           "cut": CUT4, "dtype": "bfloat16", "policy": "paged",
            "clock": "measured"}
 
     # 1. multi-LoRA + grammar + the ragged lane
@@ -3803,8 +3858,8 @@ def phase_serve_features(dev):
 
 # --- phase 7: the multi-replica serving layer, Llama-3-8B replicas --------
 
-# serve_cluster: three factories of one seeded Llama-3-8B (8 layers, bf16;
-# CUT8)
+# serve_cluster: three factories of one seeded Llama-3-8B (4 layers, bf16;
+# CUT4)
 # with serve_engine's geometry: A and B over bf16 pools of 64-token pages,
 # C over int8 pools of 32-token pages holding the same 16,384 tokens. The
 # fixed-clock parts start the trace at 0 and divide its arrivals by
@@ -3812,7 +3867,7 @@ def phase_serve_features(dev):
 # (about one decode turn, as it is on the measured clock); the
 # disaggregated parts price a handoff at kv_transfer_unit a page.
 SERVE_CLUSTER = dict(SERVE_ENGINE, int8_page_size=32, kv_transfer_unit=0.05,
-                     measured_requests=16, layers=8)
+                     measured_requests=16, layers=4)
 # the f32 case: ENGINE_SMALL's model and factories, the int8 decode
 # replica over pages of 8
 CLUSTER_SMALL_INT8_PAGE = 8
@@ -4073,7 +4128,7 @@ def _transform_ms(facs, e):
 
 def phase_serve_cluster(dev):
     """The multi-replica serving layer: ``ClusterRouter`` over replicas of
-    Llama-3-8B (8 layers, bf16, seeded) on factories A, B (bf16 pools,
+    Llama-3-8B (4 layers, bf16, seeded) on factories A, B (bf16 pools,
     pages of 64) and C (int8 pools, pages of 32), each replica a
     ``ServingEngine(slots=8, policy="paged")``, on ``_serve_engine_trace``:
     placement (a fixed-clock replay of 12 requests through
@@ -4105,7 +4160,7 @@ def phase_serve_cluster(dev):
     fixed = _fixed_arrivals(trace)
     n = len(trace)
     out = {"phase": "serve_cluster", "model": "llama3_8b", "layers": L,
-           "cut": CUT8, "dtype": "bfloat16", "requests": n,
+           "cut": CUT4, "dtype": "bfloat16", "requests": n,
            "setup_s": setup_s,
            "memory": {"build_peak_gb": build_peak,
                       "after_build_gb": torch.cuda.memory_allocated()
@@ -4233,22 +4288,22 @@ def phase_serve_cluster(dev):
 # --- phase 7b: the memory tiers and dispatch-ahead, Llama-3-8B -----------
 
 # serve_tiers: serve_engine's geometry and trace over one seeded Llama-3-8B
-# (16 of its 32 layers, CUT; bf16), two factories of it: one with a pressure pool, one
+# (8 of its 32 layers, CUT8; bf16), two factories of it: one with a pressure pool, one
 # plain. Pressure: a byte budget of 60 % of the full-precision pool
 # (compaction at allocation) and a QoS scheduler whose SLO monitor trips
 # the tier at 50 % (a ThresholdRule on the pool's stored bytes). Host
 # memory: 8 two-turn sessions (first prompts 256-512, turns of 64-128,
 # 32-64 new tokens, 40 virtual s of thinking) and 2 high-priority
-# requests, 8 slots, a pool of 41 pages (2,560 tokens) and a 0.5 GiB arena
-# (128 pages of 4 MiB at 16 layers, the pages 1 GiB held at 32 layers),
+# requests, 8 slots, a pool of 41 pages (2,560 tokens) and a 0.25 GiB arena
+# (128 pages of 2 MiB at 8 layers, the pages 1 GiB held at 32 layers),
 # on the fixed clock, so that its spills, page-ins and preemption are the
 # ones rehearsed on SimServing (the same bookkeeping: 47 spills, 15
 # page-ins, 1 preemption and 1 restore); the same trace on an ample pool
 # (serve_engine's 257 pages) is the stream control. Dispatch-ahead:
 # serve_engine's trace, paged, flag off then on, on the measured clock.
 SERVE_TIERS = dict(SERVE_ENGINE, budget_frac=0.6, slo_frac=0.5,
-                   hm_pages=41, hm_sessions=8, hm_high=2, arena_gib=0.5,
-                   layers=16)
+                   hm_pages=41, hm_sessions=8, hm_high=2, arena_gib=0.25,
+                   layers=8)
 
 
 def _hostmem_trace(vocab):
@@ -4418,7 +4473,7 @@ def _page_transfer_ms(eng):
 
 
 def phase_serve_tiers(dev):
-    """Llama-3-8B, full width, 16 of its 32 layers (CUT), bf16, seeded
+    """Llama-3-8B, full width, 8 of its 32 layers (CUT8), bf16, seeded
     weights: the pressure page tier, the host-memory tier and
     dispatch-ahead turns through ``ServingEngine(policy="paged")``
     (SERVE_TIERS). Each run sits between a reset and a read of the paged
@@ -4452,7 +4507,7 @@ def phase_serve_tiers(dev):
     build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     trace = _serve_engine_trace(cfg.vocab_size)
     out = {"phase": "serve_tiers", "model": "llama3_8b", "layers": L,
-           "cut": CUT, "dtype": "bfloat16", "setup_s": setup_s,
+           "cut": CUT8, "dtype": "bfloat16", "setup_s": setup_s,
            "build_peak_mem_gb": build_peak}
     checks, parts = {}, {}
 
@@ -8876,19 +8931,20 @@ def _mesh_nccl_world1(dev):
     return out
 
 
-def _mesh_single(dev, S, path):
-    """The single-device run: its losses and step seconds; its final
-    parameters saved to ``path`` (host memory)."""
+def _mesh_single(dev, S, path, cfg=None, t=TRAIN_MESH, steps=None):
+    """The single-device run (``mesh=None``) of ``cfg`` (``_mesh_cfg()``)
+    at ``t``'s batch, seed and learning rate, ``steps`` (``t``'s) steps:
+    its losses and step seconds; its final parameters saved to ``path``
+    (host memory)."""
     from paddle_tpu_torch.models.nlp import LlamaForCausalLM
     from paddle_tpu_torch.models.nlp.llama import llama_train_step_factory
-    t = TRAIN_MESH
-    cfg = _mesh_cfg()
+    cfg = cfg or _mesh_cfg()
     model = LlamaForCausalLM(cfg, device=dev, seed=t["seed"])
     params, opt, step = llama_train_step_factory(
         model, learning_rate=t["lr"], remat=False)
     tokens, labels = _batch(cfg, t["B"], S, t["seed"], dev)
     losses, step_s = [], []
-    for _ in range(t["steps"]):
+    for _ in range(steps or t["steps"]):
         t0 = time.perf_counter()
         params, opt, loss = step(params, opt, tokens, labels)
         losses.append(float(loss))
@@ -9072,6 +9128,266 @@ def phase_train_mesh(dev):
     return out
 
 
+# --- train_sep: context parallelism on the "sep" axis -----------------------
+#
+# The Llama train step on meshes with a "sep" axis: ring, Ulysses and
+# window-ring attention over four processes on the one card (gloo), each
+# run against the single-device step on the same bf16 weights and batch.
+TRAIN_SEP = dict(layers=2, B=1, S=8192, lr=1e-3, seed=0, world=4)
+# run: (model, mesh, [(context_parallel_backend, steps)])
+# (3 ring + 2 Ulysses steps in C and 3 in D until the whole script took
+# 1284 s of its 1200 on a slow host: 2 each, the fewest that still shows
+# a trained step beside the first)
+SEP_RUNS = {"C": ("llama3_8b", {"sep": 2, "sharding": 2},
+                  (("ring", 2), ("ulysses", 2))),
+            "D": ("mistral_7b", {"sep": 4}, (("ring", 2),))}
+SEP_MODELS = {"llama3_8b": _llama3_8b, "mistral_7b": _mistral_7b}
+# the sep runs against the single-device run on the same bf16 weights and
+# batch: ring attention merges per-chunk outputs rounded to bf16 in f32,
+# each rank's gradient is rounded to bf16 in its chunk before the average
+# over "sep", and AdamW steps near-zero gradients by their sign. First
+# readings (one H100, PERF.md §6): the first step's loss 1.23e-5 (C) and
+# 1.04e-5 (D) relative; then the difference stays 1e-4 to 5e-4 absolute
+# while the repeated batch's loss falls to 0.0081 (C, step 5: 1.11e-2
+# relative) and 0.079 (D, step 3: 6.24e-3); parameters 0.0097 (C) and
+# 0.0088 (D) in norm. Limits about twice the readings, the first step's
+# four times
+SEP_FIRST_LOSS_RTOL = 5e-5
+SEP_LOSS_RTOL = 0.025
+SEP_PARAM_REL = 0.02
+
+
+def _sep_cfg(model_name):
+    return dataclasses.replace(SEP_MODELS[model_name](),
+                               num_hidden_layers=TRAIN_SEP["layers"])
+
+
+def _sep_expected(cfg, dims, backend, coord):
+    """(launches a step, staged transport bytes a step) on the rank at sep
+    coordinate ``coord``, from the routing of ``llama_functional``: the
+    window ring runs min(c + 1, n_act) pair distances a layer (each a
+    splash forward, dq and dk/dv), the causal ring c + 1 chunks (the
+    grouped flash kernels; none for a later rank's chunk), Ulysses one
+    multi-head flash call over the whole sequence; the fused CE once
+    each way. Bytes: K/V chunks (bf16) rotate n - 1 (n_act - 1) times
+    forward, K/V with their f32 dK/dV accumulators as often backward, and
+    the accumulators once more home; Ulysses sends q, k, v (at the query
+    heads) and the output, forward and backward."""
+    from paddle_tpu_torch.parallel import ring_window_active_steps
+    t = TRAIN_SEP
+    L, n, S = t["layers"], dims["sep"], t["S"]
+    Sloc, hd = S // n, cfg.hidden_size // cfg.num_attention_heads
+    kv16 = t["B"] * cfg.num_key_value_heads * Sloc * hd * 2
+    q16 = t["B"] * cfg.num_attention_heads * Sloc * hd * 2
+    want = {"ce_fwd": 1, "ce_bwd": 1}
+    window = cfg.sliding_window
+    if window is not None and window < S:
+        hops = ring_window_active_steps(n, window, Sloc) - 1
+        kind, calls = "splash", min(coord, hops) + 1
+    elif backend == "ulysses" and cfg.num_attention_heads % n == 0:
+        hops, kind, calls = None, "mha", 1
+    else:
+        hops = n - 1
+        kind = "gqa" if cfg.num_attention_heads != \
+            cfg.num_key_value_heads else "mha"
+        calls = coord + 1
+    want.update({f"{kind}_{p}": L * calls for p in ("fwd", "dq", "dkv")})
+    if hops is None:
+        staged = L * 8 * q16
+    else:
+        staged = L * (hops * 2 * kv16 + hops * 6 * kv16
+                      + (4 * kv16 if hops % n else 0))
+    return want, staged
+
+
+def _sep_rank(name, S, ref_losses, ref_path, out_dir, device):
+    """One rank of a sep world (in its own process): the run's steps from
+    0 launch counts and 0 transport stats, then the checks against the
+    single-device run (a JSON file per rank)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.models.nlp.llama import (llama_train_step_factory,
+                                                   param_shardings,
+                                                   shard_llama_tensor)
+
+    paddle.set_device(device)
+    # several ranks share the one card: gloo (NCCL refuses two ranks of
+    # one communicator on one device)
+    D.init_parallel_env(backend="gloo")
+    dev = paddle.resolve_device(None)
+    t = TRAIN_SEP
+    model_name, dims, segments = SEP_RUNS[name]
+    cfg = _sep_cfg(model_name)
+    rank = D.get_rank()
+    mesh = D.build_mesh(dims)
+    coord = mesh.coordinate("sep")
+    model = LlamaForCausalLM(cfg, device=dev, seed=t["seed"])
+    specs = param_shardings(model, mesh)
+    params, opt, step = llama_train_step_factory(
+        model, learning_rate=t["lr"], remat=False, mesh=mesh)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens, labels = _batch(cfg, t["B"], S, t["seed"], dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, per_step = [], [], []
+    C.reset_stats(sync=True)
+    _zero_train_counts()
+    try:
+        for backend, n_steps in segments:
+            set_flags({"context_parallel_backend": backend})
+            want, want_bytes = _sep_expected(cfg, dims, backend, coord)
+            for _ in range(n_steps):
+                before, stats = _train_counts(), dict(C.STATS)
+                t0 = time.perf_counter()
+                params, opt, loss = step(params, opt, tokens, labels)
+                losses.append(float(loss))
+                step_s.append(time.perf_counter() - t0)
+                after = _train_counts()
+                per_step.append({
+                    "backend": backend,
+                    "launches": {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]},
+                    "launches_expected": want,
+                    "staged_bytes": C.STATS["staged_bytes"]
+                    - stats["staged_bytes"],
+                    "staged_bytes_expected": want_bytes,
+                    "staged_s": C.STATS["staged_seconds"]
+                    - stats["staged_seconds"],
+                    "collective_s": C.STATS["seconds"] - stats["seconds"]})
+    finally:
+        set_flags({"context_parallel_backend": "ring"})
+    counts = _train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref = torch.load(ref_path, mmap=True)
+    coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
+    rel = {}
+    for k, p in params.items():
+        want = shard_llama_tensor(cfg, k, ref[k], specs[k], mesh.shape,
+                                  coords).to(dev).float()
+        rel[k] = float((p.detach().float() - want).norm() / want.norm())
+    res = {"rank": rank, "coords": coords, "losses": losses,
+           "loss_rel": [abs(a - b) / abs(b) for a, b in
+                        zip(losses, ref_losses)],
+           "step_s": step_s, "launches": counts, "per_step": per_step,
+           "peak_mem_gb": peak, "param_rel_max": max(rel.values()),
+           "param_rel_worst": max(rel, key=rel.get),
+           "param_rel_median": statistics.median(rel.values()),
+           "staged_gb": C.STATS["staged_bytes"] / 1e9,
+           "staged_s": C.STATS["staged_seconds"],
+           "collective_s": C.STATS["seconds"],
+           "collective_gb": C.STATS["bytes"] / 1e9}
+    with open(os.path.join(out_dir, f"sep_{name}_rank{rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+    D.barrier()
+    D.destroy_process_group()
+
+
+def phase_train_sep(dev):
+    """The sep phase (the docstring's item 24)."""
+    import tempfile
+
+    from paddle_tpu_torch import distributed as D
+
+    t_phase = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    t = TRAIN_SEP
+    out = {"phase": "train_sep", "card": card, "config": t,
+           "first_loss_rtol": SEP_FIRST_LOSS_RTOL,
+           "loss_rtol": SEP_LOSS_RTOL, "param_rel_limit": SEP_PARAM_REL}
+    ok = True
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (model_name, dims, segments) in SEP_RUNS.items():
+            cfg = _sep_cfg(model_name)
+            steps = sum(n for _, n in segments)
+            t0 = time.perf_counter()
+            path = os.path.join(tmp, f"single_{name}.pt")
+            ref_losses, ref_step_s = _mesh_single(dev, t["S"], path, cfg, t,
+                                                  steps)
+            single_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            D.spawn(_sep_rank, (name, t["S"], ref_losses, path, tmp,
+                                dev.type), nprocs=t["world"], timeout=900)
+            world_s = time.perf_counter() - t1
+            ranks = []
+            for r in range(t["world"]):
+                with open(os.path.join(tmp, f"sep_{name}_rank{r}.json")) \
+                        as f:
+                    ranks.append(json.load(f))
+            checks = []
+            for r in ranks:
+                checks.append(
+                    r["loss_rel"][0] <= SEP_FIRST_LOSS_RTOL
+                    and max(r["loss_rel"]) <= SEP_LOSS_RTOL
+                    and r["param_rel_max"] <= SEP_PARAM_REL
+                    and all(p["launches"] == p["launches_expected"]
+                            and p["staged_bytes"]
+                            == p["staged_bytes_expected"]
+                            for p in r["per_step"])
+                    and all(np.isfinite(r["losses"])))
+            launches[name] = {}
+            for r in ranks:
+                for k, n in r["launches"].items():
+                    launches[name][k] = launches[name].get(k, 0) + n
+            out[f"sep_{name}"] = {
+                "model": model_name, "dims": dims, "B": t["B"], "S": t["S"],
+                "layers": t["layers"], "segments": segments,
+                "sliding_window": cfg.sliding_window,
+                "single_losses": ref_losses,
+                "single_step_ms": [1e3 * x for x in ref_step_s],
+                "rank_losses": [r["losses"] for r in ranks],
+                "loss_rel_max": max(max(r["loss_rel"]) for r in ranks),
+                "loss_rel_by_step": [max(r["loss_rel"][i] for r in ranks)
+                                     for i in range(steps)],
+                "param_rel_max": max(r["param_rel_max"] for r in ranks),
+                "param_rel_worst": [r["param_rel_worst"] for r in ranks],
+                "param_rel_median": [r["param_rel_median"] for r in ranks],
+                "sep_coord": [r["coords"]["sep"] for r in ranks],
+                "launches_per_step": [[p["launches"] for p in r["per_step"]]
+                                      for r in ranks],
+                "launches_per_step_expected": [
+                    [p["launches_expected"] for p in r["per_step"]]
+                    for r in ranks],
+                "staged_bytes_per_step": [[p["staged_bytes"]
+                                           for p in r["per_step"]]
+                                          for r in ranks],
+                "staged_bytes_per_step_expected": [
+                    [p["staged_bytes_expected"] for p in r["per_step"]]
+                    for r in ranks],
+                "staged_s_per_step": [[p["staged_s"] for p in r["per_step"]]
+                                      for r in ranks],
+                "collective_s_per_step": [[p["collective_s"]
+                                           for p in r["per_step"]]
+                                          for r in ranks],
+                "step_ms": [[1e3 * x for x in r["step_s"]] for r in ranks],
+                "step_ms_median": [1e3 * statistics.median(r["step_s"])
+                                   for r in ranks],
+                "collective_gb": [r["collective_gb"] for r in ranks],
+                "staged_gb": [r["staged_gb"] for r in ranks],
+                "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+                "single_s": single_s, "world_s": world_s,
+                "checks": checks}
+            ok &= all(checks)
+            emit({"phase": f"train_sep_{name}", **out[f"sep_{name}"]})
+    out["launches_by_run"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["ok"] = bool(ok)
+    out = _plain(out)
+    emit({k: v for k, v in out.items() if not k.startswith("sep_")})
+    if not ok:
+        raise AssertionError("train_sep phase failed: " + json.dumps(out))
+    return out
+
+
 def _plain(obj):
     """``obj`` with numpy scalars and arrays made Python numbers and
     lists, for JSON."""
@@ -9101,7 +9417,7 @@ PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "train_encoder", "train_bert", "train_eager", "train_resnet50",
           "train_gpt",
           "transformer", "fused_decode", "train_rnnlm", "train_layer",
-          "fit", "deploy", "static", "train_mesh")
+          "fit", "deploy", "static", "train_mesh", "train_sep")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -9261,6 +9577,31 @@ def _kernels_line(kern, serve, engine, features, cluster, tiers, trains,
             kernels.append(_entry(name, CE_SOURCE, replaces,
                                   mesh_runs["B"].get(f"ce_{part}"), c, part,
                                   part, errs, card))
+    # train_sep's runs, summed over each run's four ranks: C's ring steps
+    # (the grouped kernels on 32 / 8 heads, the diagonal chunks causal and
+    # the earlier ranks' whole: timed at a whole chunk), C's Ulysses steps
+    # (the multi-head kernels over the whole sequence), D's window ring
+    # (splash, timed at the pair of distance 1) and the CE of both
+    sep_runs = trains.get("train_sep", {}).get("launches_by_run", {})
+    for key, prefix, kind, source, fwd_r, bwd_r, run in (
+            ("gqa_sep", "gqa_flash_sep_ring", "gqa", GQA_SOURCE,
+             GQA_FWD_REPLACES, GQA_BWD_REPLACES, "C"),
+            ("mha_sep", "flash_mha_sep_ulysses", "mha", GQA_SOURCE,
+             MHA_FWD_REPLACES, MHA_BWD_REPLACES, "C"),
+            ("splash_sep", "splash_sep_window_ring", "splash", SPLASH_SOURCE,
+             SPLASH_FWD_REPLACES, SPLASH_BWD_REPLACES, "D")):
+        if kern.get(key) and run in sep_runs:
+            kernels += _attention_entries(prefix, source, fwd_r, bwd_r, kind,
+                                          kern[key][0], sep_runs[run], card)
+    for i, run in enumerate(("C", "D")):
+        if kern.get("ce_sep") and run in sep_runs:
+            c = kern["ce_sep"][i]
+            for part, replaces, errs in (("fwd", CE_FWD_REPLACES,
+                                          ("loss", "lse")),
+                                         ("bwd", CE_BWD_REPLACES, ("dx",))):
+                kernels.append(_entry(f"fused_ce_sep{run}_{part}", CE_SOURCE,
+                                      replaces, sep_runs[run][f"ce_{part}"],
+                                      c, part, part, errs, card))
     if kern.get("ce"):
         c = kern["ce"][0]
         for name, replaces, part, errs in (
@@ -9456,6 +9797,8 @@ def main():
                                profile=args.profile)
     if "train_mesh" in phases:
         trains["train_mesh"] = run("train_mesh", phase_train_mesh, dev)
+    if "train_sep" in phases:
+        trains["train_sep"] = run("train_sep", phase_train_sep, dev)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

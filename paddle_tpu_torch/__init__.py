@@ -39,8 +39,10 @@ dy2static pass and captured control flow, ``save`` / ``load``),
 ``static.nn``, the passes, ``save_inference_model``), ``onnx.export`` and
 hapi's ``StaticGraphAdapter``; and several processes: ``distributed``
 (process groups and collectives over ``torch.distributed``, the hybrid
-topology and mesh, ``DataParallel``, fleet's tensor-parallel layers and
-hybrid optimizer, ZeRO) with the Llama train step on a mesh.
+topology and mesh, ``DataParallel``, fleet's tensor-parallel layers,
+hybrid optimizer, utilities and meta-optimizers, ZeRO) with the Llama
+train step on a mesh, its "sep" axis included (ring, window-ring and
+Ulysses attention: ``parallel``).
 Importing the package registers the kernel operators
 (``paddle_tpu_torch::gqa_fwd``) that a saved program names.
 """
@@ -75,7 +77,7 @@ from .framework.io import load, save  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
 from . import inference, jit, quantization, static  # noqa: F401
 from . import onnx  # noqa: F401
-from . import distributed, parallel  # noqa: F401
+from . import distributed, incubate, parallel  # noqa: F401
 from .distributed.parallel import DataParallel  # noqa: F401
 from .static.graph import disable_static, enable_static  # noqa: F401
 

@@ -4,11 +4,12 @@ Counterpart of ``paddle_tpu/core/flags.py``: one registry of typed
 defaults, each overridden at definition by the environment variable
 ``FLAGS_<name>``, read with ``get_flags`` / ``get_flag`` and written with
 ``set_flags`` (which coerces to the flag's type and refuses an unknown
-name with KeyError). The port defines the flag its op dispatch reads
-(``ops.dispatch``): ``check_nan_inf`` (scan each dispatched op's floating
-outputs for nan / inf and raise FloatingPointError). The reference's
-other flags steer XLA or the TPU, or time its eager ops, and have no
-counterpart here yet.
+name with KeyError). The port defines the flags its code reads:
+``check_nan_inf`` (``ops.dispatch``: scan each dispatched op's floating
+outputs for nan / inf and raise FloatingPointError) and
+``context_parallel_backend`` (the Llama attention under a "sep" axis:
+``"ring"`` or ``"ulysses"``). The reference's other flags steer XLA or the
+TPU, or time its eager ops, and have no counterpart here yet.
 """
 from __future__ import annotations
 
@@ -74,3 +75,6 @@ def set_flags(flags: Dict[str, Any]) -> None:
 
 define_flag("check_nan_inf", False,
             "scan op outputs for nan/inf after each dispatched op")
+define_flag("context_parallel_backend", "ring",
+            "sequence-parallel attention impl: ring (KV ppermute, any head "
+            "count) | ulysses (two all-to-alls, needs heads % sep == 0)")

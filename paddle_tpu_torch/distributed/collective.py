@@ -28,7 +28,11 @@ functions over the same calls.
 
 ``STATS`` counts the collectives' calls, bytes and host seconds; with
 ``STATS["sync"]`` set, the device is synchronised before and after each
-call so that its seconds are the collective's alone.
+call so that its seconds are the collective's alone. The context-parallel
+transport (``ring_shift``, ``all_to_all_tiled``: the K/V rotation of ring
+attention and Ulysses' exchanges) counts there too, and the part of it
+staged through host memory under ``staged_calls``, ``staged_bytes`` and
+``staged_seconds``.
 """
 from __future__ import annotations
 
@@ -56,11 +60,13 @@ _TORCH_OP = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MAX: dist.ReduceOp.MAX,
              ReduceOp.PROD: dist.ReduceOp.PRODUCT,
              ReduceOp.AVG: dist.ReduceOp.SUM}
 
-STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "sync": False}
+STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "sync": False,
+         "staged_calls": 0, "staged_bytes": 0, "staged_seconds": 0.0}
 
 
 def reset_stats(sync: bool = False):
-    STATS.update(calls=0, bytes=0, seconds=0.0, sync=bool(sync))
+    STATS.update(calls=0, bytes=0, seconds=0.0, sync=bool(sync),
+                 staged_calls=0, staged_bytes=0, staged_seconds=0.0)
 
 
 class Task:
@@ -187,10 +193,20 @@ def _done(result, sync_op):
     return result if sync_op else Task(None, result)
 
 
+def _average(tensor, n):
+    """In place: ``tensor`` (the sum over ``n`` ranks) made the mean, cast
+    back to its dtype (truncated for an integer tensor), as the
+    reference's ``jnp.mean(...).astype(dtype)``."""
+    if tensor.is_floating_point() or tensor.is_complex():
+        tensor.div_(n)
+    else:
+        tensor.copy_(torch.div(tensor.double(), n).to(tensor.dtype))
+
+
 def all_reduce(tensor: torch.Tensor, op=ReduceOp.SUM, group=None,
                sync_op=True):
     """In place: the reduction of ``tensor`` over the group's ranks
-    (``AVG``: the sum divided by the group's size)."""
+    (``AVG``: the mean in the tensor's dtype)."""
     group = _resolve(group)
     pg = _pg(group)
     if pg is None:
@@ -198,7 +214,7 @@ def all_reduce(tensor: torch.Tensor, op=ReduceOp.SUM, group=None,
     after = None
     if op == ReduceOp.AVG:
         def after():
-            tensor.div_(group.nranks)
+            _average(tensor, group.nranks)
     return _call(lambda a: dist.all_reduce(tensor, _TORCH_OP[op], group=pg,
                                            async_op=a),
                  [tensor], sync_op, tensor, after)
@@ -233,20 +249,11 @@ def all_gather(tensor_list: List, tensor: torch.Tensor, group=None,
 
 def reduce(tensor: torch.Tensor, dst: int, op=ReduceOp.SUM, group=None,
            sync_op=True):
-    """In place on rank ``dst``: the reduction over the group (the other
-    ranks' tensors are the backend's to leave as they are)."""
-    group = _resolve(group)
-    pg = _pg(group)
-    if pg is None:
-        return _done(tensor, sync_op)
-    after = None
-    if op == ReduceOp.AVG:
-        def after():
-            if _env.get_rank() == dst:
-                tensor.div_(group.nranks)
-    return _call(lambda a: dist.reduce(tensor, dst, _TORCH_OP[op], group=pg,
-                                       async_op=a),
-                 [tensor], sync_op, tensor, after)
+    """In place on every rank of the group: the reduction, as in the
+    reference, whose ``reduce`` is an ``all_reduce``
+    (``paddle_tpu/distributed/collective.py:193-197``); ``dst`` is
+    accepted for Paddle's signature."""
+    return all_reduce(tensor, op=op, group=group, sync_op=sync_op)
 
 
 def scatter(tensor: torch.Tensor, tensor_list=None, src=0, group=None,
@@ -279,6 +286,108 @@ def alltoall(in_tensor_list, out_tensor_list, group=None, sync_op=True):
     return _call(lambda a: dist.all_to_all(
         out, [t.contiguous() for t in in_tensor_list], group=pg, async_op=a),
         list(in_tensor_list), sync_op, out_tensor_list)
+
+
+# ---- the context-parallel transport ---------------------------------------
+
+def _staged(pg, tensors) -> bool:
+    """Whether ``tensors`` move through pinned host memory: CUDA tensors
+    over gloo, whose send / recv cannot take device memory (and whose list
+    all-to-all refuses it)."""
+    return dist.get_backend(pg) == "gloo" and any(t.is_cuda for t in tensors)
+
+
+def _host_copy(t):
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def _start(tensors):
+    """The transfer's start on the host clock; with ``STATS["sync"]`` the
+    card's queued work finished first, so that the seconds are the
+    transfer's alone."""
+    if STATS["sync"] and any(t.is_cuda for t in tensors):
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _account(tensors, staged, t0):
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    seconds = time.perf_counter() - t0
+    STATS["calls"] += 1
+    STATS["bytes"] += nbytes
+    STATS["seconds"] += seconds
+    if staged:
+        STATS["staged_calls"] += 1
+        STATS["staged_bytes"] += nbytes
+        STATS["staged_seconds"] += seconds
+
+
+def ring_shift(tensors, group: ParallelGroup, offset: int = 1):
+    """Each rank of ``group`` sends ``tensors`` to group rank r + offset
+    and receives the same shapes from r - offset (``dist.batch_isend_irecv``;
+    ``offset`` taken modulo the group's size); returns what it received,
+    on the tensors' device. The ring of ring attention.
+
+    The backend decides how the bytes move: under NCCL the device tensors
+    themselves; under gloo a CUDA tensor is copied into pinned host memory,
+    sent, and the received host tensor copied back to the card (gloo ends
+    the process on a CUDA send). The attention kernels still run on the
+    card; only the transfer goes through the host. A shift by a multiple of
+    the group's size returns the tensors themselves."""
+    n = max(group.nranks, 1)
+    pg = _pg(group)
+    if pg is None or offset % n == 0:
+        return list(tensors)
+    r = group.rank
+    dst, src = group.ranks[(r + offset) % n], group.ranks[(r - offset) % n]
+    staged = _staged(pg, tensors)
+    t0 = _start(tensors)
+    send = [_host_copy(t) if staged else t.contiguous() for t in tensors]
+    recv = [torch.empty(t.shape, dtype=t.dtype, device=t.device,
+                        pin_memory=staged) for t in send]
+    ops = ([dist.P2POp(dist.isend, t, dst, pg, tag=i)
+            for i, t in enumerate(send)]
+           + [dist.P2POp(dist.irecv, t, src, pg, tag=i)
+              for i, t in enumerate(recv)])
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    out = [h.to(t.device) for h, t in zip(recv, tensors)] if staged else recv
+    if STATS["sync"] and tensors[0].is_cuda:
+        torch.cuda.synchronize()
+    _account(tensors, staged, t0)
+    return out
+
+
+def all_to_all_tiled(x: torch.Tensor, group: ParallelGroup, split_axis: int,
+                     concat_axis: int) -> torch.Tensor:
+    """The tiled all-to-all (``jax.lax.all_to_all(..., tiled=True)``): x
+    cut into the group's size along ``split_axis``, part j to group rank
+    j, and the parts received concatenated along ``concat_axis`` in group
+    order (``dist.all_to_all_single``). Ulysses' exchange. A CUDA tensor
+    moves as in ``ring_shift``: itself under NCCL, through pinned host
+    memory under gloo."""
+    n = max(group.nranks, 1)
+    pg = _pg(group)
+    if pg is None:
+        return x
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dimension {split_axis} of {tuple(x.shape)} does "
+                         f"not divide over {n} ranks")
+    staged = _staged(pg, [x])
+    t0 = _start([x])
+    parts = torch.stack(x.chunk(n, dim=split_axis), 0)
+    send = _host_copy(parts) if staged else parts
+    recv = torch.empty(send.shape, dtype=send.dtype, device=send.device,
+                       pin_memory=staged)
+    dist.all_to_all_single(recv, send, group=pg)
+    if staged:
+        recv = recv.to(x.device)
+    if STATS["sync"] and x.is_cuda:
+        torch.cuda.synchronize()
+    _account([x], staged, t0)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
 
 
 _p2p_buffer: list = []

@@ -1,8 +1,10 @@
 """``paddle.distributed.fleet`` of the PyTorch port: the collective path
 (``init``, ``distributed_model``, ``distributed_optimizer``,
-``DistributedStrategy``, the role makers) and ``meta_parallel``. The
-parameter server (``heter``), ``data_generator`` and ``utils.recompute``
-are not ported yet: ROADMAP Queue 1 item 15."""
+``DistributedStrategy``, the role makers), ``meta_parallel``, ``utils``
+(``recompute``: the module, as the reference exports it,
+``paddle_tpu/distributed/fleet/__init__.py:15``) and
+``meta_optimizers``. The parameter server (``heter``), ``data_generator``
+and ``elastic`` are not ported yet: ROADMAP Queue 1 item 15."""
 from __future__ import annotations
 
 from .distributed_strategy import DistributedStrategy  # noqa: F401
@@ -13,9 +15,10 @@ from .fleet_base import (Fleet, barrier_worker,  # noqa: F401
 from .role_maker import (PaddleCloudRoleMaker, Role,  # noqa: F401
                          UserDefinedRoleMaker)
 from . import meta_parallel  # noqa: F401
+from . import meta_optimizers, utils  # noqa: F401
+from .utils import recompute  # noqa: F401
 
-_NOT_PORTED = {"heter", "data_generator", "utils", "recompute", "elastic",
-               "meta_optimizers"}
+_NOT_PORTED = {"heter", "data_generator", "elastic"}
 
 
 def __getattr__(name):

@@ -29,35 +29,18 @@ from . import collective as C
 def _bucketed_all_reduce(grads, group, bucket_bytes, average=True):
     """All-reduce ``grads`` (dense tensors) over ``group`` in place, packed
     into flat buckets of at most ``bucket_bytes`` (one dtype a bucket; a
-    larger tensor goes alone), each divided by the group's size when
-    ``average``."""
+    larger tensor goes alone: fleet's ``internal_storage``), each divided
+    by the group's size when ``average``."""
+    from .fleet.utils.internal_storage import reduce_in_place
     n = max(group.nranks, 1)
-    by_dtype = {}
-    for g in grads:
-        by_dtype.setdefault(g.dtype, []).append(g)
 
-    def flush(bucket):
-        if not bucket:
-            return
-        flat = torch.cat([g.reshape(-1) for g in bucket])
+    def reduce(flat):
         C.all_reduce(flat, group=group)
         if average:
             flat.div_(n)
-        off = 0
-        for g in bucket:
-            g.copy_(flat[off:off + g.numel()].view_as(g))
-            off += g.numel()
+        return flat
 
-    for gs in by_dtype.values():
-        bucket, size = [], 0
-        for g in gs:
-            nbytes = g.numel() * g.element_size()
-            if bucket and size + nbytes > bucket_bytes:
-                flush(bucket)
-                bucket, size = [], 0
-            bucket.append(g)
-            size += nbytes
-        flush(bucket)
+    reduce_in_place(grads, reduce, bucket_bytes)
 
 
 class DataParallel(Layer):

@@ -3,8 +3,9 @@ from .bert import (BertConfig, BertForPretraining,  # noqa: F401
                    bert_pretrain_step_factory)
 from .gpt import (GPTConfig, GPTForCausalLM,  # noqa: F401
                   gpt_pretrain_step_factory)
-from .llama import (LlamaConfig, LlamaForCausalLM, apply_rotary,  # noqa: F401
-                    llama_train_step_factory, load_numpy_state_dict)
+from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel,  # noqa: F401
+                    apply_rotary, llama_train_step_factory,
+                    load_numpy_state_dict)
 from .llama_decode import (PagedOnlyDense, llama_decode_factory,  # noqa: F401
                            llama_paged_decode_factory,
                            llama_serving_decode_factory,

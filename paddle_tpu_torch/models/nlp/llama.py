@@ -7,7 +7,7 @@ Counterpart of ``paddle_tpu/models/nlp/llama.py`` (``LlamaConfig``,
 and ``LlamaForCausalLM`` with ``generate``, ``llama.py:180-476``, and
 ``llama_train_step_factory``, ``llama.py:500-738``, on one device or
 on a mesh of processes, with ``param_shardings`` and the tensor /
-context-parallel setters, ``:96-135``, ``:481-497``). Layouts are the
+context-parallel setters, ``:85-140``, ``:481-497``). Layouts are the
 reference's: every projection weight is ``(in, out)`` and is applied as
 ``x @ w``, and ``state_dict()`` keys equal the reference's, fused
 projections included (``qkv_proj``, ``gate_up_proj``), so a reference
@@ -307,15 +307,16 @@ class LlamaForCausalLM(Layer):
         return out
 
 
-# --- tensor and context parallelism (llama.py:85-135) ----------------------
-# The mesh whose model axis splits the heads: set by the train-step factory
-# around its forward (``set_tensor_parallel_mesh``); ``llama_functional``
-# then runs the layer math on this rank's shards.
+# --- tensor and context parallelism (llama.py:85-140) ----------------------
+# The mesh whose model axis splits the heads, and the one whose "sep" axis
+# splits the sequence: set by the train-step factory around its forward
+# (``set_tensor_parallel_mesh``, ``set_context_parallel_mesh``);
+# ``llama_functional`` then runs the layer math on this rank's shards and
+# chunk.
 _TP = {"mesh": None, "axis": "model"}
 _CP = {"mesh": None, "axis": "sep"}
-SEP_PIPE_NOT_PORTED = ("a {axis!r} axis above 1 is not ported yet: ROADMAP "
-                       "Queue 1 item 15 (ring and Ulysses attention, the "
-                       "pipeline)")
+PIPE_NOT_PORTED = ("a {axis!r} axis above 1 is not ported yet: ROADMAP "
+                   "Queue 1 item 15 (the pipeline)")
 
 
 def set_tensor_parallel_mesh(mesh, axis: str = "model"):
@@ -332,12 +333,25 @@ def _tensor_parallel_mesh():
 
 
 def set_context_parallel_mesh(mesh, axis: str = "sep"):
-    """The mesh whose ``axis`` splits the sequence (None: none). An axis
-    above 1 needs ring attention, which is refused."""
-    if mesh is not None and mesh.shape.get(axis, 1) > 1:
-        raise NotImplementedError(SEP_PIPE_NOT_PORTED.format(axis=axis))
+    """The mesh whose ``axis`` splits the sequence over its ranks (None:
+    none). Under one, each rank holds its chunk of the sequence and the
+    attention runs ring, window-ring or Ulysses attention over the axis
+    (``llama_functional``)."""
     _CP["mesh"] = mesh
     _CP["axis"] = axis
+
+
+def _context_parallel_mesh():
+    """(mesh, axis) of the context-parallel mesh set, else of the global
+    mesh when its "sep" axis is above 1, else (None, None)."""
+    mesh, axis = _CP["mesh"], _CP["axis"]
+    if mesh is not None and mesh.shape.get(axis, 1) > 1:
+        return mesh, axis
+    from ...distributed.topology import get_global_mesh
+    g = get_global_mesh()
+    if g is not None and g.shape.get("sep", 1) > 1:
+        return g, "sep"
+    return None, None
 
 
 # the reference's sharding annotations of the Llama layers (llama.py
@@ -463,11 +477,11 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
     never built. Requires tied word embeddings (ValueError otherwise, as
     in the reference).
 
-    mesh: a ``distributed.build_mesh`` over the axes "data", "model" and
-    "sharding" (keyword only), one rank of it per process; see
-    ``_mesh_step``. A "sep" or "pipe" axis above 1 is refused (ROADMAP
-    Queue 1 item 15), and so is ``chunked_vocab_ce`` with a model axis
-    above 1, as in the reference."""
+    mesh: a ``distributed.build_mesh`` over the axes "data", "sharding",
+    "sep" and "model" (keyword only), one rank of it per process; see
+    ``_mesh_step``. A "pipe" axis above 1 is refused (ROADMAP Queue 1 item
+    15), and so is ``chunked_vocab_ce`` with a model axis above 1, as in
+    the reference."""
     from .llama_functional import (CHUNKED_NEEDS_TIED, _check_remat,
                                    loss_fn, param_views)
     from .train_utils import apply_adamw, make_adamw_state
@@ -519,12 +533,22 @@ def _mesh_step(model, mesh, dev, lr, weight_decay, beta1, beta2, eps,
       fused projections by component), new tensors: the model keeps its
       own weights and is not trained;
     * ``train_step`` takes the global batch; the rank keeps its rows of
-      "data" (the batch is replicated over the other axes);
-    * the loss is the global mean: without a model axis the fused CE
-      kernels on the rank's rows, with one the vocabulary-split f32 CE;
-      then averaged over "data" (the value returned);
-    * gradients are averaged over "data"; over "sharding" the batch is
-      replicated, so each rank's gradient is whole already;
+      "data" and its columns of "sep" (its chunk of the sequence; tokens
+      and labels cut alike, no label shift, as in the reference,
+      ``:595-601``); the batch is replicated over the other axes;
+    * under a "sep" axis above 1 the attention runs over the axis's ranks
+      (``set_context_parallel_mesh``: ring, window-ring or Ulysses
+      attention, ``llama_functional._attention``) and the rotary takes the
+      chunk's global positions; a model axis keeps splitting the heads
+      (the reference turns its TP mesh off under "sep", ``:567-571``, and
+      lets GSPMD split them: the same function);
+    * the loss is the global mean: each rank's mean over its rows and
+      chunk (the fused CE kernels without a model axis, the
+      vocabulary-split f32 CE with one), averaged over "data" and "sep"
+      (``:603-622``; the value returned);
+    * gradients are averaged over "data" and "sep" (the parameters are
+      replicated over both); over "sharding" the batch is replicated, so
+      each rank's gradient is whole already;
     * the update is ZeRO-1 over "sharding" (``train_utils``: each rank
       updates its slice of every moment and parameter and the parameters
       are all-gathered), in pinned host memory with
@@ -539,9 +563,8 @@ def _mesh_step(model, mesh, dev, lr, weight_decay, beta1, beta2, eps,
     if unknown:
         raise ValueError(f"mesh axes {sorted(unknown)} are not among "
                          f"{MESH_AXES}")
-    for axis in ("sep", "pipe"):
-        if shape.get(axis, 1) > 1:
-            raise NotImplementedError(SEP_PIPE_NOT_PORTED.format(axis=axis))
+    if shape.get("pipe", 1) > 1:
+        raise NotImplementedError(PIPE_NOT_PORTED.format(axis="pipe"))
     has_model = shape.get("model", 1) > 1
     if chunked_vocab_ce and has_model:
         raise ValueError(
@@ -563,10 +586,13 @@ def _mesh_step(model, mesh, dev, lr, weight_decay, beta1, beta2, eps,
                   for k, v in model.named_parameters()}
     opt_state = make_adamw_state(params, accum_dtype, offload=offload_moments,
                                  mesh=mesh, shardings=specs)
-    dp = shape.get("data", 1)
-    row = coords.get("data", 0)
-    data = mesh.group("data") if "data" in shape else None
+    dp, sp = shape.get("data", 1), shape.get("sep", 1)
+    row, col = coords.get("data", 0), coords.get("sep", 0)
+    # the groups a gradient and the loss are averaged over
+    averaged = [mesh.group(a) for a, n in (("data", dp), ("sep", sp))
+                if n > 1]
     tp_mesh = mesh if has_model else None
+    cp_mesh = mesh if sp > 1 else None
     n_layers = cfg.num_hidden_layers
 
     def train_step(params, opt_state, tokens, labels):
@@ -575,23 +601,29 @@ def _mesh_step(model, mesh, dev, lr, weight_decay, beta1, beta2, eps,
         if tokens.shape[0] % dp:
             raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
                              f"divide over data={dp}")
-        b = tokens.shape[0] // dp
-        tokens, labels = (t[row * b:(row + 1) * b] for t in (tokens, labels))
+        if tokens.shape[1] % sp:
+            raise ValueError(f"a sequence of {tokens.shape[1]} tokens does "
+                             f"not divide over sep={sp}")
+        b, s = tokens.shape[0] // dp, tokens.shape[1] // sp
+        tokens, labels = (t[row * b:(row + 1) * b, col * s:(col + 1) * s]
+                          for t in (tokens, labels))
         keys = list(params)
-        prev = (_TP["mesh"], _TP["axis"])
+        prev = (_TP["mesh"], _TP["axis"], _CP["mesh"], _CP["axis"])
         set_tensor_parallel_mesh(tp_mesh)
+        set_context_parallel_mesh(cp_mesh)
         try:
             outer, layers = param_views(params, n_layers)
             loss = loss_fn(cfg, outer, layers, tokens, labels, remat,
                            chunked_vocab_ce)
             grads = list(torch.autograd.grad(loss, [params[k] for k in keys]))
         finally:
-            set_tensor_parallel_mesh(*prev)
+            set_tensor_parallel_mesh(*prev[:2])
+            set_context_parallel_mesh(*prev[2:])
         loss = loss.detach().clone()
-        if dp > 1:
+        for group in averaged:
             with torch.no_grad():
-                _bucketed_all_reduce(grads, data, GRAD_BUCKET_BYTES)
-            all_reduce(loss, op=ReduceOp.AVG, group=data)
+                _bucketed_all_reduce(grads, group, GRAD_BUCKET_BYTES)
+            all_reduce(loss, op=ReduceOp.AVG, group=group)
         apply_adamw(params, grads, opt_state, lr, beta1, beta2, eps,
                     weight_decay, accum_dtype, offload=offload_moments,
                     mesh=mesh)

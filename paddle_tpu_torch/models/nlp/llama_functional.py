@@ -7,9 +7,9 @@ PyTorch runs eagerly, so ``forward`` is a Python loop over a list of
 per-layer dicts (views of a model's own parameters: ``param_views``).
 
 Attention follows the branches of the reference's
-``LlamaAttention.forward`` (``llama.py:239-305``, ``:359-376``); of its
-mesh branches, the model axis (tensor parallelism, below) is ported, and
-the sequence axis (ring and Ulysses attention) is not:
+``LlamaAttention.forward`` (``llama.py:239-376``), its mesh branches
+included (the model axis, tensor parallelism, and the sequence axis,
+context parallelism: below). On one rank:
 
 * ``sliding_window`` shorter than the sequence, at a flash-eligible
   shape: ``splash_attention`` over the banded block mask, with K/V at the
@@ -38,6 +38,26 @@ all-reduced (``mp_allreduce``); the head's vocabulary columns into the
 vocabulary-parallel f32 CE (``parallel_cross_entropy``), the reference's
 dense branch for a model axis.
 
+Under a "sep" axis of several ranks (``llama.set_context_parallel_mesh``,
+set by the train-step factory on a mesh with one; or a global mesh with
+one, as in the reference), each rank holds its chunk of S/n positions and
+``_attention`` routes as the reference's ``attn`` does under a
+context-parallel mesh (``llama.py:239-262``, ``:316-357``):
+
+* a ``sliding_window`` shorter than the whole sequence:
+  ``ring_window_attention`` (the splash kernels per chunk pair);
+* otherwise, by the flag ``context_parallel_backend``: ``"ulysses"``
+  where the rank's query heads divide the axis (K/V repeated to the query
+  heads; the multi-head flash kernels over the whole sequence), else
+  ``ring_attention`` with K/V at the rank's kv head count (the grouped
+  flash kernels per chunk; the reference repeats K/V where the kv heads
+  do not divide a model axis, where the port's ranks hold the kv heads
+  their query heads read: the same function).
+
+The rotary takes the chunk's global positions, c·S/n + 0..S/n-1 for the
+rank at coordinate c (explicit ``positions`` are the rank's own). With a
+model axis too, the attention runs on the rank's heads and its chunk.
+
 Every kernel path runs its plain version on the CPU. The loss is
 ``causal_lm_loss``, the fused CE kernels (their plain version on the
 CPU), or with ``chunked_vocab_ce`` the chunked head-and-CE of
@@ -63,6 +83,7 @@ from ...ops.flash_attention_gqa import grouped_flash_attention
 from ...ops.fused_ce import causal_lm_loss
 from ...ops.splash_attention import banded_block_mask, splash_attention
 from ...parallel.pallas_sharding import local_heads, shard_map_attention
+from ...parallel.ring_attention import WINDOW_MASK_BLOCK
 from .llama import LlamaForCausalLM, apply_rotary
 
 LAYER_KEYS = [
@@ -127,12 +148,6 @@ def _rms(x, w, eps):
     return y.to(x.dtype) * w
 
 
-# block size of the banded mask given to the splash kernels: the mask is
-# read per element inside the kernels' tiles, so it sets no work, and 128
-# divides every flash-eligible length
-WINDOW_MASK_BLOCK = 128
-
-
 def _dense_attention(qt, kt, vt, window=None):
     """The dense causal path (``llama_functional.py:113-120``; with a
     window, ``llama.py:141-153``): K/V repeated to the query heads, the
@@ -153,9 +168,35 @@ def _dense_attention(qt, kt, vt, window=None):
     return torch.einsum("bhqk,bhkd->bhqd", probs, vt)
 
 
+def _context_parallel_attention(cfg, qt, kt, vt, mesh, axis):
+    """The rank's chunk of causal attention over the sequence whose chunks
+    lie on ``mesh``'s ``axis``, by the routing of the module docstring."""
+    from ...core.flags import get_flag
+    from ...parallel.ring_attention import (ring_attention,
+                                            ring_window_attention)
+    from ...parallel.ulysses import ulysses_attention
+    n = mesh.shape[axis]
+    window = cfg.sliding_window
+    if window is not None and window < qt.shape[2] * n:
+        return ring_window_attention(qt, kt, vt, mesh, window, axis=axis)
+    if get_flag("context_parallel_backend") == "ulysses" \
+            and qt.shape[1] % n == 0:
+        G = qt.shape[1] // kt.shape[1]
+        if G > 1:
+            # Ulysses splits the heads: K/V at the query heads' count
+            kt = kt.repeat_interleave(G, dim=1)
+            vt = vt.repeat_interleave(G, dim=1)
+        return ulysses_attention(qt, kt, vt, mesh, axis=axis, causal=True)
+    return ring_attention(qt, kt, vt, mesh, axis=axis, causal=True)
+
+
 def _attention(cfg, qt, kt, vt):
     """Causal attention of q (B, nh, S, hd) over k/v (B, nkv, S, hd), by
     the branches of the module docstring."""
+    from .llama import _context_parallel_mesh
+    cp_mesh, cp_axis = _context_parallel_mesh()
+    if cp_mesh is not None:
+        return _context_parallel_attention(cfg, qt, kt, vt, cp_mesh, cp_axis)
     S, hd = qt.shape[2], qt.shape[3]
     window = cfg.sliding_window
     flash = flash_eligible(S, hd, qt.dtype)
@@ -247,11 +288,23 @@ def _local_qkv(cfg, p, h, prefix, group):
     return q.reshape(B, S, plan.q_count, hd), k, v
 
 
+def _rotary_positions(S, device, positions):
+    """``positions``, or by default 0..S-1 shifted to the chunk's global
+    positions under a context-parallel mesh."""
+    if positions is not None:
+        return positions
+    from .llama import _context_parallel_mesh
+    pos = torch.arange(S, device=device)
+    mesh, axis = _context_parallel_mesh()
+    return pos if mesh is None else pos + mesh.coordinate(axis) * S
+
+
 def attention(cfg, p: Dict[str, torch.Tensor], h, positions=None,
               prefix="self_attn."):
     """The attention of the normed input h (B, S, H) over the weights under
     ``prefix``: projections, the rotary at ``positions`` ((S,) or (B, S);
-    0..S-1 by default), causal attention (``_attention``), the output
+    0..S-1 by default, the chunk's global positions under a
+    context-parallel mesh), causal attention (``_attention``), the output
     projection. Under a model group: the rank's heads, the output summed
     over the group."""
     group = _model_group()
@@ -263,8 +316,7 @@ def attention(cfg, p: Dict[str, torch.Tensor], h, positions=None,
     q, k, v = _qkv(cfg, p, h, prefix)
     q, k, v = (q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd),
                v.reshape(B, S, nkv, hd))
-    pos = torch.arange(S, device=h.device) if positions is None \
-        else positions
+    pos = _rotary_positions(S, h.device, positions)
     q = apply_rotary(q, pos, cfg.rope_theta)
     k = apply_rotary(k, pos, cfg.rope_theta)
     ctx = _attention(cfg, q.transpose(1, 2), k.transpose(1, 2),
@@ -277,8 +329,7 @@ def _attention_tp(cfg, p, h, positions, prefix, group):
     from .llama import _tensor_parallel_mesh
     B, S, H = h.shape
     q, k, v = _local_qkv(cfg, p, h, prefix, group)
-    pos = torch.arange(S, device=h.device) if positions is None \
-        else positions
+    pos = _rotary_positions(S, h.device, positions)
     q = apply_rotary(q, pos, cfg.rope_theta)
     k = apply_rotary(k, pos, cfg.rope_theta)
     mesh, axis = _tensor_parallel_mesh()

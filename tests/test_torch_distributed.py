@@ -175,7 +175,15 @@ def test_collectives_against_numpy(world):
         if r in (1, 3):
             np.testing.assert_array_equal(o["group_sum"], data[1] + data[3])
         np.testing.assert_array_equal(o["split"], [2.0 * r, 2.0 * r + 1])
-    np.testing.assert_array_equal(outs[1]["reduce"], stacked.sum(0))
+    ints = np.stack([R.rank_int_data(r) for r in range(WORLD)])
+    for r, o in enumerate(outs):
+        # every rank ends with the reduction, as in the reference
+        np.testing.assert_array_equal(o["reduce"], stacked.sum(0))
+        for name in ("all_reduce", "reduce"):
+            got = o[f"{name}_avg_int64"]
+            assert got.dtype == np.int64
+            np.testing.assert_array_equal(
+                got, np.trunc(ints.mean(0)).astype(np.int64))
 
 
 def test_identity_collectives_match_the_reference_process():

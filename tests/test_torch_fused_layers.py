@@ -111,3 +111,27 @@ def test_dropout_keeps_half_at_p_half():
         torch.full((64, 256), 100.0), torch.rand(64, 256) - 0.5,
         torch.ones(256), torch.zeros(256), p=0.5, generator=gen)
     assert abs(float((out > 0).float().mean()) - 0.5) < 0.02
+
+
+def test_incubate_subpackages_resolve_after_the_package_import():
+    """In a fresh process, ``import paddle_tpu_torch as paddle`` makes
+    ``paddle.incubate.nn`` and ``paddle.incubate.distributed`` attributes,
+    as the reference's ``incubate/__init__`` does; a name not ported yet
+    is refused by name."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import paddle_tpu_torch as paddle\n"
+            "print(paddle.incubate.nn.FusedMultiTransformer.__name__)\n"
+            "print(paddle.incubate.distributed.models.moe.__name__)\n"
+            "try:\n    paddle.incubate.LookAhead\n"
+            "except NotImplementedError as e:\n    print(e)\n")
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "FusedMultiTransformer"
+    assert lines[1].endswith("incubate.distributed.models.moe")
+    assert "item 16" in lines[2]

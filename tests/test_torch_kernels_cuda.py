@@ -2049,3 +2049,55 @@ def test_mesh_factory_on_the_card_matches_one_device(card, tmp_path):
             assert "error" not in got, got.get("error")
             np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
     assert all(tuple(r["dm"]["engaged"]["heads"]) == (2, 1) for r in ranks)
+
+
+@pytest.mark.cuda
+def test_two_rank_ring_on_the_card_matches_the_plain_version(card, tmp_path):
+    """Two gloo ranks on the one card: ``ring_attention`` (causal, G = 2,
+    the grouped flash kernels per chunk), ``ring_window_attention`` (the
+    splash kernels at q_offset S/2) and ``ulysses_attention`` (the
+    multi-head kernels over the whole sequence) at S/2 = 256, f32, each
+    rank's output chunk within 1e-5 and its q / k / v gradients within
+    1e-4 (relative and absolute: the kernel phase's f32 tolerances) of the
+    same ring over the plain versions on the CPU (K/V staged through host
+    memory on the card); the launches each rank's chunks call for: rank 1
+    runs the causal ring's two chunks, rank 0 one."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_dist_ranks as R
+
+    def case(kind, Hq, Hkv, causal=True, window=None, seed=0):
+        rng = np.random.default_rng(seed)
+        S, D = 512, 64
+        return dict(kind=kind, dims={"sep": 2}, causal=causal, window=window,
+                    **{x: rng.standard_normal((1, h, S, D)).astype(np.float32)
+                       for x, h in (("q", Hq), ("k", Hkv), ("v", Hkv),
+                                    ("do", Hq))})
+
+    cases = {"ring": case("ring", 4, 2), "window": case("window", 4, 2,
+                                                        window=300, seed=1),
+             "ulysses": case("ulysses", 4, 4, seed=2)}
+    ranks = R.run_world(tmp_path, 2, [
+        ("card", "sep_attention", dict(cases=cases, device="cuda")),
+        ("cpu", "sep_attention", dict(cases=cases, device="cpu"))],
+        device="gpu")
+    want_launches = {
+        "ring": [{"gqa_fwd": 1, "gqa_dq": 1, "gqa_dkv": 1},
+                 {"gqa_fwd": 2, "gqa_dq": 2, "gqa_dkv": 2}],
+        "window": [{"splash_fwd": 1, "splash_dq": 1, "splash_dkv": 1},
+                   {"splash_fwd": 2, "splash_dq": 2, "splash_dkv": 2}],
+        "ulysses": [{"mha_fwd": 1, "mha_dq": 1, "mha_dkv": 1}] * 2}
+    for r in ranks:
+        for part in ("card", "cpu"):
+            assert "error" not in r[part], r[part].get("error")
+        for name in cases:
+            got, want = r["card"][name], r["cpu"][name]
+            assert got["launches"] == want_launches[name][got["sep"]], name
+            assert want["launches"] == {}
+            for key in ("out", "dq", "dk", "dv"):
+                err = float(np.abs(got[key] - want[key]).max())
+                print(f"ring on the card: {name} {key} max |err| {err:.3g}")
+                tol = 1e-5 if key == "out" else 1e-4
+                np.testing.assert_allclose(got[key], want[key], rtol=tol,
+                                           atol=tol, err_msg=(name, key))

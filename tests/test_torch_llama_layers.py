@@ -269,3 +269,11 @@ def test_moe_logits_match_jax():
     got = port(torch.from_numpy(ids))
     np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
     assert all(isinstance(m, tp.nn.Layer) for m in port.sublayers())
+
+
+def test_llama_model_is_exported_as_in_the_reference():
+    """``models.nlp`` exports ``LlamaModel``, as the reference's does."""
+    import paddle_tpu.models.nlp as ref_nlp
+    import paddle_tpu_torch.models.nlp as port_nlp
+    assert ref_nlp.LlamaModel.__name__ == port_nlp.LlamaModel.__name__
+    assert port_nlp.LlamaModel is tllama.LlamaModel

@@ -124,7 +124,14 @@ for name in ("paddle_tpu_torch.ops.flash_attention",
              "paddle_tpu_torch.distributed.fleet.meta_parallel"
              ".hybrid_parallel_optimizer",
              "paddle_tpu_torch.parallel",
-             "paddle_tpu_torch.parallel.pallas_sharding"):
+             "paddle_tpu_torch.parallel.pallas_sharding",
+             "paddle_tpu_torch.parallel.ring_attention",
+             "paddle_tpu_torch.parallel.ulysses",
+             "paddle_tpu_torch.distributed.fleet.utils",
+             "paddle_tpu_torch.distributed.fleet.utils.recompute",
+             "paddle_tpu_torch.distributed.fleet.utils.fs",
+             "paddle_tpu_torch.distributed.fleet.utils.internal_storage",
+             "paddle_tpu_torch.distributed.fleet.meta_optimizers"):
     assert name in names, name
 """
 

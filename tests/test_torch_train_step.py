@@ -19,7 +19,7 @@ by ``load_numpy_state_dict``) and the same numpy batch:
   (``sliding_window`` 64 < S: grouped splash), a multi-head config
   (kv_heads == heads: multi-head flash) and a windowed multi-head one
   (splash at G = 1), each a variant of the config above;
-* the refusal of the mesh axes the port has not ported ("sep", "pipe").
+* the refusal of the mesh axis the port has not ported ("pipe").
 
 Tolerances (f32 on both sides, apart by the order of sums only): logits
 atol 1e-4 (reading 4e-6); loss atol 1e-5 (reading 1e-6); gradients atol
@@ -138,21 +138,21 @@ def test_three_train_steps_match_jax(remat):
 
 
 def test_factory_refuses_unported_options():
-    """Of the mesh's axes only "sep" and "pipe" above 1 are still refused,
-    by name (ROADMAP item 15); ``remat`` outside False / True / "dots" and
-    a window below 1 are errors. The options ported since (remat="dots",
+    """Of the mesh's axes only "pipe" above 1 is still refused, by name
+    (ROADMAP item 15); ``remat`` outside False / True / "dots" and a
+    window below 1 are errors. The options ported since (remat="dots",
     offload_moments, chunked_vocab_ce, positions, fused projections) are
     held against the JAX package in tests/test_torch_train_options.py,
     the mesh's data / model / sharding axes in
-    tests/test_torch_llama_mesh.py."""
+    tests/test_torch_llama_mesh.py, its "sep" axis in
+    tests/test_torch_llama_sep.py."""
     import types
     _, tm, _ = _models()
-    for axis in ("sep", "pipe"):
-        mesh = types.SimpleNamespace(shape={"data": 1, axis: 2},
-                                     axis_names=("data", axis))
-        with pytest.raises(NotImplementedError,
-                           match=f"'{axis}' axis above 1 .* item 15"):
-            llama_train_step_factory(tm, device="cpu", mesh=mesh)
+    mesh = types.SimpleNamespace(shape={"data": 1, "pipe": 2},
+                                 axis_names=("data", "pipe"))
+    with pytest.raises(NotImplementedError,
+                       match="'pipe' axis above 1 .* item 15"):
+        llama_train_step_factory(tm, device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="remat"):
         llama_train_step_factory(tm, device="cpu", remat="full")
     with pytest.raises(ValueError, match="sliding_window"):

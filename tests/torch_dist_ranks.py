@@ -68,6 +68,13 @@ def rank_data(r, shape=(2, 3)):
             + 10.0 * r + 1.0)
 
 
+def rank_int_data(r, shape=(2, 3)):
+    """The int64 tensor rank ``r`` contributes to the integer averages:
+    sums that 4 ranks do not divide, of both signs."""
+    return (np.arange(np.prod(shape), dtype=np.int64).reshape(shape) * 7
+            - 9 + 5 * r)
+
+
 # --- test_torch_distributed.py ----------------------------------------------
 
 def collectives():
@@ -90,6 +97,15 @@ def collectives():
     t = x.clone()
     D.reduce(t, dst=1)
     out["reduce"] = t.numpy()
+    # integers: the mean in the tensor's dtype, truncated, as the
+    # reference's jnp.mean(...).astype(dtype)
+    xi = torch.from_numpy(rank_int_data(r))
+    for name, fn in (("all_reduce", lambda t: D.all_reduce(
+            t, op=D.ReduceOp.AVG)), ("reduce", lambda t: D.reduce(
+            t, dst=1, op=D.ReduceOp.AVG))):
+        t = xi.clone()
+        fn(t)
+        out[f"{name}_avg_int64"] = t.numpy()
     t = torch.empty_like(x)
     D.scatter(t, [x + 100.0 * i for i in range(w)] if r == 0 else None,
               src=0)
@@ -432,11 +448,14 @@ def rng_tracker():
 # --- test_torch_llama_mesh.py ------------------------------------------------
 
 def llama_mesh(dims, cfg, state, tokens, labels, steps=3, lr=1e-3,
-               offload=False, remat=False):
+               offload=False, remat=False, backend="ring"):
     """``llama_train_step_factory(model, mesh=build_mesh(dims))`` from the
     full ``state``: the losses of ``steps`` steps, this rank's shards after
-    them, the moments' bytes, the attention's local heads."""
+    them, the moments' bytes, the attention's local heads, the
+    context-parallel routes taken in the first step (the flag
+    ``context_parallel_backend`` set to ``backend``)."""
     from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.core.flags import set_flags
     from paddle_tpu_torch.models.nlp import (LlamaConfig, LlamaForCausalLM,
                                              load_numpy_state_dict)
     from paddle_tpu_torch.models.nlp.llama import llama_train_step_factory
@@ -450,17 +469,23 @@ def llama_mesh(dims, cfg, state, tokens, labels, steps=3, lr=1e-3,
         model, mesh=mesh, learning_rate=lr, remat=remat,
         offload_moments=offload)
     first = {k: v.detach().cpu().numpy().copy() for k, v in params.items()}
-    losses = []
-    for _ in range(steps):
-        params, opt, loss = step(params, opt, tokens, labels)
-        losses.append(float(loss))
+    called = _spy_routes()
+    losses, routes = [], None
+    set_flags({"context_parallel_backend": backend})
+    try:
+        for _ in range(steps):
+            params, opt, loss = step(params, opt, tokens, labels)
+            losses.append(float(loss))
+            routes = list(called) if routes is None else routes
+    finally:
+        set_flags({"context_parallel_backend": "ring"})
     moment = sum(m.numel() * m.element_size() for m in opt["m"].values())
     return {"losses": losses, "first": first,
             "params": {k: v.detach().cpu().numpy()
                        for k, v in params.items()},
             "moment_bytes": moment,
             "moment_shapes": {k: tuple(m.shape) for k, m in opt["m"].items()},
-            "engaged": dict(pallas_sharding.ENGAGED),
+            "engaged": dict(pallas_sharding.ENGAGED), "routes": routes,
             "coords": {a: mesh.coordinate(a) for a in mesh.axis_names}}
 
 
@@ -471,3 +496,148 @@ def fail_on_rank(bad_rank):
     if int(os.environ["PADDLE_GLOBAL_RANK"]) == bad_rank:
         raise RuntimeError("this rank fails")
     time.sleep(60)
+
+
+# --- test_torch_ring_attention.py --------------------------------------------
+
+def sep_attention(cases, device="cpu"):
+    """Each case ({name: dict(kind, dims, q, k, v, do, causal, window)}, the
+    arrays global) on this rank's chunk of the sequence, its tensors on
+    ``device``: the output chunk and the q / k / v gradients of
+    sum(out * do), and the attention kernels' launches."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+    from paddle_tpu_torch.ops.flash_attention_gqa import \
+        grouped_flash_attention
+    from paddle_tpu_torch.ops.splash_attention import splash_attention
+    from paddle_tpu_torch.parallel import (ring_attention,
+                                           ring_window_attention,
+                                           ulysses_attention)
+    out = {}
+    meshes = {}
+    for name, c in cases.items():
+        key = tuple(c["dims"].items())
+        mesh = meshes.get(key) or meshes.setdefault(key,
+                                                    D.build_mesh(c["dims"]))
+        n, i = mesh.shape["sep"], mesh.coordinate("sep")
+
+        def mine(a):
+            s = a.shape[2] // n
+            return torch.from_numpy(a[:, :, i * s:(i + 1) * s].copy()).to(
+                device)
+
+        owners = (flash_attention, grouped_flash_attention, splash_attention)
+        before = [(o.launches_fwd, o.launches_dq, o.launches_dkv)
+                  for o in owners]
+        q, k, v = (mine(c[x]).requires_grad_(True) for x in "qkv")
+        if c["kind"] == "ring":
+            o = ring_attention(q, k, v, mesh, causal=c["causal"])
+        elif c["kind"] == "window":
+            o = ring_window_attention(q, k, v, mesh, c["window"])
+        else:
+            o = ulysses_attention(q, k, v, mesh, causal=c["causal"])
+        o.backward(mine(c["do"]))
+        launches = {
+            f"{kind}_{part}": getattr(owner, f"launches_{part}") - b[j]
+            for kind, owner, b in zip(("mha", "gqa", "splash"), owners,
+                                      before)
+            for j, part in enumerate(("fwd", "dq", "dkv"))}
+        out[name] = {"out": o.detach().cpu().numpy(),
+                     "dq": q.grad.cpu().numpy(), "dk": k.grad.cpu().numpy(),
+                     "dv": v.grad.cpu().numpy(), "sep": i,
+                     "launches": {k_: n_ for k_, n_ in launches.items()
+                                  if n_}}
+    return out
+
+
+def _spy_routes():
+    """Wrap the three context-parallel entry points where the Llama
+    attention looks them up; returns the list of the names called."""
+    import importlib
+    # the package's attributes of these names are the functions
+    ra = importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+    ul = importlib.import_module("paddle_tpu_torch.parallel.ulysses")
+    called = []
+    for mod, name in ((ra, "ring_attention"), (ra, "ring_window_attention"),
+                      (ul, "ulysses_attention")):
+        fn = getattr(mod, name)
+        fn = getattr(fn, "_spied", fn)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            called.append(_name)
+            return _fn(*a, **kw)
+
+        spy._spied = fn
+        setattr(mod, name, spy)
+    return called
+
+
+def llama_sep_attention(dims, cfg, state, x, dout, backends):
+    """``LlamaAttention`` (the Layer path) under
+    ``set_context_parallel_mesh``: the rank's chunk of x (B, S, H) in, its
+    output chunk and the gradients of sum(out * dout) for x's chunk and the
+    weights, with each flag value of ``backends``; the routes taken."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.models.nlp import (LlamaConfig,
+                                             load_numpy_state_dict)
+    from paddle_tpu_torch.models.nlp.llama import (LlamaAttention,
+                                                   set_context_parallel_mesh)
+    mesh = D.build_mesh(dims)
+    n, i = mesh.shape["sep"], mesh.coordinate("sep")
+    s = x.shape[1] // n
+    called = _spy_routes()
+    layer = LlamaAttention(LlamaConfig(**cfg), device="cpu")
+    load_numpy_state_dict(layer, state)
+    out = {"sep": i, "routes": {}}
+    set_context_parallel_mesh(mesh)
+    try:
+        for backend in backends:
+            set_flags({"context_parallel_backend": backend})
+            for p in layer.parameters():
+                p.grad = None
+            called.clear()
+            xi = torch.from_numpy(x[:, i * s:(i + 1) * s].copy())
+            xi.requires_grad_(True)
+            y = layer(xi)
+            y.backward(torch.from_numpy(dout[:, i * s:(i + 1) * s].copy()))
+            out[backend] = {
+                "out": y.detach().numpy(), "dx": xi.grad.numpy(),
+                "grads": {k: p.grad.numpy()
+                          for k, p in layer.named_parameters()}}
+            out["routes"][backend] = list(called)
+    finally:
+        set_context_parallel_mesh(None)
+        set_flags({"context_parallel_backend": "ring"})
+    return out
+
+
+# --- test_torch_fleet_utils.py -----------------------------------------------
+
+def meta_optimizers(init, grads, lr, momentum, k_steps, sparsity):
+    """Each of fleet's meta-optimizers around ``optimizer.Momentum`` on
+    parameters ``init`` ([array]), fed this rank's gradients
+    ``grads[rank][step]`` ([array]): the parameters after every step."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.fleet import meta_optimizers as M
+    r = D.get_rank()
+    wrappers = {
+        "gradient_merge": lambda o: M.GradientMergeOptimizer(o, k_steps),
+        "local_sgd": lambda o: M.LocalSGDOptimizer(o, k_steps),
+        "dgc": lambda o: M.DGCMomentumOptimizer(o, sparsity=sparsity)}
+    out = {}
+    for name, wrap in wrappers.items():
+        params = [torch.nn.Parameter(torch.from_numpy(a.copy()))
+                  for a in init]
+        opt = wrap(optimizer.Momentum(learning_rate=lr, momentum=momentum,
+                                      parameters=params))
+        seen = []
+        for step_grads in grads[r]:
+            for p, g in zip(params, step_grads):
+                p.grad = torch.from_numpy(g.copy())
+            opt.step()
+            opt.clear_grad()
+            seen.append([p.detach().numpy().copy() for p in params])
+        out[name] = seen
+    return out
