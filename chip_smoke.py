@@ -26,13 +26,16 @@ fused_decode
     python3 chip_smoke.py --phases build,static
     python3 chip_smoke.py --phases build,train_mesh
     python3 chip_smoke.py --phases build,kernel,train_sep
+    python3 chip_smoke.py --phases build,kernel,train_mesh_models
     python3 chip_smoke.py --phases build,train,train_mha,train_window \
         --plain-curves
 
 Phases, each printing JSON lines:
 
 1. ``build``: compile every kernel under ``paddle_tpu_torch/ops/kernels``
-   with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
+   with ``nvcc`` for ``sm_90a`` (one process per translation unit, a
+   source and its ``<name>_parts/``, all in parallel, then a link per
+   library; each library's and part's seconds recorded);
    then count the HGMMA (wgmma) instructions of each 16-bit attention
    kernel (forward, dq and dk/dv at head_dim 64, 128 and 256, bfloat16
    and float16, both libraries) and of each paged prefill instance
@@ -105,7 +108,9 @@ Phases, each printing JSON lines:
      2048 rows. Yardstick: ``F.cross_entropy(...,
      reduction="none")`` forward, and its backward alone.
    * multi-head flash once more at the train_encoder phase's call: B=32,
-     12 heads, S=512, head_dim 64, bf16, non-causal;
+     12 heads, S=512, head_dim 64, bf16, non-causal; and at a BERT data
+     rank's call in train_mesh_models, B=16 of the same (the MoE expert
+     ranks' grouped call there is train_moe's: G = 7 above);
    * the norm kernels of ``layer_norm.cu`` through ``fused_layer_norm``,
      ``fused_rms_norm`` (rows 12-13: entry points no model path calls) and
      ``fused_dropout_add_layer_norm`` (row 14): LayerNorm and RMSNorm at
@@ -678,7 +683,8 @@ Phases, each printing JSON lines:
     one card, over gloo (NCCL refuses two ranks of one communicator on one
     device; gloo stages CUDA tensors through host memory), train
     Llama-3-8B's widths at 2 of 32 layers, bf16, global B=2 x S=4096,
-    ``remat=False``, 3 steps (``TRAIN_MESH``). Beforehand this process
+    ``remat=False``, 2 steps (``TRAIN_MESH``, cut from 3: see
+    ``TRAIN_MESH_CUT``). Beforehand this process
     runs the same steps with ``mesh=None`` on the same weights and batch
     and keeps the losses and the final parameters on the host. On every
     rank: each step's loss within ``MESH_LOSS_RTOL`` of the single-device
@@ -692,7 +698,9 @@ Phases, each printing JSON lines:
     S=4096 four ranks would need about 72 GB of the card's 80): the same
     checks, the flash kernels on 32 / 8 heads, the fused CE forward and
     backward once a step each, and each rank's moment bytes half of the
-    unsharded ones. Records per mesh the median step ms, the seconds
+    unsharded ones. Both meshes run in one spawned world (each rank runs
+    A, then B): process start and rendezvous are paid once. Records per
+    mesh the median step ms, the seconds
     inside collectives (the card synchronised around each), the peak
     memory of each rank and the phase's seconds beside the card's name and
     power limit. These step times measure a correctness run: gloo on one
@@ -720,6 +728,32 @@ Phases, each printing JSON lines:
     memory and the phase's seconds beside the card's name and power
     limit. Gloo through host memory measures correctness, not the speed
     of a multi-GPU run.
+
+25. ``train_mesh_models``: the BERT, GPT, ResNet and MoE train-step
+    factories on meshes (``MESH_MODELS``), four processes on the one card
+    over gloo in one spawned world, each model against its single-device
+    step in this process on the same bf16 weights and global batch (the
+    single-device parameters handed over as a ``torch.save`` file the
+    ranks read with ``mmap``): BERT-base (12 layers, dropout 0) on
+    ``{"data": 2, "sharding": 2}`` at B=32 x 512; GPT-2 small on
+    ``{"data": 4}`` at B=32 x 1024; ResNet-50 at 1000 classes on
+    ``{"data": 4}`` at B=256 x 224 x 224, every batch norm on the global
+    batch's statistics; the MoE at Qwen2-57B-A14B's widths, 1 of 28
+    layers (its ``cut``), on ``{"expert": 4}`` (16 of 64 experts a rank)
+    at B=1 x 4096 with the chunked CE; 3 steps each. On every rank: each
+    step's loss within ``MESH_LOSS_RTOL`` of the single device's, each
+    parameter (cut to the rank's shard) within ``MESH_PARAM_REL`` or
+    ``MESH_MODEL_LEAF_FLOOR`` times a reordered-rows control's distance of
+    the same parameter (the key biases, whose gradient is noise, within 2 x
+    steps x lr), ResNet's buffers alike and after step 1 within
+    ``MESH_FIRST_BUFFER_REL``, BERT's moments half, the MoE's expert
+    share 0.25 and layer 0's routed experts and keep flags of step 1
+    equal to the single device's, and each step's launches
+    ``MESH_MODEL_LAUNCHES``: the multi-head flash kernels 12 + 12 + 12 in
+    BERT, the grouped ones 1 + 1 + 1 in the MoE, none in GPT and
+    ResNet. Records per model each rank's step ms, collective seconds,
+    calls and bytes, peak memory, build and model seconds, and the
+    phase's seconds beside the card's name and power limit.
 
 Then the card's name and power limit, the ``kernels`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -1060,20 +1094,32 @@ def _hgmma_counts(_build):
     from pathlib import Path
 
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    counts = {}
+    from concurrent.futures import ThreadPoolExecutor
     pattern = re.compile(r"(fwd|dkv|dq)_mmaILi(\d+)E.*?("
                          + "|".join(WGMMA_TYPES) + ")")
-    for lib in ("flash_attention_gqa", "splash_attention"):
-        counts.update(_sass_counts(
+
+    def attention(lib):
+        return _sass_counts(
             cuobjdump, _build.library_path(lib), pattern,
             lambda m: (f"{lib}:{m.group(1)}_mma<{m.group(2)}, "
-                       f"{WGMMA_TYPES[m.group(3)]}>")))
-    counts.update(_sass_counts(
-        cuobjdump, _build.library_path("paged_attention"),
-        re.compile(r"paged_prefill_mmaI(" + "|".join(PREFILL_POOLS)
-                   + r")Li(\d+)E"),
-        lambda m: (f"paged_attention:paged_prefill_mma<"
-                   f"{PREFILL_POOLS[m.group(1)]}, {m.group(2)}>")))
+                       f"{WGMMA_TYPES[m.group(3)]}>"))
+
+    def paged():
+        return _sass_counts(
+            cuobjdump, _build.library_path("paged_attention"),
+            re.compile(r"paged_prefill_mmaI(" + "|".join(PREFILL_POOLS)
+                       + r")Li(\d+)E"),
+            lambda m: (f"paged_attention:paged_prefill_mma<"
+                       f"{PREFILL_POOLS[m.group(1)]}, {m.group(2)}>"))
+
+    # the three dumps at once: each is a cuobjdump process of its own
+    with ThreadPoolExecutor(3) as pool:
+        parts = [pool.submit(attention, "flash_attention_gqa"),
+                 pool.submit(attention, "splash_attention"),
+                 pool.submit(paged)]
+    counts = {}
+    for part in parts:
+        counts.update(part.result())
     want = (2 * len(WGMMA_KERNELS) * len(WGMMA_DIMS) * len(WGMMA_TYPES)
             + len(PREFILL_POOLS) * len(WGMMA_DIMS))
     if len(counts) != want or not all(counts.values()):
@@ -1086,13 +1132,15 @@ def phase_build():
     from paddle_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    nvcc_s = {}
+    logs = _build.build_all(seconds=nvcc_s)
     for name, log in logs.items():
         if log.strip():
             print(f"[nvcc {name}]\n{log}", file=sys.stderr)
     seconds = time.perf_counter() - t0
     emit({"phase": "build", "ok": True, "sources": _build.sources(),
-          "seconds": seconds, "hgmma": _hgmma_counts(_build)})
+          "seconds": seconds, "nvcc_seconds": nvcc_s,
+          "hgmma": _hgmma_counts(_build)})
 
 
 # --- phase 2: the kernel against its plain version --------------------------
@@ -1895,6 +1943,11 @@ def phase_kernel(dev):
     mha_enc.append(_attention_case(
         "mha_transformer_B32_S512_D64_noncausal/bfloat16", "mha", 32, 8, 1,
         512, 512, 64, "bfloat16", 31, dev, flush, causal=False))
+    # and at a BERT data rank's call in train_mesh_models: half of the
+    # global batch of 32
+    mha_enc.append(_attention_case(
+        "mha_bert_rank_B16_S512_D64_noncausal/bfloat16", "mha", 16, 12, 1,
+        512, 512, 64, "bfloat16", 34, dev, flush, causal=False))
     for c in mha_enc:
         emit({"phase": "kernel", **c})
     norm = []
@@ -2593,10 +2646,10 @@ def _noise_of_the_card(dev):
     own = moe._noised
     card = torch.Generator(device=dev).manual_seed(MOE_NOISE_SEED)
 
-    def noised(logits, generator, eps_std):
+    def noised(logits, generator, eps_std, route=None):
         if generator is None or eps_std <= 0:
             return logits
-        return own(logits.to(dev), card, eps_std).to(logits.device)
+        return own(logits.to(dev), card, eps_std, route).to(logits.device)
 
     moe._noised = noised
     try:
@@ -5650,24 +5703,11 @@ def _qwen2_57b():
     return MoEConfig.qwen2_57b_a14b()
 
 
-def _routing_hooks(model, record):
-    """Forward hooks on every MoE layer: each call appends the layer's
-    (expert ids, keep) of its (token, choice) pairs, recomputed from its
-    input by the layer's own router and ``topk_gating_idx``."""
-    from paddle_tpu_torch.incubate.distributed.models.moe import \
-        topk_gating_idx
-
-    def hook(module, inputs, output):
-        x = inputs[0]
-        T = x.shape[0] * x.shape[1]
-        with torch.no_grad():
-            glt = module.gate.wg(x).reshape(T, -1).to(torch.float32)
-            eids, _, keep, _, _ = topk_gating_idx(glt, module.capacity(T),
-                                                  module.top_k)
-        record.append((eids, keep))
-
-    return [layer.mlp.register_forward_hook(hook) for layer in model.layers
-            if layer.use_moe]
+def _routings(model):
+    """Each MoE layer's (expert ids, keep) of its (token, choice) pairs in
+    the last forward (``MoELayer.routing``)."""
+    return [(layer.mlp.routing["eids"], layer.mlp.routing["keep"])
+            for layer in model.layers if layer.use_moe]
 
 
 def _moe_batch(vocab, B, S, seed, dev):
@@ -5683,16 +5723,11 @@ def _moe_grads_with(swap, model, params, tokens, labels, chunked):
     in place of the kernels."""
     from paddle_tpu_torch.models.nlp.moe import moe_loss
 
-    record = []
-    hooks = _routing_hooks(model, record)
-    try:
-        with _plain_versions("gqa", swap):
-            loss = moe_loss(model, tokens, labels, chunked)
-            grads = torch.autograd.grad(loss, list(params.values()))
-            torch.cuda.synchronize()
-    finally:
-        for h in hooks:
-            h.remove()
+    with _plain_versions("gqa", swap):
+        loss = moe_loss(model, tokens, labels, chunked)
+        record = _routings(model)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
     return float(loss.detach()), grads, record
 
 
@@ -5793,16 +5828,11 @@ def _moe_routing(res, chunked):
     for capacity."""
     from paddle_tpu_torch.models.nlp.moe import moe_loss
 
-    model, record = res["model"], []
-    hooks = _routing_hooks(model, record)
-    try:
-        with torch.no_grad():
-            loss = float(moe_loss(model, res["tokens"], res["labels"],
-                                  chunked))
-            aux = float(model.aux_loss())
-    finally:
-        for h in hooks:
-            h.remove()
+    model = res["model"]
+    with torch.no_grad():
+        loss = float(moe_loss(model, res["tokens"], res["labels"], chunked))
+        aux = float(model.aux_loss())
+    record = _routings(model)
     return {"loss": loss, "aux_loss": aux,
             "dropped_share_by_layer": [1 - float(keep.float().mean())
                                        for _, keep in record]}
@@ -8864,7 +8894,10 @@ def phase_static(dev, profile=False):
 # Llama-3-8B's widths at 2 of its 32 layers, bf16, random weights from a
 # seed, 3 steps of ``llama_train_step_factory(mesh=...)`` by four processes
 # on the one card over gloo; beside them, the same steps on one device.
-TRAIN_MESH = dict(layers=2, B=2, steps=3, lr=1e-3, seed=0, world=4)
+TRAIN_MESH = dict(layers=2, B=2, steps=2, lr=1e-3, seed=0, world=4)
+TRAIN_MESH_CUT = ("2 steps a mesh, both meshes in one spawned world (3 "
+                  "steps and a world each until train_mesh_models joined "
+                  "the script's 1200 s)")
 MESHES = {"A": ({"data": 2, "model": 2}, 4096),
           "B": ({"data": 2, "sharding": 2}, 2048)}
 MESH_SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
@@ -8956,11 +8989,30 @@ def _mesh_single(dev, S, path, cfg=None, t=TRAIN_MESH, steps=None):
     return losses, step_s
 
 
-def _mesh_rank(name, dims, S, ref_losses, ref_path, out_dir, device):
-    """One rank of a mesh world (in its own process): 3 factory steps
-    from 0 launch counts, then the checks against the single-device run
-    (a JSON file per rank)."""
+def _mesh_ranks(runs, out_dir, device):
+    """One rank of the mesh world (in its own process): each mesh of
+    ``runs`` ({name: (dims, S, single-device losses, their parameters'
+    path)}) in turn."""
     import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+
+    paddle.set_device(device)
+    # several ranks share the one card: gloo, not NCCL (which refuses two
+    # ranks of one communicator on one device)
+    D.init_parallel_env(backend="gloo")
+    dev = paddle.resolve_device(None)
+    for name, (dims, S, ref_losses, ref_path) in runs.items():
+        _mesh_rank(name, dims, S, ref_losses, ref_path, out_dir, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        D.barrier()
+    D.destroy_process_group()
+
+
+def _mesh_rank(name, dims, S, ref_losses, ref_path, out_dir, dev):
+    """One mesh on this rank: the factory steps from 0 launch counts,
+    then the checks against the single-device run (a JSON file per
+    rank)."""
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch.distributed import collective as C
     from paddle_tpu_torch.models.nlp import LlamaForCausalLM
@@ -8968,11 +9020,6 @@ def _mesh_rank(name, dims, S, ref_losses, ref_path, out_dir, device):
                                                    param_shardings,
                                                    shard_llama_tensor)
 
-    paddle.set_device(device)
-    # several ranks share the one card: gloo, not NCCL (which refuses two
-    # ranks of one communicator on one device)
-    D.init_parallel_env(backend="gloo")
-    dev = paddle.resolve_device(None)
     t = TRAIN_MESH
     cfg = _mesh_cfg()
     rank = D.get_rank()
@@ -9034,8 +9081,6 @@ def _mesh_rank(name, dims, S, ref_losses, ref_path, out_dir, device):
            "moment_bytes": moment, "moment_bytes_unsharded": unsharded}
     with open(os.path.join(out_dir, f"{name}_rank{rank}.json"), "w") as f:
         json.dump(res, f)
-    D.barrier()
-    D.destroy_process_group()
 
 
 def phase_train_mesh(dev):
@@ -9050,7 +9095,8 @@ def phase_train_mesh(dev):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     out = {"phase": "train_mesh", "card": card, "config": TRAIN_MESH,
-           "loss_rtol": MESH_LOSS_RTOL, "param_rel_limit": MESH_PARAM_REL}
+           "loss_rtol": MESH_LOSS_RTOL, "param_rel_limit": MESH_PARAM_REL,
+           "cut": TRAIN_MESH_CUT}
     t0 = time.perf_counter()
     out["nccl_world1"] = _mesh_nccl_world1(dev)
     out["nccl_world1"]["s"] = time.perf_counter() - t0
@@ -9059,15 +9105,21 @@ def phase_train_mesh(dev):
     L, steps = t["layers"], t["steps"]
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
+        runs, singles = {}, {}
         for name, (dims, S) in MESHES.items():
             t0 = time.perf_counter()
             path = os.path.join(tmp, f"single_{name}.pt")
             ref_losses, ref_step_s = _mesh_single(dev, S, path)
-            single_s = time.perf_counter() - t0
-            t1 = time.perf_counter()
-            D.spawn(_mesh_rank, (name, dims, S, ref_losses, path, tmp,
-                                 dev.type), nprocs=t["world"], timeout=900)
-            world_s = time.perf_counter() - t1
+            singles[name] = (ref_losses, ref_step_s,
+                             time.perf_counter() - t0)
+            runs[name] = (dims, S, ref_losses, path)
+        # one world for both meshes: process start and rendezvous once
+        t1 = time.perf_counter()
+        D.spawn(_mesh_ranks, (runs, tmp, dev.type), nprocs=t["world"],
+                timeout=900)
+        out["world_s"] = time.perf_counter() - t1
+        for name, (dims, S) in MESHES.items():
+            ref_losses, ref_step_s, single_s = singles[name]
             ranks = []
             for r in range(t["world"]):
                 with open(os.path.join(tmp, f"{name}_rank{r}.json")) as f:
@@ -9114,8 +9166,7 @@ def phase_train_mesh(dev):
                 "moment_bytes": [r["moment_bytes"] for r in ranks],
                 "moment_bytes_unsharded": [r["moment_bytes_unsharded"]
                                            for r in ranks],
-                "single_s": single_s, "world_s": world_s,
-                "checks": checks}
+                "single_s": single_s, "checks": checks}
             ok &= all(checks)
             emit({"phase": f"train_mesh_{name}", **out[f"mesh_{name}"]})
     out["launches_by_mesh"] = launches
@@ -9138,6 +9189,7 @@ TRAIN_SEP = dict(layers=2, B=1, S=8192, lr=1e-3, seed=0, world=4)
 # (3 ring + 2 Ulysses steps in C and 3 in D until the whole script took
 # 1284 s of its 1200 on a slow host: 2 each, the fewest that still shows
 # a trained step beside the first)
+# (C and D run in one spawned world)
 SEP_RUNS = {"C": ("llama3_8b", {"sep": 2, "sharding": 2},
                   (("ring", 2), ("ulysses", 2))),
             "D": ("mistral_7b", {"sep": 4}, (("ring", 2),))}
@@ -9200,11 +9252,30 @@ def _sep_expected(cfg, dims, backend, coord):
     return want, staged
 
 
-def _sep_rank(name, S, ref_losses, ref_path, out_dir, device):
-    """One rank of a sep world (in its own process): the run's steps from
-    0 launch counts and 0 transport stats, then the checks against the
-    single-device run (a JSON file per rank)."""
+def _sep_ranks(runs, out_dir, device):
+    """One rank of the sep world (in its own process): each run of
+    ``runs`` ({name: (S, single-device losses, their parameters' path)})
+    in turn."""
     import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+
+    paddle.set_device(device)
+    # several ranks share the one card: gloo (NCCL refuses two ranks of
+    # one communicator on one device)
+    D.init_parallel_env(backend="gloo")
+    dev = paddle.resolve_device(None)
+    for name, (S, ref_losses, ref_path) in runs.items():
+        _sep_rank(name, S, ref_losses, ref_path, out_dir, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        D.barrier()
+    D.destroy_process_group()
+
+
+def _sep_rank(name, S, ref_losses, ref_path, out_dir, dev):
+    """One sep run on this rank: its steps from 0 launch counts and 0
+    transport stats, then the checks against the single-device run (a
+    JSON file per rank)."""
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch.core.flags import set_flags
     from paddle_tpu_torch.distributed import collective as C
@@ -9213,11 +9284,6 @@ def _sep_rank(name, S, ref_losses, ref_path, out_dir, device):
                                                    param_shardings,
                                                    shard_llama_tensor)
 
-    paddle.set_device(device)
-    # several ranks share the one card: gloo (NCCL refuses two ranks of
-    # one communicator on one device)
-    D.init_parallel_env(backend="gloo")
-    dev = paddle.resolve_device(None)
     t = TRAIN_SEP
     model_name, dims, segments = SEP_RUNS[name]
     cfg = _sep_cfg(model_name)
@@ -9284,8 +9350,6 @@ def _sep_rank(name, S, ref_losses, ref_path, out_dir, device):
     with open(os.path.join(out_dir, f"sep_{name}_rank{rank}.json"),
               "w") as f:
         json.dump(res, f)
-    D.barrier()
-    D.destroy_process_group()
 
 
 def phase_train_sep(dev):
@@ -9306,18 +9370,25 @@ def phase_train_sep(dev):
     ok = True
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
+        runs, singles = {}, {}
         for name, (model_name, dims, segments) in SEP_RUNS.items():
-            cfg = _sep_cfg(model_name)
             steps = sum(n for _, n in segments)
             t0 = time.perf_counter()
             path = os.path.join(tmp, f"single_{name}.pt")
-            ref_losses, ref_step_s = _mesh_single(dev, t["S"], path, cfg, t,
-                                                  steps)
-            single_s = time.perf_counter() - t0
-            t1 = time.perf_counter()
-            D.spawn(_sep_rank, (name, t["S"], ref_losses, path, tmp,
-                                dev.type), nprocs=t["world"], timeout=900)
-            world_s = time.perf_counter() - t1
+            ref_losses, ref_step_s = _mesh_single(
+                dev, t["S"], path, _sep_cfg(model_name), t, steps)
+            singles[name] = (ref_losses, ref_step_s,
+                             time.perf_counter() - t0)
+            runs[name] = (t["S"], ref_losses, path)
+        # one world for both runs: process start and rendezvous once
+        t1 = time.perf_counter()
+        D.spawn(_sep_ranks, (runs, tmp, dev.type), nprocs=t["world"],
+                timeout=900)
+        out["world_s"] = time.perf_counter() - t1
+        for name, (model_name, dims, segments) in SEP_RUNS.items():
+            cfg = _sep_cfg(model_name)
+            steps = sum(n for _, n in segments)
+            ref_losses, ref_step_s, single_s = singles[name]
             ranks = []
             for r in range(t["world"]):
                 with open(os.path.join(tmp, f"sep_{name}_rank{r}.json")) \
@@ -9374,8 +9445,7 @@ def phase_train_sep(dev):
                 "collective_gb": [r["collective_gb"] for r in ranks],
                 "staged_gb": [r["staged_gb"] for r in ranks],
                 "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
-                "single_s": single_s, "world_s": world_s,
-                "checks": checks}
+                "single_s": single_s, "checks": checks}
             ok &= all(checks)
             emit({"phase": f"train_sep_{name}", **out[f"sep_{name}"]})
     out["launches_by_run"] = launches
@@ -9385,6 +9455,541 @@ def phase_train_sep(dev):
     emit({k: v for k, v in out.items() if not k.startswith("sep_")})
     if not ok:
         raise AssertionError("train_sep phase failed: " + json.dumps(out))
+    return out
+
+
+# --- train_mesh_models: the BERT, GPT, ResNet and MoE factories on a mesh --
+#
+# Four processes on the one card over gloo (as train_mesh), one spawn for
+# the four models, each against its single-device step in this process on
+# the same bf16 weights and global batch. BERT runs at dropout 0 on both
+# sides: each data rank draws its own masks (its generator offset by its
+# "data" coordinate), which no single-device run draws, and the
+# reference's compiled step bakes its masks in while tracing (ROADMAP
+# Queue 3), so there are no reference draws to match either. The MoE runs
+# 1 of Qwen2-57B-A14B's 28 layers: a rank under {expert 4} holds 1.09 B
+# parameters (the replicated embedding, attention and shared expert, and
+# 16 of the 64 routed experts), about 13 GB at 12 bytes a parameter, so
+# four ranks need about 52 GB before activations, and a second layer
+# (6.5 GB a rank) takes them past the card's 79 GiB.
+MESH_MODELS = {
+    "bert": dict(dims={"data": 2, "sharding": 2}, B=32, S=512, steps=3,
+                 seed=0),
+    "gpt": dict(dims={"data": 4}, B=32, S=1024, steps=3, seed=0),
+    "resnet": dict(dims={"data": 4}, B=256, hw=224, classes=1000, steps=3,
+                   seed=0),
+    "moe": dict(dims={"expert": 4}, B=1, S=4096, layers=1, steps=3, seed=0,
+                chunked=16384,
+                cut="1 of 28 layers: four ranks of {expert 4} hold 13 GB "
+                    "each at one layer, and a second adds 6.5 GB a rank, "
+                    "past the card's 79 GiB")}
+# the launches of one step on every rank: the multi-head flash kernels
+# once a layer each way in BERT (12 layers, S=512, head_dim 64, no mask),
+# the grouped ones once a layer in the MoE (28 / 4 heads at S=4096); GPT's
+# attention is dense (its additive mask) and ResNet runs none
+MESH_MODEL_LAUNCHES = {
+    "bert": {"mha_fwd": 12, "mha_dq": 12, "mha_dkv": 12}, "gpt": {},
+    "resnet": {}, "moe": {"gqa_fwd": 1, "gqa_dq": 1, "gqa_dkv": 1}}
+# the models whose single-device run is repeated on the batch's rows
+# reversed (``_mm_control``): the same function rounded in another order.
+# Each of their parameters (and ResNet's buffers) holds if its distance is
+# within its limit or MESH_MODEL_LEAF_FLOOR times the control's distance
+# of the same leaf, and the median within a tenth of the limit or
+# MESH_MODEL_FLOOR times the control's median: where an element cancels
+# over the batch (a bias, a norm) the mesh's rounding of each rank's part
+# is relative to the parts, not the sum, and AdamW steps an element at
+# noise by its sign (SGD at lr 0.1 carries any rounding on), so a single
+# limit would read noise. Readings (one H100 80GB HBM3 at 700 W): the
+# largest leaf ratio past the limit BERT 43.3 (layers.0.norm1.bias), GPT
+# 29.3 (blocks.6.fc2.bias); medians' ratios BERT 1.64, GPT 1.23, ResNet
+# 0.98; with the gradients' all-reduce skipped (a planted fault) leaf
+# ratios 313-769 (ResNet), 614-629 (GPT), above 1e28 (BERT: a leaf the
+# control leaves unmoved). Each factor about twice the largest sound
+# reading. The MoE has no control (its routing follows the tokens'
+# order): its limit alone (reading 0.0157)
+MESH_MODEL_CONTROLS = ("bert", "gpt", "resnet")
+MESH_MODEL_LEAF_FLOOR = 100.0
+MESH_MODEL_FLOOR = 8.0
+# ResNet's buffers after step 1, each ‖Δ‖ / ‖single‖: the global
+# statistics of the same weights, summed in another order and blended
+# into bf16 buffers. Readings: 2.05e-3 (layer4.2.bn2._mean); with each
+# rank's batch norms on its own 64 images (a planted fault) 1.41-1.73
+# (bn1._mean), which the 3 steps' drift hides from the final buffers
+MESH_FIRST_BUFFER_REL = 1e-2
+# each factory's learning rate (its default; the MoE's MOE_CELL's)
+MESH_MODEL_LR = {"bert": 1e-4, "gpt": 1e-4, "resnet": 0.1, "moe": 1e-4}
+
+
+def _mm_model(name, dev):
+    """Model ``name`` of ``MESH_MODELS`` at its published widths, bf16,
+    from its seed, on ``dev`` (the same weights in every process)."""
+    from paddle_tpu_torch.core import Generator
+    from paddle_tpu_torch.models.nlp import (BertConfig, BertForPretraining,
+                                             GPTConfig, GPTForCausalLM,
+                                             MoEForCausalLM)
+    from paddle_tpu_torch.vision.models import resnet50
+    m = MESH_MODELS[name]
+    if name == "bert":
+        cfg = dataclasses.replace(BertConfig(), hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0)
+        model = BertForPretraining(cfg, device=dev,
+                                   generator=Generator(m["seed"]))
+    elif name == "gpt":
+        model = GPTForCausalLM(GPTConfig(), device=dev,
+                               generator=Generator(m["seed"]))
+    elif name == "resnet":
+        model = resnet50(num_classes=m["classes"], device=dev,
+                         generator=Generator(m["seed"]))
+    else:
+        cfg = dataclasses.replace(_qwen2_57b(),
+                                  num_hidden_layers=m["layers"])
+        model = MoEForCausalLM(cfg, device=dev, seed=m["seed"])
+    return model.to(torch.bfloat16).train()
+
+
+def _mm_batch(name, model, dev):
+    """The global batch of ``name``, made on ``dev`` from its seed."""
+    m = MESH_MODELS[name]
+    if name == "bert":
+        return _bert_batch(model.config.vocab_size, m["B"], m["S"],
+                           m["seed"] + 1, dev)
+    if name == "resnet":
+        return list(_resnet_batch(m["B"], m["hw"], m["classes"],
+                                  m["seed"] + 1, dev, torch.bfloat16))
+    if name == "moe":
+        return list(_moe_batch(model.config.vocab_size, m["B"], m["S"],
+                               m["seed"], dev))
+    g = torch.Generator(device=dev).manual_seed(m["seed"] + 1)
+    ids = torch.randint(0, model.config.vocab_size, (m["B"], m["S"] + 1),
+                        generator=g, device=dev)
+    return [ids[:, :-1].contiguous(), ids[:, 1:].contiguous()]
+
+
+def _mm_factory(name, model, mesh, dev):
+    """(params, buffers or None, a step of the global batch -> its loss,
+    AdamW's state or None) from ``name``'s train-step factory on ``mesh``
+    (None: one device)."""
+    from paddle_tpu_torch.models.nlp import (bert_pretrain_step_factory,
+                                             gpt_pretrain_step_factory,
+                                             moe_train_step_factory)
+    from paddle_tpu_torch.vision.models import resnet_train_step_factory
+    if name == "resnet":
+        params, bufs, opt, step = resnet_train_step_factory(model, mesh,
+                                                            device=dev)
+        state = [params, bufs, opt]
+
+        def run(batch):
+            state[0], state[1], state[2], loss = step(*state, *batch)
+            return loss
+        return params, bufs, run, None
+    if name == "moe":
+        m = MESH_MODELS[name]
+        params, opt, step = moe_train_step_factory(
+            model, mesh, learning_rate=MESH_MODEL_LR[name],
+            chunked_vocab_ce=m["chunked"], device=dev)
+    else:
+        make = bert_pretrain_step_factory if name == "bert" \
+            else gpt_pretrain_step_factory
+        params, opt, step = make(model, mesh, device=dev)
+    state = [params, opt]
+
+    def run(batch):
+        state[0], state[1], loss = step(*state, *batch)
+        return loss
+    return params, None, run, opt
+
+
+def _mm_steps(name, model, run, batch):
+    """``name``'s steps: (losses, each step's host seconds up to its loss,
+    each step's launches, what step 1 left on the host: the MoE's layer-0
+    (expert ids, keep), ResNet's floating buffers, else None)."""
+    losses, step_s, per_step, first = [], [], [], None
+    for _ in range(MESH_MODELS[name]["steps"]):
+        before = _train_counts()
+        t0 = time.perf_counter()
+        losses.append(float(run(batch)))
+        step_s.append(time.perf_counter() - t0)
+        after = _train_counts()
+        per_step.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+        if first is None and name == "moe":
+            first = tuple(t.cpu() for t in _routings(model)[0])
+        if first is None and name == "resnet":
+            first = {k: v.detach().cpu() for k, v in model.named_buffers()
+                     if v.is_floating_point()}
+    return losses, step_s, per_step, first
+
+
+def _mm_single(name, dev, path):
+    """The single-device run of ``name``: its losses, step seconds and
+    launches a step; its final parameters (and buffers, and what step 1
+    left: ``_mm_steps``) saved to ``path``."""
+    model = _mm_model(name, dev)
+    batch = _mm_batch(name, model, dev)
+    params, bufs, run, opt = _mm_factory(name, model, None, dev)
+    losses, step_s, per_step, first = _mm_steps(name, model, run, batch)
+    saved = {"params": {k: v.detach().cpu() for k, v in params.items()}}
+    if bufs is not None:
+        saved["buffers"] = {k: v.detach().cpu() for k, v in bufs.items()}
+    if first is not None:
+        saved["first"] = first
+    torch.save(saved, path)
+    del model, params, bufs, run, batch, saved, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": step_s, "per_step": per_step}
+
+
+def _shard_rel(got, want, piece=1 << 26):
+    """‖got − want‖ / ‖want‖ in f32, ``piece`` elements at a time (an
+    embedding of 545 M elements would take 2.2 GB a f32 copy)."""
+    got, want = got.detach().reshape(-1), want.reshape(-1)
+    diff = norm = 0.0
+    for s in range(0, want.numel(), piece):
+        w = want[s:s + piece].float()
+        diff += float(torch.square(got[s:s + piece].float() - w).sum())
+        norm += float(torch.square(w).sum())
+    return (diff / max(norm, 1e-60)) ** 0.5
+
+
+def _mm_control(name, dev, path):
+    """The single-device run of ``name`` again on its batch's rows in
+    reverse order: the same function (the losses sum over rows, the batch
+    norms' statistics too), rounded in another order. Each parameter's
+    and buffer's ‖Δ‖ / ‖first run‖ against the first run's saved at
+    ``path``: the bf16 rounding that 3 optimizer steps amplify, the floor
+    a mesh's distance is read against."""
+    m = MESH_MODELS[name]
+    model = _mm_model(name, dev)
+    batch = [t.flip(0) for t in _mm_batch(name, model, dev)]
+    params, bufs, run, opt = _mm_factory(name, model, None, dev)
+    losses = [float(run(batch)) for _ in range(m["steps"])]
+    ref = torch.load(path, mmap=True)
+    out = {"losses": losses,
+           "param_rel": {k: _shard_rel(p, ref["params"][k].to(dev))
+                         for k, p in params.items()
+                         if not k.endswith(NOISE_GRAD_PARAMS)}}
+    if bufs is not None:
+        out["buffer_rel"] = {k: _shard_rel(v, ref["buffers"][k].to(dev))
+                             for k, v in bufs.items()
+                             if v.is_floating_point()}
+    del model, params, bufs, run, batch, opt, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mm_rank_model(name, dev, ref_path, ref_losses):
+    """One model on this rank: the factory on its mesh, its steps from 0
+    launch counts and collective stats, then the checks against the
+    single-device run."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.topology import shard_of
+    from paddle_tpu_torch.models.nlp import moe as moe_model
+    m = MESH_MODELS[name]
+    mesh = D.build_mesh(m["dims"])
+    coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
+    t0 = time.perf_counter()
+    model = _mm_model(name, dev)
+    specs = moe_model.param_shardings(model, mesh) if name == "moe" \
+        else {k: () for k, _ in model.named_parameters()}
+    batch = _mm_batch(name, model, dev)
+    full_experts = sum(p.numel() for k, p in model.named_parameters()
+                       if ".mlp.w_" in k)
+    params, bufs, run, opt = _mm_factory(name, model, mesh, dev)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_stats(sync=True)
+    _zero_train_counts()
+    losses, step_s, per_step, first = _mm_steps(name, model, run, batch)
+    coll = dict(C.STATS)
+    C.reset_stats()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moments = None
+    if opt is not None:
+        moments = (sum(v.numel() * v.element_size()
+                       for v in opt["m"].values()),
+                   sum(p.numel() * 4 for p in params.values()))
+        # the moments go before the comparisons' temporaries come
+        opt["m"].clear()
+        opt["v"].clear()
+    ref = torch.load(ref_path, mmap=True)
+    rel, noise = {}, {}
+    for k, p in params.items():
+        want = shard_of(ref["params"][k], specs[k], mesh.shape,
+                        coords).to(dev)
+        if k.endswith(NOISE_GRAD_PARAMS):
+            # a zero gradient but for noise: AdamW steps it by the noise's
+            # sign, held to 2 x steps x lr apart (NOISE_GRAD_PARAMS)
+            noise[k] = float((p.detach().float() - want.float()).abs()
+                             .max())
+            continue
+        rel[k] = _shard_rel(p, want)
+    res = {"rank": D.get_rank(), "coords": coords, "losses": losses,
+           "loss_rel": [abs(a - b) / abs(b)
+                        for a, b in zip(losses, ref_losses)],
+           "step_s": step_s, "build_s": build_s, "per_step": per_step,
+           "launches": _train_counts(), "collective_s": coll["seconds"],
+           "collective_calls": coll["calls"],
+           "collective_gb": coll["bytes"] / 1e9, "peak_mem_gb": peak,
+           "param_rel_max": max(rel.values()),
+           "param_rel_worst": max(rel, key=rel.get),
+           "param_rel_median": statistics.median(rel.values()),
+           "param_rel": rel,
+           "noise_param_max_abs": max(noise.values(), default=0.0)}
+    if bufs is not None:
+        brel = {k: _shard_rel(v, ref["buffers"][k].to(dev))
+                for k, v in bufs.items() if v.is_floating_point()}
+        res["buffer_rel"] = brel
+        res["buffer_rel_max"] = max(brel.values())
+        res["buffer_rel_worst"] = max(brel, key=brel.get)
+        res["buffers_int_equal"] = all(
+            torch.equal(v.cpu(), ref["buffers"][k]) for k, v in bufs.items()
+            if not v.is_floating_point())
+        # step 1's statistics come from the same weights on both sides:
+        # no optimizer step has carried a rounding on yet
+        frel = {k: _shard_rel(v, ref["first"][k]) for k, v in first.items()}
+        res["first_buffer_rel_max"] = max(frel.values())
+        res["first_buffer_rel_worst"] = max(frel, key=frel.get)
+    if name == "moe":
+        held = sum(p.numel() for k, p in params.items() if ".mlp.w_" in k)
+        eids, keep = first
+        want_eids, want_keep = ref["first"]
+        res.update({"expert_share": held / full_experts,
+                    "routing_equal": bool(torch.equal(eids, want_eids)
+                                          and torch.equal(keep, want_keep)),
+                    "routing_pairs": int(eids.numel()),
+                    "routing_kept": int(keep.sum()),
+                    "routing_pairs_differing": int(
+                        ((eids != want_eids) | (keep != want_keep)).sum())})
+    if moments is not None:
+        res["moment_bytes"], res["moment_bytes_unsharded"] = moments
+    del model, params, bufs, run, batch, ref, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mm_rank(refs, out_dir, device):
+    """One rank of the world (in its own process): the four models in
+    turn, a JSON file each."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+
+    paddle.set_device(device)
+    # several ranks share the one card: gloo (NCCL refuses two ranks of
+    # one communicator on one device)
+    D.init_parallel_env(backend="gloo")
+    dev = paddle.resolve_device(None)
+    rank = D.get_rank()
+    for name, (path, losses) in refs.items():
+        t0 = time.perf_counter()
+        res = _mm_rank_model(name, dev, path, losses)
+        res["model_s"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"mm_{name}_rank{rank}.json"),
+                  "w") as f:
+            json.dump(res, f)
+        D.barrier()
+    D.destroy_process_group()
+
+
+def _floor_ratio(rel, floor, limit):
+    """(the largest rel[k] / floor[k] over the keys whose distance is past
+    ``limit``, its key), or (0.0, None) where none is: what
+    ``_within_floor`` holds to ``MESH_MODEL_LEAF_FLOOR``."""
+    over = {k: v / max(floor[k], 1e-30) for k, v in rel.items()
+            if v > limit}
+    if not over:
+        return 0.0, None
+    worst = max(over, key=over.get)
+    return over[worst], worst
+
+
+def _within_floor(rel, floor, limit):
+    """Whether distances ``rel`` ({key: ‖Δ‖ / ‖single‖}) hold: each within
+    ``limit`` or ``MESH_MODEL_LEAF_FLOOR`` times the control's distance of
+    the same key, and the median within a tenth of ``limit`` or
+    ``MESH_MODEL_FLOOR`` times the control's median (``floor``: the
+    control's distances; None: each within ``limit`` alone)."""
+    if floor is None:
+        return max(rel.values()) <= limit
+    return (_floor_ratio(rel, floor, limit)[0] <= MESH_MODEL_LEAF_FLOOR
+            and statistics.median(rel.values())
+            <= max(limit / 10, MESH_MODEL_FLOOR
+                   * statistics.median(floor.values())))
+
+
+def _mm_checks(name, r, control):
+    """The rank's checks of model ``name`` (a list of failed names)."""
+    m = MESH_MODELS[name]
+    want = MESH_MODEL_LAUNCHES[name]
+    failed = []
+    if max(r["loss_rel"]) > MESH_LOSS_RTOL:
+        failed.append("loss_rel")
+    if not _within_floor(r["param_rel"], control and control["param_rel"],
+                         MESH_PARAM_REL):
+        failed.append("param_rel")
+    if not all(p == want for p in r["per_step"]):
+        failed.append("launches")
+    if not all(np.isfinite(r["losses"])):
+        failed.append("finite")
+    if r["noise_param_max_abs"] > 2 * m["steps"] * MESH_MODEL_LR[name]:
+        failed.append("noise_param")
+    if name == "resnet" and not (_within_floor(r["buffer_rel"],
+                                               control["buffer_rel"],
+                                               MESH_PARAM_REL)
+                                 and r["buffers_int_equal"]
+                                 and r["first_buffer_rel_max"]
+                                 <= MESH_FIRST_BUFFER_REL):
+        failed.append("buffers")
+    if name == "moe" and not (r["routing_equal"]
+                              and r["expert_share"]
+                              == 1 / m["dims"]["expert"]):
+        failed.append("routing_or_share")
+    if "moment_bytes" in r and r["moment_bytes"] * m["dims"].get(
+            "sharding", 1) != r["moment_bytes_unsharded"]:
+        failed.append("moments")
+    return failed
+
+
+def phase_train_mesh_models(dev):
+    """The mesh-models phase (the docstring's item 25)."""
+    import tempfile
+
+    from paddle_tpu_torch import distributed as D
+
+    t_phase = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    out = {"phase": "train_mesh_models", "card": card,
+           "config": MESH_MODELS, "loss_rtol": MESH_LOSS_RTOL,
+           "param_rel_limit": MESH_PARAM_REL,
+           "leaf_floor_factor": MESH_MODEL_LEAF_FLOOR,
+           "median_floor_factor": MESH_MODEL_FLOOR,
+           "dropout": "0 in BERT on both sides: each data rank draws its "
+                      "own masks, which no single-device run draws, and "
+                      "the reference's compiled step bakes its masks in "
+                      "while tracing, so neither side has draws to match"}
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        refs, singles, controls = {}, {}, {}
+        for name in MESH_MODELS:
+            t0 = time.perf_counter()
+            path = os.path.join(tmp, f"single_{name}.pt")
+            singles[name] = _mm_single(name, dev, path)
+            singles[name]["s"] = time.perf_counter() - t0
+            refs[name] = (path, singles[name]["losses"])
+            if name in MESH_MODEL_CONTROLS:
+                controls[name] = _mm_control(name, dev, path)
+        t1 = time.perf_counter()
+        D.spawn(_mm_rank, (refs, tmp, dev.type), nprocs=4, timeout=900)
+        world_s = time.perf_counter() - t1
+        launches = {}
+        for name, m in MESH_MODELS.items():
+            ranks = []
+            for r in range(4):
+                with open(os.path.join(tmp, f"mm_{name}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            control = controls.get(name)
+            failed = [_mm_checks(name, r, control) for r in ranks]
+            launches[name] = {}
+            for r in ranks:
+                for k, n in r["launches"].items():
+                    if n:
+                        launches[name][k] = launches[name].get(k, 0) + n
+            s = singles[name]
+            line = {
+                "dims": m["dims"], "steps": m["steps"],
+                "single_losses": s["losses"],
+                "single_step_ms": [1e3 * x for x in s["step_s"]],
+                "single_launches_per_step": s["per_step"],
+                "single_s": s["s"],
+                "rank_losses": [r["losses"] for r in ranks],
+                "loss_rel_max": max(max(r["loss_rel"]) for r in ranks),
+                "loss_rel_by_step": [max(r["loss_rel"][i] for r in ranks)
+                                     for i in range(m["steps"])],
+                "param_rel_max": max(r["param_rel_max"] for r in ranks),
+                "param_rel_worst": [r["param_rel_worst"] for r in ranks],
+                "param_rel_median": [r["param_rel_median"] for r in ranks],
+                "params_over_limit": [len([v for v in r["param_rel"].values()
+                                           if v > MESH_PARAM_REL])
+                                      for r in ranks],
+                "noise_param_max_abs": max(r["noise_param_max_abs"]
+                                           for r in ranks),
+                "launches_per_step_expected": MESH_MODEL_LAUNCHES[name],
+                "launches_per_step": [r["per_step"] for r in ranks],
+                "step_ms": [[1e3 * x for x in r["step_s"]] for r in ranks],
+                "step_ms_median": [1e3 * statistics.median(r["step_s"])
+                                   for r in ranks],
+                "collective_s": [r["collective_s"] for r in ranks],
+                "collective_calls": [r["collective_calls"] for r in ranks],
+                "collective_gb": [r["collective_gb"] for r in ranks],
+                "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+                "build_s": [r["build_s"] for r in ranks],
+                "model_s": [r["model_s"] for r in ranks],
+                "failed": failed}
+            for key in ("buffer_rel_max", "buffer_rel_worst",
+                        "buffers_int_equal", "first_buffer_rel_max",
+                        "first_buffer_rel_worst", "moment_bytes",
+                        "moment_bytes_unsharded", "expert_share",
+                        "routing_equal", "routing_pairs", "routing_kept",
+                        "routing_pairs_differing"):
+                if key in ranks[0]:
+                    line[key] = [r[key] for r in ranks]
+            if control is not None:
+                worst = max(ranks[0]["param_rel"],
+                            key=ranks[0]["param_rel"].get)
+                line["control"] = {
+                    "losses": control["losses"],
+                    "loss_rel_max": max(abs(a - b) / abs(b) for a, b in zip(
+                        control["losses"], s["losses"])),
+                    "param_rel_max": max(control["param_rel"].values()),
+                    "param_rel_worst": max(control["param_rel"],
+                                           key=control["param_rel"].get),
+                    "param_rel_median": statistics.median(
+                        control["param_rel"].values()),
+                    "at_mesh_worst": [worst,
+                                      control["param_rel"][worst]],
+                    "median_ratio": max(
+                        statistics.median(r["param_rel"].values())
+                        / max(statistics.median(
+                            control["param_rel"].values()), 1e-30)
+                        for r in ranks),
+                    "leaf_ratio": [_floor_ratio(r["param_rel"],
+                                                control["param_rel"],
+                                                MESH_PARAM_REL)
+                                   for r in ranks]}
+                if "buffer_rel" in control:
+                    line["control"]["buffer_rel_max"] = max(
+                        control["buffer_rel"].values())
+                    line["control"]["buffer_rel_worst"] = max(
+                        control["buffer_rel"], key=control["buffer_rel"].get)
+                    line["control"]["buffer_rel_median"] = statistics.median(
+                        control["buffer_rel"].values())
+                    line["control"]["buffer_leaf_ratio"] = [
+                        _floor_ratio(r["buffer_rel"], control["buffer_rel"],
+                                     MESH_PARAM_REL) for r in ranks]
+                    line["buffer_rel_median"] = [
+                        statistics.median(r["buffer_rel"].values())
+                        for r in ranks]
+            if "cut" in m:
+                line["cut"] = m["cut"]
+            out[name] = line
+            ok &= not any(failed)
+            emit({"phase": f"train_mesh_models_{name}", **_plain(line)})
+    out["launches_by_model"] = launches
+    out["world_s"] = world_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["ok"] = bool(ok)
+    out = _plain(out)
+    emit({k: v for k, v in out.items() if k not in MESH_MODELS})
+    if not ok:
+        raise AssertionError("train_mesh_models phase failed: "
+                             + json.dumps(out))
     return out
 
 
@@ -9417,7 +10022,8 @@ PHASES = ("build", "kernel", "reference", "serve", "serve_engine",
           "train_encoder", "train_bert", "train_eager", "train_resnet50",
           "train_gpt",
           "transformer", "fused_decode", "train_rnnlm", "train_layer",
-          "fit", "deploy", "static", "train_mesh", "train_sep")
+          "fit", "deploy", "static", "train_mesh", "train_sep",
+          "train_mesh_models")
 
 
 def _entry(name, source, replaces, launches, case, part, plain_part,
@@ -9684,6 +10290,21 @@ def _kernels_line(kern, serve, engine, features, cluster, tiers, trains,
             "flash_mha_transformer", GQA_SOURCE, MHA_FWD_REPLACES,
             MHA_BWD_REPLACES, "mha", kern["mha_encoder"][1],
             trains.get("transformer", {}).get("launches", {}), card)
+    # train_mesh_models, summed over the four ranks: the multi-head kernels
+    # at a BERT data rank's half batch, the grouped ones at each MoE expert
+    # rank's whole sequence (train_moe's shape, its case)
+    mm_runs = trains.get("train_mesh_models", {}).get("launches_by_model",
+                                                      {})
+    if kern.get("mha_encoder") and "bert" in mm_runs:
+        kernels += _attention_entries(
+            "flash_mha_mesh_bert", GQA_SOURCE, MHA_FWD_REPLACES,
+            MHA_BWD_REPLACES, "mha", kern["mha_encoder"][2], mm_runs["bert"],
+            card)
+    if kern.get("gqa_moe") and "moe" in mm_runs:
+        kernels += _attention_entries(
+            "gqa_flash_mesh_moe", GQA_SOURCE, GQA_FWD_REPLACES,
+            GQA_BWD_REPLACES, "gqa", kern["gqa_moe"][0], mm_runs["moe"],
+            card)
     norm = kern.get("norm", [])
     if norm:
         kernels += [
@@ -9799,6 +10420,9 @@ def main():
         trains["train_mesh"] = run("train_mesh", phase_train_mesh, dev)
     if "train_sep" in phases:
         trains["train_sep"] = run("train_sep", phase_train_sep, dev)
+    if "train_mesh_models" in phases:
+        trains["train_mesh_models"] = run("train_mesh_models",
+                                          phase_train_mesh_models, dev)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

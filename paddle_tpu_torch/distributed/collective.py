@@ -24,7 +24,10 @@ The reference's ``psum_in_jit`` has no counterpart: the port has no
 compiled SPMD program to place a collective in. The model-parallel
 layers' differentiable collectives (``c_identity``, ``mp_allreduce``,
 ``c_concat``, ``c_split``: Paddle's names) are ``torch.autograd``
-functions over the same calls.
+functions over the same calls, and so is ``all_reduce_with_grad``: a sum
+over the ranks that every rank's loss reads (the global statistics of a
+synchronised batch norm, the MoE router's global means), whose gradient
+is the sum of the ranks' gradients.
 
 ``STATS`` counts the collectives' calls, bytes and host seconds; with
 ``STATS["sync"]`` set, the device is synchronised before and after each
@@ -522,6 +525,21 @@ class _AllReduce(torch.autograd.Function):
         return g, None
 
 
+class _AllReduceWithGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class _Concat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, partial):
@@ -557,6 +575,15 @@ def mp_allreduce(x, group):
     """Sum over ``group`` forward; the gradient passed through (the output
     of a row-parallel product)."""
     return _AllReduce.apply(x, group)
+
+
+def all_reduce_with_grad(x, group):
+    """The sum of the ranks' ``x`` over ``group``, forward; backward, the
+    sum of the ranks' gradients of it. Each rank's loss reads the sum, so
+    the gradient of the sum of the ranks' losses reaches every ``x``: with
+    gradients then averaged over the group, the gradient of the global
+    objective (``torch.distributed.nn``'s ``all_reduce``)."""
+    return _AllReduceWithGrad.apply(x, group)
 
 
 def c_concat(x, group, partial_grad=False):

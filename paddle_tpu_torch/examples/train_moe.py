@@ -5,9 +5,9 @@ kernels, the causal-LM CE plus the gates' aux loss, AdamW in place).
 
 The one-device counterpart of ``examples/train_moe_ep.py``: the same
 2-layer config with 16 fine-grained routed experts top-2 and one shared
-expert, 8 steps of fresh (4, 65)-token batches at lr 5e-3. Sharding the
-experts over an "expert" mesh axis (the all-to-all dispatch) waits for
-ROADMAP item 15. ``--qwen2-57b`` trains Qwen2-57B-A14B's full widths
+expert, 8 steps of fresh (4, 65)-token batches at lr 5e-3; the experts
+sharded over an "expert" mesh axis train in ``train_moe_ep``.
+``--qwen2-57b`` trains Qwen2-57B-A14B's full widths
 (64 routed experts top-8, one 20480-wide shared expert, V = 151,936) in
 bf16 at the deepest cut of its 28 layers that fits the card
 (``fitting_depth``; ``--layers`` sets another), B=1 × S=4096 on one
@@ -138,8 +138,6 @@ def main(argv=None):
                     help="with --qwen2-57b: this many of its 28 layers")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    print("expert parallelism (an 'expert' mesh axis, the all-to-all "
-          "dispatch) waits for ROADMAP item 15: one device")
     if args.qwen2_57b:
         if dev.type != "cuda":
             raise SystemExit("--qwen2-57b needs the card")

@@ -13,8 +13,31 @@ an f32 ``cumsum`` of one-hots, later choices queued after the earlier
 choices' counts, a fixed capacity past which a (token, choice) pair is
 dropped.
 
-The reference's expert parallelism is the ``P("expert", ...)`` annotation
-on ``w_in`` / ``w_out`` under a mesh; it waits for ROADMAP item 15 here.
+The reference's expert parallelism is the ``P("expert", None, "model")`` /
+``P("expert", "model", None)`` annotation of ``w_in`` / ``w_out`` under a
+mesh (``:326-327``); here ``MoELayer.distribute(mesh)`` (one rank of the
+mesh per process) keeps this rank's experts and its "model" share of
+their hidden columns, and the layer then runs:
+
+* over "expert" and "model", where the batch is replicated as the
+  reference lays it out: every rank routes all of its tokens, dispatches
+  only to its own experts, computes their FFN on its hidden columns (the
+  GELU is elementwise, so the column split is exact) and the partial
+  combine is summed over both axes (``mp_allreduce``). The combine
+  weights and the dispatched tokens enter through ``c_identity``, whose
+  backward sums their gradients over both axes, so that the router's and
+  the input's gradients are whole on every rank (the load-balancing
+  loss, computed alike on every rank, is not summed again);
+* over "data", the reference's GLOBAL routing (its T = B·S is the
+  global batch, ``:335-340``): the capacity from the global token count;
+  each (token, choice)'s queue position its local one plus the earlier
+  choices' global counts and this choice's counts on the earlier data
+  ranks (one all-gather of each rank's (k, E) counts: an exclusive scan);
+  the load-balancing loss from the global means (the probabilities'
+  through ``all_reduce_with_grad``); the top-1 noise this rank's rows of
+  one global (T, E) draw (``_DataRoute``). Expert-choice routing under
+  "data" would need a global top-C over the tokens, and is refused.
+
 No TPU kernel lies in this module: gating, dispatch, combine and the
 expert products are plain ``jnp`` in the reference and plain PyTorch
 here (``torch.bmm``, ``index_add``, gathers).
@@ -60,26 +83,85 @@ def _positions(oh, prior):
                      -1).to(torch.int32)
 
 
-def _noised(logits, generator, eps_std):
+def _noised(logits, generator, eps_std, route=None):
     if generator is None or eps_std <= 0:
         return logits
+    if route is not None:
+        return logits + eps_std * route.noise(logits, generator)
     return logits + eps_std * torch.randn(logits.shape, generator=generator,
                                           device=logits.device,
                                           dtype=logits.dtype)
 
 
-def top1_gating(logits, capacity, generator=None, eps_std=0.0):
+EXPERT_CHOICE_DATA = (
+    "expert-choice routing over a 'data' axis above 1 needs a global "
+    "top-C over the tokens of every data rank, which is not ported: "
+    "ROADMAP Queue 1 item 15.12")
+
+
+class _DataRoute:
+    """The global routing of a batch split over a "data" group: this
+    rank's tokens are the global token order's block ``rank`` (its rows of
+    the batch), so each of its pairs queues after the pairs of the data
+    ranks before it."""
+
+    def __init__(self, group):
+        self.group = group
+        self.n, self.rank = group.nranks, group.rank
+
+    def priors(self, ohs):
+        """For each choice j of ``ohs`` ((T, E) f32 one-hots): the (1, E)
+        count of pairs queued at each expert before this rank's choice-j
+        pairs (every earlier choice's global count, then choice j's on
+        the earlier ranks), and the (k, E) global counts. The counts are
+        sums of 0/1 in f32, exact."""
+        from .....distributed.collective import all_gather
+        counts = torch.stack([torch.sum(oh, 0) for oh in ohs])
+        every = torch.stack(all_gather([], counts, self.group))
+        total = torch.sum(every, 0)
+        before = torch.sum(every[:self.rank], 0)
+        earlier = torch.cumsum(total, 0) - total
+        return [(earlier[j] + before[j])[None] for j in range(len(ohs))], \
+            total
+
+    def aux(self, probs, total0):
+        """E · Σ (the global share of tokens whose first choice is each
+        expert) · (the global mean probability of it): Switch's eq. 4 over
+        the global batch, differentiable through the probabilities."""
+        T, E = probs.shape
+        n_tokens = T * self.n
+        from .....distributed.collective import all_reduce_with_grad
+        mean_p = all_reduce_with_grad(torch.sum(probs, 0),
+                                      self.group) / n_tokens
+        return E * torch.sum(total0 / n_tokens * mean_p)
+
+    def noise(self, logits, generator):
+        """This rank's rows of one N(0, 1) draw of the global (T, E)."""
+        T, E = logits.shape
+        full = torch.randn((T * self.n, E), generator=generator,
+                           device=logits.device, dtype=logits.dtype)
+        return full[self.rank * T:(self.rank + 1) * T]
+
+
+def top1_gating(logits, capacity, generator=None, eps_std=0.0, route=None):
     """Switch-style top-1 gate with the load-balancing aux loss; with a
     ``generator`` and ``eps_std`` > 0 the logits take N(0, eps_std²)
-    noise first.
+    noise first. ``route``: a ``_DataRoute`` (the global routing of a
+    batch split over "data"; ``capacity`` then the global one), else the
+    batch is the whole.
 
     Returns (dispatch (T, E, C) f32 0/1, combine (T, E, C) f32, aux)."""
     T, E = logits.shape
-    probs = torch.softmax(_noised(logits, generator, eps_std), -1)
+    probs = torch.softmax(_noised(logits, generator, eps_std, route), -1)
     onehot = _one_hot(torch.argmax(probs, -1), E)
-    # Switch eq. 4: E * sum(fraction of tokens * fraction of probability)
-    aux = E * torch.sum(torch.mean(onehot, 0) * torch.mean(probs, 0))
-    pos = _positions(onehot, 0.0)
+    if route is None:
+        # Switch eq. 4: E * sum(fraction of tokens * fraction of probability)
+        aux = E * torch.sum(torch.mean(onehot, 0) * torch.mean(probs, 0))
+        pos = _positions(onehot, 0.0)
+    else:
+        priors, total = route.priors([onehot])
+        aux = route.aux(probs, total[0])
+        pos = _positions(onehot, priors[0])
     keep = pos < capacity
     gate_val = torch.sum(probs * onehot, -1) * keep
     dispatch = onehot[:, :, None] * _one_hot(pos, capacity)[:, None, :]
@@ -87,10 +169,10 @@ def top1_gating(logits, capacity, generator=None, eps_std=0.0):
     return dispatch, dispatch * gate_val[:, None, None], aux
 
 
-def top2_gating(logits, capacity):
+def top2_gating(logits, capacity, route=None):
     """GShard top-2 gate: the two probabilities renormalised, second
     choices queued after every first choice (the reference's unused
-    ``noise_key`` is not taken)."""
+    ``noise_key`` is not taken); ``route`` as ``top1_gating``'s."""
     T, E = logits.shape
     probs = torch.softmax(logits, -1)
     g1, p1 = torch.argmax(probs, -1), torch.amax(probs, -1)
@@ -99,9 +181,14 @@ def top2_gating(logits, capacity):
     denom = torch.clamp_min(p1 + p2, 1e-9)
     p1, p2 = p1 / denom, p2 / denom
     oh1, oh2 = _one_hot(g1, E), _one_hot(g2, E)
-    aux = E * torch.sum(torch.mean(oh1, 0) * torch.mean(probs, 0))
-    pos1 = _positions(oh1, 0.0)
-    pos2 = _positions(oh2, torch.sum(oh1, 0, keepdim=True))
+    if route is None:
+        aux = E * torch.sum(torch.mean(oh1, 0) * torch.mean(probs, 0))
+        pos1 = _positions(oh1, 0.0)
+        pos2 = _positions(oh2, torch.sum(oh1, 0, keepdim=True))
+    else:
+        priors, total = route.priors([oh1, oh2])
+        aux = route.aux(probs, total[0])
+        pos1, pos2 = _positions(oh1, priors[0]), _positions(oh2, priors[1])
     keep1, keep2 = pos1 < capacity, pos2 < capacity
 
     def disp(oh, pos, keep, p):
@@ -114,10 +201,9 @@ def top2_gating(logits, capacity):
     return torch.maximum(d1, d2), c1 + c2, aux
 
 
-def _topk_picks(probs, k):
-    """The pick loop shared by the dense and the index-form gates: the
-    argmax k times with the chosen experts masked out. Returns ([(expert
-    ids, probs, f32 one-hot)] * k, aux)."""
+def _picks(probs, k):
+    """The argmax k times with the chosen experts masked out: [(expert
+    ids, probs, f32 one-hot)] * k."""
     E = probs.shape[1]
     remaining, picks = probs, []
     for _ in range(k):
@@ -125,24 +211,45 @@ def _topk_picks(probs, k):
         oh = _one_hot(g, E)
         remaining = remaining * (1 - oh)
         picks.append((g, p, oh))
+    return picks
+
+
+def _topk_picks(probs, k):
+    """The pick loop shared by the dense and the index-form gates
+    (``_picks``). Returns ([(expert ids, probs, f32 one-hot)] * k, aux)."""
+    E = probs.shape[1]
+    picks = _picks(probs, k)
     aux = E * torch.sum(torch.mean(picks[0][2], 0) * torch.mean(probs, 0))
     return picks, aux
 
 
-def topk_gating(logits, capacity, k):
+def _routed_picks(probs, k, route):
+    """``_topk_picks`` and the queue priors of the choices: None without
+    ``route`` (each choice queues after the earlier choices' counts),
+    else the global batch's (``_DataRoute.priors``), the aux loss then
+    the global one."""
+    if route is None:
+        return (*_topk_picks(probs, k), None)
+    picks = _picks(probs, k)
+    priors, total = route.priors([oh for _, _, oh in picks])
+    return picks, route.aux(probs, total[0]), priors
+
+
+def topk_gating(logits, capacity, k, route=None):
     """Dense top-k gate (the fine-grained DeepSeek / Qwen regimes): the k
     probabilities renormalised, each choice queued after every earlier
-    choice's per-expert count. For k = 2 this is ``top2_gating``."""
+    choice's per-expert count. For k = 2 this is ``top2_gating``;
+    ``route`` as ``top1_gating``'s."""
     T, E = logits.shape
     probs = torch.softmax(logits, -1)
-    picks, aux = _topk_picks(probs, k)
+    picks, aux, priors = _routed_picks(probs, k, route)
     denom = torch.clamp_min(sum(p for _, p, _ in picks), 1e-9)
     dispatch = torch.zeros((T, E, capacity), dtype=torch.float32,
                            device=logits.device)
     combine = torch.zeros_like(dispatch)
     prior = torch.zeros((1, E), dtype=torch.float32, device=logits.device)
-    for _, p, oh in picks:
-        pos = _positions(oh, prior)
+    for j, (_, p, oh) in enumerate(picks):
+        pos = _positions(oh, prior if priors is None else priors[j])
         keep = pos < capacity
         d = oh[:, :, None] * _one_hot(pos, capacity)[:, None, :]
         d = d * keep[:, None, None]
@@ -152,17 +259,18 @@ def topk_gating(logits, capacity, k):
     return dispatch, combine, aux
 
 
-def topk_gating_idx(logits, capacity, k, generator=None, eps_std=0.0):
+def topk_gating_idx(logits, capacity, k, generator=None, eps_std=0.0,
+                    route=None):
     """Index-form gate: the expert choices, queue positions and combine
     weights of the dense gates, per (token, choice). k = 1 keeps the raw
     top-1 probability (Switch), k > 1 renormalises the k of them; the
-    noise is ``top1_gating``'s.
+    noise and ``route`` are ``top1_gating``'s.
 
     Returns (eids (T, k) int32, pos (T, k) int32 — 0 where dropped, keep
     (T, k) bool, w (T, k) f32 — 0 where dropped, aux)."""
     T, E = logits.shape
-    probs = torch.softmax(_noised(logits, generator, eps_std), -1)
-    picks, aux = _topk_picks(probs, k)
+    probs = torch.softmax(_noised(logits, generator, eps_std, route), -1)
+    picks, aux, priors = _routed_picks(probs, k, route)
     if k == 1:
         weights = [picks[0][1]]
     else:
@@ -170,8 +278,8 @@ def topk_gating_idx(logits, capacity, k, generator=None, eps_std=0.0):
         weights = [p / denom for _, p, _ in picks]
     eids, poss, keeps, ws = [], [], [], []
     prior = torch.zeros((1, E), dtype=torch.float32, device=logits.device)
-    for (g, _, oh), w in zip(picks, weights):
-        pos = _positions(oh, prior)
+    for j, ((g, _, oh), w) in enumerate(zip(picks, weights)):
+        pos = _positions(oh, prior if priors is None else priors[j])
         keep = pos < capacity
         eids.append(g.to(torch.int32))
         poss.append(torch.where(keep, pos, 0))
@@ -290,11 +398,14 @@ def xavier_normal_std(shape):
 
 
 class MoELayer(pnn.Layer):
-    """Routed experts over one device: the gate ``gate.wg`` (d_model, E)
-    and stacked expert weights ``w_in`` (E, d_model, d_hidden), ``w_out``
-    (E, d_hidden, d_model), each expert a two-matrix FFN with the tanh
-    GELU. ``forward`` sets ``aux_loss`` (the gate's load-balancing loss
-    in the activations' dtype).
+    """Routed experts: the gate ``gate.wg`` (d_model, E) and stacked
+    expert weights ``w_in`` (E, d_model, d_hidden), ``w_out`` (E,
+    d_hidden, d_model), each expert a two-matrix FFN with the tanh GELU.
+    ``forward`` sets ``aux_loss`` (the gate's load-balancing loss in the
+    activations' dtype) and, in the index-form dispatch modes,
+    ``routing``: the last call's capacity and its (T, k) expert ids,
+    queue positions and keep flags (over the global batch's queues on a
+    mesh with "data").
 
     ``gate``: "gshard", "switch", "naive", "expert_choice" or a gate
     module; ``top_k`` overrides the gate's own. ``dispatch_mode``:
@@ -303,17 +414,22 @@ class MoELayer(pnn.Layer):
     products, the reference's numerics oracle). Expert-choice routing
     takes a gather and a scatter-add under "indexed" (duplicate tokens:
     on the card their sum's order is not fixed) and the dense products
-    otherwise, as in the reference.
+    otherwise, as in the reference. ``group`` and ``recompute_interval``
+    are taken and not read, as in the reference; ``name`` is unused.
 
     Weights are drawn in f32 on ``device`` (``cuda`` unless ``"cpu"`` is
     asked for) from ``generator`` (the default generator when None):
     ``gate.wg`` XavierNormal, ``w_in`` / ``w_out`` XavierNormal by the
     reference's 3-D fan rule. The top-1 noise is drawn from ``generator``
-    too. The reference's ``group``, ``recompute_interval`` and ``name``,
-    which it does not read, are not taken."""
+    too.
+
+    ``distribute(mesh)`` spreads the layer over a mesh (the module
+    docstring): this rank then holds its experts' rows of ``w_in`` /
+    ``w_out`` and its "model" share of their hidden columns."""
 
     def __init__(self, d_model, d_hidden, num_experts, gate="gshard",
-                 capacity_factor=1.25, top_k=None, dispatch_mode="indexed",
+                 capacity_factor=1.25, top_k=None, group=None,
+                 recompute_interval=0, dispatch_mode="indexed", name=None,
                  *, device=None, generator=None):
         super().__init__()
         if dispatch_mode not in DISPATCH_MODES:
@@ -335,11 +451,46 @@ class MoELayer(pnn.Layer):
         self.w_out = nn.Parameter(self._xavier(
             (num_experts, d_hidden, d_model), dev, draw))
         self.aux_loss = None
+        self.routing = None
+        self.mesh = None
 
     @staticmethod
     def _xavier(shape, dev, generator):
         return torch.empty(shape, device=dev).normal_(
             0.0, xavier_normal_std(shape), generator=generator)
+
+    def distribute(self, mesh):
+        """Spread the layer over ``mesh`` (a ``distributed.build_mesh``,
+        this process one rank of it), IN PLACE: ``w_in`` and ``w_out``
+        become this rank's shards under ``EXPERT_SPECS`` (new parameters,
+        cut from the whole weights the layer holds: call it once), and
+        ``forward`` runs over the mesh's "expert", "model" and "data" axes
+        (the module docstring). Other axes replicate."""
+        from .....distributed.topology import shard_of
+        coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
+        with torch.no_grad():
+            for name, spec in EXPERT_SPECS.items():
+                full = getattr(self, name)
+                setattr(self, name, nn.Parameter(
+                    shard_of(full.detach(), spec, mesh.shape, coords)
+                    .clone(), requires_grad=full.requires_grad))
+        self.mesh = mesh
+
+    def _spread(self):
+        """(the ``_DataRoute`` over "data" or None, the groups of "expert"
+        and "model" the partial outputs are summed over, this rank's first
+        expert)."""
+        mesh = self.mesh
+        if mesh is None:
+            return None, [], 0
+        shape = mesh.shape
+        route = _DataRoute(mesh.group("data")) \
+            if shape.get("data", 1) > 1 else None
+        parts = [mesh.group(a) for a in ("expert", "model")
+                 if shape.get(a, 1) > 1]
+        first = mesh.coordinate("expert") * self.w_in.shape[0] \
+            if shape.get("expert", 1) > 1 else 0
+        return route, parts, first
 
     def capacity(self, num_tokens):
         cap = int(math.ceil(self.top_k * self.capacity_factor * num_tokens
@@ -348,50 +499,99 @@ class MoELayer(pnn.Layer):
 
     def expert_ffn(self, expert_in):
         """(E, C, d_model) -> (E, C, d_model): each expert's
-        ``gelu_tanh(x @ w_in[e]) @ w_out[e]``."""
+        ``gelu_tanh(x @ w_in[e]) @ w_out[e]`` (this rank's experts and
+        hidden columns on a mesh)."""
         h = F.gelu(torch.bmm(expert_in, self.w_in), approximate="tanh")
         return torch.bmm(h, self.w_out)
 
     def forward(self, x):
         B, S, H = x.shape
         T, E, k = B * S, self.num_experts, self.top_k
-        cap = self.capacity(T)
+        route, parts, e0 = self._spread()
+        cap = self.capacity(T if route is None else T * route.n)
         xt = x.reshape(T, H)
         glt = self.gate.wg(x).reshape(T, E).to(torch.float32)
         noise = torch_generator(self.generator, x.device) \
             if self.training and k == 1 else None
         eps_std = 0.01 if noise is not None else 0.0
         mode = self.dispatch_mode
+        n_local = self.w_in.shape[0]
         if getattr(self.gate, "routing", "token") == "expert":
+            if route is not None:
+                raise NotImplementedError(EXPERT_CHOICE_DATA)
             if mode == "indexed":
                 # experts pick tokens: the top-k's (E, c) token indices
                 # gather the inputs; the weighted outputs scatter-add back
                 c = min(cap, T)
                 g, idx = torch.topk(torch.softmax(glt, -1).T, c)
+                if parts:
+                    g = _whole(g, parts)[e0:e0 + n_local]
+                    idx = idx[e0:e0 + n_local]
+                    xt = _whole(xt, parts)
                 expert_out = self.expert_ffn(xt[idx])
                 contrib = g[..., None].to(xt.dtype) * expert_out
                 out = xt.new_zeros((T, H)).index_add(
-                    0, idx.reshape(-1), contrib.reshape(E * c, H))
+                    0, idx.reshape(-1), contrib.reshape(-1, H))
                 self.aux_loss = xt.new_zeros(())
-                return out.reshape(B, S, H)
+                return _summed(out, parts).reshape(B, S, H)
             dispatch, combine, aux = expert_choice_gating(glt, cap)
         elif mode in ("indexed", "inverted"):
             eids, pos, keep, w, aux = topk_gating_idx(glt, cap, k, noise,
-                                                      eps_std)
+                                                      eps_std, route)
+            self.routing = {"capacity": cap, "eids": eids.detach(),
+                            "pos": pos.detach(), "keep": keep.detach()}
             disp = inverted_dispatch if mode == "inverted" \
                 else indexed_dispatch
-            expert_out = self.expert_ffn(disp(xt, eids, pos, keep, cap, E))
+            if parts:
+                # this rank's experts only: another's pairs are dropped
+                # here, with weight 0
+                mine = (eids >= e0) & (eids < e0 + n_local)
+                eids = torch.where(mine, eids - e0, 0)
+                keep = keep & mine
+                pos = torch.where(keep, pos, 0)
+                w = _whole(w, parts) * keep
+                xt = _whole(xt, parts)
+            expert_out = self.expert_ffn(disp(xt, eids, pos, keep, cap,
+                                              n_local))
             self.aux_loss = aux.to(xt.dtype)
-            return indexed_combine(expert_out, eids, pos, w,
-                                   cap).reshape(B, S, H)
+            return _summed(indexed_combine(expert_out, eids, pos, w, cap),
+                           parts).reshape(B, S, H)
         elif k == 1:
-            dispatch, combine, aux = top1_gating(glt, cap, noise, eps_std)
+            dispatch, combine, aux = top1_gating(glt, cap, noise, eps_std,
+                                                 route)
         elif k == 2:
-            dispatch, combine, aux = top2_gating(glt, cap)
+            dispatch, combine, aux = top2_gating(glt, cap, route)
         else:
-            dispatch, combine, aux = topk_gating(glt, cap, k)
+            dispatch, combine, aux = topk_gating(glt, cap, k, route)
+        if parts:
+            dispatch = dispatch[:, e0:e0 + n_local]
+            combine = _whole(combine, parts)[:, e0:e0 + n_local]
+            xt = _whole(xt, parts)
         expert_in = torch.einsum("tec,th->ech", dispatch.to(xt.dtype), xt)
         out = torch.einsum("tec,ech->th", combine.to(xt.dtype),
                            self.expert_ffn(expert_in))
         self.aux_loss = aux.to(xt.dtype)
-        return out.reshape(B, S, H)
+        return _summed(out, parts).reshape(B, S, H)
+
+
+# the reference's annotations of the stacked expert weights (``:326-327``)
+EXPERT_SPECS = {"w_in": ("expert", None, "model"),
+                "w_out": ("expert", "model", None)}
+
+
+def _whole(t, groups):
+    """``t`` (the same on every rank of ``groups``) through ``c_identity``
+    over each group: its gradient, each rank's part, summed."""
+    from .....distributed.collective import c_identity
+    for g in groups:
+        t = c_identity(t, g)
+    return t
+
+
+def _summed(t, groups):
+    """The ranks' partial ``t`` summed over each of ``groups``
+    (``mp_allreduce``: the gradient passed through)."""
+    from .....distributed.collective import mp_allreduce
+    for g in groups:
+        t = mp_allreduce(t, g)
+    return t

@@ -176,6 +176,20 @@ class BertForSequenceClassification(pnn.Layer):
         return self.classifier(self.dropout(pooled))
 
 
+def _pretrain_terms(model, input_ids, type_ids, mlm_labels, nsp_labels):
+    """The pieces of the pretraining loss over this batch: (Σ nll · valid,
+    Σ valid, the NSP rows' NLLs), in float32."""
+    mlm_logits, nsp_logits = model(input_ids, type_ids)
+    flat = mlm_logits.reshape(-1, mlm_logits.shape[-1]).to(torch.float32)
+    lbl = mlm_labels.reshape(-1)
+    valid = lbl != -100
+    logp = torch.log_softmax(flat, -1)
+    nll = -torch.gather(logp, -1, torch.where(valid, lbl, 0)[:, None])[:, 0]
+    nsp_logp = torch.log_softmax(nsp_logits.to(torch.float32), -1)
+    nsp_nll = -torch.gather(nsp_logp, -1, nsp_labels[:, None])[:, 0]
+    return torch.sum(nll * valid), torch.sum(valid), nsp_nll
+
+
 def pretrain_loss(model: BertForPretraining, input_ids, type_ids,
                   mlm_labels, nsp_labels):
     """The loss of the reference's pretraining step (``bert.py:165-183``),
@@ -184,17 +198,9 @@ def pretrain_loss(model: BertForPretraining, input_ids, type_ids,
     label's entry picked (class 0 for an ignored label), masked by
     ``label != -100`` and divided by max(Σ valid, 1); plus the NSP mean
     NLL in float32."""
-    mlm_logits, nsp_logits = model(input_ids, type_ids)
-    flat = mlm_logits.reshape(-1, mlm_logits.shape[-1]).to(torch.float32)
-    lbl = mlm_labels.reshape(-1)
-    valid = lbl != -100
-    logp = torch.log_softmax(flat, -1)
-    nll = -torch.gather(logp, -1, torch.where(valid, lbl, 0)[:, None])[:, 0]
-    mlm_loss = torch.sum(nll * valid) / torch.clamp_min(torch.sum(valid), 1)
-    nsp_logp = torch.log_softmax(nsp_logits.to(torch.float32), -1)
-    nsp_loss = -torch.mean(
-        torch.gather(nsp_logp, -1, nsp_labels[:, None])[:, 0])
-    return mlm_loss + nsp_loss
+    mlm_sum, n_valid, nsp_nll = _pretrain_terms(
+        model, input_ids, type_ids, mlm_labels, nsp_labels)
+    return mlm_sum / torch.clamp_min(n_valid, 1) + torch.mean(nsp_nll)
 
 
 def _replay_dropout(model, device):
@@ -213,7 +219,7 @@ def bert_pretrain_step_factory(model: BertForPretraining, mesh=None,
                                learning_rate=1e-4, weight_decay=0.01,
                                beta1=0.9, beta2=0.999, eps=1e-8,
                                remat=False, *, device=None):
-    """Returns (params, opt_state, train_step) for one device.
+    """Returns (params, opt_state, train_step).
 
     ``params`` are the model's own parameters ({state-dict key: tensor},
     made trainable; no copy is held; the tied word embedding is one
@@ -221,23 +227,30 @@ def bert_pretrain_step_factory(model: BertForPretraining, mesh=None,
     and ``train_step(params, opt_state, input_ids, type_ids, mlm_labels,
     nsp_labels) -> (params, opt_state, loss)`` runs ``pretrain_loss``,
     the backward and ``apply_adamw`` (``adamw_update`` per tensor), IN
-    PLACE (the
-    counterpart of the reference's ``donate_argnums``). The model runs
-    in the mode it is in: in ``train()`` its dropout is live, drawn anew
-    each step. ``remat=True`` wraps the forward and loss in
+    PLACE (the counterpart of the reference's ``donate_argnums``). The
+    model runs in the mode it is in: in ``train()`` its dropout is live,
+    drawn anew each step. ``remat=True`` wraps the forward and loss in
     ``torch.utils.checkpoint`` (non-reentrant), whose recomputation
     replays the forward's dropout draws: the numbers are those of
     ``remat=False``, the attention kernels' forward launches double.
 
-    Not ported yet, and refused: ``mesh`` (data parallel and ZeRO moment
-    sharding: ROADMAP Queue 1 item 15)."""
-    from .train_utils import apply_adamw, make_adamw_state
+    ``mesh``: a ``distributed.build_mesh`` over "data", "sharding", "sep"
+    and "model" (one rank of it per process; "pipe" above 1 and other
+    axes refused), the reference's layout (``bert.py:133-209``): the
+    parameters replicated (BERT carries no sharding annotation), still
+    the model's own; ``train_step`` takes the global batch and runs this
+    rank's rows of "data" (the batch replicated over the other axes); the
+    loss is the global batch's: Σ nll · valid and Σ valid, and the NSP
+    rows' NLL sum and count, summed over "data" before the divisions
+    (``train_utils.MeshData.ratios``); gradients are averaged over
+    "data"; AdamW's moments are ZeRO-1 over "sharding". Each data rank
+    draws its own dropout masks: its dropout layers draw from generators
+    offset by its "data" coordinate (``MeshData.offset_dropout``; rank 0
+    keeps the model's), and ``remat=True`` replays those draws."""
+    from .train_utils import MeshData, apply_adamw, make_adamw_state
 
     dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh axes (data/sharding) are not ported yet: ROADMAP Queue 1 "
-            "item 15, distributed / parallel")
+    on = None if mesh is None else MeshData(mesh)
     if remat not in (True, False):
         raise ValueError(f"remat must be True or False; got {remat!r}")
     if model.device.type != dev.type:
@@ -246,23 +259,36 @@ def bert_pretrain_step_factory(model: BertForPretraining, mesh=None,
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
-    opt_state = make_adamw_state(params)
+    if on is None:
+        opt_state = make_adamw_state(params)
+    else:
+        on.offset_dropout(model)
+        opt_state = make_adamw_state(params, mesh=mesh,
+                                     shardings={k: () for k in params})
+    fn = pretrain_loss if on is None else _pretrain_terms
 
     def loss_of(*batch):
         if not remat:
-            return pretrain_loss(model, *batch)
+            return fn(model, *batch)
         from torch.utils.checkpoint import checkpoint
-        return checkpoint(pretrain_loss, model, *batch, use_reentrant=False,
+        return checkpoint(fn, model, *batch, use_reentrant=False,
                           context_fn=lambda: _replay_dropout(model, dev))
 
     def train_step(params, opt_state, input_ids, type_ids, mlm_labels,
                    nsp_labels):
         batch = [torch.as_tensor(t, device=dev).long()
                  for t in (input_ids, type_ids, mlm_labels, nsp_labels)]
-        loss = loss_of(*batch)
+        if on is None:
+            loss = value = loss_of(*batch)
+        else:
+            mlm_sum, n_valid, nsp_nll = loss_of(*on.rows(*batch))
+            loss, value = on.ratios([(mlm_sum, n_valid),
+                                     (torch.sum(nsp_nll), nsp_nll.numel())])
         grads = list(torch.autograd.grad(loss, list(params.values())))
+        if on is not None:
+            on.average(grads)
         apply_adamw(params, grads, opt_state, learning_rate, beta1, beta2,
-                    eps, weight_decay)
-        return params, opt_state, loss.detach()
+                    eps, weight_decay, mesh=mesh)
+        return params, opt_state, value.detach()
 
     return params, opt_state, train_step

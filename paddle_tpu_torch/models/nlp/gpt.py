@@ -122,19 +122,24 @@ class GPTForCausalLM(pnn.Layer):
         return out
 
 
+def _token_nll(model: GPTForCausalLM, tokens, labels):
+    """Each token's float32 log-softmax cross-entropy (B, S)."""
+    logits = model(tokens).to(torch.float32)
+    logp = torch.log_softmax(logits, -1)
+    return -torch.gather(logp, -1, labels[..., None])[..., 0]
+
+
 def lm_loss(model: GPTForCausalLM, tokens, labels):
     """The loss of the reference's step (``gpt.py:120-134``): the mean
     over every token of the float32 log-softmax cross-entropy."""
-    logits = model(tokens).to(torch.float32)
-    logp = torch.log_softmax(logits, -1)
-    return torch.mean(-torch.gather(logp, -1, labels[..., None])[..., 0])
+    return torch.mean(_token_nll(model, tokens, labels))
 
 
 def gpt_pretrain_step_factory(model: GPTForCausalLM, mesh=None,
                               learning_rate=1e-4, weight_decay=0.01,
                               beta1=0.9, beta2=0.95, eps=1e-8, *,
                               device=None):
-    """Returns (params, opt_state, train_step) for one device.
+    """Returns (params, opt_state, train_step).
 
     ``params`` are the model's own parameters ({state-dict key: tensor},
     made trainable; no copy is held; the tied word embedding is one
@@ -143,24 +148,30 @@ def gpt_pretrain_step_factory(model: GPTForCausalLM, mesh=None,
     opt_state, loss)`` runs ``lm_loss``, the backward and ``apply_adamw``
     IN PLACE (the counterpart of the reference's ``donate_argnums``). The
     model runs in ``eval()`` inside the step, so dropout is off, as in
-    the reference's compiled step; its mode is restored afterwards.
+    the reference's compiled step; its mode is restored afterwards. The
+    attention stays dense (the additive causal mask), as in the
+    reference.
 
-    Not ported yet, and refused: ``mesh`` (data parallel and ZeRO moment
-    sharding: ROADMAP Queue 1 item 15)."""
-    from .train_utils import apply_adamw, make_adamw_state
+    ``mesh``: a ``distributed.build_mesh`` over "data", "sharding", "sep"
+    and "model" (one rank of it per process; "pipe" above 1 and other
+    axes refused), the reference's layout (``gpt.py:92-160``): the
+    parameters replicated, still the model's own; ``train_step`` takes
+    the global batch and runs this rank's rows of "data"; the loss is the
+    global token mean (the NLL sum and the token count summed over
+    "data", ``train_utils.MeshData.ratios``); gradients are averaged over
+    "data"; AdamW's moments are ZeRO-1 over "sharding"."""
+    from .train_utils import MeshData, apply_adamw, make_adamw_state
 
     dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh axes (data/sharding) are not ported yet: ROADMAP Queue 1 "
-            "item 15, distributed / parallel")
+    on = None if mesh is None else MeshData(mesh)
     if model.device.type != dev.type:
         raise ValueError(f"the model lives on {model.device}; build it with "
                          f"device={dev}")
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
-    opt_state = make_adamw_state(params)
+    opt_state = make_adamw_state(params) if on is None else \
+        make_adamw_state(params, mesh=mesh, shardings={k: () for k in params})
 
     def train_step(params, opt_state, tokens, labels):
         tokens, labels = (torch.as_tensor(t, device=dev).long()
@@ -168,12 +179,18 @@ def gpt_pretrain_step_factory(model: GPTForCausalLM, mesh=None,
         was = model.training
         model.eval()
         try:
-            loss = lm_loss(model, tokens, labels)
+            if on is None:
+                loss = value = lm_loss(model, tokens, labels)
+            else:
+                nll = _token_nll(model, *on.rows(tokens, labels))
+                loss, value = on.ratios([(torch.sum(nll), nll.numel())])
             grads = list(torch.autograd.grad(loss, list(params.values())))
         finally:
             model.train(was)
+        if on is not None:
+            on.average(grads)
         apply_adamw(params, grads, opt_state, learning_rate, beta1, beta2,
-                    eps, weight_decay)
-        return params, opt_state, loss.detach()
+                    eps, weight_decay, mesh=mesh)
+        return params, opt_state, value.detach()
 
     return params, opt_state, train_step

@@ -315,8 +315,6 @@ class LlamaForCausalLM(Layer):
 # chunk.
 _TP = {"mesh": None, "axis": "model"}
 _CP = {"mesh": None, "axis": "sep"}
-PIPE_NOT_PORTED = ("a {axis!r} axis above 1 is not ported yet: ROADMAP "
-                   "Queue 1 item 15 (the pipeline)")
 
 
 def set_tensor_parallel_mesh(mesh, axis: str = "model"):
@@ -519,11 +517,6 @@ def llama_train_step_factory(model: LlamaForCausalLM, learning_rate=1e-4,
     return params, opt_state, train_step
 
 
-# gradients are averaged over "data" in flat buckets of this many bytes
-GRAD_BUCKET_BYTES = 256 * 2 ** 20
-MESH_AXES = ("data", "pipe", "sharding", "sep", "model")
-
-
 def _mesh_step(model, mesh, dev, lr, weight_decay, beta1, beta2, eps,
                accum_dtype, remat, offload_moments, chunked_vocab_ce):
     """The factory on a mesh (``llama.py:500-640``), from this rank:
@@ -547,24 +540,19 @@ def _mesh_step(model, mesh, dev, lr, weight_decay, beta1, beta2, eps,
       vocabulary-split f32 CE with one), averaged over "data" and "sep"
       (``:603-622``; the value returned);
     * gradients are averaged over "data" and "sep" (the parameters are
-      replicated over both); over "sharding" the batch is replicated, so
-      each rank's gradient is whole already;
+      replicated over both; ``train_utils.MeshData.average``, 16-bit ones
+      in f32); over "sharding" the batch is replicated, so each rank's
+      gradient is whole already;
     * the update is ZeRO-1 over "sharding" (``train_utils``: each rank
       updates its slice of every moment and parameter and the parameters
       are all-gathered), in pinned host memory with
       ``offload_moments``."""
     from ...distributed.collective import ReduceOp, all_reduce
-    from ...distributed.parallel import _bucketed_all_reduce
     from .llama_functional import loss_fn, param_views
-    from .train_utils import apply_adamw, make_adamw_state
+    from .train_utils import MeshData, apply_adamw, make_adamw_state
 
     shape = mesh.shape
-    unknown = set(shape) - set(MESH_AXES)
-    if unknown:
-        raise ValueError(f"mesh axes {sorted(unknown)} are not among "
-                         f"{MESH_AXES}")
-    if shape.get("pipe", 1) > 1:
-        raise NotImplementedError(PIPE_NOT_PORTED.format(axis="pipe"))
+    on = MeshData(mesh)
     has_model = shape.get("model", 1) > 1
     if chunked_vocab_ce and has_model:
         raise ValueError(
@@ -586,11 +574,9 @@ def _mesh_step(model, mesh, dev, lr, weight_decay, beta1, beta2, eps,
                   for k, v in model.named_parameters()}
     opt_state = make_adamw_state(params, accum_dtype, offload=offload_moments,
                                  mesh=mesh, shardings=specs)
-    dp, sp = shape.get("data", 1), shape.get("sep", 1)
-    row, col = coords.get("data", 0), coords.get("sep", 0)
-    # the groups a gradient and the loss are averaged over
-    averaged = [mesh.group(a) for a, n in (("data", dp), ("sep", sp))
-                if n > 1]
+    sp = shape.get("sep", 1)
+    col = coords.get("sep", 0)
+    sep = mesh.group("sep") if sp > 1 else None
     tp_mesh = mesh if has_model else None
     cp_mesh = mesh if sp > 1 else None
     n_layers = cfg.num_hidden_layers
@@ -598,15 +584,12 @@ def _mesh_step(model, mesh, dev, lr, weight_decay, beta1, beta2, eps,
     def train_step(params, opt_state, tokens, labels):
         tokens = torch.as_tensor(tokens, device=dev).long()
         labels = torch.as_tensor(labels, device=dev).long()
-        if tokens.shape[0] % dp:
-            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
-                             f"divide over data={dp}")
         if tokens.shape[1] % sp:
             raise ValueError(f"a sequence of {tokens.shape[1]} tokens does "
                              f"not divide over sep={sp}")
-        b, s = tokens.shape[0] // dp, tokens.shape[1] // sp
-        tokens, labels = (t[row * b:(row + 1) * b, col * s:(col + 1) * s]
-                          for t in (tokens, labels))
+        s = tokens.shape[1] // sp
+        tokens, labels = (t[:, col * s:(col + 1) * s]
+                          for t in on.rows(tokens, labels))
         keys = list(params)
         prev = (_TP["mesh"], _TP["axis"], _CP["mesh"], _CP["axis"])
         set_tensor_parallel_mesh(tp_mesh)
@@ -620,10 +603,10 @@ def _mesh_step(model, mesh, dev, lr, weight_decay, beta1, beta2, eps,
             set_tensor_parallel_mesh(*prev[:2])
             set_context_parallel_mesh(*prev[2:])
         loss = loss.detach().clone()
-        for group in averaged:
-            with torch.no_grad():
-                _bucketed_all_reduce(grads, group, GRAD_BUCKET_BYTES)
-            all_reduce(loss, op=ReduceOp.AVG, group=group)
+        on.average(grads, sep)
+        for group in (on.group, sep):
+            if group is not None:
+                all_reduce(loss, op=ReduceOp.AVG, group=group)
         apply_adamw(params, grads, opt_state, lr, beta1, beta2, eps,
                     weight_decay, accum_dtype, offload=offload_moments,
                     mesh=mesh)

@@ -18,8 +18,13 @@ SwiGLU MLPs are Llama's layers (``LlamaAttention``, ``LlamaMLP``:
 grouped flash kernels (or multi-head ones) where the shape is
 flash-eligible, e.g. a bf16 model at S >= 256.
 
-Not ported yet, and refused: expert parallelism (a ``mesh`` with an
-"expert" axis: ROADMAP item 15).
+On a mesh (``moe_train_step_factory(mesh=)``, one rank of it per
+process) the reference's annotations hold (``param_shardings``): the
+routed experts' ``w_in`` / ``w_out`` over "expert" and "model"
+(``MoELayer.distribute``: expert parallelism), the attention and the
+shared SwiGLU's projections over "model" as Llama's
+(``llama_functional``'s tensor-parallel layer math), the rest replicated;
+the batch over "data", with the router's global routing.
 """
 from __future__ import annotations
 
@@ -233,6 +238,12 @@ def moe_loss(model: MoEForCausalLM, tokens, labels, chunked_vocab_ce=None):
     ``chunked_vocab_ce`` (a chunk size) ``chunked_causal_lm_loss`` of the
     final hidden states and the tied embedding; plus ``aux_loss()`` in
     f32."""
+    ce, aux = _moe_terms(model, tokens, labels, chunked_vocab_ce)
+    return ce + aux
+
+
+def _moe_terms(model, tokens, labels, chunked_vocab_ce=None):
+    """(the mean f32 CE over these tokens, ``aux_loss()`` in f32)."""
     if chunked_vocab_ce:
         from ...ops.chunked_ce import chunked_causal_lm_loss
 
@@ -244,7 +255,7 @@ def moe_loss(model: MoEForCausalLM, tokens, labels, chunked_vocab_ce=None):
         logp = torch.log_softmax(
             logits.reshape(-1, logits.shape[-1]).to(torch.float32), -1)
         ce = -torch.mean(logp.gather(-1, labels.reshape(-1, 1))[:, 0])
-    return ce + model.aux_loss().to(torch.float32)
+    return ce, model.aux_loss().to(torch.float32)
 
 
 def _replay_router_noise(model, device):
@@ -258,11 +269,47 @@ def _replay_router_noise(model, device):
         for layer in model.layers if layer.use_moe)
 
 
+def _spec_of(key):
+    """The reference's annotation of a MoE state-dict key: the routed
+    experts' (``EXPERT_SPECS``), else Llama's (the attention and SwiGLU
+    projections over "model"; the embedding, norms and router
+    replicated)."""
+    from ...incubate.distributed.models.moe import EXPERT_SPECS
+    from .llama import _spec_of as llama_spec_of
+    for leaf, spec in EXPERT_SPECS.items():
+        if key.endswith(".mlp." + leaf):
+            return spec
+    return llama_spec_of(key)
+
+
+def param_shardings(model, mesh):
+    """{state-dict key: spec}: one mesh axis name or None per dimension,
+    the reference's annotations (``_spec_of``) with the axes the mesh
+    lacks dropped (``llama.py:481-497``). ``mesh``: a
+    ``distributed.Mesh`` or {axis: size}."""
+    from .llama import _axes
+    names = set(_axes(mesh))
+    return {k: tuple(a if a in names else None for a in _spec_of(k))
+            for k in model.state_dict()}
+
+
+def shard_moe_state_dict(state: dict, mesh_shape: dict, rank: int):
+    """Rank ``rank``'s shards of a full MoE state dict ({key: array}, the
+    reference's keys and layouts) on a row-major mesh of ``mesh_shape``
+    ({axis: size}): the reference's ``addressable_shards[rank]``."""
+    from ...distributed.topology import coords_of, shard_of
+    coords = coords_of(mesh_shape, rank)
+    names = set(mesh_shape)
+    return {k: shard_of(v, tuple(a if a in names else None
+                                 for a in _spec_of(k)), mesh_shape, coords)
+            for k, v in state.items()}
+
+
 def moe_train_step_factory(model: MoEForCausalLM, mesh=None,
                            learning_rate=1e-4, weight_decay=0.01,
                            beta1=0.9, beta2=0.95, eps=1e-8, remat=False,
                            chunked_vocab_ce=None, *, device=None):
-    """Returns (params, opt_state, train_step) for one device.
+    """Returns (params, opt_state, train_step).
 
     ``params`` are the model's own parameters ({state-dict key: tensor},
     made trainable; no copy is held), ``opt_state`` is
@@ -278,31 +325,54 @@ def moe_train_step_factory(model: MoEForCausalLM, mesh=None,
     head and CE (``ops/chunked_ce.py``), which never builds the (B·S, V)
     logits.
 
-    Not ported yet, and refused: ``mesh`` (expert parallelism over an
-    "expert" axis, data parallelism: ROADMAP item 15)."""
+    ``mesh``: a ``distributed.build_mesh`` over "data", "sharding",
+    "sep", "model" and "expert" (one rank of it per process; "pipe" above
+    1 and other axes refused), the reference's layout (``moe.py:187-270``):
+
+    * the model is cut IN PLACE to this rank's shards under
+      ``param_shardings`` (the routed experts over "expert" and "model",
+      the attention and shared SwiGLU over "model", the rest replicated):
+      its parameters are then the rank's, and ``params`` holds them;
+    * ``train_step`` takes the global batch and runs this rank's rows of
+      "data" (replicated over the other axes); the MoE layers route it
+      globally and run their experts where they live
+      (``MoELayer.distribute``), the attention and SwiGLUs split their
+      heads and columns over "model" (``llama.set_tensor_parallel_mesh``
+      around the step);
+    * the loss is the CE's global mean (each rank's token sum and count
+      summed over "data") plus the global load-balancing loss;
+    * every rank's gradient is whole over "expert" and "model" (the
+      layers' ``c_identity``), and is averaged over "data", expert shards
+      included; AdamW's moments are ZeRO-1 over "sharding" by
+      ``train_utils.moment_dim``."""
     from torch.utils.checkpoint import checkpoint
 
-    from .train_utils import apply_adamw, make_adamw_state
+    from .train_utils import MESH_AXES, MeshData, apply_adamw, \
+        make_adamw_state
 
     dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh axes (expert parallelism, data parallelism) are not "
-            "ported yet: ROADMAP Queue 1 item 15, distributed / parallel")
+    on = None if mesh is None else MeshData(mesh, MESH_AXES + ("expert",))
     if remat not in (True, False):
         raise ValueError(f"remat must be True or False; got {remat!r}")
     if model.device.type != dev.type:
         raise ValueError(f"the model lives on {model.device}; build it with "
                          f"device={dev}")
+    specs = None
+    if on is not None:
+        specs = param_shardings(model, mesh)
+        _distribute(model, mesh, specs)
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
-    opt_state = make_adamw_state(params)
+    opt_state = make_adamw_state(params, mesh=mesh, shardings=specs)
+    terms = moe_loss if on is None else _moe_terms
+    tp_mesh = mesh if on is not None and mesh.shape.get("model", 1) > 1 \
+        else None
 
     def loss_of(tokens, labels):
         if not remat:
-            return moe_loss(model, tokens, labels, chunked_vocab_ce)
-        return checkpoint(moe_loss, model, tokens, labels, chunked_vocab_ce,
+            return terms(model, tokens, labels, chunked_vocab_ce)
+        return checkpoint(terms, model, tokens, labels, chunked_vocab_ce,
                           use_reentrant=False,
                           context_fn=lambda: _replay_router_noise(model,
                                                                   dev))
@@ -310,10 +380,46 @@ def moe_train_step_factory(model: MoEForCausalLM, mesh=None,
     def train_step(params, opt_state, tokens, labels):
         tokens = torch.as_tensor(tokens, device=dev).long()
         labels = torch.as_tensor(labels, device=dev).long()
-        loss = loss_of(tokens, labels)
+        if on is None:
+            loss = value = loss_of(tokens, labels)
+        else:
+            from .llama import _TP, set_tensor_parallel_mesh
+            tokens, labels = on.rows(tokens, labels)
+            prev = (_TP["mesh"], _TP["axis"])
+            set_tensor_parallel_mesh(tp_mesh)
+            try:
+                ce, aux = loss_of(tokens, labels)
+            finally:
+                set_tensor_parallel_mesh(*prev)
+            n = labels.numel()
+            loss, value = on.ratios([(ce * n, n)])
+            loss, value = loss + aux, value + aux.detach()
         grads = list(torch.autograd.grad(loss, list(params.values())))
+        if on is not None:
+            on.average(grads)
         apply_adamw(params, grads, opt_state, learning_rate, beta1, beta2,
-                    eps, weight_decay)
-        return params, opt_state, loss.detach()
+                    eps, weight_decay, mesh=mesh)
+        return params, opt_state, value.detach()
 
     return params, opt_state, train_step
+
+
+def _distribute(model, mesh, specs):
+    """Cut ``model`` IN PLACE to this rank's shards under ``specs``: each
+    parameter split over an axis of the mesh is replaced by a new one
+    holding its shard, the routed experts by ``MoELayer.distribute``."""
+    from ...distributed.topology import shard_of
+    coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
+    with torch.no_grad():
+        for key, p in list(model.named_parameters()):
+            split = any(a is not None and mesh.shape[a] > 1
+                        for a in specs[key])
+            if not split or ".mlp.w_" in key:
+                continue
+            owner, _, leaf = key.rpartition(".")
+            setattr(model.get_submodule(owner), leaf, torch.nn.Parameter(
+                shard_of(p.detach(), specs[key], mesh.shape, coords)
+                .clone()))
+    for layer in model.layers:
+        if layer.use_moe:
+            layer.mlp.distribute(mesh)

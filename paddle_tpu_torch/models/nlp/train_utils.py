@@ -13,6 +13,14 @@ largest dimension of the full parameter that is not split over another
 axis and that the axis divides); ``apply_adamw`` updates that slice of
 the parameter and all-gathers it over "sharding". AdamW is elementwise,
 so the sliced update gives the same bits as the whole-tensor update.
+
+``MeshData`` is what the factories share on a mesh (one rank of it per
+process), the Llama step's too: the axis check, this rank's rows of
+"data", gradients averaged over "data" (and "sep") in buckets, in f32 for
+16-bit ones, and losses taken as global ratios (each rank's
+numerator and denominator summed over "data" before the division, never a
+mean of the ranks' means). Over every other axis the batch is replicated,
+as the reference's ``data_sh = P("data")`` lays it out.
 """
 from __future__ import annotations
 
@@ -24,6 +32,129 @@ import torch
 # tensors whose moments cross to the card together in an offloaded
 # update: the reference's ``chunk_n`` (llama.py:676)
 OFFLOAD_CHUNK = 4
+
+# the axes a factory's mesh may name; gradients are averaged over "data"
+# in flat buckets of ``GRAD_BUCKET_BYTES``
+MESH_AXES = ("data", "pipe", "sharding", "sep", "model")
+GRAD_BUCKET_BYTES = 256 * 2 ** 20
+PIPE_NOT_PORTED = ("a {axis!r} axis above 1 is not ported yet: ROADMAP "
+                   "Queue 1 item 15 (the pipeline)")
+
+
+def check_mesh_axes(shape, axes=MESH_AXES):
+    """Refuse a mesh ({axis: size}) naming an axis not in ``axes``
+    (ValueError) or a "pipe" axis above 1 (NotImplementedError)."""
+    unknown = set(shape) - set(axes)
+    if unknown:
+        raise ValueError(f"mesh axes {sorted(unknown)} are not among "
+                         f"{tuple(axes)}")
+    if shape.get("pipe", 1) > 1:
+        raise NotImplementedError(PIPE_NOT_PORTED.format(axis="pipe"))
+
+
+class MeshData:
+    """A factory's view of its mesh (a ``distributed.build_mesh``, this
+    process one rank of it): the batch split over "data", replicated over
+    every other axis. ``axes``: the axes the factory takes (others are
+    refused, and so is "pipe" above 1)."""
+
+    def __init__(self, mesh, axes=MESH_AXES):
+        check_mesh_axes(mesh.shape, axes)
+        self.mesh = mesh
+        self.n = mesh.shape.get("data", 1)
+        self.row = mesh.coordinate("data") if self.n > 1 else 0
+        self.group = mesh.group("data") if self.n > 1 else None
+
+    def rows(self, *tensors):
+        """This rank's rows of each global batch tensor (dim 0 cut into
+        "data" equal blocks)."""
+        out = []
+        for t in tensors:
+            if t.shape[0] % self.n:
+                raise ValueError(f"a batch of {t.shape[0]} rows does not "
+                                 f"divide over data={self.n}")
+            b = t.shape[0] // self.n
+            out.append(t[self.row * b:(self.row + 1) * b])
+        return out
+
+    def average(self, grads, *groups):
+        """Average ``grads`` (a list; None entries skipped) in place over
+        "data" and then over each of ``groups`` (None entries skipped), in
+        buckets of ``GRAD_BUCKET_BYTES``: the axes the parameters are
+        replicated over. A 16-bit gradient is averaged in f32 and rounded
+        back once: summed in its own dtype it would round at each of the
+        ranks' additions, and where an element cancels over the batch (a
+        bias's, a norm's) those roundings are relative to the ranks'
+        parts, not to the sum, which AdamW then steps by its sign. The f32
+        copies are made a slice of ``GRAD_BUCKET_BYTES`` at a time (one
+        bucket may be a 525 M-element embedding's gradient)."""
+        from ...distributed.collective import all_reduce
+        from ...distributed.fleet.utils.internal_storage import \
+            reduce_in_place
+        groups = [g for g in (self.group,) + groups if g is not None]
+        if not groups:
+            return
+        step = GRAD_BUCKET_BYTES // 4
+
+        def reduce(flat):
+            for s in range(0, flat.numel(), step):
+                part = flat[s:s + step]
+                wide = part.float()
+                for group in groups:
+                    all_reduce(wide, group=group)
+                    wide.div_(max(group.nranks, 1))
+                if wide is not part:
+                    part.copy_(wide)
+            return flat
+
+        with torch.no_grad():
+            reduce_in_place([g for g in grads if g is not None], reduce,
+                            GRAD_BUCKET_BYTES)
+
+    def ratios(self, terms):
+        """The global loss Σ_i (Σ_ranks num_i) / max(Σ_ranks den_i, 1) of
+        ``terms`` [(numerator: a scalar of this rank's rows that the
+        gradient flows through, denominator: its count)], as (the loss to
+        differentiate on this rank, the global value). The loss to
+        differentiate is n · num_i / (the global denominator): once the
+        gradients are averaged over the n ranks of "data", the gradient of
+        the global ratio, whatever each rank's count."""
+        from ...distributed.collective import all_reduce
+        flat = torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                            device=terms[0][0].device)
+                            .detach().reshape(())
+                            for pair in terms for x in pair])
+        if self.group is not None:
+            all_reduce(flat, group=self.group)
+        dens = torch.clamp_min(flat[1::2], 1)
+        value = torch.sum(flat[0::2] / dens)
+        loss = sum(self.n * num.to(torch.float32) / den
+                   for (num, _), den in zip(terms, dens))
+        return loss, value
+
+    def offset_dropout(self, model):
+        """Give every ``nn.Dropout`` of ``model`` a generator of this "data"
+        rank's own (rank 0 keeps the model's): its draws seeded with the
+        generator's seed plus the rank's "data" coordinate times the
+        golden-ratio constant, so no two data ranks draw the same mask and
+        the ranks of one data coordinate draw alike."""
+        if self.row == 0:
+            return
+        from ...core.generator import Generator, default_generator
+        from ... import nn as pnn
+        made = {}
+        for m in model.modules():
+            if isinstance(m, pnn.Dropout):
+                g = m.generator if m.generator is not None \
+                    else default_generator()
+                if id(g) not in made:
+                    made[id(g)] = Generator(
+                        (g.initial_seed() + self.row * GOLDEN) % 2 ** 63)
+                m.generator = made[id(g)]
+
+
+# the seed offset of one data rank's dropout from the next (2^64 / phi)
+GOLDEN = 0x9E3779B97F4A7C15
 
 
 def adamw_update(p, g, m, v, t, lr, beta1, beta2, eps, weight_decay,

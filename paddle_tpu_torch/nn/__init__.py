@@ -1,8 +1,8 @@
 """nn of the PyTorch port (counterpart of ``paddle_tpu/nn``): ``Layer``
 and its containers, every layer and function of the reference's ``nn``
-but the transposed convolutions (ROADMAP item 16) and ``SyncBatchNorm``
-(item 15), the losses, the initializers and ``ParamAttr``, and the
-gradient clips the optimizers take. Every layer is a ``Layer`` (a
+but the transposed convolutions (ROADMAP item 16), the losses, the
+initializers and ``ParamAttr``, and the gradient clips the optimizers
+take. Every layer is a ``Layer`` (a
 ``torch.nn.Module`` with Paddle's names, ``layer.layers``) that takes
 ``device`` (the default device unless ``"cpu"`` or another is asked for;
 without a card a default or ``"cuda"`` device raises) where it holds

@@ -8,7 +8,16 @@ blended in place as ``momentum * running + (1 - momentum) * batch`` and
 cast back to the buffer's dtype (Paddle's ``momentum`` weighs the old
 statistic, where torch's weighs the new one, and torch blends the
 unbiased variance: so no library batch norm is called); the
-normalisation in float32, cast back to x's dtype.
+normalisation in float32, cast back to x's dtype. Under a process group
+of several ranks (the one ``_sync_batch_norm`` sets for a block of code:
+``nn.SyncBatchNorm``'s, or a train step's "data" group) the training
+statistics are the global batch's, by the same two-pass formula: the f32
+sums and counts all-reduced for the mean, then the sums of squared
+deviations from it for the biased variance
+(``distributed.collective.all_reduce_with_grad``: the statistics stay
+differentiable, their gradients summed over the ranks).
+Every rank blends the same global statistics, so the running ones stay
+equal over the group.
 
 ``layer_norm`` is the counterpart of ``paddle_tpu/nn/functional/norm.py
 :93-119``: the
@@ -31,9 +40,29 @@ do: ``layer_norm``, and in training the batch statistics ``bn_mean`` and
 """
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
 
 from ...ops.dispatch import apply_op
+
+# the group a batch norm in training takes its statistics over
+# (``_sync_batch_norm``)
+_SYNC = {"group": None}
+
+
+@contextlib.contextmanager
+def _sync_batch_norm(group):
+    """Within the block, every batch norm in training takes its statistics
+    over ``group``'s ranks (None: each rank's batch): the statistics of a
+    batch split over the group's ranks."""
+    prev = _SYNC["group"]
+    _SYNC["group"] = group
+    try:
+        yield
+    finally:
+        _SYNC["group"] = prev
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
@@ -43,7 +72,8 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     layouts, the last otherwise). In training (unless
     ``use_global_stats``) with the batch's statistics, blending them into
     ``running_mean`` / ``running_var`` in place when those are given;
-    otherwise with the running statistics."""
+    otherwise with the running statistics; the training statistics are
+    over the ranks of ``_sync_batch_norm``'s group when one is set."""
     nd = x.dim()
     channel_axis = 1 if data_format.startswith("NC") else nd - 1
     axes = tuple(i for i in range(nd) if i != channel_axis)
@@ -51,9 +81,14 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     shape[channel_axis] = x.shape[channel_axis]
     use_stats = (not training) if use_global_stats is None \
         else use_global_stats
-    if training and not use_stats:
+    group = _SYNC["group"]
+    if training and not use_stats and group is not None \
+            and group.nranks > 1:
+        mean, var = _global_stats(x, axes, shape, group)
+    elif training and not use_stats:
         mean = apply_op("bn_mean", _bn_mean, x, axes=axes)
         var = apply_op("bn_var", _bn_var, x, axes=axes)
+    if training and not use_stats:
         if running_mean is not None and not getattr(mean, "_symbolic",
                                                     False):
             # a static program's statistics are symbolic: the running
@@ -79,6 +114,20 @@ def _bn_mean(x, axes):
 def _bn_var(x, axes):
     xf = x.to(torch.float32)
     return torch.square(xf - xf.mean(axes, keepdim=True)).mean(axes)
+
+
+def _global_stats(x, axes, shape, group):
+    """The f32 mean and biased variance over the batches of ``group``'s
+    ranks (each rank's count may differ): ``_bn_mean`` and ``_bn_var`` of
+    the global batch, in two passes."""
+    from ...distributed.collective import all_reduce_with_grad
+    xf = x.to(torch.float32)
+    count = xf.new_full((1,), xf.numel() // math.prod(shape))
+    sums = all_reduce_with_grad(torch.cat([xf.sum(axes), count]), group)
+    n = sums[-1]
+    mean = sums[:-1] / n
+    dev = torch.square(xf - mean.reshape(shape)).sum(axes)
+    return mean, all_reduce_with_grad(dev, group) / n
 
 
 def _batch_norm(x, mean, var, weight, bias, shape, epsilon):

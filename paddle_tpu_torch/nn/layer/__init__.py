@@ -25,7 +25,7 @@ from .loss import (BCELoss, BCEWithLogitsLoss,  # noqa: F401
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
                    BatchNorm3D, GroupNorm, InstanceNorm1D, InstanceNorm2D,
                    InstanceNorm3D, LayerNorm, LocalResponseNorm, RMSNorm,
-                   SpectralNorm)
+                   SpectralNorm, SyncBatchNorm)
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
                       AdaptiveAvgPool3D, AdaptiveMaxPool1D,
                       AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,

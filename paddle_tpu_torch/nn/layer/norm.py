@@ -12,7 +12,10 @@ the batch's statistics in training mode and blends them into the buffers
 (``F.batch_norm``). Parameters are made by ``create_parameter`` with the
 reference's ``weight_attr`` / ``bias_attr`` in the reference's positions
 (a ``ParamAttr``, or False for none); ``device`` is keyword-only and
-``name`` unused.
+``name`` unused. ``SyncBatchNorm`` (``:128-150``) is a batch norm over a
+process group: its training statistics are the global batch's
+(``F.batch_norm`` under ``_sync_batch_norm``); outside a group of
+several ranks it is ``BatchNorm``, as the reference's.
 
 ``InstanceNorm1D/2D/3D``, ``GroupNorm``, ``LocalResponseNorm`` and
 ``SpectralNorm`` follow ``paddle_tpu/nn/layer/norm.py:154-260``: an
@@ -140,6 +143,62 @@ class BatchNorm3D(_BatchNormBase):
         super().__init__(num_features, momentum, epsilon, weight_attr,
                          bias_attr, data_format, use_global_stats,
                          device=device)
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """A batch norm whose training statistics are the global batch's over
+    the default group of every rank (``paddle.nn.SyncBatchNorm``), or
+    over the group a train step has set for its batch norms (a mesh's
+    "data"). Each rank normalises its own batch with the global mean
+    and biased variance, blends them into its running statistics (equal
+    on every rank) and takes gradients through them. Outside a group of
+    several ranks (no process group, or a world of one) it is
+    ``BatchNorm``, as the reference's
+    (``paddle_tpu/nn/layer/norm.py:128-150``)."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None, *, device=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats,
+                         device=device)
+
+    def forward(self, x):
+        from ...distributed import collective
+        from ..functional.norm import _SYNC, _sync_batch_norm
+        group = _SYNC["group"]
+        if group is None and collective.is_initialized():
+            group = collective._default_group()
+        with _sync_batch_norm(group):
+            return super().forward(x)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """``layer`` with every batch norm in it (itself included) replaced
+        by a ``SyncBatchNorm`` holding copies of its weight, bias and
+        running statistics, in their dtypes, and its mode; a
+        ``SyncBatchNorm`` is kept."""
+        if isinstance(layer, _BatchNormBase) and not isinstance(layer, cls):
+            new = cls(layer.num_features, layer.momentum, layer.epsilon,
+                      weight_attr=False if layer.weight is None else None,
+                      bias_attr=False if layer.bias is None else None,
+                      data_format=layer.data_format,
+                      use_global_stats=layer.use_global_stats,
+                      device=layer._mean.device)
+            with torch.no_grad():
+                for name in ("weight", "bias"):
+                    old = getattr(layer, name)
+                    if old is not None:
+                        setattr(new, name, torch.nn.Parameter(
+                            old.detach().clone(),
+                            requires_grad=old.requires_grad))
+                for name in ("_mean", "_variance"):
+                    new.register_buffer(name,
+                                        getattr(layer, name).detach().clone())
+            return new.train(layer.training)
+        for name, sub in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        return layer
 
 
 class InstanceNorm1D(Layer):

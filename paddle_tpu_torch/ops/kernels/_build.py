@@ -11,6 +11,11 @@ it includes, so an edited source or header is rebuilt and an unchanged
 one is reused. Nothing is built when a module is
 imported: the first launch builds (``load``), or ``build_all`` builds
 every kernel at once, one ``nvcc`` process per source, all in parallel.
+Each source is compiled to an object and linked into its library; a
+source may have more translation units, the ``.cu`` files of
+``<name>_parts/`` (template instances split off so that their nvcc
+processes run beside the source's), compiled at once with it and linked
+into the one library.
 
 ``nvcc`` is taken from ``$CUDA_HOME/bin``, else from ``PATH``, else from
 the toolkit's default prefix. Set ``PADDLE_TPU_TORCH_PTXAS_VERBOSE=1`` to
@@ -24,6 +29,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -39,6 +45,12 @@ _loaded: dict = {}
 def sources() -> list:
     """Names of every kernel source in this directory."""
     return sorted(p.stem for p in KERNEL_DIR.glob("*.cu"))
+
+
+def parts(name: str) -> list:
+    """The other translation units of kernel ``name``: the ``.cu`` files
+    of ``<name>_parts/``, in order (none for most kernels)."""
+    return sorted((KERNEL_DIR / f"{name}_parts").glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -74,45 +86,92 @@ def library_path(name: str) -> Path:
     """Where kernel ``name``'s library is built: named by a hash of its
     source, the headers it includes and the flags, so an edit of any of
     them builds a new library."""
-    src = KERNEL_DIR / f"{name}.cu"
-    digest = hashlib.sha256(_with_headers(src, set())
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = b"".join(_with_headers(src, set())
+                    for src in [KERNEL_DIR / f"{name}.cu", *parts(name)])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
-def _command(name: str, out: Path) -> list:
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
-           str(KERNEL_DIR / f"{name}.cu")]
+def _command(src: Path, out: Path, flags) -> list:
+    cmd = [nvcc_path(), *flags, "-o", str(out), str(src)]
     if os.environ.get("PADDLE_TPU_TORCH_PTXAS_VERBOSE") == "1":
         cmd[1:1] = ["-Xptxas", "-v"]
     return cmd
 
 
-def build_all(names=None) -> dict:
-    """Compile every kernel whose library is missing, one ``nvcc`` per
-    source, all started together. Returns {name: compiler output}
-    (ptxas' report when verbose). Raises RuntimeError naming each source
-    that failed, with nvcc's output."""
+def _build_one(name: str, lib: Path, t0: float):
+    """Build kernel ``name``'s library at ``lib``: each translation unit
+    (the source and its parts) compiled to an object, all at once, then
+    the objects linked. Returns (nvcc's output, {unit: seconds since t0
+    at its end, and the link's}, the failure or None)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
+    jobs = {("" if u.parent == KERNEL_DIR else u.parent.name + "/")
+            + u.stem: (u, tmp.with_suffix(f".{i}.o"))
+            for i, u in enumerate([KERNEL_DIR / f"{name}.cu",
+                                   *parts(name)])}
+
+    def compile_unit(job):
+        src, out = job
+        proc = subprocess.run(_command(src, out, compile_flags),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        done = dict(zip(jobs, pool.map(compile_unit, jobs.values())))
+    logs, seconds, failed = [], {}, None
+    for unit, (proc, took) in done.items():
+        seconds[unit] = took
+        logs.append(proc.stdout)
+        if proc.returncode != 0 and failed is None:
+            failed = f"{jobs[unit][0].name} (nvcc exit {proc.returncode})"
+    if failed is None:
+        link = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                               *(str(o) for _, o in jobs.values())],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        seconds["(link)"] = time.perf_counter() - t0
+        logs.append(link.stdout)
+        if link.returncode != 0:
+            failed = f"{name} (link exit {link.returncode})"
+    for _, out in jobs.values():
+        out.unlink(missing_ok=True)
+    if failed is None:
+        os.replace(tmp, lib)
+    else:
+        tmp.unlink(missing_ok=True)
+    return "".join(logs), seconds, failed
+
+
+def build_all(names=None, seconds=None) -> dict:
+    """Compile every kernel whose library is missing, every translation
+    unit's nvcc started together (``_build_one``). Returns {name:
+    compiler output} (ptxas' report when verbose); ``seconds``, a dict,
+    receives {name: the wall seconds until its library was linked}, and
+    for a kernel with parts each unit's and the link's. Raises
+    RuntimeError naming each source that failed, with nvcc's output."""
+    from concurrent.futures import ThreadPoolExecutor
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        lib = library_path(name)
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(
-            _command(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), tmp, lib)
+    todo = {name: library_path(name) for name in names
+            if not library_path(name).exists()}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max(len(todo), 1)) as pool:
+        done = {name: pool.submit(_build_one, name, lib, t0)
+                for name, lib in todo.items()}
     logs, failed = {}, []
-    for name, (proc, tmp, lib) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, lib)
+    for name, future in done.items():
+        logs[name], took, bad = future.result()
+        if seconds is not None:
+            seconds[name] = max(took.values())
+            if len(took) > 2:       # parts: each unit's and the link's
+                seconds.update({f"{name}:{unit}": s
+                                for unit, s in took.items()})
+        if bad is not None:
+            failed.append(f"{bad}:\n{logs[name]}")
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return logs

@@ -16,6 +16,8 @@ the reference's formulas in PyTorch.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ... import nn as pnn
@@ -150,7 +152,7 @@ def resnet_train_step_factory(model, mesh=None, learning_rate=0.1,
                               device=None):
     """Momentum SGD with L2 decay coupled into the gradient, for any model
     whose forward maps images to logits (the ResNet family, LeNet): the
-    recipe of BASELINE.md's config 2, on one device.
+    recipe of BASELINE.md's config 2, on one device or a mesh.
 
     Returns ``(params, buffers, opt_state, step)``: ``params`` are the
     model's own parameters ({state-dict key: tensor}, made trainable; no
@@ -171,13 +173,24 @@ def resnet_train_step_factory(model, mesh=None, learning_rate=0.1,
     factory returned (the counterpart of the reference's
     ``donate_argnums``).
 
-    Not ported yet, and refused: ``mesh`` (data parallel: ROADMAP Queue 1
-    item 15)."""
+    ``mesh``: a ``distributed.build_mesh`` over "data", "sharding", "sep"
+    and "model" (one rank of it per process; "pipe" above 1 and other
+    axes refused), the reference's layout (``resnet.py:124-200``): the
+    parameters, buffers and momentum replicated (still the model's own);
+    ``step`` takes the global batch and runs this rank's rows of "data"
+    (replicated over the other axes); every batch norm of the forward
+    takes the global batch's statistics over "data" (``F.batch_norm``
+    under ``_sync_batch_norm``, ``nn.SyncBatchNorm``'s arithmetic: the
+    reference's "SyncBatchNorm semantics for free"), so the running
+    statistics come out equal on every rank; the loss is the global mean
+    (the NLL sum and the row count summed over "data"); gradients are
+    averaged over "data", and each rank then takes the same momentum
+    step."""
+    from ...models.nlp.train_utils import MeshData
+    from ...nn.functional.norm import _sync_batch_norm
+
     dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh axes (data parallel) are not ported yet: ROADMAP Queue 1 "
-            "item 15, distributed / parallel")
+    spread = None if mesh is None else MeshData(mesh)
     params = dict(model.named_parameters())
     on = {p.device.type for p in params.values()}
     if on != {dev.type}:
@@ -206,15 +219,25 @@ def resnet_train_step_factory(model, mesh=None, learning_rate=0.1,
     def train_step(params, buffers, opt_state, images, labels):
         images = torch.as_tensor(images, device=dev)
         labels = torch.as_tensor(labels, device=dev).long()
+        if spread is not None:
+            images, labels = spread.rows(images, labels)
         was_training = model.training
         model.train()
         try:
-            logits = model(images)
+            with (contextlib.nullcontext() if spread is None
+                  else _sync_batch_norm(spread.group)):
+                logits = model(images)
         finally:
             model.train(was_training)
         logp = torch.log_softmax(logits.to(torch.float32), -1)
-        loss = -torch.mean(torch.gather(logp, -1, labels[:, None])[:, 0])
-        grads = torch.autograd.grad(loss, list(params.values()))
+        nll = torch.gather(logp, -1, labels[:, None])[:, 0]
+        if spread is None:
+            loss = value = -torch.mean(nll)
+        else:
+            loss, value = spread.ratios([(-torch.sum(nll), nll.numel())])
+        grads = list(torch.autograd.grad(loss, list(params.values())))
+        if spread is not None:
+            spread.average(grads)
         with torch.no_grad():
             for (k, p), g in zip(params.items(), grads):
                 master = opt_state["master"].get(k)
@@ -227,7 +250,7 @@ def resnet_train_step_factory(model, mesh=None, learning_rate=0.1,
                     master.copy_(p32)
                 p.copy_(p32)
             opt_state["step"] += 1
-        return params, buffers, opt_state, loss.detach()
+        return params, buffers, opt_state, value.detach()
 
     return params, buffers, opt_state, train_step
 

@@ -36,6 +36,7 @@ key bias, whose gradient is noise, no further apart than 2·3·lr
 (reading 2.6e-3).
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -485,11 +486,23 @@ def test_remat_equals_no_remat_with_live_dropout():
     assert l0[1] < l0[0]
 
 
+# meshes the factories refuse before reading anything else of them
+_PIPE_MESH = types.SimpleNamespace(shape={"data": 1, "pipe": 2},
+                                   axis_names=("data", "pipe"))
+_EXPERT_MESH = types.SimpleNamespace(shape={"expert": 2},
+                                     axis_names=("expert",))
+
+
 def test_factory_refusals_and_the_default_device():
     port = port_nlp.BertForPretraining(port_nlp.BertConfig.tiny(),
                                        device="cpu")
+    # a mesh trains (test_torch_models_mesh.py); "pipe" above 1 and axes
+    # the factory does not know are refused
     with pytest.raises(NotImplementedError, match="item 15"):
-        port_nlp.bert_pretrain_step_factory(port, object(), device="cpu")
+        port_nlp.bert_pretrain_step_factory(port, _PIPE_MESH, device="cpu")
+    with pytest.raises(ValueError, match="expert"):
+        port_nlp.bert_pretrain_step_factory(port, _EXPERT_MESH,
+                                            device="cpu")
     with pytest.raises(ValueError, match="remat"):
         port_nlp.bert_pretrain_step_factory(port, remat="dots",
                                             device="cpu")

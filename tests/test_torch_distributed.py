@@ -103,6 +103,11 @@ def test_topology_matches_the_reference(monkeypatch):
             assert tt.get_axis_list(name, i) == jt.get_axis_list(name, i)
     assert tt.coordinate == jt.coordinate and tt.world_size() == 8
     monkeypatch.setenv("PADDLE_WORLD_SIZE", "8")
+    # the reference reads the launch contract's rank only while its
+    # parallel env is not initialised: a test of fleet run earlier in this
+    # process may have initialised it
+    from paddle_tpu.distributed import env as jenv
+    monkeypatch.setattr(jenv, "_initialized", False)
     getters = ["get_parallel_mode", "get_data_parallel_rank",
                "get_data_parallel_world_size",
                "get_data_parallel_group_src_rank", "get_model_parallel_rank",

@@ -20,6 +20,7 @@ rounding noise (a shift of all of a query's scores, which the softmax
 does not see), no further apart than 2·3·lr.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -145,10 +146,21 @@ def test_the_step_runs_in_eval_and_restores_the_mode():
     assert not port.training
 
 
+# meshes the factories refuse before reading anything else of them
+_PIPE_MESH = types.SimpleNamespace(shape={"data": 1, "pipe": 2},
+                                   axis_names=("data", "pipe"))
+_EXPERT_MESH = types.SimpleNamespace(shape={"expert": 2},
+                                     axis_names=("expert",))
+
+
 def test_factory_refusals_and_the_default_device():
     _, port = _gpt()
+    # a mesh trains (test_torch_models_mesh.py); "pipe" above 1 and axes
+    # the factory does not know are refused
     with pytest.raises(NotImplementedError, match="item 15"):
-        port_nlp.gpt_pretrain_step_factory(port, object(), device="cpu")
+        port_nlp.gpt_pretrain_step_factory(port, _PIPE_MESH, device="cpu")
+    with pytest.raises(ValueError, match="expert"):
+        port_nlp.gpt_pretrain_step_factory(port, _EXPERT_MESH, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA card")
     for device in (None, "cuda"):

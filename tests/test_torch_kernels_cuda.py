@@ -2101,3 +2101,73 @@ def test_two_rank_ring_on_the_card_matches_the_plain_version(card, tmp_path):
                 tol = 1e-5 if key == "out" else 1e-4
                 np.testing.assert_allclose(got[key], want[key], rtol=tol,
                                            atol=tol, err_msg=(name, key))
+
+
+@pytest.mark.cuda
+def test_two_rank_sync_batch_norm_and_expert_layer_on_the_card(card,
+                                                               tmp_path):
+    """Two gloo ranks on the one card, bf16: ``nn.SyncBatchNorm`` over the
+    world on each rank's half of the batch against ``BatchNorm2D`` on the
+    whole batch on one device (each rank's output and x gradient rows,
+    the weight and bias gradients summed over the ranks, the running
+    statistics on every rank), and a ``MoELayer`` spread over {expert 2}
+    (each rank 2 of the 4 experts) against the whole layer on one
+    device (output, x and router gradients). Tolerance 2e-2 absolute and
+    relative: bf16 roundings of partial sums (the statistics' and the
+    experts' partial outputs) that one device rounds once."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_dist_ranks as R
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+    rng = np.random.default_rng(0)
+    bn = {"x": rng.standard_normal((8, 16, 6, 6)).astype(np.float32) * 2
+          + 1, "dout": rng.standard_normal((8, 16, 6, 6)).astype(np.float32)}
+    H, F, E = 64, 128, 4
+    ref_layer = MoELayer(H, F, E, device="cpu")
+    moe = {"H": H, "F": F, "E": E, "x": rng.standard_normal(
+        (2, 16, H)).astype(np.float32), "dout": rng.standard_normal(
+        (2, 16, H)).astype(np.float32),
+        "state": {k: v.numpy() for k, v in ref_layer.state_dict().items()}}
+    ranks = R.run_world(tmp_path, 2, [
+        ("card", "card_sync_layers", dict(bn=bn, moe=moe, device="cuda"))],
+        device="gpu")
+    bf16 = torch.bfloat16
+    layer = nn.BatchNorm2D(16, device="cuda").to(bf16)
+    x = torch.from_numpy(bn["x"]).to(card, bf16).requires_grad_(True)
+    y = layer(x)
+    (y * torch.from_numpy(bn["dout"]).to(card, bf16)).sum().backward()
+    want = {k: v.detach().float().cpu().numpy() for k, v in dict(
+        out=y, dx=x.grad, dw=layer.weight.grad, db=layer.bias.grad,
+        mean=layer._mean, var=layer._variance).items()}
+    one = MoELayer(H, F, E, device="cuda")
+    nn.load_numpy_state_dict(one, moe["state"])
+    one = one.to(bf16).eval()
+    xm = torch.from_numpy(moe["x"]).to(card, bf16).requires_grad_(True)
+    ym = one(xm)
+    ((ym * torch.from_numpy(moe["dout"]).to(card, bf16)).sum()
+     + one.aux_loss).backward()
+    want_moe = {k: v.detach().float().cpu().numpy() for k, v in dict(
+        out=ym, dx=xm.grad, dwg=one.gate.wg.weight.grad).items()}
+    tol = dict(rtol=2e-2, atol=2e-2)
+    got = [r["card"] for r in ranks]
+    for g in got:
+        assert "error" not in g, g.get("error")
+    for key in ("out", "dx"):
+        np.testing.assert_allclose(
+            np.concatenate([g["bn"][key] for g in got]), want[key], **tol,
+            err_msg=key)
+    for key in ("dw", "db"):
+        np.testing.assert_allclose(sum(g["bn"][key] for g in got),
+                                   want[key], **tol, err_msg=key)
+    for g in got:
+        for key in ("mean", "var"):
+            np.testing.assert_allclose(g["bn"][key], want[key], **tol)
+            np.testing.assert_array_equal(g["bn"][key], got[0]["bn"][key])
+        for key in ("out", "dx", "dwg"):
+            err = float(np.abs(g["moe"][key] - want_moe[key]).max())
+            print(f"expert layer on the card: {key} max |err| {err:.3g}")
+            np.testing.assert_allclose(g["moe"][key], want_moe[key], **tol,
+                                       err_msg=key)

@@ -45,6 +45,7 @@ second moments 1e-8 + 1e-4 relative (reading 0.091 of it).
 """
 import dataclasses
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -525,10 +526,21 @@ def test_first_loss_near_ln_vocab():
     assert abs(float(loss) / math.log(cfg.vocab_size) - 1) < 0.02
 
 
+# meshes the factories refuse before reading anything else of them
+_PIPE_MESH = types.SimpleNamespace(shape={"data": 1, "pipe": 2},
+                                   axis_names=("data", "pipe"))
+_STAGE_MESH = types.SimpleNamespace(shape={"stage": 2},
+                                    axis_names=("stage",))
+
+
 def test_factory_refusals_and_the_default_device():
     model = port_nlp.MoEForCausalLM(port_nlp.MoEConfig.tiny(), device="cpu")
+    # a mesh trains (test_torch_moe_mesh.py); "pipe" above 1 and axes the
+    # factory does not know are refused
     with pytest.raises(NotImplementedError, match="item 15"):
-        port_nlp.moe_train_step_factory(model, object(), device="cpu")
+        port_nlp.moe_train_step_factory(model, _PIPE_MESH, device="cpu")
+    with pytest.raises(ValueError, match="stage"):
+        port_nlp.moe_train_step_factory(model, _STAGE_MESH, device="cpu")
     with pytest.raises(ValueError, match="remat"):
         port_nlp.moe_train_step_factory(model, remat="dots", device="cpu")
     if torch.cuda.is_available():

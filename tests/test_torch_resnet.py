@@ -49,6 +49,7 @@ limit, or the ratios): ResNet-18 logits 0.33, statistics 0.034, steps
 """
 import gzip
 import struct
+import types
 
 import jax
 import numpy as np
@@ -441,12 +442,23 @@ def test_mnist_matches_the_reference(tmp_path, gz):
     assert len(test) == 10000 and test[0][0].shape == (1, 28, 28)
 
 
+# meshes the factories refuse before reading anything else of them
+_PIPE_MESH = types.SimpleNamespace(shape={"data": 1, "pipe": 2},
+                                   axis_names=("data", "pipe"))
+_EXPERT_MESH = types.SimpleNamespace(shape={"expert": 2},
+                                     axis_names=("expert",))
+
+
 def test_refusals_and_the_default_device():
     with pytest.raises(NotImplementedError, match="item 6"):
         port_models.resnet50(pretrained=True, device="cpu")
     model = port_models.LeNet(device="cpu")
+    # a mesh trains (test_torch_models_mesh.py); "pipe" above 1 and axes
+    # the factory does not know are refused
     with pytest.raises(NotImplementedError, match="item 15"):
-        resnet_train_step_factory(model, _mesh(), device="cpu")
+        resnet_train_step_factory(model, _PIPE_MESH, device="cpu")
+    with pytest.raises(ValueError, match="expert"):
+        resnet_train_step_factory(model, _EXPERT_MESH, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_models.resnet18()

@@ -1,6 +1,6 @@
 """Rank code of the port's multi-process CPU tests
 (``test_torch_distributed.py``, ``test_torch_fleet.py``,
-``test_torch_llama_mesh.py``).
+``test_torch_llama_mesh.py`` and the other mesh tests).
 
 ``run_world`` spawns a world of gloo ranks on the CPU through
 ``paddle_tpu_torch.distributed.spawn``; they meet through a ``file://``
@@ -37,6 +37,22 @@ def run_world(tmp_dir, nprocs, scenarios, timeout=240, device="cpu"):
         with open(os.path.join(tmp_dir, f"rank{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+def start_world(tmp_dir, nprocs, scenarios, timeout=240, device="cpu"):
+    """``run_world`` in a thread of this process: a future of its result,
+    so that the test process computes the reference meanwhile. The port
+    is imported here first: two threads importing one package at once
+    can deadlock on its module locks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import paddle_tpu_torch.distributed  # noqa: F401
+    import paddle_tpu_torch.models.nlp  # noqa: F401
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(run_world, tmp_dir, nprocs, scenarios, timeout,
+                         device)
+    pool.shutdown(wait=False)
+    return future
 
 
 def _rank_main(tmp_dir, scenarios, device):
@@ -641,3 +657,291 @@ def meta_optimizers(init, grads, lr, momentum, k_steps, sparsity):
             seen.append([p.detach().numpy().copy() for p in params])
         out[name] = seen
     return out
+
+
+# --- test_torch_models_mesh.py -----------------------------------------------
+
+def small_resnet(nn, block, **kw):
+    """A ResNet of two ``block``s at widths 16 and 32 (the second strided,
+    with its 1x1 downsample) on a 16-channel stem, pooled into 10 classes:
+    built alike from either package's ``nn`` and ``BasicBlock`` (``kw``:
+    the port's ``device``), so the state-dict keys agree."""
+    return nn.Sequential(
+        nn.Conv2D(3, 16, 3, padding=1, bias_attr=False, **kw),
+        nn.BatchNorm2D(16, **kw), nn.ReLU(),
+        block(16, 16, **kw),
+        block(16, 32, 2, nn.Sequential(
+            nn.Conv2D(16, 32, 1, stride=2, bias_attr=False, **kw),
+            nn.BatchNorm2D(32, **kw)), **kw),
+        nn.AdaptiveAvgPool2D(1), nn.Flatten(), nn.Linear(32, 10, **kw))
+
+
+def _dense_model(kind, cfg, state):
+    """The port's ``kind`` model ("bert", "gpt", "resnet") from ``cfg``
+    and the reference's ``state``, on the CPU."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models import nlp
+    from paddle_tpu_torch.vision.models.resnet import BasicBlock
+    if kind == "bert":
+        model = nlp.BertForPretraining(nlp.BertConfig(**cfg), device="cpu")
+    elif kind == "gpt":
+        model = nlp.GPTForCausalLM(nlp.GPTConfig(**cfg), device="cpu")
+    else:
+        model = small_resnet(nn, BasicBlock, device="cpu")
+    return nn.load_numpy_state_dict(model, state)
+
+
+def models_mesh(kind, dims, cfg, state, batch, steps=3, lr=1e-3):
+    """``{kind}``'s train-step factory on ``build_mesh(dims)`` from the
+    reference's ``state`` over the global ``batch``: the losses of
+    ``steps`` steps, the parameters before the first and after the last
+    (ResNet: the buffers too), the moments' bytes, and this rank's own
+    loss of its rows before the first step (the mean a per-rank mean
+    would give)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import nlp
+    from paddle_tpu_torch.models.nlp.bert import pretrain_loss
+    from paddle_tpu_torch.models.nlp.gpt import lm_loss
+    from paddle_tpu_torch.vision.models import resnet_train_step_factory
+    mesh = D.build_mesh(dims)
+    model = _dense_model(kind, cfg, state)
+    if kind != "resnet":
+        model.eval()
+    n, row = dims.get("data", 1), mesh.coordinate("data") \
+        if "data" in dims else 0
+    b = batch[0].shape[0] // n
+    rows = [torch.from_numpy(a[row * b:(row + 1) * b]).long()
+            if a.dtype.kind == "i" else torch.from_numpy(a[row * b:
+                                                           (row + 1) * b])
+            for a in batch]
+    with torch.no_grad():
+        if kind == "bert":
+            own = float(pretrain_loss(model, *rows))
+        elif kind == "gpt":
+            own = float(lm_loss(model, *rows))
+        else:
+            own = None
+    if kind == "resnet":
+        params, buffers, opt, step = resnet_train_step_factory(
+            model, mesh, learning_rate=lr, device="cpu")
+    else:
+        make = nlp.bert_pretrain_step_factory if kind == "bert" \
+            else nlp.gpt_pretrain_step_factory
+        params, opt, step = make(model, mesh, learning_rate=lr,
+                                 device="cpu")
+    first = {k: v.detach().numpy().copy() for k, v in params.items()}
+    losses = []
+    for _ in range(steps):
+        if kind == "resnet":
+            params, buffers, opt, loss = step(params, buffers, opt, *batch)
+        else:
+            params, opt, loss = step(params, opt, *batch)
+        losses.append(float(loss))
+    out = {"losses": losses, "first": first, "own_first": own,
+           "params": {k: v.detach().numpy() for k, v in params.items()},
+           "coords": {a: mesh.coordinate(a) for a in mesh.axis_names}}
+    if kind == "resnet":
+        out["buffers"] = {k: v.numpy().copy() for k, v in buffers.items()}
+    else:
+        out["moment_bytes"] = sum(m.numel() * m.element_size()
+                                  for m in opt["m"].values())
+    return out
+
+
+def bert_dropout_masks(dims, cfg):
+    """A BERT at dropout 0.1 after ``bert_pretrain_step_factory(mesh=)``:
+    the mask its embeddings' dropout draws on ones (64,), and the losses
+    of two steps with live dropout, with and without remat (each from the
+    same generator states)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import nlp
+    mesh = D.build_mesh(dims)
+    config = nlp.BertConfig(**cfg)
+    out = {}
+    for remat in (False, True):
+        model = nlp.BertForPretraining(config, device="cpu",
+                                       generator=torch.Generator()
+                                       .manual_seed(5))
+        params, opt, step = nlp.bert_pretrain_step_factory(
+            model, mesh, learning_rate=1e-3, remat=remat, device="cpu")
+        drop = model.bert.embeddings.dropout
+        gen = torch_generator_of(drop.generator)
+        state = gen.get_state()
+        with torch.no_grad():
+            out["mask"] = (drop(torch.ones(64)) != 0).numpy()
+        gen.set_state(state)
+        rng = np.random.default_rng(3)
+        B, S = 4, 16
+        ids = rng.integers(0, config.vocab_size, (B, S))
+        mlm = np.where(rng.random((B, S)) < 0.3, ids, -100)
+        nsp = rng.integers(0, 2, (B,))
+        out[f"losses_remat{int(remat)}"] = [
+            float(step(params, opt, ids, np.zeros_like(ids), mlm, nsp)[2])
+            for _ in range(2)]
+    return out
+
+
+def torch_generator_of(generator):
+    from paddle_tpu_torch.core.generator import torch_generator
+    return torch_generator(generator, "cpu")
+
+
+def sync_batch_norm(x, dout, weight, bias, group_of=None):
+    """A batch norm in training on this rank's rows of the global ``x``
+    (N, C, H, W): ``nn.SyncBatchNorm`` over the world's default group,
+    or with ``group_of`` a ``BatchNorm2D`` under the group the ResNet
+    train step sets (``_sync_batch_norm``) of that axis of a
+    {data 2, sharding 2} mesh, whose sharding peers hold the same rows.
+    Its output rows, the gradients of sum(out * dout's rows) for x's
+    rows, weight and bias, and the running statistics."""
+    import contextlib
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn.functional.norm import _sync_batch_norm
+    r, n = D.get_rank(), D.get_world_size()
+    synced = contextlib.nullcontext()
+    layer = nn.SyncBatchNorm(x.shape[1], device="cpu")
+    if group_of is not None:
+        mesh = D.build_mesh({"data": 2, "sharding": 2})
+        synced = _sync_batch_norm(mesh.group(group_of))
+        r, n = mesh.coordinate(group_of), 2
+        layer = nn.BatchNorm2D(x.shape[1], device="cpu")
+    b = x.shape[0] // n
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(weight))
+        layer.bias.copy_(torch.from_numpy(bias))
+    xi = torch.from_numpy(x[r * b:(r + 1) * b].copy()).requires_grad_(True)
+    with synced:
+        y = layer(xi)
+    (y * torch.from_numpy(dout[r * b:(r + 1) * b])).sum().backward()
+    return {"out": y.detach().numpy(), "dx": xi.grad.numpy(),
+            "dw": layer.weight.grad.numpy(), "db": layer.bias.grad.numpy(),
+            "mean": layer._mean.numpy().copy(),
+            "var": layer._variance.numpy().copy()}
+
+
+# --- test_torch_moe_mesh.py --------------------------------------------------
+
+def moe_mesh(dims, cfg, state, tokens, labels, steps=3, lr=1e-3,
+             chunked=None, gate=None, dispatch_mode=None):
+    """``moe_train_step_factory(model, mesh=build_mesh(dims))`` from the
+    reference's ``state``: the losses of ``steps`` steps, this rank's
+    shards before the first step, each MoE layer's routing and aux loss
+    of the first step, the moments' bytes and the expert shard's share."""
+    import dataclasses
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import nlp
+    from paddle_tpu_torch.nn import load_numpy_state_dict
+    mesh = D.build_mesh(dims)
+    config = nlp.MoEConfig(**cfg)
+    if dispatch_mode is not None:
+        config = dataclasses.replace(config, dispatch_mode=dispatch_mode)
+    model = nlp.MoEForCausalLM(config, device="cpu")
+    load_numpy_state_dict(model, state)
+    full = sum(p.numel() for k, p in model.named_parameters()
+               if ".mlp.w_" in k)
+    params, opt, step = nlp.moe_train_step_factory(
+        model, mesh, learning_rate=lr, chunked_vocab_ce=chunked,
+        device="cpu")
+    first = {k: v.detach().numpy().copy() for k, v in params.items()}
+    losses, routing, aux = [], None, None
+    for _ in range(steps):
+        params, opt, loss = step(params, opt, tokens, labels)
+        losses.append(float(loss))
+        if routing is None:
+            moe = [layer.mlp for layer in model.layers if layer.use_moe]
+            routing = [{k: (v if isinstance(v, int) else v.numpy())
+                        for k, v in m.routing.items()} for m in moe]
+            aux = [float(m.aux_loss) for m in moe]
+    held = sum(p.numel() for k, p in params.items() if ".mlp.w_" in k)
+    return {"losses": losses, "first": first, "routing": routing,
+            "aux": aux, "expert_share": held / full,
+            "params": {k: v.detach().numpy() for k, v in params.items()},
+            "moment_bytes": sum(m.numel() * m.element_size()
+                                for m in opt["m"].values()),
+            "coords": {a: mesh.coordinate(a) for a in mesh.axis_names}}
+
+
+def moe_expert_choice_refused(dims):
+    """The refusal of expert-choice routing over "data", as its text."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    mesh = D.build_mesh(dims)
+    layer = MoELayer(16, 32, 4, gate="expert_choice", device="cpu")
+    layer.distribute(mesh)
+    try:
+        layer(torch.ones(2, 4, 16))
+    except NotImplementedError as e:
+        return {"refused": str(e)}
+    return {"refused": None}
+
+
+def moe_layer_mesh(dims, d_model, d_hidden, n_experts, gate, top_k, mode,
+                   x, dout, state, train=False, seed=0):
+    """A ``MoELayer`` from ``state`` (its generator a ``torch.Generator``
+    seeded with ``seed``) spread over ``build_mesh(dims)``
+    (``distribute``), in training mode with ``train``, on this rank's rows
+    of "data" of the global ``x``: its output rows, the gradients of
+    sum(out * dout's rows) + aux for x's rows and the router, and its aux
+    loss."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.nn import load_numpy_state_dict
+    mesh = D.build_mesh(dims)
+    layer = MoELayer(d_model, d_hidden, n_experts, gate=gate, top_k=top_k,
+                     dispatch_mode=mode, device="cpu",
+                     generator=torch.Generator().manual_seed(seed))
+    load_numpy_state_dict(layer, state)
+    layer.train(train)
+    layer.distribute(mesh)
+    n = dims.get("data", 1)
+    r = mesh.coordinate("data") if n > 1 else 0
+    b = x.shape[0] // n
+    xi = torch.from_numpy(x[r * b:(r + 1) * b].copy()).requires_grad_(True)
+    y = layer(xi)
+    ((y * torch.from_numpy(dout[r * b:(r + 1) * b])).sum()
+     + layer.aux_loss).backward()
+    return {"out": y.detach().numpy(), "dx": xi.grad.numpy(),
+            "dwg": layer.gate.wg.weight.grad.numpy(),
+            "aux": float(layer.aux_loss),
+            "shapes": [tuple(layer.w_in.shape), tuple(layer.w_out.shape)]}
+
+
+def card_sync_layers(bn, moe, device):
+    """On ``device``, in bf16: ``nn.SyncBatchNorm`` over the world on this
+    rank's rows of ``bn``'s x (its output, the gradients of sum(out *
+    dout's rows) for x, weight and bias, the running statistics), and a
+    ``MoELayer`` from ``moe``'s state spread over {expert: world}, in eval
+    mode, on the whole x (its output and the gradients of sum(out * dout)
+    + aux for x and the router)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    dev = paddle.resolve_device(device)
+    bf16 = torch.bfloat16
+    r, n = D.get_rank(), D.get_world_size()
+    x, dout = (torch.from_numpy(a).to(dev, bf16) for a in (bn["x"],
+                                                            bn["dout"]))
+    b = x.shape[0] // n
+    layer = nn.SyncBatchNorm(x.shape[1], device=dev).to(bf16)
+    xi = x[r * b:(r + 1) * b].clone().requires_grad_(True)
+    y = layer(xi)
+    (y * dout[r * b:(r + 1) * b]).sum().backward()
+    out = {"bn": {"out": y, "dx": xi.grad, "dw": layer.weight.grad,
+                  "db": layer.bias.grad, "mean": layer._mean,
+                  "var": layer._variance}}
+    expert = MoELayer(moe["H"], moe["F"], moe["E"], device=dev)
+    nn.load_numpy_state_dict(expert, moe["state"])
+    expert = expert.to(bf16).eval()
+    expert.distribute(D.build_mesh({"expert": n}))
+    x, dout = (torch.from_numpy(a).to(dev, bf16) for a in (moe["x"],
+                                                            moe["dout"]))
+    xi = x.clone().requires_grad_(True)
+    y = expert(xi)
+    ((y * dout).sum() + expert.aux_loss).backward()
+    out["moe"] = {"out": y, "dx": xi.grad, "dwg": expert.gate.wg.weight.grad}
+    return {part: {k: v.detach().float().cpu().numpy() for k, v in d.items()}
+            for part, d in out.items()}
